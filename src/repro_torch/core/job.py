@@ -1,0 +1,306 @@
+"""The job lifecycle: ``submit(config, dataset) -> JobHandle``.
+
+Counterpart of ``repro/core/job.py``, with ``device=`` in place of the
+reference's ``mesh=``::
+
+    cfg = JobConfig(usecase=WordCount(vocab=65_536), backend="1s",
+                    task_size=4_096, push_cap=1_024, n_procs=8)
+    result = submit(cfg, tokens).result()          # oneshot, on cuda
+
+    cfg = dataclasses.replace(cfg, segment=2)      # streaming mode
+    handle = submit(cfg, MmapTokenSource("corpus.bin"), device="cpu")
+    while handle.step():                           # one segment at a time
+        ...
+    result = handle.result()
+
+A :class:`~repro_torch.data.feed.SegmentFeed` reads each segment in a
+background thread and starts its device copy while the engine computes
+the previous one; oneshot mode is one segment spanning the input.
+
+Options of the reference that are not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import planner
+from repro_torch.core.kv import KEY_SENTINEL
+from repro_torch.core.partition import Partitioner, resolve_partitioner
+from repro_torch.core.registry import Backend, JobSpec, get_backend
+from repro_torch.core.usecase import UseCase, as_map_fn, finalize
+from repro_torch.core.windows import DenseWindow
+from repro_torch.data.feed import SegmentFeed
+from repro_torch.data.source import as_source
+
+_CKPT = "ROADMAP Queue 1 item 5 (checkpoint, restore and re-planning)"
+
+
+@dataclass(frozen=True)
+class JobConfig:
+    """Declarative job description; the reference's fields and defaults."""
+    usecase: UseCase
+    backend: str = "1s"
+    task_size: int = 4096
+    push_cap: int = 1024
+    n_procs: int = 8
+    segment: int = 0          # 0 -> oneshot; >0 -> tasks per step()
+    window: int = 0           # 0 -> usecase.window
+    combine_capacity: int = 0
+    stealing: bool = False    # not ported (ROADMAP Queue 1 item 7)
+    partitioner: str | Partitioner = "hash"
+    fused_map: bool = False   # per-step hot path as the fused_map CUDA
+                              #   kernel — identical results
+    code_rate: int = 1        # not ported beyond 1 (ROADMAP Queue 1 item 9)
+
+
+@dataclass(frozen=True)
+class JobResult:
+    """Structured outcome of a job."""
+    records: dict[int, int]   # engine output: {key: reduced value}
+    output: Any               # usecase.finalize(records)
+    keys: np.ndarray          # rank-0 sorted keys (sentinel padded)
+    values: np.ndarray
+    wall_time: float          # seconds spent executing
+    backend: str
+    n_tasks: int
+    tasks_per_rank: np.ndarray   # real (non-padding) tasks assigned per rank
+    work_per_rank: np.ndarray    # compute-repeats executed per rank
+    steals_per_rank: np.ndarray  # tasks each rank executed for a peer
+    partitioner: str = "hash"
+    n_split_keys: int = 0        # keys spread over >1 owner
+    combine_overflow: int = 0    # records lost to an undersized
+                                 #   combine_capacity (result() raises)
+
+    @property
+    def n_steals(self) -> int:
+        return int(self.steals_per_rank.sum())
+
+    @property
+    def imbalance(self) -> float:
+        """max/mean of per-rank work — 1.0 means perfectly balanced."""
+        mean = self.work_per_rank.mean()
+        return float(self.work_per_rank.max() / mean) if mean else 1.0
+
+
+class CombineOverflowError(RuntimeError):
+    """The Combine phase lost records to an undersized
+    ``combine_capacity``; the partial result rides on ``err.result``."""
+
+    def __init__(self, result: JobResult):
+        self.result = result
+        super().__init__(
+            f"Combine overflow: {result.combine_overflow} record(s) were "
+            f"dropped because combine_capacity is smaller than the number "
+            f"of distinct keys — the returned counts would be wrong. "
+            f"Raise JobConfig(combine_capacity=...) (>= distinct keys; "
+            f"0 uses the full window, which never overflows). The partial "
+            f"result is attached as err.result.")
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def submit(config: JobConfig, dataset, *, device=None, repeats=None,
+           prefetch: bool = True, feed_budget=None) -> JobHandle:
+    """Plan ``dataset`` (a DataSource, or a 1-D int32 array) onto
+    ``config.n_procs`` ranks on ``device`` (cuda unless given) and return
+    a handle. Nothing executes until ``step()`` or ``result()``.
+
+    ``repeats`` is the optional (n_procs, tasks_per_proc) compute-repeat
+    grid (the paper's footnote-5 imbalance model). ``prefetch=False``
+    disables the background read."""
+    backend = get_backend(config.backend)      # "2s" raises: not ported
+    if config.stealing:
+        raise NotImplementedError("stealing=True: device-side work "
+                                  "stealing is ROADMAP Queue 1 item 7")
+    if config.code_rate > 1:
+        raise NotImplementedError("code_rate > 1: the coded shuffle is "
+                                  "ROADMAP Queue 1 item 9")
+    if feed_budget is not None:
+        raise NotImplementedError("feed_budget: the shared FeedBudget is "
+                                  "ROADMAP Queue 1 item 8")
+    if config.fused_map and not getattr(backend, "supports_fused_map",
+                                        False):
+        raise ValueError(
+            f"backend {config.backend!r} does not implement the fused "
+            "map hot path — drop fused_map=True or use backend '1s'")
+    partitioner = resolve_partitioner(config.partitioner)
+    device = _resolve_device(device)
+    window = config.window or config.usecase.window
+    spec = JobSpec(vocab=window, task_size=config.task_size,
+                   push_cap=config.push_cap, n_procs=config.n_procs,
+                   combine_capacity=config.combine_capacity,
+                   segment=config.segment, fused_map=config.fused_map,
+                   partitioner=partitioner.name)
+    source = as_source(dataset)
+    plan = planner.plan_input(source.len_elements(), config.task_size,
+                              config.n_procs)
+    task_ids = planner.shard_task_ids(plan)
+    T = plan.tasks_per_proc
+    if repeats is None:
+        repeats = np.ones((config.n_procs, T), np.int32)
+    repeats = np.asarray(repeats, np.int32).reshape(config.n_procs, T)
+    seg_tasks = config.segment if config.segment > 0 else max(T, 1)
+    feed = SegmentFeed(source, plan, task_ids, repeats, segment=seg_tasks,
+                       device=device, prefetch=prefetch)
+    return JobHandle(config, backend, spec, device, plan, feed, partitioner)
+
+
+class JobHandle:
+    """Streaming lifecycle of one submitted job: ``step()`` advances one
+    segment (segmented mode), ``result()`` runs to completion."""
+
+    def __init__(self, config, backend: Backend, spec, device, plan,
+                 feed: SegmentFeed, partitioner: Partitioner):
+        self.config = config
+        self.backend = backend
+        self.spec = spec
+        self.device = device
+        self.plan = plan
+        self.feed = feed
+        self.partitioner = partitioner
+        self._map_fn = as_map_fn(config.usecase)
+        self._seg_fns = None
+        self._carry = None
+        self._wall = 0.0
+        self._result: JobResult | None = None
+
+    # -- resource lifecycle -------------------------------------------------
+
+    def close(self):
+        """Stop the feed's prefetch thread. Idempotent."""
+        self.feed.close()
+
+    def __enter__(self) -> JobHandle:
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def done(self) -> bool:
+        return self._result is not None
+
+    @property
+    def carry(self):
+        """The current EngineCarry (segmented mode)."""
+        return self._carry
+
+    def windows(self) -> np.ndarray:
+        """Per-rank dense Key-Value windows, host-side (P, window), with
+        the in-flight ``pending_*`` chunk folded in."""
+        assert self._carry is not None, "no carry yet — call step() first"
+        P = self.spec.n_procs
+        win = DenseWindow(self._carry.table.clone())
+        win.put(self._carry.pending_k.reshape(P, -1),
+                self._carry.pending_v.reshape(P, -1))
+        return win.table.cpu().numpy()
+
+    # -- segmented execution ------------------------------------------------
+
+    def _ensure_engine(self):
+        if self._seg_fns is None:
+            self._seg_fns = self.backend.make_segment_fns(
+                self.spec, self._map_fn, self.device)
+            self._carry = self._seg_fns[0]()
+
+    def _advance(self, n_segments: int) -> bool:
+        _, seg_fn, _ = self._seg_fns
+        t0 = time.perf_counter()
+        for _ in range(n_segments):
+            seg = self.feed.next_segment()
+            if seg is None:
+                break
+            self._carry = seg_fn(self._carry, seg.tokens, seg.task_ids,
+                                 seg.repeats, seg.max_rep)
+        self._wall += time.perf_counter() - t0
+        return not self.feed.exhausted
+
+    def step(self, n_segments: int = 1) -> bool:
+        """Advance up to ``n_segments`` segments. Returns True while map
+        work remains."""
+        if self._result is not None:
+            return False
+        if self.config.segment <= 0:
+            raise RuntimeError(
+                "step() needs a segmented job — set JobConfig(segment=N) "
+                "with N tasks per step")
+        self._ensure_engine()
+        return self._advance(n_segments)
+
+    def checkpoint(self, manager, **extra):
+        raise NotImplementedError(f"checkpoint: {_CKPT}")
+
+    def restore(self, manager, step=None):
+        raise NotImplementedError(f"restore: {_CKPT}")
+
+    def replan(self, task_id_grid):
+        raise NotImplementedError(f"replan: {_CKPT}")
+
+    def load(self, carry, cursor: int):
+        raise NotImplementedError(f"load: {_CKPT}")
+
+    def elastic_load(self, table, owner_map, owner_split, task_ids,
+                     repeats):
+        raise NotImplementedError("elastic_load: ROADMAP Queue 1 item 11 "
+                                  "(elastic fleet)")
+
+    # -- completion ---------------------------------------------------------
+
+    def result(self) -> JobResult:
+        """Run to completion and return the JobResult. Raises
+        :class:`CombineOverflowError` when the Combine phase lost
+        records. The feed's thread is stopped on every exit path."""
+        if self._result is None:
+            try:
+                self._result = self._finish()
+            finally:
+                self.feed.close()
+        if self._result.combine_overflow:
+            raise CombineOverflowError(self._result)
+        return self._result
+
+    def _finish(self) -> JobResult:
+        self._ensure_engine()
+        while self._advance(1):
+            pass
+        _, _, fin_fn = self._seg_fns
+        t0 = time.perf_counter()
+        keys, vals, overflow = fin_fn(self._carry)
+        keys = keys[0].cpu().numpy()
+        vals = vals[0].cpu().numpy()
+        overflow = int(overflow[0])                # replicated
+        self._wall += time.perf_counter() - t0
+        valid = keys != KEY_SENTINEL
+        records = dict(zip(keys[valid].tolist(), vals[valid].tolist()))
+        ids, reps = self.feed.task_ids_grid, self.feed.repeats_grid
+        task_valid = ids >= 0
+        return JobResult(
+            records=records,
+            output=finalize(self.config.usecase, records),
+            keys=keys, values=vals,
+            wall_time=self._wall,
+            backend=self.backend.name,
+            n_tasks=self.plan.n_tasks,
+            tasks_per_rank=task_valid.sum(axis=1),
+            work_per_rank=(reps * task_valid).sum(axis=1),
+            steals_per_rank=np.zeros((self.config.n_procs,), np.int32),
+            partitioner=self.spec.partitioner,
+            n_split_keys=int((self._carry.owner_split[0] > 1).sum()),
+            combine_overflow=overflow,
+        )

@@ -1,0 +1,95 @@
+"""Backend registry — pluggable MapReduce engines behind one protocol.
+
+Counterpart of ``repro/core/registry.py``. ``"1s"`` (the decoupled
+engine, ``core/onesided.py``) registers on first resolution; ``"2s"`` is
+not ported yet and raises.
+"""
+from __future__ import annotations
+
+import importlib
+from collections.abc import Callable
+from dataclasses import dataclass, field
+from typing import Protocol, runtime_checkable
+
+_BUILTIN_MODULES = {"1s": "repro_torch.core.onesided"}
+_NOT_PORTED = {"2s": "the bulk-synchronous MR-2S backend is not ported "
+                     "yet: ROADMAP Queue 1 item 4"}
+_REGISTRY: dict[str, type] = {}
+_INSTANCES: dict[str, Backend] = {}
+
+
+@dataclass(frozen=True)
+class JobSpec:
+    """Static engine settings (paper: Init(filename, win_size, chunk_size,
+    task_size, ...)); the reference's fields that this port honors."""
+    vocab: int                   # dense Key-Value window size ("win_size")
+    task_size: int               # elements per Map task
+    push_cap: int                # records per one-sided push per owner
+    n_procs: int
+    combine_capacity: int = 0    # 0 -> vocab
+    segment: int = 0             # tasks per segment (0 -> oneshot)
+    fused_map: bool = False      # per-step hot path as the fused_map
+                                 #   kernel; identical results
+    partitioner: str = field(default="hash", compare=False)
+
+    def __post_init__(self):
+        if not self.combine_capacity:
+            object.__setattr__(self, "combine_capacity", self.vocab)
+
+
+# map_fn(tokens (P, S), task_id (P,), repeat (P,), max_rep) -> (keys, values)
+MapFn = Callable
+
+
+@runtime_checkable
+class Backend(Protocol):
+    """What every engine provides, with ``device`` in place of the
+    reference's mesh."""
+
+    name: str
+
+    def run_job(self, spec: JobSpec, map_fn: MapFn, device, tokens,
+                task_ids, repeats) -> tuple:
+        """Blocking end-to-end run over host arrays tokens (P, T, S) and
+        task_ids/repeats (P, T). Returns rank-0 (keys, values)."""
+        ...
+
+    def make_segment_fns(self, spec: JobSpec, map_fn: MapFn, device):
+        """``(init_fn, segment_fn, finish_fn)`` sharing the
+        :class:`~repro_torch.core.windows.EngineCarry` carry."""
+        ...
+
+
+class UnknownBackendError(KeyError):
+    pass
+
+
+def register_backend(name: str):
+    """Class decorator: ``@register_backend("1s")`` makes the engine
+    resolvable by name through :func:`get_backend`."""
+    def deco(cls):
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def get_backend(name: str) -> Backend:
+    """Resolve a backend name to its (singleton) engine instance."""
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"backend {name!r}: {_NOT_PORTED[name]}")
+    if name not in _REGISTRY and name in _BUILTIN_MODULES:
+        importlib.import_module(_BUILTIN_MODULES[name])
+    if name not in _REGISTRY:
+        raise UnknownBackendError(
+            f"unknown backend {name!r}; available: {available_backends()}")
+    if name not in _INSTANCES:
+        _INSTANCES[name] = _REGISTRY[name]()
+    return _INSTANCES[name]
+
+
+def available_backends():
+    for name, module in _BUILTIN_MODULES.items():
+        if name not in _REGISTRY:
+            importlib.import_module(module)
+    return sorted(_REGISTRY)

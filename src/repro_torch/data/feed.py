@@ -1,0 +1,245 @@
+"""SegmentFeed — the paper's non-blocking I/O, feeding the engine.
+
+Counterpart of ``repro/data/feed.py``. "Each process asynchronously
+retrieves the input for the next Map task while computing the current
+one" (§2.1): a background thread reads segment t+1's tasks by
+``plan.file_offset`` and starts its host→device copy while the device
+runs segment t.
+
+On a CUDA device the thread reads each segment into one of **two pinned
+host buffers** and copies it with ``non_blocking=True`` on a side stream,
+recording an event. The consumer makes its own stream wait on that event
+and marks the device tensor with ``record_stream``, so the allocator
+cannot hand the memory out again while the consumer's stream still reads
+it. A pinned buffer is refilled only after the event of its previous
+copy has completed — a copy still in flight would otherwise read the
+next segment's bytes. On ``device="cpu"`` there is no pinning and no
+stream: segments are host tensors.
+
+Segments are padded to the fixed ``segment`` column width with no-op
+tasks (id -1, all-sentinel tokens, repeat 1). The feed owns the job's
+assignment grids and column cursor; peak host residency is O(segment).
+"""
+from __future__ import annotations
+
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.planner import gather_segment, read_tasks
+
+
+@dataclass
+class FeedStats:
+    """Observability counters (host side, not device memory)."""
+    bytes_read: int = 0          # total bytes materialized from the source
+    segments_built: int = 0
+    prefetch_hits: int = 0       # segments served from the background read
+    prefetch_misses: int = 0     # segments built synchronously
+    max_live_bytes: int = 0      # high-water mark of feed-held host bytes
+    _live: dict = field(default_factory=dict, repr=False)
+
+    def _track(self, key, nbytes: int):
+        self._live[key] = nbytes
+        self.max_live_bytes = max(self.max_live_bytes,
+                                  sum(self._live.values()))
+
+    def _release(self, key):
+        self._live.pop(key, None)
+
+
+class Segment(NamedTuple):
+    """One segment on the feed's device, plus the host-side loop bound."""
+    tokens: torch.Tensor      # (P, n, S) int32
+    task_ids: torch.Tensor    # (P, n) int32
+    repeats: torch.Tensor     # (P, n) int32
+    max_rep: np.ndarray       # (n,) per-column max repeat, on the host
+
+
+class _Staged(NamedTuple):
+    flat: torch.Tensor        # [tokens | task ids | repeats], flattened
+    event: torch.cuda.Event | None
+    ids: np.ndarray
+    reps: np.ndarray
+
+
+class SegmentFeed:
+    """Pull-based segment stream over a DataSource for one job.
+
+    ``next_segment()`` returns the next :class:`Segment` and schedules
+    the following segment's read and copy in the background.
+    """
+
+    def __init__(self, source, plan, task_ids: np.ndarray,
+                 repeats: np.ndarray, segment: int, *, device,
+                 prefetch: bool = True):
+        self.source = source
+        self.plan = plan
+        self.segment = int(segment)
+        assert self.segment > 0, "segment width must be positive"
+        self.device = torch.device(device)
+        self._ids = np.array(task_ids, np.int32)       # (P, T)
+        self._reps = np.array(repeats, np.int32)       # (P, T)
+        self._cursor = 0                               # columns consumed
+        self._prefetch = prefetch
+        self._pending: tuple[int, Future] | None = None
+        self._pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="segment-feed")
+        self._closed = False
+        self._lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self.stats = FeedStats()
+        if self.device.type == "cuda":
+            P = self._ids.shape[0]
+            n = P * self.segment * (plan.task_size + 2)
+            self._pinned = [torch.empty((n,), dtype=torch.int32,
+                                        pin_memory=True) for _ in range(2)]
+            self._copied: list[torch.cuda.Event | None] = [None, None]
+            self._next_buf = 0
+            self._stage_lock = threading.Lock()
+            self._stream = torch.cuda.Stream(self.device)
+
+    # -- assignment state ---------------------------------------------------
+
+    @property
+    def total_columns(self) -> int:
+        return self._ids.shape[1]
+
+    @property
+    def task_ids_grid(self) -> np.ndarray:
+        """The full (P, T) assignment, consumed prefix included."""
+        return self._ids
+
+    @property
+    def repeats_grid(self) -> np.ndarray:
+        return self._reps
+
+    @property
+    def exhausted(self) -> bool:
+        return self._cursor >= self.total_columns
+
+    def read_tasks(self, task_ids) -> np.ndarray:
+        """Serve arbitrary tasks by *global id* on the host, independent
+        of the grids or cursor (reads are pure); the bytes count into
+        ``stats``."""
+        tokens = read_tasks(self.source, self.plan, task_ids)
+        with self._stats_lock:
+            self.stats.bytes_read += tokens.nbytes
+        return tokens
+
+    # -- segment construction ----------------------------------------------
+
+    def _grids(self, start: int):
+        end = min(start + self.segment, self.total_columns)
+        P = self._ids.shape[0]
+        ids = np.full((P, self.segment), -1, np.int32)
+        reps = np.ones((P, self.segment), np.int32)
+        ids[:, : end - start] = self._ids[:, start:end]
+        reps[:, : end - start] = self._reps[:, start:end]
+        return ids, reps
+
+    def _build(self, start: int) -> _Staged:
+        """Read one segment's tasks by file offset and start its device
+        copy — the body that runs in the feed thread."""
+        ids, reps = self._grids(start)
+        n_tok = ids.size * self.plan.task_size
+        if self.device.type != "cuda":
+            tokens = gather_segment(self.source, self.plan, ids)
+            flat = torch.from_numpy(np.concatenate(
+                [tokens.reshape(-1), ids.reshape(-1), reps.reshape(-1)]))
+            staged = _Staged(flat, None, ids, reps)
+        else:
+            with self._stage_lock:
+                b = self._next_buf
+                self._next_buf ^= 1
+                if self._copied[b] is not None:
+                    # the copy out of this buffer two segments ago must
+                    # have landed before the buffer is refilled
+                    self._copied[b].synchronize()
+                host = self._pinned[b].numpy()
+                gather_segment(self.source, self.plan, ids,
+                               out=host[:n_tok].reshape(ids.shape + (-1,)))
+                host[n_tok: n_tok + ids.size] = ids.reshape(-1)
+                host[n_tok + ids.size:] = reps.reshape(-1)
+                with torch.cuda.stream(self._stream):
+                    flat = self._pinned[b].to(self.device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                self._copied[b] = event
+            staged = _Staged(flat, event, ids, reps)
+        with self._stats_lock:
+            self.stats.bytes_read += n_tok * 4
+            self.stats.segments_built += 1
+            self.stats._track(start, n_tok * 4)
+        return staged
+
+    def _schedule(self, start: int):
+        if (self._closed or not self._prefetch
+                or start >= self.total_columns):
+            self._pending = None
+            return
+        self._pending = (start, self._pool.submit(self._build, start))
+
+    def _segment(self, staged: _Staged) -> Segment:
+        flat = staged.flat
+        if staged.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.event)
+            flat.record_stream(stream)
+        ids = staged.ids
+        n_tok = ids.size * self.plan.task_size
+        return Segment(
+            tokens=flat[:n_tok].view(ids.shape + (self.plan.task_size,)),
+            task_ids=flat[n_tok: n_tok + ids.size].view(ids.shape),
+            repeats=flat[n_tok + ids.size:].view(ids.shape),
+            max_rep=staged.reps.max(axis=0))
+
+    # -- the streaming contract --------------------------------------------
+
+    def next_segment(self) -> Segment | None:
+        """Return the next segment and kick off the background read of
+        the one after; ``None`` when the stream is exhausted."""
+        with self._lock:
+            if self.exhausted:
+                return None
+            start = self._cursor
+            if self._pending is not None and self._pending[0] == start:
+                staged = self._pending[1].result()
+                self.stats.prefetch_hits += 1
+            else:
+                staged = self._build(start)
+                self.stats.prefetch_misses += 1
+            with self._stats_lock:
+                self.stats._release(start)
+            self._cursor = min(start + self.segment, self.total_columns)
+            self._schedule(self._cursor)
+            return self._segment(staged)
+
+    def ready(self) -> bool:
+        """True when :meth:`next_segment` would not block on input I/O."""
+        with self._lock:
+            if self.exhausted or self._closed:
+                return True
+            p = self._pending
+            return p is not None and p[0] == self._cursor and p[1].done()
+
+    def prime(self):
+        """Start the background read of the segment at the cursor without
+        consuming anything. Idempotent."""
+        with self._lock:
+            if self._pending is None:
+                self._schedule(self._cursor)
+
+    def close(self):
+        """Stop the prefetch thread, waiting for a read in progress so no
+        copy outlives the feed. Idempotent; a closed feed can still be
+        consumed (reads then run in the caller's thread)."""
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self._pending = None
+                self._pool.shutdown(wait=True)

@@ -1,0 +1,94 @@
+"""The port stands alone, and ``chip_smoke.py`` rehearses on the CPU.
+
+``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
+JAX package ``repro`` (an AST scan, plus a fresh interpreter that
+imports everything and inspects ``sys.modules``). The smoke's phase
+functions run here at a tiny width with the kernel phases skipped; its
+``main`` refuses to run without a card.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402,F401  (both frameworks in one process, JAX on CPU)
+
+import chip_smoke  # noqa: E402
+from torch_parity import REPO  # noqa: E402
+
+PORT = Path(REPO) / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_importing_everything_loads_no_jax():
+    mods = [".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "import chip_smoke\n"
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+            + "assert not bad, bad\nprint(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(PORT.parent), REPO]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_smoke_main_refuses_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_smoke_alone_fails_without_result(tmp_path):
+    """Copied alone into an empty directory, the script fails and prints
+    no result (here: no card; on the GPU host: no package to import)."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (Path(REPO) / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_smoke_phases_rehearse_on_cpu():
+    """The smoke's phases at a tiny width on the CPU: the matrix through
+    the wrapper (the plain version here), the bound, and the job phase
+    with its oracle and fused == unfused checks."""
+    cpu = torch.device("cpu")
+    cases = [c for c in chip_smoke.fused_matrix() if c[0] != "full_width"]
+    assert chip_smoke.phase_kernel_vs_plain(cpu, cases) == 0.0
+    w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    job = chip_smoke.phase_job(cpu, 1 << 13, w)
+    assert job["steps"] == 32 and job["launches"] == 0
+    assert job["n_records"] > 0 and job["imbalance"] > 1.0
+    source, reps = chip_smoke.job_input(1 << 13, w)
+    assert reps.shape == (4, 32) and reps[0, 0] == 8 and reps[1, 0] == 1
+    assert np.asarray(source.read(0, 10)).max() < 2048
