@@ -6,7 +6,7 @@
 Phases, each of which asserts (nothing is caught):
 
   1. build   — compile every kernel of the main path from the sources in
-               this checkout (one nvcc per source, started together);
+               this checkout (one source, one nvcc);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card, bit for bit, over the reference test matrix and at
                the full-width shapes, and time both with CUDA events;
@@ -60,7 +60,7 @@ def _port():
 def phase_build() -> dict:
     _, _, backend, ops, _ = _port()
     t0 = time.perf_counter()
-    (built,) = backend.build_all([ops.SOURCE])
+    built = backend.build(ops.SOURCE)
     print(f"build: fused_map {built.seconds:.1f} s "
           f"(wall {time.perf_counter() - t0:.1f} s) -> {built.path.name}")
     for line in built.log.splitlines():
@@ -177,27 +177,48 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def window_slots(args: dict, P: int, cap: int) -> tuple[int, int]:
+    """(unique keys after the record pass, window slots the step folds
+    into), summed over the ranks. Only two kinds of record reach the
+    window: the pending chunk and the records past ``cap`` of an owner's
+    bucket, found here by the port's own composition on the host."""
+    from repro_torch.core.kv import (KEY_SENTINEL, bucketize,
+                                     local_reduce_repeated)
+    from repro_torch.core.partition import lookup_owner
+    a = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in args.items()}
+    uk, uv = local_reduce_repeated(a["keys"], a["vals"], a["keys"].shape[1],
+                                   a["rep"], int(a["rep"].max()))
+    owners = lookup_owner(a["owner_map"], a["owner_split"], uk,
+                          a["task_id"], P)
+    _, _, _, (ofk, _) = bucketize(uk, uv, P, cap, owners=owners)
+    folded = torch.cat([a["pending_k"].reshape(P, -1), ofk], dim=1)
+    slots = sum(int(torch.unique(r[r != KEY_SENTINEL]).numel())
+                for r in folded)
+    return int((uk != KEY_SENTINEL).sum()), slots
+
+
 def fused_bound(args: dict, P: int, cap: int) -> tuple[float, str, dict]:
     """Least time of one fused step on these inputs: bytes the step must
     move (each input read once, each output written once, the window
-    touched only where records land) over the memory rate, against the
-    operations of a sort-based record pass over the scalar rate."""
-    sent = 2**31 - 1
+    read and written only at the slots the step folds into) over the
+    memory rate, against the operations of a sort-based record pass
+    over the scalar rate."""
     keys, rep = args["keys"], args["rep"]
     S = keys.shape[1]
-    uniq = sum(len(np.unique(r[r != sent])) for r in keys)
-    pend = int((args["pending_k"] != sent).sum())
+    uniq, slots = window_slots(args, P, cap)
     nbytes = (2 * keys.size * 4 + 2 * P * 4      # records, rep, task id
               + 2 * uniq * 4                     # owner_map/split lookups
               + 2 * args["pending_k"].size * 4   # the pending chunk
-              + 2 * (pend + uniq) * 4            # window read+write
+              + 2 * slots * 4                    # window read+write
               + 2 * P * P * cap * 4 + P * P * 4)  # bk, bv, counts
     ops = sum(S * math.log2(S) + (max(int(r), 1) - 1) * 2 * S
               * math.log2(2 * S) for r in rep)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, {"bytes": nbytes, "ops": ops}
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "ops": ops,
+                                     "unique": uniq, "window_slots": slots}
 
 
 def time_fused(device) -> dict:
@@ -343,7 +364,8 @@ def main() -> int:
           f"{timing['ms'] * 1e3:.1f} us/launch, plain "
           f"{timing['plain_ms'] * 1e3:.1f} us, bound "
           f"{timing['bound_ms'] * 1e3:.3f} us ({timing['bound_by']}, "
-          f"{timing['bytes']} B at 3.35 TB/s)")
+          f"{timing['bytes']} B at 3.35 TB/s; {timing['unique']} unique "
+          f"keys, {timing['window_slots']} window slots)")
 
     job = phase_job(device, N_TOKENS)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "

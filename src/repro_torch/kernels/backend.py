@@ -1,17 +1,17 @@
 """One kernel policy and one build for every hand-written Hopper kernel.
 
-The policy (the counterpart of ``repro/kernels/backend.py``):
+The policy (the counterpart of ``repro/kernels/backend.py``) is decided
+by the tensor's device:
 
-  * a CPU tensor takes the kernel's plain PyTorch version; asking for the
-    kernel there (``use_kernel=True``) raises;
-  * a CUDA tensor on an sm_90 card takes the compiled kernel; asking for
-    the plain version there (``use_kernel=False``) raises, and a card of
-    any other capability raises instead of running something else.
+  * a CPU tensor takes the kernel's plain PyTorch version; demanding the
+    kernel there (a wrapper's ``use_kernel=True``) raises;
+  * a CUDA tensor on an sm_90 card takes the compiled kernel, and a card
+    of any other capability raises instead of running something else.
 
-The build: each ``csrc/*.cu`` source is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, at first use,
-under ``build/repro_torch/`` of the checkout, and loaded with ``ctypes``.
-The library's name carries a hash of its source and flags, so an edited
+The build: a ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, at first use, under
+``build/repro_torch/`` of the checkout, and loaded with ``ctypes``. The
+library's name carries a hash of its source and flags, so an edited
 source is never served from a stale build.
 """
 from __future__ import annotations
@@ -32,19 +32,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def use_kernel(t: torch.Tensor, use_kernel: bool | None = None) -> bool:
-    """Resolve a wrapper's ``use_kernel`` argument against the policy:
-    True means launch the compiled kernel, False the plain version."""
+def use_kernel(t: torch.Tensor, require: bool = False) -> bool:
+    """True when a wrapper given ``t`` launches its compiled kernel, False
+    when it takes the plain version. ``require=True`` (a wrapper's
+    ``use_kernel=True``) demands the kernel and raises on a CPU tensor."""
     if t.device.type == "cpu":
-        if use_kernel:
+        if require:
             raise ValueError("use_kernel=True needs a CUDA tensor: the "
                              "compiled kernels run only on the card")
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no kernel policy for device {t.device}")
-    if use_kernel is False:
-        raise ValueError("a CUDA tensor always takes the compiled kernel; "
-                         "call the plain version in ref.py directly")
     cap = torch.cuda.get_device_capability(t.device)
     if cap != REQUIRED_CAPABILITY:
         raise RuntimeError(
@@ -57,7 +55,7 @@ def use_kernel(t: torch.Tensor, use_kernel: bool | None = None) -> bool:
 class Built:
     """A compiled kernel library: its path, nvcc's output (the
     ``-Xptxas -v`` register and shared-memory report) and the seconds
-    the compile took (0.0 when an existing build was reused)."""
+    the compile took (empty and 0.0 when an existing build was reused)."""
     path: Path
     log: str
     seconds: float
@@ -77,34 +75,24 @@ def _target(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(sources) -> list[Built]:
-    """Compile every source not built yet, one ``nvcc`` per source, all
-    started together. Raises with nvcc's output when a compile fails."""
+def build(source) -> Built:
+    """Compile ``source`` unless it is built already. Raises with nvcc's
+    output when the compile fails."""
+    source = Path(source)
+    so = _target(source)
+    if so.exists():
+        return Built(so, "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out: dict[Path, Built] = {}
-    running = []
-    for src in map(Path, sources):
-        so = _target(src)
-        if so.exists():
-            log = so.with_suffix(".log")
-            out[src] = Built(so, log.read_text() if log.exists() else "",
-                             0.0)
-            continue
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((src, so, tmp, proc, time.perf_counter()))
-    for src, so, tmp, proc, t0 in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} "
-                               f"(rc={proc.returncode}):\n{log}")
-        so.with_suffix(".log").write_text(log)
-        os.replace(tmp, so)
-        out[src] = Built(so, log, seconds)
-    return [out[Path(s)] for s in sources]
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} "
+                           f"(rc={proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)
+    return Built(so, proc.stdout, time.perf_counter() - t0)
 
 
 _LOADED: dict[Path, ctypes.CDLL] = {}
@@ -115,5 +103,5 @@ def load(source) -> ctypes.CDLL:
     source = Path(source)
     lib = _LOADED.get(source)
     if lib is None:
-        lib = _LOADED[source] = ctypes.CDLL(str(build_all([source])[0].path))
+        lib = _LOADED[source] = ctypes.CDLL(str(build(source).path))
     return lib

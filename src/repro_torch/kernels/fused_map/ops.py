@@ -19,12 +19,18 @@ SOURCE = Path(__file__).parent / "csrc" / "fused_map.cu"
 MAX_TASK_SIZE = 1024    # the record pass keeps 8 S ints in shared memory
 
 
+_FN = None    # the typed C entry point, resolved at the first launch
+
+
 def _launcher():
-    fn = backend.load(SOURCE).fused_map_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    global _FN
+    if _FN is None:
+        fn = backend.load(SOURCE).fused_map_launch
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def _check(args: dict, n_procs: int, cap: int):
@@ -55,16 +61,18 @@ def _check(args: dict, n_procs: int, cap: int):
 
 def fused_map(keys, vals, rep, task_id, owner_map, owner_split, pending_k,
               pending_v, table, *, n_procs: int, cap: int,
-              use_kernel: bool | None = None):
+              use_kernel: bool = False):
     """One fused engine step for all P ranks (see ``ref.fused_step_ref``
     for the arguments). Folds into ``table`` in place and returns
     ``(table, bk, bv, counts)``, equal bit for bit to the plain version.
+    The tensors' device picks kernel or plain version; ``use_kernel=True``
+    demands the kernel and raises on CPU tensors.
     """
     args = dict(keys=keys, vals=vals, rep=rep, task_id=task_id,
                 owner_map=owner_map, owner_split=owner_split,
                 pending_k=pending_k, pending_v=pending_v, table=table)
     _check(args, n_procs, cap)
-    if not backend.use_kernel(keys, use_kernel):
+    if not backend.use_kernel(keys, require=use_kernel):
         new_table, bk, bv, counts = fused_step_ref(**args, n_procs=n_procs,
                                                    cap=cap)
         table.copy_(new_table)

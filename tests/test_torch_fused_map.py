@@ -8,6 +8,7 @@ the card. Tolerance 0 (int32 path).
 """
 import types
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -73,14 +74,13 @@ def test_use_kernel_true_on_cpu_raises():
 
 
 def test_policy_on_cuda_tensors(monkeypatch):
-    """A CUDA tensor takes the kernel on sm_90, raises on any other card
-    and on use_kernel=False — decided without a card by faking one."""
+    """A CUDA tensor takes the kernel on sm_90, demanded or not, and
+    raises on any other card — decided without a card by faking one."""
     fake = types.SimpleNamespace(device=torch.device("cuda", 0))
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda d=None: (9, 0))
     assert backend.use_kernel(fake) is True
-    with pytest.raises(ValueError, match="compiled kernel"):
-        backend.use_kernel(fake, use_kernel=False)
+    assert backend.use_kernel(fake, require=True) is True
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda d=None: (8, 0))
     monkeypatch.setattr(torch.cuda, "get_device_name",
@@ -117,3 +117,37 @@ def test_kernel_source_and_bound_are_wired():
     bound_ms, by, work = chip_smoke.fused_bound(args, P, cap)
     assert by == "bytes" and bound_ms > 0 and work["bytes"] > 0
     assert jax.default_backend() == "cpu"
+
+
+def _window_slots_numpy(args, P, cap):
+    """Unique keys and folded window slots of a step without split keys,
+    counted directly: an owner's unique keys past the first ``cap`` (in
+    key order) overflow, and they and the pending chunk reach the window."""
+    sent = 2**31 - 1
+    uniq = slots = 0
+    for r in range(P):
+        k = np.unique(args["keys"][r][args["keys"][r] != sent])
+        uniq += k.size
+        own = args["owner_map"][r][k]
+        over = np.concatenate([k[own == o][cap:] for o in range(P)])
+        pend = args["pending_k"][r].ravel()
+        slots += np.unique(np.concatenate([pend[pend != sent], over])).size
+    return uniq, slots
+
+
+@pytest.mark.parametrize("name", ["cap1", "all_dup", "near_sat_rep2",
+                                  "full_width"])
+def test_bound_charges_window_only_where_records_fold(name):
+    """The bound reads and writes the window only at the pending chunk's
+    keys and the bucket overflow, not at every unique key."""
+    args, P, cap = dict(chip_smoke.fused_matrix())[name]
+    uniq, slots = chip_smoke.window_slots(args, P, cap)
+    assert (uniq, slots) == _window_slots_numpy(args, P, cap)
+    pend = sum(np.unique(r[r != 2**31 - 1]).size
+               for r in args["pending_k"].reshape(P, -1))
+    if name == "cap1":
+        assert slots > pend                     # the overflow is counted
+    if name == "full_width":
+        assert slots == pend                    # no owner overflows there
+    _, _, work = chip_smoke.fused_bound(args, P, cap)
+    assert work["window_slots"] == slots and work["unique"] == uniq
