@@ -5,18 +5,28 @@
 
 Phases, each of which asserts (nothing is caught):
 
-  1. build   — compile every kernel of the main path from the sources in
-               this checkout (one source, one nvcc);
+  1. build   — compile every kernel of the two paths from the sources in
+               this checkout (one nvcc per source, all started together);
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card, bit for bit, over the reference test matrix and at
-               the full-width shapes, and time both with CUDA events;
+               card over the reference test matrix and at the full-width
+               shapes (fused_map bit for bit, flash_attention at the
+               reference's per-dtype tolerance), and time both with CUDA
+               events, beside the library call where there is one;
   3. job     — MR-1S WordCount through the Job API at the documented
                fused width (V = 262,144, P = 8, S = 256, cap = 64) on a
                Zipf corpus with one 8x-hot rank: records equal to the
                numpy oracle, fused equal to unfused, and the kernel
                launched on the main path;
-  4. report  — the ``kernels`` JSON line, the card's name and power
+  4. serve   — olmo-1b at full width through ``ServeEngine.generate``:
+               16 requests in batches of 8, 2048-token prompts, 32 new
+               tokens, greedy; flash_attention launched once per layer
+               and prefill, and the kernel's last-position logits within
+               3e-2 * max|logits| of the chunked reference attention's;
+  5. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
+
+The launch counts are set to 0 just before each path (3 and 4) and read
+just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -27,6 +37,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -36,12 +47,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 
 # the documented fused configuration and its PUMA-like input: the PUMA
 # Wikipedia corpus cut to 2**27 tokens (a fused run of 2**25 took under
 # 20 s on an H100, so the input was raised to keep the run measurable)
 VOCAB, N_PROCS, TASK, CAP, SEGMENT = 262_144, 8, 256, 64, 512
 N_TOKENS = 2**27
+
+
+# the served configuration: olmo-1b at full width (depth and width as
+# published), random weights from seed 0
+SERVE_ARCH, REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = "olmo-1b", 16, 8, 2048, 32
 
 
 def _port():
@@ -53,20 +70,41 @@ def _port():
     return core, data, backend, ops, ref
 
 
+def _fa():
+    """The flash_attention kernel's wrapper and plain version."""
+    _port()
+    from repro_torch.kernels.flash_attention import ops, ref
+    return ops, ref
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0."""
+    _, _, _, fm_ops, _ = _port()
+    fa_ops, _ = _fa()
+    fm_ops.fused_map.launches = 0
+    fa_ops.flash_attention.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # 1. build
 # ---------------------------------------------------------------------------
 
 def phase_build() -> dict:
-    _, _, backend, ops, _ = _port()
+    """One nvcc per kernel source, all started together."""
+    _, _, backend, fm_ops, _ = _port()
+    fa_ops, _ = _fa()
+    sources = {"fused_map": fm_ops.SOURCE, "flash_attention": fa_ops.SOURCE}
     t0 = time.perf_counter()
-    built = backend.build(ops.SOURCE)
-    print(f"build: fused_map {built.seconds:.1f} s "
-          f"(wall {time.perf_counter() - t0:.1f} s) -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    return {"fused_map": built}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {k: pool.submit(backend.build, v) for k, v in sources.items()}
+        built = {k: f.result() for k, f in futures.items()}
+    print(f"build: wall {time.perf_counter() - t0:.1f} s")
+    for name, b in built.items():
+        print(f"  {name}: {b.seconds:.1f} s -> {b.path.name}")
+        for line in b.log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    return built
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +273,104 @@ def time_fused(device) -> dict:
                 bound_by=bound_by, **work)
 
 
+# the reference's flash_attention test matrix (tests/test_kernels.py::
+# test_flash_attention_sweep) and the served shape: (B, S, H, KV, hd,
+# causal, window, dtype)
+FLASH_MATRIX = {
+    "mha_f32": (2, 256, 4, 4, 64, True, 0, "float32"),
+    "gqa4_f32": (1, 512, 8, 2, 64, True, 0, "float32"),
+    "mqa_hd128_f32": (2, 256, 4, 1, 128, True, 0, "float32"),
+    "bidir_f32": (1, 384, 4, 4, 64, False, 0, "float32"),
+    "swa128_f32": (1, 512, 4, 4, 64, True, 128, "float32"),
+    "mha_bf16": (2, 256, 4, 4, 64, True, 0, "bfloat16"),
+    "swa256_gqa_ragged640_bf16": (1, 640, 4, 2, 64, True, 256, "bfloat16"),
+}
+FLASH_SERVED = (BATCH, PROMPT_LEN, 16, 16, 128, True, 0, "bfloat16")
+
+
+def flash_tol(dtype: str) -> dict:
+    """The reference's ``_tol``: 2e-2 for bf16, 2e-3 for fp32."""
+    return (dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16"
+            else dict(atol=2e-3, rtol=2e-3))
+
+
+def flash_inputs(case, device):
+    """Seeded q, k, v of one case, made in fp32 and cast to its dtype."""
+    B, S, H, KV, hd, _, _, dtype = case
+    rng = np.random.default_rng(S + H)
+    dt = getattr(torch, dtype)
+    return tuple(
+        torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            device=device, dtype=dt)
+        for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def phase_flash_vs_plain(device, cases: dict) -> dict:
+    """Hold ``flash_attention`` to ``flash_attention_plain`` on every case
+    at the case's tolerance. Returns the max abs difference per case."""
+    fa_ops, fa_ref = _fa()
+    errs = {}
+    for name, case in cases.items():
+        q, k, v = flash_inputs(case, device)
+        causal, window, dtype = case[5:]
+        got = fa_ops.flash_attention(q, k, v, causal=causal,
+                                     window=window).float()
+        want = fa_ref.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window).float()
+        tol = flash_tol(dtype)
+        diff = (got - want).abs()
+        errs[name] = diff.max().item()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (diff > tol["atol"] + tol["rtol"] * want.abs()).any()):
+            raise AssertionError(f"flash_attention != plain on {name}: max "
+                                 f"abs err {errs[name]} ({tol})")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def flash_bound(case) -> tuple[float, str, dict]:
+    """Least time of one attention call: the FLOPs of the (query, key)
+    pairs the masks leave visible (2 products of 2 * hd each) at the
+    bf16 tensor-core rate, against q, k, v read once and o written once
+    at the memory rate."""
+    B, S, H, KV, hd, causal, window, dtype = case
+    qp = np.arange(S)
+    hi = qp + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(S)
+    pairs = int((hi - lo).sum())
+    flops = 4 * B * H * hd * pairs
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * \
+        torch.finfo(getattr(torch, dtype)).bits // 8
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, {"flops": flops, "bytes": nbytes}
+
+
+def time_flash(device) -> dict:
+    """CUDA-event time per call at the served shape: the kernel, its plain
+    version and ``scaled_dot_product_attention`` (the library yardstick,
+    never on the port's path), beside the bound."""
+    fa_ops, fa_ref = _fa()
+    q, k, v = flash_inputs(FLASH_SERVED, device)
+    ms = _event_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20)
+    plain_ms = _event_ms(
+        lambda: fa_ref.flash_attention_plain(q, k, v, causal=True), 3)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+    library_ms = _event_ms(sdpa, 20)
+    sdpa_err = (sdpa().transpose(1, 2).float() - fa_ops.flash_attention(
+        q, k, v, causal=True).float()).abs().max().item()
+    bound_ms, bound_by, work = flash_bound(FLASH_SERVED)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                sdpa_vs_kernel_max_abs=sdpa_err, bound_ms=bound_ms,
+                bound_by=bound_by, **work)
+
+
 # ---------------------------------------------------------------------------
 # 3. the slice at full width
 # ---------------------------------------------------------------------------
@@ -293,7 +429,7 @@ def phase_job(device, n: int, w: Width = FULL) -> dict:
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    ops.fused_map.launches = 0
+    zero_counts()
     fused_res, fused_wall = run_job(job_config(True, w), source, reps,
                                     device)
     launches = ops.fused_map.launches
@@ -313,24 +449,19 @@ def phase_job(device, n: int, w: Width = FULL) -> dict:
                 n_records=len(oracle), imbalance=fused_res.imbalance)
 
 
-def phase_profile(device, n: int, w: Width = FULL) -> dict:
-    """Device busy share of the fused engine over one segment: the summed
-    time of the device's own activities (kernels, copies) in the
-    profiler's trace against the host wall of the same window."""
-    core, _, _, _, _ = _port()
+def device_profile(fn) -> dict:
+    """Device busy share of ``fn()``: the summed time of the device's own
+    activities (kernels, copies) in the profiler's trace against the host
+    wall of the same window, and the six costliest names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    source, reps = job_input(n, w)
-    with core.submit(job_config(True, w), source, device=device,
-                     repeats=reps) as h:
-        h.step()                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            h.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -344,8 +475,139 @@ def phase_profile(device, n: int, w: Width = FULL) -> dict:
                 top=[(k, t / 1e3, c) for k, (t, c) in top])
 
 
+def phase_profile(device, n: int, w: Width = FULL) -> dict:
+    """Device busy share of the fused engine over one segment."""
+    core, _, _, _, _ = _port()
+    source, reps = job_input(n, w)
+    with core.submit(job_config(True, w), source, device=device,
+                     repeats=reps) as h:
+        h.step()                                  # warm
+        return device_profile(h.step)
+
+
+def print_profile(what: str, prof: dict):
+    print(f"profile: {what} {prof['wall_s']:.4f} s wall, "
+          f"{prof['device_s']:.4f} s device kernels, busy share "
+          f"{prof['busy_share']}")
+    for key, ms, count in prof["top"]:
+        print(f"  {ms:10.3f} ms  x{count:<6d} {key[:100]}")
+
+
 # ---------------------------------------------------------------------------
-# 4. report
+# 4. serving olmo-1b at full width
+# ---------------------------------------------------------------------------
+
+def _serve():
+    _port()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+    return get_config, tf, engine
+
+
+def serve_prompts(cfg, requests: int, prompt_len: int) -> np.ndarray:
+    rng = np.random.default_rng(0)
+    return rng.integers(0, cfg.vocab_size,
+                        (requests, prompt_len)).astype(np.int32)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
+                prompt_len: int = PROMPT_LEN,
+                new_tokens: int = NEW_TOKENS) -> dict:
+    """Serve ``requests`` prompts through ``ServeEngine.generate`` (the
+    main path: counts zeroed just before, read just after), then check
+    the served tokens and time the engine's prefill and decode step."""
+    _, tf, eng = _serve()
+    fa_ops, _ = _fa()
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    model = tf.init_model(cfg, 0, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    engine = eng.ServeEngine(cfg, model,
+                             max_len=prompt_len + new_tokens + 8,
+                             device=device)
+    prompts = serve_prompts(cfg, requests, prompt_len)
+    engine.generate(prompts[:batch, :min(prompt_len, 128)], 2)   # warm
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [engine.generate(prompts[lo:lo + batch], new_tokens)
+            for lo in range(0, requests, batch)]
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = fa_ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+
+    out = np.concatenate(outs)
+    assert out.shape == (requests, new_tokens), out.shape
+    assert out.min() >= 0 and out.max() < cfg.vocab_size
+    n_batches = -(-requests // batch)
+    if cuda:
+        assert launches == cfg.n_layers * n_batches, launches
+
+    # the kernel's prefill against the chunked reference attention's, and
+    # the first served token a maximum of the kernel path's logits
+    worst = 0.0
+    with torch.inference_mode():
+        for i, lo in enumerate(range(0, requests, batch)):
+            tokens = {"tokens": torch.from_numpy(
+                prompts[lo:lo + batch]).to(device)}
+            lk = tf.prefill(cfg, model, tokens, use_kernel=True)[:, 0].float()
+            lr = tf.prefill(cfg, model, tokens, use_kernel=False)[:, 0].float()
+            assert bool(torch.isfinite(lk).all()), "non-finite logits"
+            err = (lk - lr).abs().max().item()
+            lim = 3e-2 * lr.abs().max().item()
+            assert err <= lim, (err, lim)
+            worst = max(worst, err / lim)
+            first = torch.from_numpy(outs[i][:, :1]).to(device).long()
+            assert bool((lk.gather(1, first)[:, 0] == lk.amax(1)).all()), \
+                "the first served token is not a maximum of its logits"
+
+        # the engine's two programs, timed alone on the first batch
+        tokens = {"tokens": torch.from_numpy(prompts[:batch]).to(device)}
+        t0 = time.perf_counter()
+        logits, _, raw = engine._prefill(model, tokens)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        cache = eng.prefill_to_decode_cache(cfg, raw, prompt_len,
+                                            engine.max_len)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _sync(device)
+        t0 = time.perf_counter()
+        for step in range(new_tokens - 1):
+            logits, cache = engine._step(model, cache, tok, prompt_len + step)
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _sync(device)
+        decode_s = (time.perf_counter() - t0) / (new_tokens - 1)
+        profiles = {}
+        if cuda:
+            profiles["prefill"] = device_profile(
+                lambda: engine._prefill(model, tokens))
+            t = prompt_len + new_tokens - 1
+            profiles["decode_4_steps"] = device_profile(
+                lambda: [engine._step(model, cache, tok, t + i)
+                         for i in range(4)])
+    return dict(arch=cfg.name, requests=requests, batch=batch,
+                prompt_len=prompt_len, new_tokens=new_tokens,
+                launches=launches, wall_s=wall,
+                served_tokens_per_s=out.size / wall,
+                prompt_tokens_per_s=requests * prompt_len / wall,
+                prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3,
+                peak_bytes=peak, init_s=init_s,
+                kernel_vs_ref_err_over_limit=worst, profiles=profiles)
+
+
+# ---------------------------------------------------------------------------
+# 5. report
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -367,6 +629,20 @@ def main() -> int:
           f"{timing['bytes']} B at 3.35 TB/s; {timing['unique']} unique "
           f"keys, {timing['window_slots']} window slots)")
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    fa_errs = phase_flash_vs_plain(
+        device, {**FLASH_MATRIX, "served": FLASH_SERVED})
+    for name, e in fa_errs.items():
+        print(f"kernels: flash_attention ~ plain on {name}: max abs err {e}")
+    fa = time_flash(device)
+    print(f"flash_attention at B={BATCH} S={PROMPT_LEN} H=KV=16 hd=128 causal "
+          f"bf16: {fa['ms']:.3f} ms, plain {fa['plain_ms']:.3f} ms, SDPA "
+          f"{fa['library_ms']:.3f} ms (max abs diff to the kernel "
+          f"{fa['sdpa_vs_kernel_max_abs']}), bound {fa['bound_ms']:.4f} ms "
+          f"({fa['bound_by']}: {fa['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+          f"{fa['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
+
     job = phase_job(device, N_TOKENS)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
           f"cap={CAP} segment={SEGMENT}, {job['steps']} steps, "
@@ -379,12 +655,25 @@ def main() -> int:
           f"{job['peak_bytes'] / 2**20:.1f} MiB, imbalance "
           f"{job['imbalance']:.2f}")
     prof = phase_profile(device, 2 * SEGMENT * TASK * N_PROCS)
-    print(f"profile: one fused segment ({SEGMENT} steps) {prof['wall_s']:.3f}"
-          f" s wall, {prof['device_s']:.3f} s device kernels, busy share "
-          f"{prof['busy_share']}")
-    for key, ms, count in prof["top"]:
-        print(f"  {ms:10.3f} ms  x{count:<6d} {key[:100]}")
-    print(json.dumps({"job": job, "profile": prof, "fused_map": timing}))
+    print_profile(f"one fused segment ({SEGMENT} steps)", prof)
+
+    get_config, _, _ = _serve()
+    serve = phase_serve(device, get_config(SERVE_ARCH))
+    print(f"serve: {serve['arch']} at full width, {serve['requests']} "
+          f"requests in batches of {serve['batch']}, prompt "
+          f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, greedy: "
+          f"{serve['wall_s']:.3f} s, {serve['served_tokens_per_s']:.1f} "
+          f"served tokens/s; prefill {serve['prefill_ms']:.1f} ms per batch, "
+          f"decode {serve['decode_ms_per_token']:.2f} ms per token; "
+          f"flash_attention launches {serve['launches']}; peak device memory "
+          f"{serve['peak_bytes'] / 2**30:.2f} GiB; kernel-vs-reference "
+          f"logits at {serve['kernel_vs_ref_err_over_limit']:.3f} of the "
+          f"3e-2 * max|logits| limit")
+    for what, p in serve["profiles"].items():
+        print_profile(f"serve {what}", p)
+    print(json.dumps({"job": job, "profile": prof, "fused_map": timing,
+                      "flash_attention": {**fa, "max_abs_err": fa_errs},
+                      "serve": serve}))
 
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
@@ -395,7 +684,17 @@ def main() -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
-        "build_s": built["fused_map"].seconds}]}))
+        "build_s": built["fused_map"].seconds}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+        "launches": serve["launches"],
+        "max_abs_err": max(fa_errs.values()),
+        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+        "build_s": built["flash_attention"].seconds}]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

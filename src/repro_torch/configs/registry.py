@@ -1,0 +1,33 @@
+"""Arch registry of the port (counterpart of ``repro/configs/registry.py``).
+
+It lists only the archs whose every layer the port runs: the dense
+families. Any other arch of the reference raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ModelConfig
+
+_MODULES = {
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube",
+}
+
+ARCH_IDS: list[str] = list(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 12); "
+            f"the port runs {ARCH_IDS}")
+    return importlib.import_module(_MODULES[arch_id])
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).SMOKE

@@ -27,7 +27,6 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
-import torch
 
 from repro_torch.core import planner
 from repro_torch.core.kv import KEY_SENTINEL
@@ -37,6 +36,7 @@ from repro_torch.core.usecase import UseCase, as_map_fn, finalize
 from repro_torch.core.windows import DenseWindow
 from repro_torch.data.feed import SegmentFeed
 from repro_torch.data.source import as_source
+from repro_torch.device import resolve_device
 
 _CKPT = "ROADMAP Queue 1 item 5 (checkpoint, restore and re-planning)"
 
@@ -103,15 +103,6 @@ class CombineOverflowError(RuntimeError):
             f"result is attached as err.result.")
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
-
-
 def submit(config: JobConfig, dataset, *, device=None, repeats=None,
            prefetch: bool = True, feed_budget=None) -> JobHandle:
     """Plan ``dataset`` (a DataSource, or a 1-D int32 array) onto
@@ -137,7 +128,7 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
             f"backend {config.backend!r} does not implement the fused "
             "map hot path — drop fused_map=True or use backend '1s'")
     partitioner = resolve_partitioner(config.partitioner)
-    device = _resolve_device(device)
+    device = resolve_device(device)
     window = config.window or config.usecase.window
     spec = JobSpec(vocab=window, task_size=config.task_size,
                    push_cap=config.push_cap, n_procs=config.n_procs,

@@ -1,0 +1,282 @@
+// flash_attention.cu — online-softmax attention on Hopper (sm_90a), with
+// causal and sliding-window masks, GQA and a ragged tail.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
+// flash_attention_pallas (body _fa_kernel). It computes the function of
+// ref.py::flash_attention_plain, on the (B, S, H, hd) layout as it lies in
+// memory (no transposes):
+//   * q, k, v read as bf16 or fp32 (template T) and upcast to fp32; q is
+//     scaled by hd**-0.5 in fp32;
+//   * the online softmax starts at m = -1e30, l = 0; a key is visible when
+//     k_pos < Skv, k_pos <= q_pos (causal) and k_pos > q_pos - window
+//     (window > 0); a hidden score is -1e30 before the row max and its
+//     p = exp(s - m_new) is zeroed AFTER the exp, so a row with nothing
+//     visible so far never takes p = 1;
+//   * the output is acc / max(l, 1e-30), cast to T;
+//   * query head h reads KV head h / (H / KV);
+//   * a KV tile that the causal or window mask hides from every row of the
+//     Q tile is never loaded.
+//
+// Design. One CTA of 256 threads per (b*H + h, 64-row Q tile); the TPU
+// grid's sequential kv axis is the CTA's loop over 64-key tiles. The Q
+// tile sits in shared memory (fp32, scaled); K and then V of each KV tile
+// are staged through one shared buffer, and P goes back through shared
+// memory transposed. Thread (ty, tx) owns score rows ty*4..+3 and columns
+// tx + 16j, and output rows ty*4..+3 and columns g*64 + tx*4..+3: each
+// row's 16 owners are one half-warp, so row max and row sum are shuffles,
+// and every operand read is a float4 from a bank-conflict-free row
+// (rows padded by 4 floats). The products are fp32 FMAs: 84,992 bytes of
+// shared memory at hd = 128 leave room for two CTAs on an SM.
+//
+// What bounds it. At the served shape (B = 8, S = 2048, H = 16, hd = 128,
+// causal) the work is ~137 GFLOP against ~268 MB of q, k, v and o, so the
+// card's bound is the tensor cores' (0.14 ms at 989 TFLOP/s). This kernel
+// runs on the CUDA cores instead (67 TFLOP/s fp32 at best) and reloads K
+// and V once per Q tile; wgmma, TMA and warp specialisation are the
+// redesign that closes that gap.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockKV = 64;
+constexpr int kThreads = 256;
+constexpr int kLdP = kBlockQ + 4;   // padded row of the transposed P tile
+constexpr float kNegInf = -1e30f;
+static_assert(kBlockQ == kBlockKV, "load_tile stages 64-row tiles of both");
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(2 * kBlockQ * (HD + 4) + kBlockKV * kLdP) *
+         sizeof(float);
+}
+
+// rows [row0, row0 + 64) of one head of x (row stride `ld` elements) into
+// dst[64][HD + 4] as fp32 times `mul`; rows at or past `n` are zero
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* x, long long ld,
+                                          int row0, int n, float mul) {
+  for (int i = threadIdx.x; i < kBlockKV * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    const int s = row0 + r;
+    dst[r * (HD + 4) + d] =
+        s < n ? to_f32(x[static_cast<long long>(s) * ld + d]) * mul : 0.f;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int Sq,
+                       int Skv, int H, int KV, int causal, int window,
+                       float scale) {
+  constexpr int kLd = HD + 4;      // padded row of the Q and K/V tiles
+  constexpr int kGroups = HD / 64; // float4 output column groups per thread
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][kLd], scaled Q
+  float* kv = qs + kBlockQ * kLd;               // [64][kLd], K then V
+  float* ps = kv + kBlockKV * kLd;              // [64 keys][kLdP], P^T
+
+  const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kvh = h / (H / KV);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long q_ld = static_cast<long long>(H) * HD;
+  const long long kv_ld = static_cast<long long>(KV) * HD;
+  const long long q_base = static_cast<long long>(b) * Sq * q_ld + h * HD;
+  const long long kv_base = static_cast<long long>(b) * Skv * kv_ld + kvh * HD;
+
+  load_tile<T, HD>(qs, q + q_base, q_ld, q0, Sq, scale);
+
+  float m[4], l[4], acc[4][4 * kGroups];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0.f;
+  }
+
+  // the KV tiles holding a key that some row of this Q tile may see
+  const int n_kt = (Skv + kBlockKV - 1) / kBlockKV;
+  const int kt_hi = causal ? min(n_kt, (q0 + kBlockQ - 1) / kBlockKV + 1)
+                           : n_kt;
+  int kt_lo = 0;
+  if (window > 0) {
+    const int x = q0 - window - (kBlockKV - 1);
+    kt_lo = x < 0 ? 0 : x / kBlockKV + 1;
+  }
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * kBlockKV;
+    __syncthreads();  // Q is in; the last tile's PV is done with kv and ps
+    load_tile<T, HD>(kv, k + kv_base, kv_ld, k0, Skv, 1.f);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qa[4], kb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kb[j] = *reinterpret_cast<const float4*>(kv + (tx + 16 * j) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t = s[i][j];
+          t = fmaf(qa[i].x, kb[j].x, t);
+          t = fmaf(qa[i].y, kb[j].y, t);
+          t = fmaf(qa[i].z, kb[j].z, t);
+          t = fmaf(qa[i].w, kb[j].w, t);
+          s[i][j] = t;
+        }
+    }
+
+    // mask, then the online softmax of each owned row
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty * 4 + i;
+      bool vis[4];
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        bool ok = kp < Skv;
+        if (causal) ok = ok && kp <= qp;
+        if (window > 0) ok = ok && kp > qp - window;
+        vis[j] = ok;
+        if (!ok) s[i][j] = kNegInf;
+        mt = fmaxf(mt, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_new = fmaxf(m[i], mt);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        s[i][j] = vis[j] ? p : 0.f;
+        rs += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(ps + (tx + 16 * j) * kLdP + ty * 4) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();  // every thread is done reading K; P is in
+    load_tile<T, HD>(kv, v + kv_base, kv_ld, k0, Skv, 1.f);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBlockKV; ++c) {
+      const float4 pa = *reinterpret_cast<const float4*>(ps + c * kLdP + ty * 4);
+      const float pr[4] = {pa.x, pa.y, pa.z, pa.w};
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const float4 vb =
+            *reinterpret_cast<const float4*>(kv + c * kLd + g * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][g * 4 + 0] = fmaf(pr[i], vb.x, acc[i][g * 4 + 0]);
+          acc[i][g * 4 + 1] = fmaf(pr[i], vb.y, acc[i][g * 4 + 1]);
+          acc[i][g * 4 + 2] = fmaf(pr[i], vb.z, acc[i][g * 4 + 2]);
+          acc[i][g * 4 + 3] = fmaf(pr[i], vb.w, acc[i][g * 4 + 3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty * 4 + i;
+    if (s >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    T* row = o + q_base + static_cast<long long>(s) * q_ld;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        row[g * 64 + tx * 4 + e] = from_f32<T>(acc[i][g * 4 + e] / den);
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int H, int KV, int causal, int window,
+           float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
+  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on ``stream`` (PyTorch's current stream). dtype 0 is fp32, 1 is
+// bf16; hd is 64 or 128. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a dtype or head dim the kernel is not built
+// for, so the caller can raise.
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o, int B, int Sq,
+                                      int Skv, int H, int KV, int hd,
+                                      int causal, int window, float scale,
+                                      int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 64)
+    return launch<float, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                             scale, s);
+  if (dtype == 0 && hd == 128)
+    return launch<float, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                              scale, s);
+  if (dtype == 1 && hd == 64)
+    return launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                     window, scale, s);
+  if (dtype == 1 && hd == 128)
+    return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                      window, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,290 @@
+"""Attention for the dense families: GQA / MHA / sliding-window, with the
+prefill and decode paths (counterpart of ``repro/models/attention.py``).
+
+Layout contracts, as in the reference:
+  activations      (B, S, D)
+  q/k/v            (B, S, H|KV, hd)
+  GQA cache        {"k","v"}: (B, S_max, KV, hd)
+  SWA cache        ring buffer, S_max = window
+
+Prefill attention goes through the flash_attention kernel's wrapper
+(``use_kernel=True``: the kernel on the card, its plain version on the
+CPU) or through the chunked ``flash_attention_ref``. Decode is the
+single-shard flash-decode of the reference: online-softmax partials over
+the whole cache, combined locally. MLA, the seq-sharded cache and the
+cost-exact unrolled attention are not ported yet (ROADMAP Queue 1 item
+12).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.layers import DTYPES, _init, apply_rope, rms_over
+
+NEG_INF = -1e30
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item 12)")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator,
+                   cross: bool = False) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = DTYPES[cfg.param_dtype]
+    dev = gen.device
+    s = d ** -0.5
+    p = {
+        "wq": _init(gen, (d, H * hd), s, dt),
+        "wk": _init(gen, (d, KV * hd), s, dt),
+        "wv": _init(gen, (d, KV * hd), s, dt),
+        "wo": _init(gen, (H * hd, d), (H * hd) ** -0.5, dt),
+    }
+    if cfg.qkv_bias and not cross:
+        p["bq"] = torch.zeros((H * hd,), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# chunked reference attention
+# ---------------------------------------------------------------------------
+
+def _einsum_f32(eq: str, a, b):
+    """einsum with fp32 products and sums, as the reference's
+    ``preferred_element_type=jnp.float32`` (a product of two bf16 values
+    is exact in fp32)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 512,
+                        q_offset: int = 0):
+    """Online-softmax chunked attention, with the reference's casts:
+    ``q * scale`` goes back to q's dtype and p to v's dtype before the
+    PV product.
+
+    q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd) with H % KV == 0.
+    ``window > 0``: sliding-window (banded), only the KV band each q
+    chunk can see is touched. ``q_offset``: absolute position of q[0].
+    Returns (B, Sq, H, hd).
+    """
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    nq = math.ceil(Sq / q_chunk)
+    scale = hd ** -0.5
+
+    # pad both sequence axes to chunk multiples; padded kv is masked via
+    # ``kv_pos < Skv``, padded q rows are sliced off at the end
+    Sq_pad = nq * q_chunk
+    Skv_pad = math.ceil(Skv / kv_chunk) * kv_chunk
+    pad_q, pad_kv = (0, 0, 0, 0, 0, Sq_pad - Sq), (0, 0, 0, 0, 0, Skv_pad - Skv)
+    q = torch.nn.functional.pad(q, pad_q)
+    k = torch.nn.functional.pad(k, pad_kv)
+    v = torch.nn.functional.pad(v, pad_kv)
+    qg = q.reshape(B, Sq_pad, KV, G, hd)
+
+    if window > 0:
+        band = int(min(Skv_pad,
+                       (math.ceil((window + q_chunk) / kv_chunk) + 1)
+                       * kv_chunk))
+    else:
+        band = Skv_pad
+    nkv = band // kv_chunk
+    dev = q.device
+
+    outs = []
+    for i in range(nq):
+        q_i = (qg[:, i * q_chunk:(i + 1) * q_chunk] * scale).to(q.dtype)
+        q_pos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
+        if window > 0:
+            start = min(max(q_offset + (i + 1) * q_chunk - band, 0),
+                        Skv_pad - band)
+        else:
+            start = 0
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, q_chunk), device=dev)
+        acc = torch.zeros((B, KV, G, q_chunk, hd), device=dev)
+        for j in range(nkv):
+            lo = start + j * kv_chunk
+            k_j, v_j = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
+            kv_pos = lo + torch.arange(kv_chunk, device=dev)
+            s = _einsum_f32("bqkgh,bckh->bkgqc", q_i, k_j)
+            mask = (kv_pos[None, :] < Skv).expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+            if window > 0:
+                mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+            s = s.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            # rows fully masked so far have m_new == NEG_INF and would get
+            # p = exp(0) = 1 on masked entries: zero them explicitly
+            p = p.masked_fill(~mask, 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _einsum_f32(
+                "bkgqc,bckh->bkgqh", p.to(v.dtype), v_j)
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]
+        # (B, KV, G, q_chunk, hd) -> (B, q_chunk, H, hd)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd)
+                    .to(q.dtype))
+    return torch.cat(outs, 1)[:, :Sq]
+
+
+def attention_dense_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """O(S^2)-memory oracle for tests."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg, k).float()
+    s = s * hd ** -0.5
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos[None] <= q_pos[:, None]
+    if window > 0:
+        mask &= kv_pos[None] > q_pos[:, None] - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, -1)
+    o = torch.einsum("bkgqc,bckh->bkgqh", p.to(v.dtype), v)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode core
+# ---------------------------------------------------------------------------
+
+def _decode_partials(q, k, v, kv_pos, t):
+    """Online softmax over a cache slice.
+
+    q: (B, H, hd); k/v: (B, S_loc, KV, hd); kv_pos: (S_loc,) absolute
+    positions; t: current length (positions >= t are invalid).
+    Returns (o_partial, l, m) for max-stabilized combining.
+    """
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd) * hd ** -0.5
+    s = _einsum_f32("bkgh,bskh->bkgs", qg, k)
+    valid = ((kv_pos >= 0) & (kv_pos < t))[None, None, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]).masked_fill(~valid, 0.0)
+    l = p.sum(-1)
+    o = _einsum_f32("bkgs,bskh->bkgh", p.to(v.dtype), v)
+    return o, l, m
+
+
+def combine_partials(o, l, m, axis: str | None):
+    """Combine (o, l, m) partials; only the single shard (``axis=None``)
+    is ported."""
+    if axis is not None:
+        raise _unported("combining partials across a mesh axis")
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# full attention layer (projections + modes)
+# ---------------------------------------------------------------------------
+
+def _qkv(cfg: ModelConfig, p, x, kv_x=None):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kv_x = x if kv_x is None else kv_x
+    Skv = kv_x.shape[1]
+    q = x @ p["wq"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, Skv, KV, hd)
+    v = v.reshape(B, Skv, KV, hd)
+    if "q_norm" in p:
+        q = rms_over(q, p["q_norm"])
+        k = rms_over(k, p["k_norm"])
+    return q, k, v
+
+
+def attention_forward(cfg: ModelConfig, p, x, positions, *, causal=True,
+                      use_kernel=False, unroll=False):
+    """Train / prefill pass. Returns (out, (k, v)); k/v feed the cache.
+    ``use_kernel=True`` routes through the flash_attention kernel's
+    wrapper, ``False`` through ``flash_attention_ref``."""
+    if unroll:
+        raise _unported("the cost-exact unrolled attention (unroll=True)")
+    q, k, v = _qkv(cfg, p, x)
+    q = _rope_bshd(q, positions, cfg.rope_theta)
+    k = _rope_bshd(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if cfg.attn_type == "swa" else 0
+    if use_kernel:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = flash_attention_ref(q, k, v, causal=causal, window=window)
+    B, S, H, hd = q.shape
+    return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
+
+
+def _rope_bshd(x, positions, theta):
+    """RoPE on (B, S, N, hd) with positions (B, S). The rotation is
+    elementwise, so it runs on the layout as it is and returns it
+    contiguous."""
+    return apply_rope(x, positions[:, :, None], theta)
+
+
+def attention_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *,
+                     mesh=None, dp_entry=None):
+    """One-token decode. x: (B, 1, D); cache {"k","v"}: (B, S_max, KV, hd)
+    or the SWA ring (B, W, KV, hd); t: the new token's position.
+
+    Unlike the reference, which returns new arrays, the new k/v are
+    written into ``cache`` in place (it is returned as the new cache):
+    copying a full-width cache on every token would cost more than the
+    step.
+    """
+    if mesh is not None:
+        raise _unported("the seq-sharded decode cache (mesh=...)")
+    if cfg.attn_type == "mla":
+        raise _unported("MLA decode")
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.d_head
+    q, k, v = _qkv(cfg, p, x)
+    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q = _rope_bshd(q, pos, cfg.rope_theta)
+    k = _rope_bshd(k, pos, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    if cfg.attn_type == "swa":
+        # ring-buffer cache of size window
+        W = ck.shape[1]
+        slot = t % W
+        ck[:, slot:slot + 1] = k
+        cv[:, slot:slot + 1] = v
+        kv_pos = t - ((slot - torch.arange(W, device=x.device)) % W)
+    else:
+        ck[:, t:t + 1] = k
+        cv[:, t:t + 1] = v
+        kv_pos = torch.arange(ck.shape[1], device=x.device)
+    o, l, m = _decode_partials(q[:, 0], ck, cv, kv_pos, t + 1)
+    o = combine_partials(o, l, m, None)
+    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    return o @ p["wo"], cache

@@ -1,0 +1,124 @@
+"""Shared layer primitives: norms, RoPE, SwiGLU MLP, embeddings.
+
+The counterpart of ``repro/models/layers.py``. ``init_*`` builds a dict
+of tensors under the reference's leaf names from an explicit
+``torch.Generator``; ``apply_*`` consumes any mapping with those names
+(a dict or the ``nn.ParameterDict`` the model holds). Weights keep the
+reference's ``(in, out)`` layout, so ``x @ w`` is the same product.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _init(gen: torch.Generator, shape, scale, dtype):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    if cfg.norm_type == "nonparam_ln":      # OLMo: no scale/bias
+        return {}
+    return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg),
+                                device=gen.device)}
+
+
+def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm (population variance) or RMSNorm, in fp32."""
+    xf = x.float()
+    if cfg.norm_type in ("layernorm", "nonparam_ln"):
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    else:                                    # rmsnorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps)
+    if "scale" in p:
+        y = y * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_over(x, scale, eps=1e-5):
+    """RMS norm over the last dim with an explicit scale vector (qk-norm)."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Split-half rotation. x: (..., S, dim); positions: (..., S) int;
+    angles in fp32."""
+    dim = x.shape[-1]
+    freqs = rope_freqs(dim, theta, x.device)               # (dim/2,)
+    angles = positions[..., None].float() * freqs          # (..., S, dim/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int = 0) -> dict:
+    d, ff = cfg.d_model, (d_ff or cfg.d_ff)
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "w_gate": _init(gen, (d, ff), d ** -0.5, dt),
+        "w_in": _init(gen, (d, ff), d ** -0.5, dt),
+        "w_out": _init(gen, (ff, d), ff ** -0.5, dt),
+    }
+
+
+def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ p["w_gate"])
+    h = x @ p["w_in"]
+    return (g * h) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def init_embed(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    dt = DTYPES[cfg.param_dtype]
+    p = {"embed_tokens": _init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _init(gen, (cfg.d_model, cfg.vocab_size),
+                             cfg.d_model ** -0.5, dt)
+    return p
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor):
+    return p["embed_tokens"][tokens]
+
+
+def unembed(cfg: ModelConfig, p, x: torch.Tensor):
+    """Logits in the model dtype; tied embeddings give ``x @ embed.T``."""
+    if cfg.tie_embeddings:
+        return x @ p["embed_tokens"].t()
+    return x @ p["lm_head"]

@@ -1,0 +1,241 @@
+"""The model stack for the dense families (counterpart of
+``repro/models/transformer.py``).
+
+A model is ``n_layers`` layers of attention plus SwiGLU MLP between a
+token embedding and a final norm with an (optionally tied) head. The
+reference scans super-blocks over a stacked parameter tree; here the
+layers are an ``nn.ModuleList``, one ``ModuleDict`` per layer under the
+reference's leaf names, and the scans are Python loops.
+
+Entry points, as in the reference:
+  ``forward``      full-sequence forward (+ raw per-layer caches)
+  ``prefill``      last-position logits of ``forward``
+  ``decode_step``  one token against the decode caches
+
+MoE, SSM and hybrid stacks, MLA, the encoder and modality frontends,
+``first_k_dense``, ``remat`` and ``unroll`` raise ``NotImplementedError``
+(ROADMAP Queue 1 item 12).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
+                                       embed_tokens, init_embed, init_mlp,
+                                       init_norm, unembed)
+
+_unported = attn._unported
+
+
+# ---------------------------------------------------------------------------
+# layer typing — which sublayers layer i carries
+# ---------------------------------------------------------------------------
+
+def layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
+    """(mixer, ff) for absolute layer index i: ("attn", "mlp") for every
+    layer of a dense stack, the only kind the port runs."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise _unported(f"the SSM layers of {cfg.name} (models/ssm.py, "
+                        f"ssd_scan)")
+    if cfg.attn_type == "mla":
+        raise _unported(f"the MLA attention of {cfg.name}")
+    if cfg.is_moe_layer(i):
+        raise _unported(f"the MoE layers of {cfg.name}")
+    return "attn", "mlp"
+
+
+def _check_supported(cfg: ModelConfig):
+    for what, on in (("first_k_dense", cfg.first_k_dense),
+                     ("the encoder (n_enc_layers)", cfg.n_enc_layers),
+                     (f"the {cfg.frontend} frontend",
+                      cfg.frontend != "none")):
+        if on:
+            raise _unported(f"{what} of {cfg.name}")
+    for i in range(cfg.n_layers):
+        layer_kind(cfg, i)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _frozen(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in tensors.items()})
+
+
+class Model(nn.Module):
+    """The parameters of a dense stack under the reference's names:
+    ``embed_tokens`` (and ``lm_head`` when untied), ``blocks`` (layer i
+    is ``blocks[i]``, a ``ModuleDict`` of ``norm1``, ``attn``, ``norm2``,
+    ``mlp``) and ``final_norm``. ``p[name]`` and ``name in p`` read it as
+    the reference reads its parameter dict.
+
+    ``tree`` holds tensors: ``{"embed_tokens", ["lm_head"], "blocks":
+    [{"norm1": {...}, "attn": {...}, ...}, ...], "final_norm": {...}}``.
+    """
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name in ("embed_tokens", "lm_head"):
+            if name in tree:
+                self.register_parameter(
+                    name, nn.Parameter(tree[name], requires_grad=False))
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({k: _frozen(v) for k, v in layer.items()})
+            for layer in tree["blocks"])
+        self.final_norm = _frozen(tree["final_norm"])
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name):
+        return name in self._parameters or name in self._modules
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_tokens.device
+
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int) -> dict:
+    return {"norm1": init_norm(cfg, gen),
+            "attn": attn.init_attention(cfg, gen),
+            "norm2": init_norm(cfg, gen),
+            "mlp": init_mlp(cfg, gen)}
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, made
+    on ``device`` (cuda unless given). The numbers differ from the
+    reference's ``jax.random`` ones; carry those across with
+    ``convert.params_from_numpy``."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = init_embed(cfg, gen)
+    tree["blocks"] = [_init_layer(cfg, gen, i) for i in range(cfg.n_layers)]
+    tree["final_norm"] = init_norm(cfg, gen)
+    return Model(tree)
+
+
+# ---------------------------------------------------------------------------
+# single layer forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
+                   causal: bool, use_kernel: bool = False,
+                   unroll: bool = False):
+    """Returns (x, cache_dict, aux_loss); aux is 0 without MoE."""
+    h = apply_norm(cfg, p["norm1"], x)
+    out, kv = attn.attention_forward(cfg, p["attn"], h, positions,
+                                     causal=causal, use_kernel=use_kernel,
+                                     unroll=unroll)
+    x = x + out
+    h = apply_norm(cfg, p["norm2"], x)
+    x = x + apply_mlp(p["mlp"], h)
+    return x, {"k": kv[0], "v": kv[1]}, 0.0
+
+
+# ---------------------------------------------------------------------------
+# whole-stack forward
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
+            dp_entry=None, use_kernel=False, remat="none",
+            want_cache: bool = False, unroll: bool = False):
+    """Prefill forward. batch: ``tokens`` (B, S) on the model's device.
+    Returns (logits (B, S, V), aux_loss[, caches]); ``caches["blocks"][i]``
+    holds layer i's raw k/v at sequence length S, which
+    ``serve.engine.prefill_to_decode_cache`` turns into decode layout.
+    """
+    _check_supported(cfg)
+    if mesh is not None:
+        raise _unported("the sharded model (mesh=...)")
+    if remat != "none":
+        raise _unported(f"remat={remat!r}")
+    if "frontend_embeds" in batch:
+        raise _unported("frontend_embeds")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    block_caches = []
+    for i, p in enumerate(params["blocks"]):
+        x, c, _ = _layer_forward(cfg, p, x, positions, i, causal=True,
+                                 use_kernel=use_kernel, unroll=unroll)
+        if want_cache:
+            block_caches.append(c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(cfg, params, x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if want_cache:
+        return logits, aux_total, {"blocks": block_caches}
+    return logits, aux_total
+
+
+# ---------------------------------------------------------------------------
+# caches / decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache_shape(cfg: ModelConfig, i: int, B: int, S_max: int,
+                       device) -> dict:
+    """Zero decode cache of one layer."""
+    KV, hd = cfg.n_kv_heads, cfg.d_head
+    S_cache = min(cfg.sliding_window, S_max) if cfg.attn_type == "swa" \
+        else S_max
+    shape, dt = (B, S_cache, KV, hd), dtype_of(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_cache(cfg: ModelConfig, B: int, S_max: int, enc_len: int = 0, *,
+               device=None):
+    """Zero decode caches, ``{"blocks": [layer 0's, layer 1's, ...]}``, on
+    ``device`` (cuda unless given)."""
+    _check_supported(cfg)
+    if enc_len:
+        raise _unported("the cross-attention cache (enc_len)")
+    device = resolve_device(device)
+    return {"blocks": [_layer_cache_shape(cfg, i, B, S_max, device)
+                       for i in range(cfg.n_layers)]}
+
+
+def _layer_decode(cfg: ModelConfig, p, x, cache: dict, t: int, i: int, *,
+                  mesh=None, dp_entry=None):
+    h = apply_norm(cfg, p["norm1"], x)
+    out, new_cache = attn.attention_decode(cfg, p["attn"], h, cache, t,
+                                           mesh=mesh, dp_entry=dp_entry)
+    x = x + out
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(p["mlp"], h), new_cache
+
+
+def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
+                mesh=None, dp_entry=None, unroll: bool = False):
+    """One decode step. tokens_t: (B, 1); t: the new token's position (the
+    current length). Returns (logits (B, 1, V), new_cache); the caches
+    are updated in place (see ``attention.attention_decode``)."""
+    _check_supported(cfg)
+    if unroll:
+        raise _unported("unroll=True")
+    x = embed_tokens(cfg, params, tokens_t)
+    new_blocks = []
+    for i, (p, c) in enumerate(zip(params["blocks"], cache["blocks"])):
+        x, nc = _layer_decode(cfg, p, x, c, t, i, mesh=mesh,
+                              dp_entry=dp_entry)
+        new_blocks.append(nc)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(cfg, params, x), {"blocks": new_blocks}
+
+
+def prefill(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
+            dp_entry=None, use_kernel=False, unroll: bool = False):
+    """Full-sequence forward returning last-token logits (B, 1, V)."""
+    logits, _ = forward(cfg, params, batch, mesh=mesh, dp_entry=dp_entry,
+                        use_kernel=use_kernel, remat="none", unroll=unroll)
+    return logits[:, -1:]

@@ -18,6 +18,7 @@ from repro_torch.core import wordcount_oracle  # noqa: E402
 from repro_torch.core.planner import gather_segment  # noqa: E402
 from repro_torch.data.feed import SegmentFeed  # noqa: E402
 from repro_torch.data.source import ZipfSource  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.fused_map import ops  # noqa: E402
 from torch_parity import assert_equal, cuda_device, to_torch  # noqa: E402,F401
 
@@ -104,3 +105,65 @@ def test_job_on_card_equals_cpu(cuda_device, fused):
     assert_equal(gpu.windows(), cpu.windows())
     assert gpu.result().records == cpu.result().records == \
         wordcount_oracle(data, 700)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_plain_on_the_card(cuda_device):
+    """Every case of the reference's flash_attention matrix, at its
+    per-dtype tolerance (the helper raises on a miss)."""
+    errs = chip_smoke.phase_flash_vs_plain(cuda_device,
+                                           chip_smoke.FLASH_MATRIX)
+    assert set(errs) == set(chip_smoke.FLASH_MATRIX)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_launches_and_never_takes_plain(cuda_device,
+                                                      monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(fa_ops, "flash_attention_plain", plain)
+    q, k, v = chip_smoke.flash_inputs(chip_smoke.FLASH_MATRIX["gqa4_f32"],
+                                      cuda_device)
+    before = fa_ops.flash_attention.launches
+    o = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert o.is_cuda and o.shape == q.shape and o.dtype == q.dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 32])
+def test_flash_kernel_rejects_other_head_dims(cuda_device, hd):
+    q = torch.zeros(1, 64, 2, hd, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_type", ["gqa", "swa"])
+def test_serving_on_the_card_equals_the_cpu(cuda_device, attn_type):
+    """A small dense model (hd = 64, so the kernel takes it) in fp32:
+    greedy tokens served on the card equal those served on the CPU, and
+    each prefill launched the kernel once per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(
+        get_smoke_config("h2o-danube-1.8b"), d_model=256, n_heads=4,
+        n_kv_heads=2, d_ff=512, d_head=64, attn_type=attn_type,
+        sliding_window=48 if attn_type == "swa" else 0, dtype="float32",
+        param_dtype="float32")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    model = init_model(cfg, 0, device="cpu")
+    want = ServeEngine(cfg, model, max_len=120, device="cpu") \
+        .generate(prompts, 8)
+    model.to(cuda_device)                   # moves the weights in place
+    before = fa_ops.flash_attention.launches
+    got = ServeEngine(cfg, model, max_len=120, device=cuda_device) \
+        .generate(prompts, 8)
+    assert fa_ops.flash_attention.launches == before + cfg.n_layers
+    np.testing.assert_array_equal(got, want)

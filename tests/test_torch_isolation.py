@@ -92,3 +92,24 @@ def test_smoke_phases_rehearse_on_cpu():
     source, reps = chip_smoke.job_input(1 << 13, w)
     assert reps.shape == (4, 32) and reps[0, 0] == 8 and reps[1, 0] == 1
     assert np.asarray(source.read(0, 10)).max() < 2048
+
+
+def test_smoke_flash_and_serve_phases_rehearse_on_cpu():
+    """The flash_attention matrix through the wrapper (the plain version
+    here), its bound, and the serve phase at a SMOKE config: served
+    tokens checked, no kernel launched on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    cpu = torch.device("cpu")
+    errs = chip_smoke.phase_flash_vs_plain(cpu, chip_smoke.FLASH_MATRIX)
+    assert set(errs) == set(chip_smoke.FLASH_MATRIX)
+    assert max(errs.values()) == 0.0
+    _, by, work = chip_smoke.flash_bound(chip_smoke.FLASH_SERVED)
+    assert by == "operations" and work["bytes"] == 4 * 8 * 2048 * 16 * 128 * 2
+    assert work["flops"] == 4 * 8 * 16 * 128 * (2048 * 2049 // 2)
+    _, _, swa = chip_smoke.flash_bound(chip_smoke.FLASH_MATRIX["swa128_f32"])
+    assert swa["flops"] == 4 * 4 * 64 * (128 * 129 // 2 + 384 * 128)
+    serve = chip_smoke.phase_serve(cpu, get_smoke_config("olmo-1b"),
+                                   requests=4, batch=2, prompt_len=64,
+                                   new_tokens=4)
+    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["kernel_vs_ref_err_over_limit"] <= 1.0

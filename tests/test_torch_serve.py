@@ -1,0 +1,276 @@
+"""The port's serving path against the JAX package, on the CPU.
+
+At the olmo-1b and h2o-danube SMOKE configs, in fp32 and bf16, with the
+weights of the reference's ``init_model(cfg, jax.random.key(0))``
+carried across by ``params_from_numpy``: the layers, ``forward`` logits
+and raw caches (kernel path against ``use_pallas=True``, reference path
+against ``use_pallas=False``), ``prefill_to_decode_cache``,
+``decode_step`` and greedy ``ServeEngine.generate``.
+
+Tolerances: fp32 within rtol/atol 1e-5 (sums in another order) and the
+same greedy tokens; bf16 within 3e-2 * max|ref| (the reference's own
+Pallas/ref logit gap is 0.013 of 0.68 and 0.057 of 5.06 here).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import config as jconfig  # noqa: E402
+from repro.configs import registry as jregistry  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.serve import engine as jengine  # noqa: E402
+from repro_torch import config as tconfig  # noqa: E402
+from repro_torch.configs import registry as tregistry  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serve import engine as tengine  # noqa: E402
+
+ARCHS = ("olmo-1b", "h2o-danube-1.8b")
+B, S, NEW = 2, 96, 6
+CPU = torch.device("cpu")
+
+
+@dataclasses.dataclass
+class Pair:
+    dtype: str
+    jcfg: object
+    tcfg: object
+    jp: dict
+    tp: object
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS
+                                        for d in ("float32", "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def pair(request):
+    arch, dtype = request.param
+    jcfg = dataclasses.replace(jregistry.get_smoke_config(arch), dtype=dtype,
+                               param_dtype=dtype)
+    tcfg = dataclasses.replace(tregistry.get_smoke_config(arch), dtype=dtype,
+                               param_dtype=dtype)
+    jp = jtf.init_model(jcfg, jax.random.key(0))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), CPU)
+    return Pair(dtype, jcfg, tcfg, jp, tp)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, dtype, what=""):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=what)
+    else:
+        err, lim = np.abs(got - want).max(), 3e-2 * np.abs(want).max()
+        assert err <= lim, f"{what}: max abs err {err} > {lim}"
+
+
+def _tokens(cfg, seed=0, n=S):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, n)).astype(np.int32)
+
+
+def _jt(a, dtype):
+    return jnp.asarray(a, jnp.dtype(dtype)), \
+        torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def test_layers_match(pair):
+    cfg, d = pair.tcfg, pair.dtype
+    rng = np.random.default_rng(1)
+    jx, tx = _jt(rng.standard_normal((B, S, cfg.d_model), np.float32), d)
+    norm = pair.tp["blocks"][0]["norm1"]
+    jnorm = jax.tree.map(lambda a: a[0], pair.jp["blocks"]["layer0"]["norm1"])
+    assert set(norm) == set(jnorm)
+    _close(tl.apply_norm(cfg, norm, tx), jl.apply_norm(pair.jcfg, jnorm, jx),
+           d, "apply_norm")
+    jh, th = _jt(rng.standard_normal((B, S, 4, cfg.d_head), np.float32), d)
+    pos = rng.integers(0, 4096, (B, S)).astype(np.int32)
+    _close(tl.apply_rope(th.transpose(1, 2), torch.from_numpy(pos)[:, None],
+                         cfg.rope_theta).transpose(1, 2),
+           jl.apply_rope(jh.swapaxes(1, 2), jnp.asarray(pos)[:, None],
+                         cfg.rope_theta).swapaxes(1, 2), d, "apply_rope")
+    jmlp = jax.tree.map(lambda a: a[0], pair.jp["blocks"]["layer0"]["mlp"])
+    _close(tl.apply_mlp(pair.tp["blocks"][0]["mlp"], tx),
+           jl.apply_mlp(jmlp, jx), d, "apply_mlp")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_forward_logits_and_caches(pair, use_kernel):
+    toks = _tokens(pair.tcfg)
+    want, _, jc = jtf.forward(pair.jcfg, pair.jp,
+                              {"tokens": jnp.asarray(toks)},
+                              use_pallas=use_kernel, want_cache=True)
+    got, aux, tc = ttf.forward(pair.tcfg, pair.tp,
+                               {"tokens": torch.from_numpy(toks)},
+                               use_kernel=use_kernel, want_cache=True)
+    assert got.dtype == getattr(torch, pair.dtype) and float(aux) == 0.0
+    _close(got, want, pair.dtype, "logits")
+    for i, c in enumerate(tc["blocks"]):
+        for name in ("k", "v"):
+            _close(c[name], jc["blocks"]["layer0"][name][i], pair.dtype,
+                   f"layer {i} {name}")
+    _close(ttf.prefill(pair.tcfg, pair.tp,
+                       {"tokens": torch.from_numpy(toks)},
+                       use_kernel=use_kernel),
+           want[:, -1:], pair.dtype, "prefill")
+
+
+def test_prefill_to_decode_cache(pair):
+    """The conversion alone, on the reference's own raw caches: equal."""
+    toks = _tokens(pair.tcfg)
+    _, _, jc = jtf.forward(pair.jcfg, pair.jp, {"tokens": jnp.asarray(toks)},
+                           want_cache=True)
+    for S_max in (S + 8, 2 * S):
+        want = jengine.prefill_to_decode_cache(pair.jcfg, jc, S, S_max)
+        raw = {"blocks": [
+            {n: torch.tensor(_np(jc["blocks"]["layer0"][n][i])).to(
+                getattr(torch, pair.dtype)) for n in ("k", "v")}
+            for i in range(pair.tcfg.n_layers)]}
+        got = tengine.prefill_to_decode_cache(pair.tcfg, raw, S, S_max)
+        for i, c in enumerate(got["blocks"]):
+            for n in ("k", "v"):
+                np.testing.assert_array_equal(
+                    _np(c[n]), _np(want["blocks"]["layer0"][n][i]))
+
+
+def test_decode_step(pair):
+    toks = _tokens(pair.tcfg)
+    nxt = _tokens(pair.tcfg, seed=2, n=2)
+    S_max = S + 8
+    _, _, jc = jtf.forward(pair.jcfg, pair.jp, {"tokens": jnp.asarray(toks)},
+                           want_cache=True)
+    jcache = jengine.prefill_to_decode_cache(pair.jcfg, jc, S, S_max)
+    _, _, tc = ttf.forward(pair.tcfg, pair.tp,
+                           {"tokens": torch.from_numpy(toks)},
+                           want_cache=True)
+    tcache = tengine.prefill_to_decode_cache(pair.tcfg, tc, S, S_max)
+    for step in range(2):
+        want, jcache = jtf.decode_step(pair.jcfg, pair.jp, jcache,
+                                       jnp.asarray(nxt[:, step:step + 1]),
+                                       S + step)
+        got, tcache = ttf.decode_step(pair.tcfg, pair.tp, tcache,
+                                      torch.from_numpy(nxt[:, step:step + 1]),
+                                      S + step)
+        _close(got, want, pair.dtype, f"decode logits {step}")
+        for i, c in enumerate(tcache["blocks"]):
+            for n in ("k", "v"):
+                _close(c[n], jcache["blocks"]["layer0"][n][i], pair.dtype,
+                       f"step {step} layer {i} {n}")
+
+
+def test_generate_greedy(pair):
+    prompts = _tokens(pair.tcfg, seed=3)
+    max_len = S + NEW + 8
+    want = jengine.ServeEngine(pair.jcfg, pair.jp, max_len=max_len) \
+        .generate(prompts, NEW)
+    got = tengine.ServeEngine(pair.tcfg, pair.tp, max_len=max_len,
+                              device=CPU).generate(prompts, NEW)
+    assert got.shape == (B, NEW) and got.dtype == np.int32
+    if pair.dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+        return
+    # bf16: every served token is a maximum, within the tolerance, of the
+    # reference's logits for the sequence the port served
+    seq = np.concatenate([prompts, got[:, :-1]], 1)
+    logits, _ = jtf.forward(pair.jcfg, pair.jp, {"tokens": jnp.asarray(seq)})
+    logits = _np(logits)[:, S - 1:]
+    picked = np.take_along_axis(logits, got[..., None], -1)[..., 0]
+    lim = 3e-2 * np.abs(logits).max()
+    assert (logits.max(-1) - picked).max() <= lim
+
+
+def test_temperature_sampling_follows_the_seed():
+    cfg = tregistry.get_smoke_config("olmo-1b")
+    eng = tengine.ServeEngine(cfg, ttf.init_model(cfg, 0, device=CPU),
+                              max_len=40, device=CPU)
+    prompts = _tokens(cfg, n=16)
+    a, b, c = (eng.generate(prompts, 8, greedy=False, temperature=0.8,
+                            seed=s) for s in (5, 5, 6))
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+    assert a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+def test_generate_stops_at_eos():
+    cfg = tregistry.get_smoke_config("olmo-1b")
+    model = ttf.init_model(cfg, 0, device=CPU)
+    prompts = _tokens(cfg, n=16)[:1]
+    full = tengine.ServeEngine(cfg, model, max_len=40, device=CPU) \
+        .generate(prompts, 8)[0]
+    eos = int(full[2])
+    stop = 1 + next(i for i, t in enumerate(full[1:]) if t == eos)
+    got = tengine.ServeEngine(cfg, model, max_len=40, device=CPU,
+                              eos_id=eos).generate(prompts, 8)[0]
+    np.testing.assert_array_equal(got, full[:stop + 1])
+
+
+def test_configs_are_the_reference_configs():
+    for arch in ARCHS:
+        for get in ("get_config", "get_smoke_config"):
+            t = getattr(tregistry, get)(arch)
+            j = getattr(jregistry, get)(arch)
+            assert dataclasses.asdict(t) == dataclasses.asdict(j)
+            assert t.param_count() == j.param_count()
+    assert set(tregistry.ARCH_IDS) == set(ARCHS)
+    for arch in set(jregistry.ARCH_IDS) - set(ARCHS):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            tregistry.get_config(arch)
+    fields = {f.name for f in dataclasses.fields(jconfig.ModelConfig)}
+    assert fields == {f.name for f in dataclasses.fields(
+        tconfig.ModelConfig)}
+
+
+@pytest.mark.parametrize("what", ["ssm", "moe", "mla", "first_k_dense",
+                                  "encoder", "frontend", "remat", "unroll"])
+def test_unported_parts_raise(what):
+    cfg = tregistry.get_smoke_config("olmo-1b")
+    bad = {"ssm": dict(family="ssm"), "moe": dict(n_experts=4, top_k=2),
+           "mla": dict(attn_type="mla"), "first_k_dense": dict(
+               first_k_dense=1, n_layers=3),
+           "encoder": dict(n_enc_layers=2), "frontend": dict(
+               frontend="vision_stub")}
+    toks = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        if what in bad:
+            ttf.init_model(dataclasses.replace(cfg, **bad[what]), 0,
+                           device=CPU)
+        else:
+            model = ttf.init_model(cfg, 0, device=CPU)
+            kw = {"remat": "full"} if what == "remat" else {"unroll": True}
+            ttf.forward(cfg, model, toks, **kw)
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tregistry.get_smoke_config("olmo-1b")
+    model = ttf.init_model(cfg, 0, device="cpu")
+    for call in (lambda: ttf.init_model(cfg, 0),
+                 lambda: tengine.ServeEngine(cfg, model, max_len=16),
+                 lambda: ttf.init_cache(cfg, 1, 16),
+                 lambda: serve.main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_launch_serve_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--device", "cpu",
+                "--requests", "3", "--batch", "2", "--prompt-len", "40",
+                "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "h2o-danube-smoke on cpu" in out
+    assert "done: 9 tokens" in out
