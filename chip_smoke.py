@@ -5,28 +5,35 @@
 
 Phases, each of which asserts (nothing is caught):
 
-  1. build   — compile every kernel of the two paths from the sources in
-               this checkout (one nvcc per source, all started together);
+  1. build   — compile every kernel of the three paths from the sources
+               in this checkout (one nvcc per source, all started
+               together);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
-               shapes (fused_map bit for bit, flash_attention at the
-               reference's per-dtype tolerance), and time both with CUDA
-               events, beside the library call where there is one;
+               shapes (fused_map bit for bit, flash_attention and
+               ssd_scan at the reference's per-dtype tolerance), and time
+               both with CUDA events, beside the library call where
+               there is one;
   3. job     — MR-1S WordCount through the Job API at the documented
                fused width (V = 262,144, P = 8, S = 256, cap = 64) on a
                Zipf corpus with one 8x-hot rank: records equal to the
-               numpy oracle, fused equal to unfused, and the kernel
-               launched on the main path;
-  4. serve   — olmo-1b at full width through ``ServeEngine.generate``:
-               16 requests in batches of 8, 2048-token prompts, 32 new
-               tokens, greedy; flash_attention launched once per layer
+               numpy oracle and the kernel launched on the main path;
+               fused equal to unfused on a 2**25-token corpus of the same
+               width (the unfused engine is ~9x slower);
+  4. serve   — olmo-1b and mamba2-780m at full width through
+               ``ServeEngine.generate``: 16 requests in batches of 8,
+               2048-token prompts, 32 new tokens, greedy; the arch's
+               kernel (flash_attention, ssd_scan) launched once per layer
                and prefill, and the kernel's last-position logits within
-               3e-2 * max|logits| of the chunked reference attention's;
+               3e-2 * max|logits| of the reference path's (for mamba2,
+               whose bf16 paths drift apart with depth, each layer's mixer
+               instead, and the whole stack in fp32 within 1e-3 *
+               max|logits|);
   5. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
-The launch counts are set to 0 just before each path (3 and 4) and read
-just after it.
+The launch counts are set to 0 just before each path (3 and each arch
+of 4) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -54,11 +61,13 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 # 20 s on an H100, so the input was raised to keep the run measurable)
 VOCAB, N_PROCS, TASK, CAP, SEGMENT = 262_144, 8, 256, 64, 512
 N_TOKENS = 2**27
+N_UNFUSED = 2**25               # the fused-vs-unfused comparison's corpus
 
 
 # the served configuration: olmo-1b at full width (depth and width as
 # published), random weights from seed 0
-SERVE_ARCH, REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = "olmo-1b", 16, 8, 2048, 32
+SERVE_ARCHS = ("olmo-1b", "mamba2-780m")
+REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = 16, 8, 2048, 32
 
 
 def _port():
@@ -77,12 +86,21 @@ def _fa():
     return ops, ref
 
 
+def _ssd():
+    """The ssd_scan kernel's wrapper and plain version."""
+    _port()
+    from repro_torch.kernels.ssd_scan import ops, ref
+    return ops, ref
+
+
 def zero_counts():
     """Set every kernel's launch count to 0."""
     _, _, _, fm_ops, _ = _port()
     fa_ops, _ = _fa()
+    ssd_ops, _ = _ssd()
     fm_ops.fused_map.launches = 0
     fa_ops.flash_attention.launches = 0
+    ssd_ops.ssd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +111,9 @@ def phase_build() -> dict:
     """One nvcc per kernel source, all started together."""
     _, _, backend, fm_ops, _ = _port()
     fa_ops, _ = _fa()
-    sources = {"fused_map": fm_ops.SOURCE, "flash_attention": fa_ops.SOURCE}
+    ssd_ops, _ = _ssd()
+    sources = {"fused_map": fm_ops.SOURCE, "flash_attention": fa_ops.SOURCE,
+               "ssd_scan": ssd_ops.SOURCE}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {k: pool.submit(backend.build, v) for k, v in sources.items()}
@@ -371,6 +391,111 @@ def time_flash(device) -> dict:
                 bound_by=bound_by, **work)
 
 
+# the reference's ssd_scan test matrix (tests/test_kernels.py::
+# test_ssd_scan_sweep; its "ragged" 384/128 divides), a truly ragged S, a
+# two-group case, a case whose decay overflows above the diagonal, and the
+# served shape: (B, S, H, P, N, G, chunk, dtype of x/B/C, dtype of dt,
+# A of every head with dt = 1, or None for the reference's random dt, A)
+SSD_MATRIX = {
+    "sweep0_f32": (2, 512, 4, 64, 32, 1, 128, "float32", "float32", None),
+    "sweep1_f32": (1, 256, 8, 32, 16, 1, 64, "float32", "float32", None),
+    "sweep2_f32": (1, 384, 4, 64, 32, 1, 128, "float32", "float32", None),
+    "sweep3_bf16": (2, 256, 4, 64, 16, 1, 128, "bfloat16", "float32", None),
+    "ragged200_f32": (1, 200, 4, 32, 16, 1, 64, "float32", "float32", None),
+    "g2_ragged320_bf16": (1, 320, 8, 64, 32, 2, 128, "bfloat16", "bfloat16",
+                          None),
+    # cum falls by 50 a row: exp(cum_i - cum_j) is inf for j > i + 1
+    "overflow_f32": (1, 160, 2, 32, 16, 1, 64, "float32", "float32", -50.0),
+}
+SSD_SERVED = (BATCH, PROMPT_LEN, 48, 64, 128, 1, 256, "bfloat16", "bfloat16",
+              None)
+
+
+def ssd_inputs(case, device):
+    """Seeded x, dt, A, B, C of one case, following the reference test's
+    generator: x, B, C standard normal, dt = softplus(normal), A =
+    -exp(normal) in fp32 (or dt = 1 and the case's A), each cast to its
+    dtype."""
+    Bb, S, H, P, N, G, _, dtype, dt_dtype, a_value = case
+    rng = np.random.default_rng(S + N)
+    x = rng.standard_normal((Bb, S, H, P), np.float32)
+    dt = np.logaddexp(rng.standard_normal((Bb, S, H), np.float32), 0)
+    A = -np.exp(rng.standard_normal((H,), np.float32))
+    if a_value is not None:
+        dt, A = np.ones_like(dt), np.full_like(A, a_value)
+    Bm = rng.standard_normal((Bb, S, G, N), np.float32)
+    C = rng.standard_normal((Bb, S, G, N), np.float32)
+
+    def on(a, dt_):
+        return torch.from_numpy(a).to(device=device, dtype=getattr(torch, dt_))
+    return (on(x, dtype), on(dt, dt_dtype), on(A, "float32"), on(Bm, dtype),
+            on(C, dtype))
+
+
+def phase_ssd_vs_plain(device, cases: dict) -> dict:
+    """Hold ``ssd`` to ``ssd_plain`` on every case, y and the final state
+    at the reference's per-dtype tolerance (``flash_tol``: the same
+    ``_tol``). Returns the max abs difference per case."""
+    ssd_ops, ssd_ref = _ssd()
+    errs = {}
+    for name, case in cases.items():
+        args = ssd_inputs(case, device)
+        chunk, dtype = case[6], case[7]
+        got = ssd_ops.ssd(*args, chunk=chunk)
+        want = ssd_ref.ssd_plain(*args, chunk=chunk)
+        tol = flash_tol(dtype)
+        errs[name] = 0.0
+        for what, g, w in zip(("y", "state"), got, want):
+            g, w = g.float(), w.float()
+            diff = (g - w).abs()
+            errs[name] = max(errs[name], diff.max().item())
+            if not bool(torch.isfinite(g).all()) or bool(
+                    (diff > tol["atol"] + tol["rtol"] * w.abs()).any()):
+                raise AssertionError(f"ssd != plain on {name}: {what} max "
+                                     f"abs err {diff.max().item()} ({tol})")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def ssd_bound(case) -> tuple[float, str, dict]:
+    """Least time of one scan: x, dt, A, B, C read once and y and the
+    state written once at the memory rate, against the FLOPs these
+    inputs need at the rate of their type (bf16 tensor cores, else the
+    fp32 rate): the visible (i >= j) pairs of each chunk (C·B and the
+    product with x·dt, 2(N + P) each), the carried-in term of every row
+    past the first chunk (the state is zero before it) and every row's
+    state update (2PN each)."""
+    Bb, S, H, P, N, G, chunk, dtype, dt_dtype, _ = case
+    size = torch.finfo(getattr(torch, dtype)).bits // 8
+    dt_size = torch.finfo(getattr(torch, dt_dtype)).bits // 8
+    nbytes = (2 * Bb * S * H * P * size + Bb * S * H * dt_size + H * 4
+              + 2 * Bb * S * G * N * size + Bb * H * P * N * 4)
+    lens = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    per_head = (sum(n * (n + 1) // 2 for n in lens) * 2 * (N + P)
+                + 2 * P * N * (S - lens[0]) + 2 * P * N * S)
+    flops = Bb * H * per_head
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    t_ops = flops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, {"flops": flops, "bytes": nbytes}
+
+
+def time_ssd(device) -> dict:
+    """CUDA-event time per call of the kernel and of its plain version at
+    the served shape, beside the bound. No single PyTorch call computes
+    the scan, so there is no library time."""
+    ssd_ops, ssd_ref = _ssd()
+    args = ssd_inputs(SSD_SERVED, device)
+    chunk = SSD_SERVED[6]
+    ms = _event_ms(lambda: ssd_ops.ssd(*args, chunk=chunk), 20)
+    plain_ms = _event_ms(lambda: ssd_ref.ssd_plain(*args, chunk=chunk), 3)
+    bound_ms, bound_by, work = ssd_bound(SSD_SERVED)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, **work)
+
+
 # ---------------------------------------------------------------------------
 # 3. the slice at full width
 # ---------------------------------------------------------------------------
@@ -416,10 +541,13 @@ def run_job(cfg, source, reps, device) -> tuple:
     return res, time.perf_counter() - t0
 
 
-def phase_job(device, n: int, w: Width = FULL) -> dict:
-    """Warm up, then run the fused job (the main path, launch counts
-    zeroed just before and read just after) and the unfused one, and
-    check both against the oracle and each other."""
+def phase_job(device, n: int, w: Width = FULL,
+              n_unfused: int | None = None) -> dict:
+    """Warm up, run the fused job on ``n`` tokens (the main path, launch
+    counts zeroed just before and read just after) and check it against
+    the oracle; then run the unfused job on ``n_unfused`` tokens (``n``
+    unless given) of the same width and check it against the fused job
+    on the same input and the oracle."""
     core, data, _, ops, _ = _port()
     source, reps = job_input(n, w)
     oracle = core.wordcount_oracle(data.read_all(source), w.vocab)
@@ -434,19 +562,31 @@ def phase_job(device, n: int, w: Width = FULL) -> dict:
                                     device)
     launches = ops.fused_map.launches
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    unfused_res, unfused_wall = run_job(job_config(False, w), source, reps,
-                                        device)
     assert fused_res.records == oracle, "fused records != numpy oracle"
-    assert unfused_res.records == fused_res.records, "fused != unfused"
     assert fused_res.n_tasks == -(-n // w.task)
     assert int(fused_res.tasks_per_rank.sum()) == fused_res.n_tasks
     steps = -(-reps.shape[1] // w.segment) * w.segment
     if cuda:
         assert launches == steps, (launches, steps)
+
+    n_unfused = n if n_unfused is None else n_unfused
+    if n_unfused == n:
+        small_res, small_wall = fused_res, fused_wall
+    else:
+        source, reps = job_input(n_unfused, w)
+        small_res, small_wall = run_job(job_config(True, w), source, reps,
+                                        device)
+        assert small_res.records == core.wordcount_oracle(
+            data.read_all(source), w.vocab), "fused records != numpy oracle"
+    unfused_res, unfused_wall = run_job(job_config(False, w), source, reps,
+                                        device)
+    assert unfused_res.records == small_res.records, "fused != unfused"
     return dict(n=n, steps=steps, launches=launches, fused_wall=fused_wall,
-                unfused_wall=unfused_wall, tokens_per_s=n / fused_wall,
-                unfused_tokens_per_s=n / unfused_wall, peak_bytes=peak,
-                n_records=len(oracle), imbalance=fused_res.imbalance)
+                tokens_per_s=n / fused_wall, peak_bytes=peak,
+                n_records=len(oracle), imbalance=fused_res.imbalance,
+                n_unfused=n_unfused, fused_wall_at_n_unfused=small_wall,
+                unfused_wall=unfused_wall,
+                unfused_tokens_per_s=n_unfused / unfused_wall)
 
 
 def device_profile(fn) -> dict:
@@ -494,7 +634,7 @@ def print_profile(what: str, prof: dict):
 
 
 # ---------------------------------------------------------------------------
-# 4. serving olmo-1b at full width
+# 4. serving olmo-1b and mamba2-780m at full width
 # ---------------------------------------------------------------------------
 
 def _serve():
@@ -516,6 +656,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def serve_kernel(cfg):
+    """(name, wrapper) of the kernel that a prefill of ``cfg``'s stack
+    runs once per layer: ssd_scan for the ssm family, else
+    flash_attention."""
+    if cfg.family == "ssm":
+        return "ssd_scan", _ssd()[0].ssd
+    return "flash_attention", _fa()[0].flash_attention
+
+
 def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                 prompt_len: int = PROMPT_LEN,
                 new_tokens: int = NEW_TOKENS) -> dict:
@@ -523,7 +672,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     main path: counts zeroed just before, read just after), then check
     the served tokens and time the engine's prefill and decode step."""
     _, tf, eng = _serve()
-    fa_ops, _ = _fa()
+    _, kernel = serve_kernel(cfg)
     cuda = device.type == "cuda"
     t0 = time.perf_counter()
     model = tf.init_model(cfg, 0, device=device)
@@ -544,7 +693,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
             for lo in range(0, requests, batch)]
     _sync(device)
     wall = time.perf_counter() - t0
-    launches = fa_ops.flash_attention.launches
+    launches = kernel.launches
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
     out = np.concatenate(outs)
@@ -554,8 +703,13 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     if cuda:
         assert launches == cfg.n_layers * n_batches, launches
 
-    # the kernel's prefill against the chunked reference attention's, and
-    # the first served token a maximum of the kernel path's logits
+    # the kernel's prefill against the reference path's (chunked attention,
+    # ssd_ref), and the first served token a maximum of the kernel path's
+    # logits. In bf16 an ssm stack's two paths drift apart with depth, as
+    # the bf16 reference drifts from its own fp32 run (PERF.md, Findings): its
+    # end-to-end gap is reported, and each layer's mixer is held instead
+    # (``ssm_layer_errs``), beside the fp32 run of ``phase_ssm_precision``.
+    ssm = cfg.family == "ssm"
     worst = 0.0
     with torch.inference_mode():
         for i, lo in enumerate(range(0, requests, batch)):
@@ -566,7 +720,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
             assert bool(torch.isfinite(lk).all()), "non-finite logits"
             err = (lk - lr).abs().max().item()
             lim = 3e-2 * lr.abs().max().item()
-            assert err <= lim, (err, lim)
+            assert ssm or err <= lim, (err, lim)
             worst = max(worst, err / lim)
             first = torch.from_numpy(outs[i][:, :1]).to(device).long()
             assert bool((lk.gather(1, first)[:, 0] == lk.amax(1)).all()), \
@@ -574,6 +728,9 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
 
         # the engine's two programs, timed alone on the first batch
         tokens = {"tokens": torch.from_numpy(prompts[:batch]).to(device)}
+        layer_errs = ssm_layer_errs(cfg, model, tokens["tokens"]) if ssm \
+            else []
+        assert max(layer_errs, default=0.0) <= 1.0, layer_errs
         t0 = time.perf_counter()
         logits, _, raw = engine._prefill(model, tokens)
         _sync(device)
@@ -603,7 +760,63 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                 prompt_tokens_per_s=requests * prompt_len / wall,
                 prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3,
                 peak_bytes=peak, init_s=init_s,
-                kernel_vs_ref_err_over_limit=worst, profiles=profiles)
+                kernel_vs_ref_err_over_limit=worst,
+                layer_err_over_limit=max(layer_errs, default=None),
+                profiles=profiles)
+
+
+def ssm_layer_errs(cfg, model, tokens) -> list:
+    """Each ssm layer's mixer on the kernel path's own input: the block
+    through the kernel against the block through ``ssd_ref``, max abs
+    error over 3e-2 * max|ssd_ref block|, layer by layer."""
+    _port()
+    from repro_torch.models import layers, ssm
+    errs = []
+    x = layers.embed_tokens(cfg, model, tokens)
+    for p in model["blocks"]:
+        h = layers.apply_norm(cfg, p["norm1"], x)
+        ok, _ = ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=True)
+        ref, _ = ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=False)
+        assert bool(torch.isfinite(ok).all()), "non-finite ssm output"
+        errs.append((ok - ref).abs().max().item()
+                    / (3e-2 * ref.abs().max().item()))
+        x = x + ok
+    return errs
+
+
+def phase_ssm_precision(device, cfg, batch: int = 2,
+                        prompt_len: int = 512) -> dict:
+    """One batch of the stack (random weights from seed 0) through both
+    prefill paths in its dtype and, with the same weights upcast, in
+    fp32. Holds the fp32 kernel path within 1e-3 * max|logits| of the
+    fp32 reference path, and reports each gap over its limit: the two
+    paths in the model's dtype (3e-2 * max|logits|) and each of them
+    against the fp32 reference (as a fraction of max|logits|)."""
+    import copy
+    import dataclasses
+    _, tf, _ = _serve()
+    model = tf.init_model(cfg, 0, device=device)
+    tokens = {"tokens": torch.from_numpy(
+        serve_prompts(cfg, batch, prompt_len)).to(device)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    with torch.inference_mode():
+        lk = tf.prefill(cfg, model, tokens, use_kernel=True)[:, 0].float()
+        lr = tf.prefill(cfg, model, tokens, use_kernel=False)[:, 0].float()
+        model32 = copy.deepcopy(model).float()
+        del model
+        lk32 = tf.prefill(cfg32, model32, tokens, use_kernel=True)[:, 0]
+        lr32 = tf.prefill(cfg32, model32, tokens, use_kernel=False)[:, 0]
+    for t in (lk, lr, lk32):
+        assert bool(torch.isfinite(t).all()), "non-finite logits"
+    top = lr32.abs().max().item()
+    err32 = (lk32 - lr32).abs().max().item()
+    assert err32 <= 1e-3 * top, (err32, top)
+    return dict(n_layers=cfg.n_layers, batch=batch, prompt_len=prompt_len,
+                fp32_err_over_limit=err32 / (1e-3 * top),
+                low_err_over_limit=(lk - lr).abs().max().item()
+                / (3e-2 * lr.abs().max().item()),
+                kernel_low_vs_fp32=(lk - lr32).abs().max().item() / top,
+                ref_low_vs_fp32=(lr - lr32).abs().max().item() / top)
 
 
 # ---------------------------------------------------------------------------
@@ -643,37 +856,71 @@ def main() -> int:
           f"({fa['bound_by']}: {fa['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s, "
           f"{fa['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
 
-    job = phase_job(device, N_TOKENS)
+    ssd_errs = phase_ssd_vs_plain(device, {**SSD_MATRIX,
+                                           "served": SSD_SERVED})
+    for name, e in ssd_errs.items():
+        print(f"kernels: ssd_scan ~ plain on {name}: max abs err {e}")
+    ssd = time_ssd(device)
+    print(f"ssd_scan at B={BATCH} S={PROMPT_LEN} H=48 P=64 N=128 G=1 chunk=256 "
+          f"bf16: {ssd['ms']:.3f} ms, plain {ssd['plain_ms']:.3f} ms, bound "
+          f"{ssd['bound_ms']:.4f} ms ({ssd['bound_by']}: "
+          f"{ssd['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
+          f"{ssd['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s)")
+
+    job = phase_job(device, N_TOKENS, n_unfused=N_UNFUSED)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
           f"cap={CAP} segment={SEGMENT}, {job['steps']} steps, "
-          f"{job['n_records']} records == oracle, fused == unfused")
+          f"{job['n_records']} records == oracle; fused == unfused at "
+          f"N={job['n_unfused']}")
     print(f"job: fused {job['fused_wall']:.2f} s "
-          f"({job['tokens_per_s']:.0f} tokens/s), unfused "
-          f"{job['unfused_wall']:.2f} s "
-          f"({job['unfused_tokens_per_s']:.0f} tokens/s), fused_map "
-          f"launches {job['launches']}, peak device memory "
+          f"({job['tokens_per_s']:.0f} tokens/s), fused_map launches "
+          f"{job['launches']}, peak device memory "
           f"{job['peak_bytes'] / 2**20:.1f} MiB, imbalance "
-          f"{job['imbalance']:.2f}")
+          f"{job['imbalance']:.2f}; at N={job['n_unfused']}: fused "
+          f"{job['fused_wall_at_n_unfused']:.2f} s, unfused "
+          f"{job['unfused_wall']:.2f} s "
+          f"({job['unfused_tokens_per_s']:.0f} tokens/s)")
     prof = phase_profile(device, 2 * SEGMENT * TASK * N_PROCS)
     print_profile(f"one fused segment ({SEGMENT} steps)", prof)
 
     get_config, _, _ = _serve()
-    serve = phase_serve(device, get_config(SERVE_ARCH))
-    print(f"serve: {serve['arch']} at full width, {serve['requests']} "
-          f"requests in batches of {serve['batch']}, prompt "
-          f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, greedy: "
-          f"{serve['wall_s']:.3f} s, {serve['served_tokens_per_s']:.1f} "
-          f"served tokens/s; prefill {serve['prefill_ms']:.1f} ms per batch, "
-          f"decode {serve['decode_ms_per_token']:.2f} ms per token; "
-          f"flash_attention launches {serve['launches']}; peak device memory "
-          f"{serve['peak_bytes'] / 2**30:.2f} GiB; kernel-vs-reference "
-          f"logits at {serve['kernel_vs_ref_err_over_limit']:.3f} of the "
-          f"3e-2 * max|logits| limit")
-    for what, p in serve["profiles"].items():
-        print_profile(f"serve {what}", p)
+    serves = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        serve = serves[arch] = phase_serve(device, cfg)
+        name, _ = serve_kernel(cfg)
+        print(f"serve: {serve['arch']} at full width, {serve['requests']} "
+              f"requests in batches of {serve['batch']}, prompt "
+              f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, "
+              f"greedy: {serve['wall_s']:.3f} s, "
+              f"{serve['served_tokens_per_s']:.1f} served tokens/s; prefill "
+              f"{serve['prefill_ms']:.1f} ms per batch, decode "
+              f"{serve['decode_ms_per_token']:.2f} ms per token; {name} "
+              f"launches {serve['launches']}; peak device memory "
+              f"{serve['peak_bytes'] / 2**30:.2f} GiB; kernel-vs-reference "
+              f"logits at {serve['kernel_vs_ref_err_over_limit']:.3f} of the "
+              f"3e-2 * max|logits| limit")
+        if serve["layer_err_over_limit"] is not None:
+            print(f"serve: {arch} per-layer mixer, kernel vs ssd_ref on the "
+                  f"same input: worst layer at "
+                  f"{serve['layer_err_over_limit']:.3f} of the 3e-2 * "
+                  f"max|out| limit (the end-to-end bf16 gap above is "
+                  f"reported, not held: see PERF.md)")
+        for what, p in serve["profiles"].items():
+            print_profile(f"serve {arch} {what}", p)
+        if cfg.family == "ssm":
+            prec = serve["precision"] = phase_ssm_precision(device, cfg)
+            print(f"serve: {arch} B=2 S=512: fp32 kernel-vs-reference logits "
+                  f"at {prec['fp32_err_over_limit']:.4f} of the 1e-3 * "
+                  f"max|logits| limit; bf16 kernel vs reference at "
+                  f"{prec['low_err_over_limit']:.3f} of 3e-2 * max|logits|; "
+                  f"against the fp32 reference: bf16 kernel path "
+                  f"{prec['kernel_low_vs_fp32']:.4f}, bf16 reference path "
+                  f"{prec['ref_low_vs_fp32']:.4f} of max|logits|")
     print(json.dumps({"job": job, "profile": prof, "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
-                      "serve": serve}))
+                      "ssd_scan": {**ssd, "max_abs_err": ssd_errs},
+                      "serve": serves}))
 
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
@@ -689,12 +936,21 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-        "launches": serve["launches"],
+        "launches": serves["olmo-1b"]["launches"],
         "max_abs_err": max(fa_errs.values()),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
-        "build_s": built["flash_attention"].seconds}]}))
+        "build_s": built["flash_attention"].seconds}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:77",
+        "launches": serves["mamba2-780m"]["launches"],
+        "max_abs_err": max(ssd_errs.values()),
+        "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": None,
+        "build_s": built["ssd_scan"].seconds}]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -1,7 +1,8 @@
 """Arch registry of the port (counterpart of ``repro/configs/registry.py``).
 
 It lists only the archs whose every layer the port runs: the dense
-families. Any other arch of the reference raises ``NotImplementedError``.
+families and the attention-free ``ssm`` family. Any other arch of the
+reference raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.config import ModelConfig
 _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
 }
 
 ARCH_IDS: list[str] = list(_MODULES)

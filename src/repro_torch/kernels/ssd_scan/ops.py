@@ -1,0 +1,109 @@
+"""Wrapper of the chunked SSD scan kernel (``csrc/ssd_scan.cu``).
+
+Takes the layout of ``repro/kernels/ssd_scan/ops.py::ssd`` and follows
+the port's kernel policy (``kernels/backend.py``): a CPU tensor takes the
+plain version (``ref.ssd_plain``), a CUDA tensor the compiled kernel or
+an error. The kernel reads (B, S, H, P) and (B, S, G, N) in place, head
+h reading group ``h // (H // G)``, and masks the ragged tail itself, so
+the wrapper neither transposes, repeats nor pads. ``init_state`` is
+folded in around either path in the reference wrapper's closed form
+(``ref.fold_init_state``); the serving path never passes it.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import backend
+from repro_torch.kernels.ssd_scan.ref import fold_init_state, ssd_plain
+
+SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
+HEAD_DIMS = (32, 64)              # P the kernel is built for
+STATE_DIMS = (16, 32, 128)        # N the kernel is built for
+CHUNKS = (64, 128, 256)           # chunk lengths the kernel takes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_FN = None    # the typed C entry point, resolved at the first launch
+
+
+def _launcher():
+    global _FN
+    if _FN is None:
+        fn = backend.load(SOURCE).ssd_scan_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check(x, dt, A, B, C):
+    if x.dim() != 4 or B.dim() != 4 or C.shape != B.shape:
+        raise ValueError(f"expected x (B, S, H, P) and B, C (B, S, G, N); "
+                         f"got {tuple(x.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    Bb, S, H, _ = x.shape
+    if (B.shape[:2] != (Bb, S) or tuple(dt.shape) != (Bb, S, H)
+            or tuple(A.shape) != (H,) or S == 0 or H % B.shape[2]):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(B.shape)} do not fit: "
+                         f"need dt (B, S, H), A (H,), S >= 1, H % G == 0")
+    if x.dtype not in _DTYPE_CODE or dt.dtype not in _DTYPE_CODE:
+        raise TypeError(f"ssd takes float32 or bfloat16 x and dt, got "
+                        f"{x.dtype}, {dt.dtype}")
+    for name, t in (("B", B), ("C", C)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"A must be float32, got {A.dtype}")
+    for name, t in (("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _launch(x, dt, A, B, C, chunk: int):
+    Bb, S, H, Pd = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if Pd not in HEAD_DIMS or N not in STATE_DIMS or chunk not in CHUNKS:
+        raise ValueError(f"the ssd_scan kernel takes P in {HEAD_DIMS}, N in "
+                         f"{STATE_DIMS} and chunk in {CHUNKS}; got P={Pd}, "
+                         f"N={N}, chunk={chunk}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    y = torch.empty_like(x)
+    state = torch.empty((Bb, H, Pd, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _launcher()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                     C.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H,
+                     G, Pd, N, chunk, _DTYPE_CODE[x.dtype],
+                     _DTYPE_CODE[dt.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+    ssd.launches += 1
+    return y, state
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256, init_state=None,
+        use_kernel: bool = False):
+    """x: (B, S, H, P); dt: (B, S, H); A: (H,) fp32; B/C: (B, S, G, N).
+    Returns (y (B, S, H, P) in x's dtype, final_state (B, H, P, N) fp32).
+
+    The tensors' device picks kernel or plain version; ``use_kernel=True``
+    demands the kernel and raises on CPU tensors. On the card the kernel
+    takes P in ``HEAD_DIMS``, N in ``STATE_DIMS``, chunk in ``CHUNKS`` and
+    contiguous tensors, and raises on anything else.
+    """
+    _check(x, dt, A, B, C)
+    if backend.use_kernel(x, require=use_kernel):
+        y, state = _launch(x, dt, A, B, C, chunk)
+    else:
+        y, state = ssd_plain(x, dt, A, B, C, chunk=chunk)
+    if init_state is not None:
+        y, state = fold_init_state(y, state, dt, A, C, init_state)
+    return y, state
+
+
+ssd.launches = 0    # kernel launches so far (not plain calls)

@@ -4,6 +4,11 @@
         --requests 16 --prompt-len 2048 --new-tokens 32      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --device cpu                                 # on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --smoke --device cpu                   # the ssm stack, on the CPU
+
+``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: olmo-1b,
+h2o-danube-1.8b (dense) and mamba2-780m (ssm).
 
 The weights are random, from ``--seed``. Runs on ``cuda`` unless
 ``--device`` names another device.

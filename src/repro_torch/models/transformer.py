@@ -1,8 +1,10 @@
-"""The model stack for the dense families (counterpart of
+"""The model stack for the dense and ssm families (counterpart of
 ``repro/models/transformer.py``).
 
-A model is ``n_layers`` layers of attention plus SwiGLU MLP between a
-token embedding and a final norm with an (optionally tied) head. The
+A model is ``n_layers`` layers between a token embedding and a final
+norm with an (optionally tied) head: attention plus SwiGLU MLP in a
+dense stack, one Mamba-2 SSD mixer (``models/ssm.py``) and no MLP in an
+``ssm`` stack. The
 reference scans super-blocks over a stacked parameter tree; here the
 layers are an ``nn.ModuleList``, one ``ModuleDict`` per layer under the
 reference's leaf names, and the scans are Python loops.
@@ -12,7 +14,7 @@ Entry points, as in the reference:
   ``prefill``      last-position logits of ``forward``
   ``decode_step``  one token against the decode caches
 
-MoE, SSM and hybrid stacks, MLA, the encoder and modality frontends,
+MoE and hybrid stacks, MLA, the encoder and modality frontends,
 ``first_k_dense``, ``remat`` and ``unroll`` raise ``NotImplementedError``
 (ROADMAP Queue 1 item 12).
 """
@@ -24,6 +26,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
                                        embed_tokens, init_embed, init_mlp,
                                        init_norm, unembed)
@@ -37,10 +40,13 @@ _unported = attn._unported
 
 def layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
     """(mixer, ff) for absolute layer index i: ("attn", "mlp") for every
-    layer of a dense stack, the only kind the port runs."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise _unported(f"the SSM layers of {cfg.name} (models/ssm.py, "
-                        f"ssd_scan)")
+    layer of a dense stack, ("ssm", "none") for every layer of an ssm
+    stack; the kinds the port runs."""
+    if cfg.family == "ssm":
+        return "ssm", "none"
+    if cfg.family == "hybrid":
+        raise _unported(f"the hybrid stack of {cfg.name} (attention, SSM "
+                        f"and MoE layers)")
     if cfg.attn_type == "mla":
         raise _unported(f"the MLA attention of {cfg.name}")
     if cfg.is_moe_layer(i):
@@ -69,10 +75,11 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
 
 
 class Model(nn.Module):
-    """The parameters of a dense stack under the reference's names:
+    """The parameters of a stack under the reference's names:
     ``embed_tokens`` (and ``lm_head`` when untied), ``blocks`` (layer i
     is ``blocks[i]``, a ``ModuleDict`` of ``norm1``, ``attn``, ``norm2``,
-    ``mlp``) and ``final_norm``. ``p[name]`` and ``name in p`` read it as
+    ``mlp`` in a dense stack, of ``norm1`` and ``ssm`` in an ssm stack)
+    and ``final_norm``. ``p[name]`` and ``name in p`` read it as
     the reference reads its parameter dict.
 
     ``tree`` holds tensors: ``{"embed_tokens", ["lm_head"], "blocks":
@@ -102,10 +109,16 @@ class Model(nn.Module):
 
 
 def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int) -> dict:
-    return {"norm1": init_norm(cfg, gen),
-            "attn": attn.init_attention(cfg, gen),
-            "norm2": init_norm(cfg, gen),
-            "mlp": init_mlp(cfg, gen)}
+    mixer, ff = layer_kind(cfg, i)
+    p = {"norm1": init_norm(cfg, gen)}
+    if mixer == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(cfg, gen)
+    else:
+        p["attn"] = attn.init_attention(cfg, gen)
+    if ff != "none":
+        p["norm2"] = init_norm(cfg, gen)
+        p["mlp"] = init_mlp(cfg, gen)
+    return p
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
@@ -130,14 +143,21 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
                    causal: bool, use_kernel: bool = False,
                    unroll: bool = False):
     """Returns (x, cache_dict, aux_loss); aux is 0 without MoE."""
+    mixer, ff = layer_kind(cfg, i)
     h = apply_norm(cfg, p["norm1"], x)
-    out, kv = attn.attention_forward(cfg, p["attn"], h, positions,
-                                     causal=causal, use_kernel=use_kernel,
-                                     unroll=unroll)
+    if mixer == "ssm":
+        out, cache = ssm_mod.ssm_forward(cfg, p["ssm"], h,
+                                         use_kernel=use_kernel)
+    else:
+        out, kv = attn.attention_forward(cfg, p["attn"], h, positions,
+                                         causal=causal, use_kernel=use_kernel,
+                                         unroll=unroll)
+        cache = {"k": kv[0], "v": kv[1]}
     x = x + out
-    h = apply_norm(cfg, p["norm2"], x)
-    x = x + apply_mlp(p["mlp"], h)
-    return x, {"k": kv[0], "v": kv[1]}, 0.0
+    if ff != "none":
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + apply_mlp(p["mlp"], h)
+    return x, cache, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +169,8 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
             want_cache: bool = False, unroll: bool = False):
     """Prefill forward. batch: ``tokens`` (B, S) on the model's device.
     Returns (logits (B, S, V), aux_loss[, caches]); ``caches["blocks"][i]``
-    holds layer i's raw k/v at sequence length S, which
+    holds layer i's raw cache at sequence length S (k/v of an attention
+    layer; state and conv carries of an ssm layer), which
     ``serve.engine.prefill_to_decode_cache`` turns into decode layout.
     """
     _check_supported(cfg)
@@ -184,11 +205,24 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
 
 def _layer_cache_shape(cfg: ModelConfig, i: int, B: int, S_max: int,
                        device) -> dict:
-    """Zero decode cache of one layer."""
+    """Zero decode cache of one layer: the fp32 SSD state and the conv
+    carries (model dtype) of an ssm layer, k/v of an attention layer."""
+    dt = dtype_of(cfg)
+    if layer_kind(cfg, i)[0] == "ssm":
+        di, K = cfg.d_inner, cfg.ssm_conv
+        GN = cfg.ssm_groups * cfg.ssm_state
+        return {
+            "state": torch.zeros((B, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=torch.float32,
+                                 device=device),
+            "conv_x": torch.zeros((B, K - 1, di), dtype=dt, device=device),
+            "conv_B": torch.zeros((B, K - 1, GN), dtype=dt, device=device),
+            "conv_C": torch.zeros((B, K - 1, GN), dtype=dt, device=device),
+        }
     KV, hd = cfg.n_kv_heads, cfg.d_head
     S_cache = min(cfg.sliding_window, S_max) if cfg.attn_type == "swa" \
         else S_max
-    shape, dt = (B, S_cache, KV, hd), dtype_of(cfg)
+    shape = (B, S_cache, KV, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -207,19 +241,26 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, enc_len: int = 0, *,
 
 def _layer_decode(cfg: ModelConfig, p, x, cache: dict, t: int, i: int, *,
                   mesh=None, dp_entry=None):
+    mixer, ff = layer_kind(cfg, i)
     h = apply_norm(cfg, p["norm1"], x)
-    out, new_cache = attn.attention_decode(cfg, p["attn"], h, cache, t,
-                                           mesh=mesh, dp_entry=dp_entry)
+    if mixer == "ssm":
+        out, new_cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+    else:
+        out, new_cache = attn.attention_decode(cfg, p["attn"], h, cache, t,
+                                               mesh=mesh, dp_entry=dp_entry)
     x = x + out
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + apply_mlp(p["mlp"], h), new_cache
+    if ff != "none":
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + apply_mlp(p["mlp"], h)
+    return x, new_cache
 
 
 def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
                 mesh=None, dp_entry=None, unroll: bool = False):
     """One decode step. tokens_t: (B, 1); t: the new token's position (the
-    current length). Returns (logits (B, 1, V), new_cache); the caches
-    are updated in place (see ``attention.attention_decode``)."""
+    current length). Returns (logits (B, 1, V), new_cache); attention
+    caches are updated in place (see ``attention.attention_decode``), an
+    ssm layer's state and carries are new tensors."""
     _check_supported(cfg)
     if unroll:
         raise _unported("unroll=True")

@@ -7,9 +7,10 @@ or temperature sampling, early-stop bookkeeping.
 
 One deliberate difference from the reference: its engine prefills with
 ``use_pallas`` left at False, this one prefills with ``use_kernel=True``,
-so a served request runs the flash_attention kernel on the card. Both
-compute the same attention function (the kernel is held to it by the
-tests).
+so a served request runs the flash_attention kernel (dense stacks) or
+the ssd_scan kernel (ssm stacks) on the card, once per layer and
+prefill. Both compute the same function (the kernels are held to it by
+the tests).
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ from repro_torch.models.transformer import Model, layer_kind
 def _convert_layer(cfg: ModelConfig, kind: str, raw: dict, S: int,
                    S_max: int) -> dict:
     """raw prefill cache (seq length S) -> decode layout (capacity S_max).
-    ``kind`` is always "attn": ``layer_kind`` raises on the others."""
+    ``kind`` is "ssm" or "attn": ``layer_kind`` raises on the others."""
+    if kind == "ssm":
+        return raw  # state + conv carries are already the decode layout
     out = {}
     if cfg.attn_type == "swa":
         W = min(cfg.sliding_window, S_max)

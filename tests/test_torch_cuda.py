@@ -20,6 +20,7 @@ from repro_torch.data.feed import SegmentFeed  # noqa: E402
 from repro_torch.data.source import ZipfSource  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.fused_map import ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from torch_parity import assert_equal, cuda_device, to_torch  # noqa: E402,F401
 
 
@@ -166,4 +167,70 @@ def test_serving_on_the_card_equals_the_cpu(cuda_device, attn_type):
     got = ServeEngine(cfg, model, max_len=120, device=cuda_device) \
         .generate(prompts, 8)
     assert fa_ops.flash_attention.launches == before + cfg.n_layers
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_matches_plain_on_the_card(cuda_device):
+    """Every case of SSD_MATRIX (the reference's sweep, ragged S, two
+    groups, an overflowing decay), y and state at the reference's
+    per-dtype tolerance (the helper raises on a miss)."""
+    errs = chip_smoke.phase_ssd_vs_plain(cuda_device, chip_smoke.SSD_MATRIX)
+    assert set(errs) == set(chip_smoke.SSD_MATRIX)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_launches_and_never_takes_plain(cuda_device,
+                                                    monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ssd_ops, "ssd_plain", plain)
+    case = chip_smoke.SSD_MATRIX["g2_ragged320_bf16"]
+    x, dt, A, B, C = chip_smoke.ssd_inputs(case, cuda_device)
+    before = ssd_ops.ssd.launches
+    y, st = ssd_ops.ssd(x, dt, A, B, C, chunk=case[6])
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    assert y.is_cuda and y.shape == x.shape and y.dtype == x.dtype
+    assert st.shape == (1, 8, 64, 32) and st.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["P16", "N8", "chunk32"])
+def test_ssd_kernel_rejects_other_shapes(cuda_device, bad):
+    P, N, chunk = {"P16": (16, 16, 64), "N8": (32, 8, 64),
+                   "chunk32": (32, 16, 32)}[bad]
+    x = torch.zeros(1, 64, 2, P, device=cuda_device)
+    dt = torch.zeros(1, 64, 2, device=cuda_device)
+    A = torch.zeros(2, device=cuda_device)
+    B = torch.zeros(1, 64, 1, N, device=cuda_device)
+    with pytest.raises(ValueError, match="ssd_scan kernel takes"):
+        ssd_ops.ssd(x, dt, A, B, B, chunk=chunk)
+
+
+@pytest.mark.cuda
+def test_ssm_serving_on_the_card_equals_the_cpu(cuda_device):
+    """A small mamba2 model (P = 32, N = 16, chunk 64, so the kernel
+    takes it; 100-token prompts, so the last chunk is ragged) in fp32:
+    greedy tokens served on the card equal those served on the CPU, and
+    each prefill launched the kernel once per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(
+        get_smoke_config("mamba2-780m"), d_model=128, ssm_head_dim=32,
+        ssm_state=16, ssm_chunk=64, dtype="float32", param_dtype="float32")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    model = init_model(cfg, 0, device="cpu")
+    want = ServeEngine(cfg, model, max_len=120, device="cpu") \
+        .generate(prompts, 8)
+    model.to(cuda_device)                   # moves the weights in place
+    before = ssd_ops.ssd.launches
+    got = ServeEngine(cfg, model, max_len=120, device=cuda_device) \
+        .generate(prompts, 8)
+    assert ssd_ops.ssd.launches == before + cfg.n_layers
     np.testing.assert_array_equal(got, want)

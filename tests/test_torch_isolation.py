@@ -113,3 +113,23 @@ def test_smoke_flash_and_serve_phases_rehearse_on_cpu():
                                    new_tokens=4)
     assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
     assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
+
+
+def test_smoke_ssd_and_mamba_serve_phases_rehearse_on_cpu():
+    """The ssd_scan matrix through the wrapper (the plain version here),
+    the per-layer mixer check, and the mamba2 serve phases at the SMOKE
+    config: served tokens checked, no kernel launched on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    cpu = torch.device("cpu")
+    errs = chip_smoke.phase_ssd_vs_plain(cpu, chip_smoke.SSD_MATRIX)
+    assert set(errs) == set(chip_smoke.SSD_MATRIX)
+    assert max(errs.values()) == 0.0
+    cfg = get_smoke_config("mamba2-780m")
+    assert chip_smoke.serve_kernel(cfg)[0] == "ssd_scan"
+    serve = chip_smoke.phase_serve(cpu, cfg, requests=4, batch=2,
+                                   prompt_len=40, new_tokens=4)
+    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["layer_err_over_limit"] <= 1.0
+    prec = chip_smoke.phase_ssm_precision(cpu, cfg, prompt_len=40)
+    assert prec["fp32_err_over_limit"] <= 1.0
+    assert prec["low_err_over_limit"] <= 1.0    # two layers: small

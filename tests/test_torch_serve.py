@@ -33,6 +33,7 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
 ARCHS = ("olmo-1b", "h2o-danube-1.8b")
+ALL_ARCHS = ARCHS + ("mamba2-780m",)    # the ssm family: test_torch_ssm_serve
 B, S, NEW = 2, 96, 6
 CPU = torch.device("cpu")
 
@@ -218,14 +219,14 @@ def test_generate_stops_at_eos():
 
 
 def test_configs_are_the_reference_configs():
-    for arch in ARCHS:
+    for arch in ALL_ARCHS:
         for get in ("get_config", "get_smoke_config"):
             t = getattr(tregistry, get)(arch)
             j = getattr(jregistry, get)(arch)
             assert dataclasses.asdict(t) == dataclasses.asdict(j)
             assert t.param_count() == j.param_count()
-    assert set(tregistry.ARCH_IDS) == set(ARCHS)
-    for arch in set(jregistry.ARCH_IDS) - set(ARCHS):
+    assert set(tregistry.ARCH_IDS) == set(ALL_ARCHS)
+    for arch in set(jregistry.ARCH_IDS) - set(ALL_ARCHS):
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             tregistry.get_config(arch)
     fields = {f.name for f in dataclasses.fields(jconfig.ModelConfig)}
@@ -233,11 +234,11 @@ def test_configs_are_the_reference_configs():
         tconfig.ModelConfig)}
 
 
-@pytest.mark.parametrize("what", ["ssm", "moe", "mla", "first_k_dense",
+@pytest.mark.parametrize("what", ["hybrid", "moe", "mla", "first_k_dense",
                                   "encoder", "frontend", "remat", "unroll"])
 def test_unported_parts_raise(what):
     cfg = tregistry.get_smoke_config("olmo-1b")
-    bad = {"ssm": dict(family="ssm"), "moe": dict(n_experts=4, top_k=2),
+    bad = {"hybrid": dict(family="hybrid", attn_every=2), "moe": dict(n_experts=4, top_k=2),
            "mla": dict(attn_type="mla"), "first_k_dense": dict(
                first_k_dense=1, n_layers=3),
            "encoder": dict(n_enc_layers=2), "frontend": dict(
