@@ -152,7 +152,9 @@ def _causal_conv(u, w, carry=None):
     out = up[:, 0:S] * w[0]
     for i in range(1, K):
         out = out + up[:, i:i + S] * w[i]
-    new_carry = up[:, -(K - 1):] if K > 1 else pad
+    # a copy: a view would keep all of ``up`` (B, S + K - 1, C) alive for
+    # as long as the cache holds the carry
+    new_carry = up[:, -(K - 1):].clone() if K > 1 else pad
     return silu(out), new_carry
 
 

@@ -86,8 +86,9 @@ def test_smoke_phases_rehearse_on_cpu():
     cases = [c for c in chip_smoke.fused_matrix() if c[0] != "full_width"]
     assert chip_smoke.phase_kernel_vs_plain(cpu, cases) == 0.0
     w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
-    job = chip_smoke.phase_job(cpu, 1 << 13, w)
+    job = chip_smoke.phase_job(cpu, 1 << 13, 1 << 12, w)
     assert job["steps"] == 32 and job["launches"] == 0
+    assert job["n_unfused"] == 1 << 12 and job["unfused_wall"] > 0
     assert job["n_records"] > 0 and job["imbalance"] > 1.0
     source, reps = chip_smoke.job_input(1 << 13, w)
     assert reps.shape == (4, 32) and reps[0, 0] == 8 and reps[1, 0] == 1
@@ -130,6 +131,12 @@ def test_smoke_ssd_and_mamba_serve_phases_rehearse_on_cpu():
                                    prompt_len=40, new_tokens=4)
     assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
     assert serve["layer_err_over_limit"] <= 1.0
-    prec = chip_smoke.phase_ssm_precision(cpu, cfg, prompt_len=40)
-    assert prec["fp32_err_over_limit"] <= 1.0
-    assert prec["low_err_over_limit"] <= 1.0    # two layers: small
+    assert serve["kernel_vs_ref_err_over_limit"] <= 1.0   # two layers
+    assert len(serve["drift"]) == 2
+    for d in serve["drift"]:
+        assert d["fp32_err_over_limit"] <= 1.0
+        assert d["kernel_low_vs_fp32"] <= \
+            chip_smoke.SSM_DRIFT_FACTOR * d["ref_low_vs_fp32"]
+    mem = serve["memory"]
+    assert mem["cache_storage_bytes"] == mem["cache_bytes"] > 0
+    assert mem["logits_bytes"] == 2 * 40 * cfg.vocab_size * 2   # bf16

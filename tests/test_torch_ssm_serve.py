@@ -162,6 +162,22 @@ def test_forward_logits_and_caches(pair, use_kernel):
            want[:, -1:], pair.dtype, "prefill")
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_raw_cache_holds_only_its_own_bytes(pair, use_kernel):
+    """No leaf of a prefill's cache is a view into a larger activation:
+    a conv carry sliced from the padded input would keep that whole
+    (B, S + K - 1, C) tensor alive, for every layer, while the cache
+    lives."""
+    toks = torch.from_numpy(_tokens(pair.tcfg))
+    _, _, tc = ttf.forward(pair.tcfg, pair.tp, {"tokens": toks},
+                           use_kernel=use_kernel, want_cache=True)
+    for i, c in enumerate(tc["blocks"]):
+        for name in LEAVES:
+            t = c[name]
+            assert t.untyped_storage().nbytes() == \
+                t.numel() * t.element_size(), f"layer {i} {name}"
+
+
 def test_prefill_to_decode_cache(pair):
     """The conversion alone, on the reference's own raw caches: equal
     (the ssm layers' raw cache is the decode layout), and the zero cache
