@@ -5,15 +5,21 @@
 
 Phases, each of which asserts (nothing is caught):
 
-  1. build   — compile every kernel of the three paths from the sources
-               in this checkout (one nvcc per source, all started
-               together);
+  1. build   — compile all six kernels from the sources in this
+               checkout (one nvcc per source, all started together);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
-               shapes (fused_map bit for bit, flash_attention and
-               ssd_scan at the reference's per-dtype tolerance), and time
-               both with CUDA events, beside the library call where
-               there is one;
+               shapes (fused_map, hist and bucket_slots bit for bit,
+               flash_attention, ssd_scan and flash_decode at the
+               reference's per-dtype tolerance), and time both with CUDA
+               events, beside the library call where there is one. The
+               three kernels that only their own entry points reach
+               (hist, bucket_slots, flash_decode) run that path here:
+               ``wordcount_hist`` on the job's 2**27-token corpus in count
+               and owner mode, ``bucket_slots`` on deepseek-v2-lite's
+               routing of a served batch and on one segment's owner
+               window, ``flash_decode`` on the olmo-1b and h2o-danube-1.8b
+               served caches;
   3. job     — MR-1S WordCount through the Job API at the documented
                fused width (V = 262,144, P = 8, S = 256, cap = 64) on a
                Zipf corpus with one 8x-hot rank: records equal to the
@@ -35,8 +41,8 @@ Phases, each of which asserts (nothing is caught):
   5. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
-The launch counts are set to 0 just before each path (3 and each arch
-of 4) and read just after it.
+The launch counts are set to 0 just before each path (the entry points
+of 2, then 3 and each arch of 4) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -97,14 +103,41 @@ def _ssd():
     return ops, ref
 
 
+def _wc():
+    """The wordcount histogram kernel's wrapper and plain versions."""
+    _port()
+    from repro_torch.kernels.wordcount_hash import ops, ref
+    return ops, ref
+
+
+def _slots():
+    """The bucket-slot kernel's wrapper and plain version."""
+    _port()
+    from repro_torch.kernels.moe_dispatch import ops, ref
+    return ops, ref
+
+
+def _fd():
+    """The flash_decode kernel's wrapper and plain versions."""
+    _port()
+    from repro_torch.kernels.flash_decode import ops, ref
+    return ops, ref
+
+
+def wrappers() -> dict:
+    """Every kernel's name and its wrapper, which carries the count."""
+    return {"fused_map": _port()[3].fused_map,
+            "flash_attention": _fa()[0].flash_attention,
+            "ssd_scan": _ssd()[0].ssd,
+            "hist": _wc()[0].wordcount_hist,
+            "bucket_slots": _slots()[0].bucket_slots,
+            "flash_decode": _fd()[0].flash_decode}
+
+
 def zero_counts():
     """Set every kernel's launch count to 0."""
-    _, _, _, fm_ops, _ = _port()
-    fa_ops, _ = _fa()
-    ssd_ops, _ = _ssd()
-    fm_ops.fused_map.launches = 0
-    fa_ops.flash_attention.launches = 0
-    ssd_ops.ssd.launches = 0
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +147,10 @@ def zero_counts():
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together."""
     _, _, backend, fm_ops, _ = _port()
-    fa_ops, _ = _fa()
-    ssd_ops, _ = _ssd()
-    sources = {"fused_map": fm_ops.SOURCE, "flash_attention": fa_ops.SOURCE,
-               "ssd_scan": ssd_ops.SOURCE}
+    sources = {"fused_map": fm_ops.SOURCE, "flash_attention": _fa()[0].SOURCE,
+               "ssd_scan": _ssd()[0].SOURCE, "hist": _wc()[0].SOURCE,
+               "bucket_slots": _slots()[0].SOURCE,
+               "flash_decode": _fd()[0].SOURCE}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {k: pool.submit(backend.build, v) for k, v in sources.items()}
@@ -501,6 +534,344 @@ def time_ssd(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 2b. the entry-point kernels: hist, bucket_slots, flash_decode
+# ---------------------------------------------------------------------------
+
+SENT = 2**31 - 1
+
+# the reference's wordcount_hist matrix (tests/test_kernels.py::
+# test_wordcount_hist_sweep, ..._with_sentinels) and edge cases: keys below
+# 0 and at or past vocab, vocabs that are no multiple of the TPU's 512-key
+# tile, all tokens SENTINEL, one token, owner mode into fewer bins than
+# hash_mod: (n, vocab, hash_mod, kind of tokens)
+HIST_MATRIX = {
+    "sweep0": (256, 128, 0, "uniform"),
+    "sweep1": (1024, 512, 0, "uniform"),
+    "sweep2_vocab1000": (4096, 1000, 0, "uniform"),
+    "sweep3_owner8": (1024, 512, 8, "uniform"),
+    "sweep4_owner16": (2048, 300, 16, "uniform"),
+    "sentinels": (256, 8, 0, "sentinels"),
+    "out_of_range": (256, 8, 0, "out_of_range"),
+    "wide_vocab777": (3000, 777, 0, "wide"),
+    "wide_owner8": (3000, 777, 8, "wide"),
+    "all_sentinel": (1000, 600, 0, "all_sentinel"),
+    "one_token": (1, 5, 0, "uniform"),
+    "owner8_into5": (1500, 5, 8, "uniform"),
+}
+
+
+def hist_tokens(case) -> np.ndarray:
+    """Seeded tokens of one HIST_MATRIX case."""
+    n, vocab, _, kind = case
+    rng = np.random.default_rng(n + vocab)
+    if kind == "uniform":
+        return rng.integers(0, vocab, n).astype(np.int32)
+    if kind == "wide":                 # keys in [-vocab - 3, 2 vocab)
+        t = rng.integers(-vocab - 3, 2 * vocab, n)
+        t[rng.random(n) < 0.1] = SENT
+        t[:3] = [-2**31, -1, SENT - 1]
+        return t.astype(np.int32)
+    head = {"sentinels": [1, 2, 1, SENT, 3, SENT],
+            "out_of_range": [-1, -2, 3, 8, 9, 3, 5],
+            "all_sentinel": []}[kind]
+    return np.array(head + [SENT] * (n - len(head)), np.int32)
+
+
+# the reference's bucket_slots matrix (tests/test_kernels.py::
+# test_moe_bucket_slots_sweep) and edge cases: invalid ids (-1, E and
+# 2**31 - 1), all ids equal, one record, a record past the first 1,024-id
+# block, the most experts the kernel takes: (T, E, kind of ids)
+SLOTS_MATRIX = {
+    "sweep0": (256, 8, "uniform"),
+    "sweep1": (1024, 16, "uniform"),
+    "sweep2": (512, 64, "uniform"),
+    "sweep3": (333, 7, "uniform"),
+    "invalid": (2000, 16, "invalid"),
+    "all_equal": (3000, 8, "equal"),
+    "T1": (1, 4, "uniform"),
+    "T1025": (1025, 32, "uniform"),
+    "E256": (5000, 256, "uniform"),
+}
+
+
+def slot_ids(case) -> np.ndarray:
+    """Seeded ids of one SLOTS_MATRIX case."""
+    T, E, kind = case
+    rng = np.random.default_rng(T * E)
+    ids = rng.integers(0, E, T)
+    if kind == "invalid":
+        bad = rng.random(T) < 0.3
+        ids[bad] = rng.choice([-1, E, SENT], int(bad.sum()))
+    elif kind == "equal":
+        ids[:] = 5
+    return ids.astype(np.int32)
+
+
+# the reference's flash_decode matrix (tests/test_kernels.py::
+# test_flash_decode_sweep, ..._masks_future_slots) and edge cases: t = 0,
+# 1, S and S + 5, G = 4 at hd 80 (h2o-danube-1.8b's heads): (B, S, H, KV,
+# hd, t, dtype)
+DECODE_MATRIX = {
+    "sweep0_f32": (2, 512, 8, 2, 64, 300, "float32"),
+    "sweep1_f32": (1, 1024, 4, 4, 64, 1023, "float32"),
+    "mqa_hd128_t17_f32": (4, 256, 8, 1, 128, 17, "float32"),
+    "sweep3_bf16": (2, 512, 8, 2, 64, 300, "bfloat16"),
+    "future_hd32_f32": (1, 256, 2, 2, 32, 64, "float32"),
+    "t0_f32": (1, 256, 4, 2, 64, 0, "float32"),
+    "t1_f32": (1, 256, 4, 2, 64, 1, "float32"),
+    "tS_f32": (1, 256, 4, 2, 64, 256, "float32"),
+    "tS5_bf16": (1, 256, 4, 2, 64, 261, "bfloat16"),
+    "g4_hd80_f32": (2, 384, 8, 2, 80, 200, "float32"),
+    "g4_hd80_bf16": (2, 384, 8, 2, 80, 383, "bfloat16"),
+}
+# decode on the served caches (prompt 2048 + 32 new tokens): olmo-1b, and
+# h2o-danube-1.8b's grouped heads
+DECODE_FULL = {
+    "olmo-1b": (BATCH, PROMPT_LEN + NEW_TOKENS, 16, 16, 128,
+                PROMPT_LEN + NEW_TOKENS - 1, "bfloat16"),
+    "h2o-danube-1.8b": (BATCH, PROMPT_LEN + NEW_TOKENS, 32, 8, 80,
+                        PROMPT_LEN + NEW_TOKENS - 1, "bfloat16"),
+}
+# deepseek-v2-lite's routing of one served batch: 8 x 2048 tokens, each to
+# 6 of 64 experts
+ROUTING = (BATCH * PROMPT_LEN * 6, 64)
+
+
+def decode_inputs(case, device):
+    """Seeded q, k, v of one case, made in fp32 and cast to its dtype."""
+    B, S, H, KV, hd, t, dtype = case
+    rng = np.random.default_rng(S + t)
+    dt = getattr(torch, dtype)
+    return tuple(
+        torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            device=device, dtype=dt)
+        for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def _int_diff(got, want) -> int:
+    return int((got.long() - want.long()).abs().max().item()) \
+        if got.numel() else 0
+
+
+def phase_hist_vs_plain(device, cases: dict) -> int:
+    """Hold ``wordcount_hist`` to ``hist_plain`` bit for bit on every case.
+    Returns the max abs difference (0)."""
+    wc_ops, wc_ref = _wc()
+    for name, case in cases.items():
+        tokens = torch.from_numpy(hist_tokens(case)).to(device)
+        _, vocab, hash_mod, _ = case
+        got = wc_ops.wordcount_hist(tokens, vocab, hash_mod)
+        want = wc_ref.hist_plain(tokens, vocab, hash_mod=hash_mod)
+        if not torch.equal(got, want):
+            raise AssertionError(f"hist != plain on {name} (max abs "
+                                 f"{_int_diff(got, want)})")
+    _sync(device)
+    return 0
+
+
+def phase_slots_vs_plain(device, cases: dict) -> int:
+    """Hold ``bucket_slots`` to ``bucket_slots_ref`` bit for bit, slots and
+    counts, on every case. Returns the max abs difference (0)."""
+    sl_ops, sl_ref = _slots()
+    for name, case in cases.items():
+        ids = torch.from_numpy(slot_ids(case)).to(device)
+        got = sl_ops.bucket_slots(ids, case[1])
+        want = sl_ref.bucket_slots_ref(ids, case[1])
+        for what, g, w in zip(("slots", "counts"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"bucket_slots != plain on {name}: "
+                                     f"{what} (max abs {_int_diff(g, w)})")
+    _sync(device)
+    return 0
+
+
+def _check_decode(name, got, want, dtype) -> float:
+    tol = flash_tol(dtype)
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (diff > tol["atol"] + tol["rtol"] * want.abs()).any()):
+        raise AssertionError(f"flash_decode != plain on {name}: max abs err "
+                             f"{diff.max().item()} ({tol})")
+    return diff.max().item()
+
+
+def phase_decode_vs_plain(device, cases: dict) -> dict:
+    """Hold ``flash_decode`` to ``flash_decode_plain`` on every case at the
+    reference's per-dtype tolerance, with t as a device tensor; t as an
+    int gives the same bits, and so do k and v overwritten at positions
+    >= t (never read). Returns the max abs difference per case."""
+    fd_ops, fd_ref = _fd()
+    errs = {}
+    for name, case in cases.items():
+        q, k, v = decode_inputs(case, device)
+        S, t, dtype = case[1], case[5], case[6]
+        t_dev = torch.tensor(t, dtype=torch.int32, device=device)
+        got = fd_ops.flash_decode(q, k, v, t_dev)
+        errs[name] = _check_decode(name, got, fd_ref.flash_decode_plain(
+            q, k, v, t_dev), dtype)
+        if not torch.equal(fd_ops.flash_decode(q, k, v, t), got):
+            raise AssertionError(f"flash_decode on {name}: int t != tensor t")
+        if t < S:
+            k2, v2 = k.clone(), v.clone()
+            k2[:, t:], v2[:, t:] = 999.0, -999.0
+            if not torch.equal(fd_ops.flash_decode(q, k2, v2, t_dev), got):
+                raise AssertionError(f"flash_decode on {name}: positions >= "
+                                     f"t change the output")
+    _sync(device)
+    return errs
+
+
+def hist_bound(n: int, vocab: int, hash_mod: int) -> tuple[float, str, dict]:
+    """Least time of one histogram: the tokens read once and the bins
+    written once at the memory rate, against ~2 integer operations a token
+    (~10 with the owner hash) at the scalar rate."""
+    nbytes = 4 * n + 4 * vocab
+    ops = n * (10 if hash_mod else 2)
+    return _bound(nbytes, ops, SCALAR_OPS_PER_S)
+
+
+def slots_bound(T: int, E: int) -> tuple[float, str, dict]:
+    """Least time of one bucket_slots call: ids read once, slots and counts
+    written once, against ~4 integer operations an id."""
+    return _bound(8 * T + 4 * E, 4 * T, SCALAR_OPS_PER_S)
+
+
+def decode_bound(case) -> tuple[float, str, dict]:
+    """Least time of one decode call: q and the K and V rows below t read
+    once and the output written once, against 2 products of 2 hd FLOPs per
+    (query head, visible key) at the rate of the type."""
+    B, S, H, KV, hd, t, dtype = case
+    visible = min(max(t, 0), S)
+    size = torch.finfo(getattr(torch, dtype)).bits // 8
+    nbytes = (2 * B * H * hd + 2 * B * visible * KV * hd) * size
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    return _bound(nbytes, 4 * B * H * hd * visible, rate)
+
+
+def _bound(nbytes: int, ops: int, rate: float) -> tuple[float, str, dict]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "ops": ops}
+
+
+def _sdpa_decode(q, k, v, t: int):
+    """``scaled_dot_product_attention`` of the one-token query over
+    ``k[:, :t]`` (the library yardstick; never on the port's path), or
+    None where the installed torch cannot group heads."""
+    G = q.shape[1] // k.shape[2]
+    kw = {}
+    if G > 1:
+        if tuple(int(x) for x in torch.__version__.split(".")[:2]) < (2, 5):
+            return None
+        kw["enable_gqa"] = True
+    kt, vt = k[:, :t].transpose(1, 2), v[:, :t].transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, **kw)
+
+
+def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
+                decode=None) -> dict:
+    """The three entry points at full width (``w``, ``routing`` and
+    ``decode`` shrink them for a rehearsal): the histogram of the job's
+    corpus in count mode (vocab V) and owner mode (P bins); the slots of
+    one served batch's routing (deepseek-v2-lite) and of one segment's
+    owner window (P x segment x task records, ids mix32(token) % P); and
+    decode on the served caches. Each case names its kernel and holds
+    zero-argument calls of the entry point, its plain version and the
+    library yardstick (or None), and its bound."""
+    w = w or FULL
+    decode = DECODE_FULL if decode is None else decode
+    wc_ops, wc_ref = _wc()
+    sl_ops, sl_ref = _slots()
+    fd_ops, fd_ref = _fd()
+    _port()
+    from repro_torch.core.kv import owner_of
+    tokens = torch.from_numpy(corpus).to(device)
+    cases = {}
+    for mode, vocab, mod in (("count", w.vocab, 0),
+                             ("owner", w.n_procs, w.n_procs)):
+        cases[f"hist_{mode}"] = dict(
+            kernel="hist", exact=True,
+            run=lambda v=vocab, m=mod: wc_ops.wordcount_hist(tokens, v, m),
+            plain=lambda v=vocab, m=mod: wc_ref.hist_plain(tokens, v,
+                                                           hash_mod=m),
+            library=(lambda: torch.bincount(tokens, minlength=w.vocab))
+            if not mod else None,
+            bound=hist_bound(tokens.numel(), vocab, mod))
+    route = torch.from_numpy(np.random.default_rng(0).integers(
+        0, routing[1], routing[0]).astype(np.int32)).to(device)
+    window = owner_of(tokens[:w.n_procs * w.segment * w.task], w.n_procs)
+    for name, ids, E in (("routing", route, routing[1]),
+                         ("owner_window", window, w.n_procs)):
+        cases[f"slots_{name}"] = dict(
+            kernel="bucket_slots", exact=True,
+            run=lambda i=ids, e=E: sl_ops.bucket_slots(i, e),
+            plain=lambda i=ids, e=E: sl_ref.bucket_slots_ref(i, e),
+            library=None, bound=slots_bound(ids.numel(), E))
+    for arch, case in decode.items():
+        q, k, v = decode_inputs(case, device)
+        t = case[5]
+        t_dev = torch.tensor(t, dtype=torch.int32, device=device)
+        cases[f"decode_{arch}"] = dict(
+            kernel="flash_decode", exact=False, dtype=case[6],
+            run=lambda q=q, k=k, v=v, t=t_dev: fd_ops.flash_decode(q, k, v, t),
+            plain=lambda q=q, k=k, v=v, t=t_dev: fd_ref.flash_decode_plain(
+                q, k, v, t),
+            library=_sdpa_decode(q, k, v, t), bound=decode_bound(case))
+    return cases
+
+
+def phase_entry(device, cases: dict) -> dict:
+    """The entry-point path: every case's entry point once (launch counts
+    zeroed just before, read just after), then each output held to its
+    plain version (bit for bit for hist and bucket_slots, at the
+    per-dtype tolerance for flash_decode)."""
+    fns = wrappers()
+    zero_counts()
+    outs = {name: c["run"]() for name, c in cases.items()}
+    _sync(device)
+    kernels = {c["kernel"] for c in cases.values()}
+    launches = {k: fns[k].launches for k in kernels}
+    if device.type == "cuda":
+        for k in kernels:
+            want = sum(c["kernel"] == k for c in cases.values())
+            assert launches[k] == want, (k, launches[k], want)
+    errs = {}
+    for name, c in cases.items():
+        want = c["plain"]()
+        if c["exact"]:
+            got = outs[name] if isinstance(outs[name], tuple) \
+                else (outs[name],)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, x in zip(got, want):
+                if not torch.equal(g, x):
+                    raise AssertionError(f"{name} != plain (max abs "
+                                         f"{_int_diff(g, x)})")
+            errs[name] = 0
+        else:
+            errs[name] = _check_decode(name, outs[name], want, c["dtype"])
+    return dict(launches=launches, max_abs_err=errs)
+
+
+def time_entry(cases: dict) -> dict:
+    """CUDA-event time per call of each case's entry point, its plain
+    version and its library yardstick, beside its bound."""
+    out = {}
+    for name, c in cases.items():
+        fast = c["kernel"] != "hist"
+        bound_ms, bound_by, work = c["bound"]
+        out[name] = dict(
+            ms=_event_ms(c["run"], 200 if fast else 50),
+            plain_ms=_event_ms(c["plain"], 10 if fast else 3),
+            library_ms=(_event_ms(c["library"], 50)
+                        if c["library"] else None),
+            bound_ms=bound_ms, bound_by=bound_by, **work)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 3. the slice at full width
 # ---------------------------------------------------------------------------
 
@@ -847,6 +1218,25 @@ def cache_bytes(raw) -> dict:
 # 5. report
 # ---------------------------------------------------------------------------
 
+def entry_kernel(name: str, source: str, replaces: str, entry: dict,
+                 times: dict, main: str, other: str, built: dict,
+                 matrix_err: float) -> dict:
+    """The ``kernels`` line's entry of an entry-point kernel: its numbers
+    at its ``main`` full-width case, and those of its ``other`` case."""
+    t = times[main]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": entry["launches"][name],
+            "max_abs_err": max(matrix_err, entry["max_abs_err"][main],
+                               entry["max_abs_err"][other]),
+            "matches_plain": True, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "build_s": built[name].seconds,
+            "shape": main, other: {k: times[other][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -890,6 +1280,29 @@ def main() -> int:
           f"{ssd['bound_ms']:.4f} ms ({ssd['bound_by']}: "
           f"{ssd['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
           f"{ssd['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s)")
+
+    phase_hist_vs_plain(device, HIST_MATRIX)
+    print(f"kernels: hist == plain on every matrix case: "
+          f"{', '.join(HIST_MATRIX)}")
+    phase_slots_vs_plain(device, SLOTS_MATRIX)
+    print(f"kernels: bucket_slots == plain on every matrix case: "
+          f"{', '.join(SLOTS_MATRIX)}")
+    fd_errs = phase_decode_vs_plain(device, DECODE_MATRIX)
+    for name, e in fd_errs.items():
+        print(f"kernels: flash_decode ~ plain on {name}: max abs err {e}")
+    _, data, _, _, _ = _port()
+    cases = entry_cases(device, data.read_all(job_input(N_TOKENS)[0]))
+    entry = phase_entry(device, cases)
+    print(f"entry: hist, bucket_slots and flash_decode at full width through "
+          f"their entry points, launches {entry['launches']}; max abs err "
+          f"to plain {entry['max_abs_err']}")
+    entry_t = time_entry(cases)
+    del cases
+    for name, e in entry_t.items():
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+        print(f"entry: {name}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}: "
+              f"{e['bytes']} B at 3.35 TB/s, {e['ops']} operations)")
 
     job = phase_job(device, N_TOKENS, N_UNFUSED)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
@@ -952,6 +1365,8 @@ def main() -> int:
     print(json.dumps({"job": job, "profile": prof, "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs},
+                      "entry": {**entry, "times": entry_t,
+                                "flash_decode_matrix_err": fd_errs},
                       "serve": serves}))
 
     print(json.dumps({"kernels": [{
@@ -982,7 +1397,17 @@ def main() -> int:
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None,
-        "build_s": built["ssd_scan"].seconds}]}))
+        "build_s": built["ssd_scan"].seconds},
+        entry_kernel("hist", "wordcount_hash/csrc/hist.cu",
+                     "wordcount_hash/kernel.py:66", entry, entry_t,
+                     "hist_count", "hist_owner", built, 0),
+        entry_kernel("bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
+                     "moe_dispatch/kernel.py:51", entry, entry_t,
+                     "slots_routing", "slots_owner_window", built, 0),
+        entry_kernel("flash_decode", "flash_decode/csrc/flash_decode.cu",
+                     "flash_decode/kernel.py:71", entry, entry_t,
+                     "decode_olmo-1b", "decode_h2o-danube-1.8b", built,
+                     max(fd_errs.values()))]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

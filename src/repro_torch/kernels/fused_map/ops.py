@@ -43,9 +43,8 @@ def _check(args: dict, n_procs: int, cap: int):
             "table": (P, V)}
     if P != n_procs:
         raise ValueError(f"keys carry {P} ranks, n_procs={n_procs}")
-    if not 1 <= S <= MAX_TASK_SIZE:
-        raise ValueError(f"fused_map takes 1 <= task size <= "
-                         f"{MAX_TASK_SIZE}, got {S}")
+    if S < 1:
+        raise ValueError(f"fused_map takes a task size >= 1, got {S}")
     for name, t in args.items():
         if t.device != keys.device:
             raise ValueError(f"{name} is on {t.device}, keys on "
@@ -78,6 +77,9 @@ def fused_map(keys, vals, rep, task_id, owner_map, owner_split, pending_k,
         table.copy_(new_table)
         return table, bk, bv, counts
     P, S = keys.shape
+    if S > MAX_TASK_SIZE:
+        raise ValueError(f"the fused_map kernel takes task sizes up to "
+                         f"{MAX_TASK_SIZE}, got {S}")
     bk = torch.empty((P, P, cap), dtype=torch.int32, device=keys.device)
     bv = torch.empty_like(bk)
     counts = torch.empty((P, P), dtype=torch.int32, device=keys.device)

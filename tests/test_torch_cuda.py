@@ -19,8 +19,11 @@ from repro_torch.core.planner import gather_segment  # noqa: E402
 from repro_torch.data.feed import SegmentFeed  # noqa: E402
 from repro_torch.data.source import ZipfSource  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.fused_map import ops  # noqa: E402
+from repro_torch.kernels.moe_dispatch import ops as sl_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.wordcount_hash import ops as wc_ops  # noqa: E402
 from torch_parity import assert_equal, cuda_device, to_torch  # noqa: E402,F401
 
 
@@ -234,3 +237,79 @@ def test_ssm_serving_on_the_card_equals_the_cpu(cuda_device):
         .generate(prompts, 8)
     assert ssd_ops.ssd.launches == before + cfg.n_layers
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_refuses_task_sizes_past_its_limit(cuda_device):
+    """Above MAX_TASK_SIZE only the plain version computes the step (on
+    the CPU); a CUDA tensor raises instead of taking it."""
+    args, P, cap = chip_smoke.fused_case(17, 2, ops.MAX_TASK_SIZE + 1, 512,
+                                         8, 1)
+    a = {k: to_torch(v).to(cuda_device) for k, v in args.items()}
+    with pytest.raises(ValueError, match="task sizes up to"):
+        ops.fused_map(**a, n_procs=P, cap=cap)
+
+
+@pytest.mark.cuda
+def test_entry_point_kernels_match_plain_on_the_card(cuda_device):
+    """hist and bucket_slots bit for bit, flash_decode at the per-dtype
+    tolerance, over their whole matrices (the helpers raise on a miss)."""
+    assert chip_smoke.phase_hist_vs_plain(cuda_device,
+                                          chip_smoke.HIST_MATRIX) == 0
+    assert chip_smoke.phase_slots_vs_plain(cuda_device,
+                                           chip_smoke.SLOTS_MATRIX) == 0
+    errs = chip_smoke.phase_decode_vs_plain(cuda_device,
+                                            chip_smoke.DECODE_MATRIX)
+    assert set(errs) == set(chip_smoke.DECODE_MATRIX)
+
+
+@pytest.mark.cuda
+def test_entry_point_wrappers_launch_and_never_take_plain(cuda_device,
+                                                          monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(wc_ops, "hist_plain", plain)
+    monkeypatch.setattr(sl_ops, "bucket_slots_ref", plain)
+    monkeypatch.setattr(fd_ops, "flash_decode_plain", plain)
+    case = chip_smoke.HIST_MATRIX["wide_owner8"]
+    tokens = to_torch(chip_smoke.hist_tokens(case)).to(cuda_device)
+    ids = to_torch(chip_smoke.slot_ids(
+        chip_smoke.SLOTS_MATRIX["invalid"])).to(cuda_device)
+    dcase = chip_smoke.DECODE_MATRIX["g4_hd80_bf16"]
+    q, k, v = chip_smoke.decode_inputs(dcase, cuda_device)
+    before = [f.launches for f in (wc_ops.wordcount_hist,
+                                   sl_ops.bucket_slots, fd_ops.flash_decode)]
+    hist = wc_ops.wordcount_hist(tokens, case[1], case[2])
+    slots, counts = sl_ops.bucket_slots(ids, 16)
+    o = fd_ops.flash_decode(q, k, v, torch.tensor(
+        dcase[5], dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize()
+    after = [f.launches for f in (wc_ops.wordcount_hist,
+                                  sl_ops.bucket_slots, fd_ops.flash_decode)]
+    assert after == [b + 1 for b in before]
+    assert hist.is_cuda and hist.shape == (case[1],)
+    assert slots.is_cuda and counts.shape == (16,)
+    assert o.is_cuda and o.shape == q.shape and o.dtype == q.dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["experts", "hd96", "group32", "fp16",
+                                 "stride"])
+def test_entry_point_kernels_reject_what_they_do_not_take(cuda_device, bad):
+    if bad == "experts":
+        ids = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+        with pytest.raises(ValueError, match="n_experts <="):
+            sl_ops.bucket_slots(ids, sl_ops.MAX_EXPERTS + 1)
+        return
+    H, KV, hd, dtype = {"hd96": (4, 2, 96, torch.bfloat16),
+                        "group32": (32, 1, 64, torch.bfloat16),
+                        "fp16": (4, 2, 64, torch.float16),
+                        "stride": (4, 2, 64, torch.bfloat16)}[bad]
+    q = torch.zeros(1, H, hd, device=cuda_device, dtype=dtype)
+    k = torch.zeros(1, 64, KV, hd, device=cuda_device, dtype=dtype)
+    if bad == "stride":        # rows that start off a 16-byte boundary
+        k = torch.zeros(1, 64, KV, hd + 1, device=cuda_device,
+                        dtype=dtype)[..., 1:]
+    with pytest.raises((TypeError, ValueError)):
+        fd_ops.flash_decode(q, k, k, 10)

@@ -38,6 +38,22 @@ def test_fused_step_ref_matches_pallas_kernel(name, case):
             assert_equal(g[r], w, f"{name} rank {r} {out}")
 
 
+def test_plain_version_takes_task_sizes_past_the_kernel_limit():
+    """The 1024 limit is the CUDA kernel's (8 S ints of shared memory), not
+    the function's: on CPU tensors the wrapper computes S = 2048 as the
+    reference's Pallas kernel does, on every output of every rank."""
+    assert ops.MAX_TASK_SIZE < 2048
+    args, P, cap = chip_smoke.fused_case(17, 2, 2048, 4096, 64, [1, 2],
+                                         split=True)
+    a = {k: to_torch(v).clone() for k, v in args.items()}   # folds in place
+    got = ops.fused_map(**a, n_procs=P, cap=cap)
+    for r in range(P):
+        want = jops.fused_map_step(*(jnp.asarray(args[k][r]) for k in _ARGS),
+                                   n_procs=P, cap=cap, interpret=True)
+        for out, g, w in zip(("table", "bk", "bv", "counts"), got, want):
+            assert_equal(g[r], w, f"S=2048 rank {r} {out}")
+
+
 def test_wrap_negative_case_differs_by_rep():
     """The matrix's wrap-negative case really exercises the recurrence:
     ranks with rep 1, 2, 3 emit key 3 with -2147483644, 8, -2147483644
@@ -100,8 +116,8 @@ def test_wrapper_checks_inputs(bad):
         a["pending_k"] = a["pending_k"][:, :, :-1].contiguous()
     elif bad == "contiguity":
         a["owner_map"] = a["owner_map"].t().contiguous().t()
-    else:
-        a["keys"] = torch.zeros((P, ops.MAX_TASK_SIZE + 1), dtype=torch.int32)
+    else:           # an empty task; above 1024 only the kernel refuses
+        a["keys"] = torch.zeros((P, 0), dtype=torch.int32)
         a["vals"] = a["keys"].clone()
     with pytest.raises((TypeError, ValueError)):
         ops.fused_map(**a, n_procs=P, cap=cap)

@@ -140,3 +140,38 @@ def test_smoke_ssd_and_mamba_serve_phases_rehearse_on_cpu():
     mem = serve["memory"]
     assert mem["cache_storage_bytes"] == mem["cache_bytes"] > 0
     assert mem["logits_bytes"] == 2 * 40 * cfg.vocab_size * 2   # bf16
+
+
+def test_smoke_entry_point_phases_rehearse_on_cpu():
+    """The hist, bucket_slots and flash_decode matrices through their
+    wrappers (the plain versions here), the entry-point phase at a tiny
+    width (counts zeroed and read, each output held to its plain
+    version, no kernel launched on the CPU), and the full-width bounds."""
+    cpu = torch.device("cpu")
+    assert chip_smoke.phase_hist_vs_plain(cpu, chip_smoke.HIST_MATRIX) == 0
+    assert chip_smoke.phase_slots_vs_plain(cpu, chip_smoke.SLOTS_MATRIX) == 0
+    errs = chip_smoke.phase_decode_vs_plain(cpu, chip_smoke.DECODE_MATRIX)
+    assert set(errs) == set(chip_smoke.DECODE_MATRIX)
+    assert max(errs.values()) == 0.0
+    w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    source, _ = chip_smoke.job_input(1 << 13, w)
+    from repro_torch.data import read_all
+    cases = chip_smoke.entry_cases(
+        cpu, read_all(source), w, routing=(3000, 16),
+        decode={"tiny_gqa": (2, 200, 8, 2, 80, 150, "bfloat16")})
+    assert set(cases) == {"hist_count", "hist_owner", "slots_routing",
+                          "slots_owner_window", "decode_tiny_gqa"}
+    entry = chip_smoke.phase_entry(cpu, cases)
+    assert entry["launches"] == {"hist": 0, "bucket_slots": 0,
+                                 "flash_decode": 0}
+    assert set(entry["max_abs_err"]) == set(cases)
+    assert cases["hist_owner"]["run"]().shape == (4,)
+    assert int(cases["slots_owner_window"]["run"]()[1].sum()) == 4 * 8 * 64
+    assert cases["hist_count"]["library"] is not None
+    assert cases["slots_routing"]["library"] is None
+    full = chip_smoke.hist_bound(chip_smoke.N_TOKENS, chip_smoke.VOCAB, 0)
+    assert full[1] == "bytes" and full[2]["bytes"] == 537_919_488
+    routing = chip_smoke.slots_bound(*chip_smoke.ROUTING)
+    assert routing[2]["bytes"] == 786_688
+    olmo = chip_smoke.decode_bound(chip_smoke.DECODE_FULL["olmo-1b"])
+    assert olmo[1] == "bytes" and round(olmo[0], 4) == 0.0407
