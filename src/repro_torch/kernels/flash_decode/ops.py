@@ -11,6 +11,7 @@ decode loop never waits on the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -22,7 +23,7 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (32, 64, 80, 128)   # the head dims the kernel is built for
 MAX_GROUP = 16                  # query heads per KV head
 TILE = 64                       # keys of a staged tile
-WAVE_CTAS = 4 * 132             # CTAs the split aims for: a few per SM
+CTAS_PER_SM = 4                 # CTAs the split aims for on each SM
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _FN = None    # the typed C entry point, resolved at the first launch
@@ -64,12 +65,20 @@ def _check(q, k, v, t):
                         f"{tuple(t.shape)} {t.dtype}")
 
 
-def split_plan(B: int, S: int, KV: int, block_kv: int) -> tuple[int, int]:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_plan(B: int, S: int, KV: int, block_kv: int,
+               sms: int) -> tuple[int, int]:
     """(splits, keys per split): enough splits of the cache that B*KV*splits
-    CTAs fill the card, none longer than ``block_kv`` rounded up to a tile,
-    each a whole number of tiles."""
+    CTAs put ``CTAS_PER_SM`` on each of the card's ``sms`` SMs, none longer
+    than ``block_kv`` rounded up to a tile, each a whole number of
+    tiles."""
     tiles = -(-S // TILE)
-    splits = max(-(-WAVE_CTAS // (B * KV)), -(-S // max(block_kv, TILE)))
+    splits = max(-(-CTAS_PER_SM * sms // (B * KV)),
+                 -(-S // max(block_kv, TILE)))
     splits = min(splits, tiles)
     chunk = -(-tiles // splits) * TILE
     return -(-S // chunk), chunk
@@ -83,8 +92,11 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
 
     The tensors' device picks kernel or plain version; ``use_kernel=True``
     demands the kernel and raises on CPU tensors. On the card one call is
-    a split pass and a combine pass, counted once; ``block_kv`` bounds the
-    keys of one split. The kernel takes hd in ``HEAD_DIMS``, at most
+    a split pass and a combine pass, counted once. ``block_kv`` keeps the
+    reference's signature but not its meaning: the kernel's tile is fixed
+    at ``TILE`` keys, and ``block_kv`` is the most keys one split reads, so
+    it can only raise the split count above what filling the card asks
+    for (``split_plan``). The kernel takes hd in ``HEAD_DIMS``, at most
     ``MAX_GROUP`` query heads per KV head, a last dim of stride 1 and k, v
     rows on 16-byte boundaries, and raises on anything else.
     """
@@ -113,7 +125,8 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
         t_dev = t.data_ptr()
     else:
         t_host = max(0, min(int(t), S))
-    splits, chunk = split_plan(B, S, KV, block_kv)
+    splits, chunk = split_plan(B, S, KV, block_kv,
+                               _sm_count(q.device))
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     m_part = torch.empty((B * KV, splits, G), dtype=torch.float32,
                          device=q.device)

@@ -252,15 +252,26 @@ def test_fused_kernel_refuses_task_sizes_past_its_limit(cuda_device):
 
 @pytest.mark.cuda
 def test_entry_point_kernels_match_plain_on_the_card(cuda_device):
-    """hist and bucket_slots bit for bit, flash_decode at the per-dtype
-    tolerance, over their whole matrices (the helpers raise on a miss)."""
-    assert chip_smoke.phase_hist_vs_plain(cuda_device,
-                                          chip_smoke.HIST_MATRIX) == 0
-    assert chip_smoke.phase_slots_vs_plain(cuda_device,
-                                           chip_smoke.SLOTS_MATRIX) == 0
-    errs = chip_smoke.phase_decode_vs_plain(cuda_device,
-                                            chip_smoke.DECODE_MATRIX)
-    assert set(errs) == set(chip_smoke.DECODE_MATRIX)
+    """hist and bucket_slots bit for bit, flash_decode at its tolerance,
+    over their whole matrices and the served caches in fp32 (the helpers
+    raise on a miss)."""
+    matrix = chip_smoke.matrix_cases(cuda_device, decode={
+        **chip_smoke.DECODE_MATRIX, **chip_smoke.DECODE_FULL_F32})
+    errs = chip_smoke.check_cases(matrix)
+    chip_smoke.check_decode_edges(matrix)
+    assert len(errs) == len(matrix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_kv", [64, 256, 4096])
+def test_flash_decode_block_kv_changes_the_plan_not_the_result(cuda_device,
+                                                               block_kv):
+    case = chip_smoke.DECODE_FULL_F32["olmo-1b_f32"]
+    c = chip_smoke.decode_case(case, cuda_device)
+    q, k, v, t = c["args"]
+    got = fd_ops.flash_decode(q, k, v, t, block_kv=block_kv)
+    chip_smoke._check_decode(f"block_kv {block_kv}", got, c["plain"](),
+                             case[6])
 
 
 @pytest.mark.cuda

@@ -134,13 +134,28 @@ def test_wrapper_policy_and_checks(bad):
 
 
 def test_split_plan_covers_the_cache_in_whole_tiles():
-    for B, S, KV, block_kv in [(8, 2080, 16, 1024), (8, 2080, 8, 1024),
-                               (1, 256, 2, 128), (1, 64, 1, 1024),
-                               (64, 100000, 8, 1024)]:
-        splits, chunk = ops.split_plan(B, S, KV, block_kv)
+    for B, S, KV, block_kv, sms in [(8, 2080, 16, 1024, 132),
+                                    (8, 2080, 8, 1024, 114),
+                                    (1, 256, 2, 128, 132),
+                                    (1, 64, 1, 1024, 132),
+                                    (64, 100000, 8, 1024, 132)]:
+        splits, chunk = ops.split_plan(B, S, KV, block_kv, sms)
         assert chunk % ops.TILE == 0
         assert (splits - 1) * chunk < S <= splits * chunk
-    assert ops.split_plan(8, 2080, 16, 1024) == (5, 448)   # olmo-1b's cache
+    # olmo-1b's cache on an H100 SXM's 132 SMs, and on a card of 114
+    assert ops.split_plan(8, 2080, 16, 1024, 132) == (5, 448)
+    assert ops.split_plan(8, 2080, 16, 1024, 114) == (4, 576)
+    # h2o-danube-1.8b's
+    assert ops.split_plan(8, 2080, 8, 1024, 132) == (9, 256)
+    assert ops.split_plan(8, 2080, 8, 1024, 114) == (7, 320)
+
+
+def test_block_kv_bounds_the_keys_of_a_split():
+    """``block_kv`` is the most keys a split reads: below what filling the
+    card gives, it raises the split count; above, it changes nothing."""
+    assert ops.split_plan(8, 2080, 16, 64, 132) == (33, 64)
+    assert ops.split_plan(8, 2080, 16, 256, 132) == (9, 256)
+    assert ops.split_plan(8, 2080, 16, 4096, 132) == (5, 448)
 
 
 def test_kernel_source_and_bound_are_wired():

@@ -148,11 +148,16 @@ def test_smoke_entry_point_phases_rehearse_on_cpu():
     width (counts zeroed and read, each output held to its plain
     version, no kernel launched on the CPU), and the full-width bounds."""
     cpu = torch.device("cpu")
-    assert chip_smoke.phase_hist_vs_plain(cpu, chip_smoke.HIST_MATRIX) == 0
-    assert chip_smoke.phase_slots_vs_plain(cpu, chip_smoke.SLOTS_MATRIX) == 0
-    errs = chip_smoke.phase_decode_vs_plain(cpu, chip_smoke.DECODE_MATRIX)
-    assert set(errs) == set(chip_smoke.DECODE_MATRIX)
+    matrix = chip_smoke.matrix_cases(cpu)
+    errs = chip_smoke.check_cases(matrix)
+    chip_smoke.check_decode_edges(matrix)
+    assert set(errs) == (
+        {f"hist_{n}" for n in chip_smoke.HIST_MATRIX}
+        | {f"slots_{n}" for n in chip_smoke.SLOTS_MATRIX}
+        | {f"decode_{n}" for n in chip_smoke.DECODE_MATRIX})
     assert max(errs.values()) == 0.0
+    assert set(chip_smoke.DECODE_FULL_F32) == {"olmo-1b_f32",
+                                               "h2o-danube-1.8b_f32"}
     w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
     source, _ = chip_smoke.job_input(1 << 13, w)
     from repro_torch.data import read_all
