@@ -6,11 +6,15 @@
 Phases, each of which asserts (nothing is caught):
 
   1. build   — compile all six kernels from the sources in this
-               checkout (one nvcc per source, all started together);
+               checkout (one nvcc per source, all started together;
+               flash_attention has two: bf16 on the tensor cores, fp32
+               on the CUDA cores);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
-               shapes (fused_map, hist and bucket_slots bit for bit,
-               flash_attention, ssd_scan and flash_decode at the
+               shapes (flash_attention at olmo-1b's and h2o-danube-1.8b's
+               served shapes and at h2o's heads over S 8192, where its
+               window skips tiles; fused_map, hist and bucket_slots bit
+               for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
                events, beside the library call where there is one. The
                three kernels that only their own entry points reach
@@ -26,9 +30,10 @@ Phases, each of which asserts (nothing is caught):
                numpy oracle and the kernel launched on the main path;
                fused equal to unfused on a 2**25-token corpus of the same
                width (the unfused engine is ~9x slower);
-  4. serve   — olmo-1b and mamba2-780m at full width through
-               ``ServeEngine.generate``: 16 requests in batches of 8,
-               2048-token prompts, 32 new tokens, greedy; the arch's
+  4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
+               at full width through ``ServeEngine.generate``: 16
+               requests (h2o: one batch) in batches of 8, 2048-token
+               prompts, 32 new tokens, greedy; the arch's
                kernel (flash_attention, ssd_scan) launched once per layer
                and prefill, and the kernel's last-position logits within
                3e-2 * max|logits| of the reference path's; for mamba2,
@@ -74,10 +79,11 @@ N_TOKENS = 2**27
 N_UNFUSED = 2**25               # the fused-vs-unfused comparison's corpus
 
 
-# the served configuration: olmo-1b at full width (depth and width as
-# published), random weights from seed 0
-SERVE_ARCHS = ("olmo-1b", "mamba2-780m")
+# the served configurations at full width (depth and width as published),
+# random weights from seed 0, and the requests each serves
 REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = 16, 8, 2048, 32
+SERVE_ARCHS = {"olmo-1b": REQUESTS, "mamba2-780m": REQUESTS,
+               "h2o-danube-1.8b": BATCH}
 
 
 def _port():
@@ -147,7 +153,10 @@ def zero_counts():
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together."""
     _, _, backend, fm_ops, _ = _port()
-    sources = {"fused_map": fm_ops.SOURCE, "flash_attention": _fa()[0].SOURCE,
+    fa_src = _fa()[0].SOURCES
+    sources = {"fused_map": fm_ops.SOURCE,
+               "flash_attention": fa_src[torch.bfloat16],
+               "flash_attention_fp32": fa_src[torch.float32],
                "ssd_scan": _ssd()[0].SOURCE, "hist": _wc()[0].SOURCE,
                "bucket_slots": _slots()[0].SOURCE,
                "flash_decode": _fd()[0].SOURCE}
@@ -341,8 +350,19 @@ FLASH_MATRIX = {
     "swa128_f32": (1, 512, 4, 4, 64, True, 128, "float32"),
     "mha_bf16": (2, 256, 4, 4, 64, True, 0, "bfloat16"),
     "swa256_gqa_ragged640_bf16": (1, 640, 4, 2, 64, True, 256, "bfloat16"),
+    # head dim 80 (h2o-danube-1.8b): bf16 GQA G = 4 over a ragged S, and
+    # fp32 with a window
+    "gqa4_hd80_ragged333_bf16": (1, 333, 8, 2, 80, True, 0, "bfloat16"),
+    "swa96_hd80_f32": (1, 384, 4, 4, 80, True, 96, "float32"),
 }
+# the served shapes: olmo-1b's prefill, and h2o-danube-1.8b's (its window
+# of 4096 is wider than the prompt); h2o's heads at S 8192, where the
+# window hides whole KV tiles at full width
 FLASH_SERVED = (BATCH, PROMPT_LEN, 16, 16, 128, True, 0, "bfloat16")
+FLASH_H2O = (BATCH, PROMPT_LEN, 32, 8, 80, True, 4096, "bfloat16")
+FLASH_H2O_LONG = (1, 8192, 32, 8, 80, True, 4096, "bfloat16")
+FLASH_FULL = {"served": FLASH_SERVED, "h2o_served": FLASH_H2O,
+              "h2o_long8192": FLASH_H2O_LONG}
 
 
 def flash_tol(dtype: str) -> dict:
@@ -406,26 +426,35 @@ def flash_bound(case) -> tuple[float, str, dict]:
 
 
 def time_flash(device) -> dict:
-    """CUDA-event time per call at the served shape: the kernel, its plain
-    version and ``scaled_dot_product_attention`` (the library yardstick,
-    never on the port's path), beside the bound."""
+    """CUDA-event time per call at the served shapes (olmo-1b's, and
+    h2o-danube-1.8b's under ``"h2o"``): the kernel, its plain version and
+    ``scaled_dot_product_attention`` (the library yardstick, never on the
+    port's path; ``enable_gqa`` for h2o, whose 4096 window is wider than
+    the prompt, so ``is_causal`` is the same function), beside the
+    bound."""
     fa_ops, fa_ref = _fa()
-    q, k, v = flash_inputs(FLASH_SERVED, device)
-    ms = _event_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 20)
-    plain_ms = _event_ms(
-        lambda: fa_ref.flash_attention_plain(q, k, v, causal=True), 3)
+    out = {}
+    for name, case in (("olmo", FLASH_SERVED), ("h2o", FLASH_H2O)):
+        q, k, v = flash_inputs(case, device)
+        window = case[6]
+        ms = _event_ms(lambda: fa_ops.flash_attention(
+            q, k, v, causal=True, window=window), 20)
+        plain_ms = _event_ms(lambda: fa_ref.flash_attention_plain(
+            q, k, v, causal=True, window=window), 3)
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True)
-    library_ms = _event_ms(sdpa, 20)
-    sdpa_err = (sdpa().transpose(1, 2).float() - fa_ops.flash_attention(
-        q, k, v, causal=True).float()).abs().max().item()
-    bound_ms, bound_by, work = flash_bound(FLASH_SERVED)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                sdpa_vs_kernel_max_abs=sdpa_err, bound_ms=bound_ms,
-                bound_by=bound_by, **work)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=case[2] != case[3])
+        library_ms = _event_ms(sdpa, 20)
+        sdpa_err = (sdpa().transpose(1, 2).float() - fa_ops.flash_attention(
+            q, k, v, causal=True, window=window).float()).abs().max().item()
+        bound_ms, bound_by, work = flash_bound(case)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         sdpa_vs_kernel_max_abs=sdpa_err, bound_ms=bound_ms,
+                         bound_by=bound_by, **work)
+        del q, k, v
+    return {**out["olmo"], "h2o": out["h2o"]}
 
 
 # the reference's ssd_scan test matrix (tests/test_kernels.py::
@@ -1016,7 +1045,7 @@ def print_profile(what: str, prof: dict):
 
 
 # ---------------------------------------------------------------------------
-# 4. serving olmo-1b and mamba2-780m at full width
+# 4. serving olmo-1b, mamba2-780m and h2o-danube-1.8b at full width
 # ---------------------------------------------------------------------------
 
 def _serve():
@@ -1270,17 +1299,20 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
-    fa_errs = phase_flash_vs_plain(
-        device, {**FLASH_MATRIX, "served": FLASH_SERVED})
+    fa_errs = phase_flash_vs_plain(device, {**FLASH_MATRIX, **FLASH_FULL})
     for name, e in fa_errs.items():
         print(f"kernels: flash_attention ~ plain on {name}: max abs err {e}")
     fa = time_flash(device)
-    print(f"flash_attention at B={BATCH} S={PROMPT_LEN} H=KV=16 hd=128 causal "
-          f"bf16: {fa['ms']:.3f} ms, plain {fa['plain_ms']:.3f} ms, SDPA "
-          f"{fa['library_ms']:.3f} ms (max abs diff to the kernel "
-          f"{fa['sdpa_vs_kernel_max_abs']}), bound {fa['bound_ms']:.4f} ms "
-          f"({fa['bound_by']}: {fa['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s, "
-          f"{fa['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
+    for shape, t in ((f"B={BATCH} S={PROMPT_LEN} H=KV=16 hd=128 causal",
+                      fa),
+                     (f"B={BATCH} S={PROMPT_LEN} H=32 KV=8 hd=80 causal "
+                      f"window=4096", fa["h2o"])):
+        print(f"flash_attention at {shape} bf16: {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms (max "
+              f"abs diff to the kernel {t['sdpa_vs_kernel_max_abs']}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{t['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+              f"{t['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
 
     ssd_errs = phase_ssd_vs_plain(device, {**SSD_MATRIX,
                                            "served": SSD_SERVED})
@@ -1336,9 +1368,9 @@ def main() -> int:
 
     get_config, _, _ = _serve()
     serves = {}
-    for arch in SERVE_ARCHS:
+    for arch, requests in SERVE_ARCHS.items():
         cfg = get_config(arch)
-        serve = serves[arch] = phase_serve(device, cfg)
+        serve = serves[arch] = phase_serve(device, cfg, requests)
         name, _ = serve_kernel(cfg)
         print(f"serve: {serve['arch']} at full width, {serve['requests']} "
               f"requests in batches of {serve['batch']}, prompt "
@@ -1383,6 +1415,8 @@ def main() -> int:
                                 "flash_decode_matrix_err": fd_errs},
                       "serve": serves}))
 
+    fa_archs = [a for a in serves
+                if serve_kernel(get_config(a))[0] == "flash_attention"]
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_map/csrc/fused_map.cu",
@@ -1395,14 +1429,20 @@ def main() -> int:
         "build_s": built["fused_map"].seconds}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_bf16.cu",
+        "fp32_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-        "launches": serves["olmo-1b"]["launches"],
+        "launches": sum(serves[a]["launches"] for a in fa_archs),
+        "launches_by_arch": {a: serves[a]["launches"] for a in fa_archs},
         "max_abs_err": max(fa_errs.values()),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
-        "build_s": built["flash_attention"].seconds}, {
+        "build_s": built["flash_attention"].seconds,
+        "fp32_build_s": built["flash_attention_fp32"].seconds,
+        "shape": "olmo-1b", "h2o-danube-1.8b": {k: fa["h2o"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:77",

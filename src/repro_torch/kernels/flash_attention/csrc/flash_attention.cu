@@ -1,41 +1,37 @@
-// flash_attention.cu — online-softmax attention on Hopper (sm_90a), with
-// causal and sliding-window masks, GQA and a ragged tail.
+// flash_attention.cu — online-softmax attention for fp32 inputs on the
+// CUDA cores (sm_90a), with causal and sliding-window masks, GQA and a
+// ragged tail. bf16 inputs go to flash_attention_bf16.cu (tensor cores).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
-// flash_attention_pallas (body _fa_kernel). It computes the function of
-// ref.py::flash_attention_plain, on the (B, S, H, hd) layout as it lies in
-// memory (no transposes):
-//   * q, k, v read as bf16 or fp32 (template T) and upcast to fp32; q is
-//     scaled by hd**-0.5 in fp32;
+// flash_attention_pallas (body _fa_kernel) for fp32 inputs. It computes
+// the function of ref.py::flash_attention_plain, on the (B, S, H, hd)
+// layout as it lies in memory (no transposes), for hd 64, 80 and 128:
+//   * q is scaled by hd**-0.5 in fp32;
 //   * the online softmax starts at m = -1e30, l = 0; a key is visible when
 //     k_pos < Skv, k_pos <= q_pos (causal) and k_pos > q_pos - window
 //     (window > 0); a hidden score is -1e30 before the row max and its
 //     p = exp(s - m_new) is zeroed AFTER the exp, so a row with nothing
 //     visible so far never takes p = 1;
-//   * the output is acc / max(l, 1e-30), cast to T;
+//   * the output is acc / max(l, 1e-30);
 //   * query head h reads KV head h / (H / KV);
 //   * a KV tile that the causal or window mask hides from every row of the
 //     Q tile is never loaded.
 //
 // Design. One CTA of 256 threads per (b*H + h, 64-row Q tile); the TPU
 // grid's sequential kv axis is the CTA's loop over 64-key tiles. The Q
-// tile sits in shared memory (fp32, scaled); K and then V of each KV tile
-// are staged through one shared buffer, and P goes back through shared
-// memory transposed. Thread (ty, tx) owns score rows ty*4..+3 and columns
-// tx + 16j, and output rows ty*4..+3 and columns g*64 + tx*4..+3: each
-// row's 16 owners are one half-warp, so row max and row sum are shuffles,
-// and every operand read is a float4 from a bank-conflict-free row
-// (rows padded by 4 floats). The products are fp32 FMAs: 84,992 bytes of
-// shared memory at hd = 128 leave room for two CTAs on an SM.
+// tile sits in shared memory (scaled); K and then V of each KV tile are
+// staged through one shared buffer, and P goes back through shared memory
+// transposed. Thread (ty, tx) owns score rows ty*4..+3 and columns
+// tx + 16j, and output rows ty*4..+3 and columns g*64 + tx*4..+3 (plus
+// column 64 + tx when hd is 80): each row's 16 owners are one half-warp,
+// so row max and row sum are shuffles, and every operand read is a float4
+// from a bank-conflict-free row (rows padded by 4 floats).
 //
-// What bounds it. At the served shape (B = 8, S = 2048, H = 16, hd = 128,
-// causal) the work is ~137 GFLOP against ~268 MB of q, k, v and o, so the
-// card's bound is the tensor cores' (0.14 ms at 989 TFLOP/s). This kernel
-// runs on the CUDA cores instead (67 TFLOP/s fp32 at best) and reloads K
-// and V once per Q tile; wgmma, TMA and warp specialisation are the
-// redesign that closes that gap.
+// What bounds it. fp32 has no tensor-core rate that holds the reference's
+// fp32 tolerance (TF32 keeps ~3 digits), so the products are fp32 FMAs at
+// the CUDA cores' 67 TFLOP/s. fp32 is not on the served path; this kernel
+// keeps the fp32 function exact to that tolerance, not fast.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,22 +44,6 @@ constexpr int kLdP = kBlockQ + 4;   // padded row of the transposed P tile
 constexpr float kNegInf = -1e30f;
 static_assert(kBlockQ == kBlockKV, "load_tile stages 64-row tiles of both");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int HD>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(2 * kBlockQ * (HD + 4) + kBlockKV * kLdP) *
@@ -71,26 +51,31 @@ constexpr size_t smem_bytes() {
 }
 
 // rows [row0, row0 + 64) of one head of x (row stride `ld` elements) into
-// dst[64][HD + 4] as fp32 times `mul`; rows at or past `n` are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* x, long long ld,
-                                          int row0, int n, float mul) {
+// dst[64][HD + 4] times `mul`; rows at or past `n` are zero
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* x,
+                                          long long ld, int row0, int n,
+                                          float mul) {
   for (int i = threadIdx.x; i < kBlockKV * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     const int s = row0 + r;
     dst[r * (HD + 4) + d] =
-        s < n ? to_f32(x[static_cast<long long>(s) * ld + d]) * mul : 0.f;
+        s < n ? x[static_cast<long long>(s) * ld + d] * mul : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Skv, int H, int KV, int causal, int window,
-                       float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int Sq, int Skv, int H, int KV, int causal,
+                       int window, float scale) {
   constexpr int kLd = HD + 4;      // padded row of the Q and K/V tiles
   constexpr int kGroups = HD / 64; // float4 output column groups per thread
+  constexpr int kTail = HD % 64 / 16;  // + column 64 + tx when hd is 80
+  constexpr int kCols = 4 * kGroups + kTail;   // output columns per thread
+  static_assert(HD % 64 == 0 || HD % 64 == 16, "hd is 64, 80 or 128");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [64][kLd], scaled Q
   float* kv = qs + kBlockQ * kLd;               // [64][kLd], K then V
@@ -106,15 +91,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long q_base = static_cast<long long>(b) * Sq * q_ld + h * HD;
   const long long kv_base = static_cast<long long>(b) * Skv * kv_ld + kvh * HD;
 
-  load_tile<T, HD>(qs, q + q_base, q_ld, q0, Sq, scale);
+  load_tile<HD>(qs, q + q_base, q_ld, q0, Sq, scale);
 
-  float m[4], l[4], acc[4][4 * kGroups];
+  float m[4], l[4], acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
   // the KV tiles holding a key that some row of this Q tile may see
@@ -130,7 +115,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBlockKV;
     __syncthreads();  // Q is in; the last tile's PV is done with kv and ps
-    load_tile<T, HD>(kv, k + kv_base, kv_ld, k0, Skv, 1.f);
+    load_tile<HD>(kv, k + kv_base, kv_ld, k0, Skv, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -194,14 +179,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * corr + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<float4*>(ps + (tx + 16 * j) * kLdP + ty * 4) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();  // every thread is done reading K; P is in
-    load_tile<T, HD>(kv, v + kv_base, kv_ld, k0, Skv, 1.f);
+    load_tile<HD>(kv, v + kv_base, kv_ld, k0, Skv, 1.f);
     __syncthreads();
 
 #pragma unroll 4
@@ -220,6 +205,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           acc[i][g * 4 + 3] = fmaf(pr[i], vb.w, acc[i][g * 4 + 3]);
         }
       }
+      if constexpr (kTail) {
+        const float vt = kv[c * kLd + 64 * kGroups + tx];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[i][4 * kGroups] = fmaf(pr[i], vt, acc[i][4 * kGroups]);
+      }
     }
   }
 
@@ -228,55 +219,53 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty * 4 + i;
     if (s >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* row = o + q_base + static_cast<long long>(s) * q_ld;
+    float* row = o + q_base + static_cast<long long>(s) * q_ld;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        row[g * 64 + tx * 4 + e] = from_f32<T>(acc[i][g * 4 + e] / den);
+        row[g * 64 + tx * 4 + e] = acc[i][g * 4 + e] / den;
+    if constexpr (kTail) row[64 * kGroups + tx] = acc[i][4 * kGroups] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KV, int causal, int window,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
+      flash_attention_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, causal,
-      window, scale);
+  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on ``stream`` (PyTorch's current stream). dtype 0 is fp32, 1 is
-// bf16; hd is 64 or 128. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a dtype or head dim the kernel is not built
-// for, so the caller can raise.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int H, int KV, int hd,
-                                      int causal, int window, float scale,
-                                      int dtype, void* stream) {
+// Launch on ``stream`` (PyTorch's current stream). q, k, v are contiguous
+// fp32; hd is 64, 80 or 128. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head dim the kernel is not built for, so the
+// caller can raise.
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int Sq, int Skv, int H, int KV,
+                                          int hd, int causal, int window,
+                                          float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                             scale, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                              scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal,
-                                     window, scale, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal,
-                                      window, scale, s);
+  if (hd == 64)
+    return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                      s);
+  if (hd == 80)
+    return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                      s);
+  if (hd == 128)
+    return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                       s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,620 @@
+// flash_attention_bf16.cu — online-softmax attention for bf16 on Hopper's
+// tensor cores (sm_90a: wgmma, TMA, mbarriers, warp specialisation), with
+// causal and sliding-window masks, GQA and a ragged tail.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
+// flash_attention_pallas (body _fa_kernel) for bf16 inputs; fp32 inputs go
+// to flash_attention.cu. It computes the function of
+// ref.py::flash_attention_plain on the (B, S, H, hd) layout as it lies in
+// memory (no transposes, no padded copies), for hd 64, 80 and 128:
+//   * scores are bf16 q . bf16 k summed in fp32; hd**-0.5 (with log2(e)
+//     folded in, for exp2f) is applied to the fp32 scores, in the exp's
+//     FFMA;
+//   * the online softmax starts at m = -1e30, l = 0; a key is visible when
+//     k_pos < Skv, k_pos <= q_pos (causal) and k_pos > q_pos - window
+//     (window > 0); a hidden score is -1e30 before the row max and its p
+//     is zeroed after the exp;
+//   * the output is acc / max(l, 1e-30), cast to bf16;
+//   * query head h reads KV head h / (H / KV);
+//   * a KV tile that the causal or window mask hides from every row of the
+//     Q tile is never loaded.
+//
+// What bounds it. At the served shape (B 8, S 2048, H = KV = 16, hd 128,
+// causal) the two products take ~137 GFLOP against ~268 MB of q, k, v and
+// o: the bound is the tensor cores' (0.14 ms at 989 TFLOP/s bf16), not
+// the memory's (0.08 ms at 3.35 TB/s). What each choice does about it:
+//   * both products run on the tensor cores (wgmma.mma_async m64nNk16,
+//     fp32 accumulators in registers); operands stay bf16 in shared memory
+//     in the swizzled layout that wgmma reads, nothing is upcast;
+//   * S = Q K^T reads Q and K from shared memory (both K-major); P is
+//     converted to bf16 in registers, where wgmma's accumulator layout is
+//     already its A-operand layout, so O += P V takes P from registers and
+//     P never touches shared memory; V is read MN-major (transposed by
+//     wgmma, not by a copy);
+//   * the row max and sum stay in registers: a row's scores lie in one
+//     quad of lanes, so two shuffles reduce them;
+//   * one producer warpgroup keeps TMA loads (cp.async.bulk.tensor) of K
+//     and V in flight through a 3-stage ring guarded by full/empty
+//     mbarriers, and hands its registers to the consumers (setmaxnreg:
+//     24 for it, 240 for each consumer, so the pipelined loop below
+//     does not spill at hd 128);
+//     K and V have barriers of their own, so S of a tile starts before its
+//     V has landed. Two consumer warpgroups own 64 query rows each (block
+//     128 x 128 keys), so one's softmax overlaps the other's products;
+//   * within a warpgroup the tiles are software-pipelined: S of tile i and
+//     P V of tile i - 1 are issued together, and the softmax of tile i
+//     runs while P V of tile i - 1 is still on the tensor cores;
+//   * element masks are applied only on tiles that cross the diagonal,
+//     the window's edge or Skv; interior tiles run unmasked. TMA fills
+//     rows past Sq or Skv with zeros, so the ragged tail needs no padding;
+//   * the CTAs of a head start with its heaviest causal Q tiles.
+// hd 80: a 160-byte row does not fit one 128-byte swizzle atom, so the
+// head dim is cut into two panels, each a TMA box of its own: columns
+// [0, 64) in 128-byte swizzle and [64, 80) in 32-byte swizzle (hd 128:
+// two 64-column panels; hd 64: one). QK^T takes one k16 step per 16
+// columns of either panel; PV issues one wgmma per panel (n64, then n64
+// or n16), each with its own descriptor.
+//
+// Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the build needs no -lcuda)
+// and passed as __grid_constant__ parameters.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockQ = 128;               // 2 consumer warpgroups x 64 rows
+constexpr int kBlockKV = 128;
+constexpr int kStages = 3;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = kConsumerWarps * 32 + 128;  // + 1 producer warpgroup
+constexpr float kNegInf = -1e30f;
+
+// The head dim's panels: panel 0 holds columns [0, 64) with 128-byte rows
+// in 128-byte swizzle; panel 1 holds [64, HD): none for HD 64, 64 columns
+// in 128-byte swizzle for HD 128, 16 columns in 32-byte swizzle for HD 80.
+template <int HD>
+struct Panels {
+  static constexpr int kW1 = HD - 64;
+  static_assert(kW1 == 0 || kW1 == 16 || kW1 == 64, "hd is 64, 80 or 128");
+  static constexpr int kRow1 = kW1 * 2;          // bytes of a panel-1 row
+  static constexpr int kSbo1 = 8 * kRow1;        // one 8-row swizzle atom
+  static constexpr int kLayout1 = kW1 == 64 ? 1 : 3;   // B128 : B32
+};
+
+// wgmma descriptor of a swizzled tile at shared address `addr`: `sbo` is
+// the byte stride between 8-row atoms, `layout` 1 (128-byte swizzle) or 3
+// (32-byte). The leading offset is unused for these layouts.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t sbo,
+                                         uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map (hd, heads, S, B) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+      "r"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Returns once at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d(64 x 128, fp32) (+)= A(64 x 16, smem, K-major) . B(128 x 16, smem,
+// K-major)^T; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x 64, fp32) += A(64 x 16, bf16 registers) . B(16 x 64, smem,
+// MN-major: wgmma transposes it).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d(64 x 16, fp32) += A(64 x 16, bf16 registers) . B(16 x 16, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int HD>
+constexpr int smem_bytes() {
+  // Q, then kStages K tiles, then kStages V tiles, then the mbarriers;
+  // 1024 bytes of slack to align the base to the 128-byte swizzle's atom
+  return kBlockQ * HD * 2 + 2 * kStages * kBlockKV * HD * 2 +
+         (1 + 4 * kStages) * 8 + 1024;
+}
+
+// Accumulator layout of wgmma m64nN (fp32), per thread of a warpgroup:
+// warp w, lane l own rows 16w + l/4 (entries 4j, 4j+1) and 16w + l/4 + 8
+// (entries 4j+2, 4j+3) at columns 8j + 2(l%4) + {0, 1}.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
+               const __grid_constant__ CUtensorMap tq1,
+               const __grid_constant__ CUtensorMap tk0,
+               const __grid_constant__ CUtensorMap tk1,
+               const __grid_constant__ CUtensorMap tv0,
+               const __grid_constant__ CUtensorMap tv1,
+               __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
+               int causal, int window, float scale_log2) {
+  using P = Panels<HD>;
+  constexpr int kTile = kBlockKV * HD * 2;   // bytes of a K or V tile
+  constexpr int kQBytes = kBlockQ * HD * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + kQBytes;                 // + stage * kTile
+  const uint32_t sv = sk + kStages * kTile;         // + stage * kTile
+  const uint32_t bars = sv + kStages * kTile;
+  const uint32_t q_full = bars;
+  // k_full(s), v_full(s), k_empty(s), v_empty(s)
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
+
+  const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kvh = h / (H / KV);
+
+  // the KV tiles holding a key that some row of this Q tile may see
+  const int n_kt = (Skv + kBlockKV - 1) / kBlockKV;
+  const int kt_hi = causal ? min(n_kt, (q0 + kBlockQ - 1) / kBlockKV + 1)
+                           : n_kt;
+  int kt_lo = 0;
+  if (window > 0) {
+    const int x = q0 - window - (kBlockKV - 1);
+    kt_lo = x < 0 ? 0 : x / kBlockKV + 1;
+  }
+  const int n_tiles = kt_hi > kt_lo ? kt_hi - kt_lo : 0;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(k_full(s), 1);
+      bar_init(v_full(s), 1);
+      bar_init(k_empty(s), kConsumerWarps);
+      bar_init(v_empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumerWarps) {
+    // producer warpgroup: gives its registers to the consumers; one lane
+    // issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      bar_expect_tx(q_full, kQBytes);
+      tma_load(sq, &tq0, q_full, 0, h, q0, b);
+      if constexpr (P::kW1 > 0)
+        tma_load(sq + kBlockQ * 128, &tq1, q_full, 64, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, ph = (i / kStages) & 1;
+        const int k0 = (kt_lo + i) * kBlockKV;
+        const uint32_t dk = sk + st * kTile, dv = sv + st * kTile;
+        bar_wait(k_empty(st), ph ^ 1);
+        bar_expect_tx(k_full(st), kTile);
+        tma_load(dk, &tk0, k_full(st), 0, kvh, k0, b);
+        if constexpr (P::kW1 > 0)
+          tma_load(dk + kBlockKV * 128, &tk1, k_full(st), 64, kvh, k0, b);
+        bar_wait(v_empty(st), ph ^ 1);
+        bar_expect_tx(v_full(st), kTile);
+        tma_load(dv, &tv0, v_full(st), 0, kvh, k0, b);
+        if constexpr (P::kW1 > 0)
+          tma_load(dv + kBlockKV * 128, &tv1, v_full(st), 64, kvh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4, wq = warp % 4;
+  const int qw0 = q0 + wg * 64;
+  const int row0 = qw0 + wq * 16 + lane / 4;        // and row0 + 8
+  const int col_l = 2 * (lane % 4);
+  const uint32_t qa0 = sq + wg * 64 * 128;
+  const uint32_t qa1 = sq + kBlockQ * 128 + wg * 64 * P::kRow1;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  float s[64];
+  uint32_t pa[8][4];
+  float o0[32];
+  float o1[P::kW1 > 0 ? P::kW1 / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (P::kW1 > 0 ? P::kW1 / 2 : 1); ++i) o1[i] = 0.f;
+
+  // S = Q K^T of the tile in stage st, fp32 in registers
+  auto issue_qk = [&](int st) {
+    const uint32_t kb = sk + st * kTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(s, desc(qa0 + 32 * kk, 1024, 1),
+                    desc(kb + 32 * kk, 1024, 1), kk);
+#pragma unroll
+    for (int kk = 0; kk < P::kW1 / 16; ++kk)
+      wgmma_ss_n128(s, desc(qa1 + 32 * kk, P::kSbo1, P::kLayout1),
+                    desc(kb + kBlockKV * 128 + 32 * kk, P::kSbo1,
+                         P::kLayout1),
+                    1);
+    wg_commit();
+    fence_regs(s);
+  };
+  // O += P V with P from registers and V in stage st
+  auto issue_pv = [&](int st) {
+    const uint32_t vb = sv + st * kTile;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      wgmma_rs_n64(o0, pa[t], desc(vb + t * 16 * 128, 1024, 1));
+      if constexpr (P::kW1 > 0) {
+        const uint64_t d1 = desc(vb + kBlockKV * 128 + t * 16 * P::kRow1,
+                                 P::kSbo1, P::kLayout1);
+        if constexpr (P::kW1 == 64)
+          wgmma_rs_n64(o1, pa[t], d1);
+        else
+          wgmma_rs_n16(o1, pa[t], d1);
+      }
+    }
+    wg_commit();
+    fence_regs(o0);
+    fence_regs(o1);
+  };
+  // the online softmax of the tile at key k0: p (fp32) in place of s, the
+  // row max m and sum l updated, corr the rescale of the rows' O. Only a
+  // tile that crosses Skv, the diagonal or the window's edge for some row
+  // of this warpgroup is masked. The scale (in log2 units) goes into the
+  // exp's FFMA; the max is taken over the raw scores (scale > 0).
+  auto softmax = [&](int k0) {
+    const bool edge = k0 + kBlockKV > Skv ||
+                      (causal && k0 + kBlockKV - 1 > qw0) ||
+                      (window > 0 && k0 <= qw0 + 63 - window);
+    float mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int qp = row0 + (e >> 1) * 8;
+          const int kp = k0 + 8 * j + col_l + (e & 1);
+          bool ok = kp < Skv;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && kp > qp - window;
+          if (!ok) s[4 * j + e] = kNegInf;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * j + e];
+        float p = exp2f(fmaf(x, scale_log2, -m[e >> 1]));
+        if (edge && x == kNegInf) p = 0.f;   // zeroed after the exp
+        s[4 * j + e] = p;
+        rs[e >> 1] += p;
+      }
+    l[0] = l[0] * corr[0] + rs[0];
+    l[1] = l[1] * corr[1] + rs[1];
+  };
+  // rescale O (no product may be in flight on it), then P into bf16
+  // registers laid out as wgmma's A operand: k16 step t takes accumulator
+  // entries 8t .. 8t+7
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o0[i] *= corr[(i >> 1) & 1];
+    if constexpr (P::kW1 > 0) {
+#pragma unroll
+      for (int i = 0; i < P::kW1 / 2; ++i) o1[i] *= corr[(i >> 1) & 1];
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[t][r] = pack_bf16(s[8 * t + 2 * r], s[8 * t + 2 * r + 1]);
+  };
+
+  // Software pipeline: the softmax of tile i runs while the tensor cores
+  // do P V of tile i - 1 (issued just before, behind S of tile i).
+  bar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    bar_wait(k_full(0), 0);
+    wg_fence();
+    issue_qk(0);
+    wg_wait<0>();
+    fence_regs(s);
+    if (lane == 0) bar_arrive(k_empty(0));
+    softmax(kt_lo * kBlockKV);
+    rescale_and_pack();
+  }
+  for (int i = 1; i < n_tiles; ++i) {
+    const int st = i % kStages, ph = (i / kStages) & 1;
+    const int sp = (i - 1) % kStages, pp = ((i - 1) / kStages) & 1;
+    bar_wait(k_full(st), ph);
+    wg_fence();
+    issue_qk(st);
+    bar_wait(v_full(sp), pp);
+    issue_pv(sp);
+    wg_wait<1>();                          // S of tile i is in
+    fence_regs(s);
+    if (lane == 0) bar_arrive(k_empty(st));
+    softmax((kt_lo + i) * kBlockKV);
+    wg_wait<0>();                          // P V of tile i - 1 is done
+    fence_regs(o0);
+    fence_regs(o1);
+    if (lane == 0) bar_arrive(v_empty(sp));
+    rescale_and_pack();
+  }
+  if (n_tiles > 0) {
+    const int sp = (n_tiles - 1) % kStages;
+    bar_wait(v_full(sp), ((n_tiles - 1) / kStages) & 1);
+    wg_fence();
+    issue_pv(sp);
+    wg_wait<0>();
+    fence_regs(o0);
+    fence_regs(o1);
+    if (lane == 0) bar_arrive(v_empty(sp));
+  }
+
+  // epilogue: each row's l is the sum over its quad of lanes
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  const long long ld = static_cast<long long>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* row = o + (static_cast<long long>(b) * Sq + qp) * ld +
+                         static_cast<long long>(h) * HD + col_l;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          o0[4 * j + 2 * r] * inv[r], o0[4 * j + 2 * r + 1] * inv[r]);
+    if constexpr (P::kW1 > 0) {
+#pragma unroll
+      for (int j = 0; j < P::kW1 / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 + 8 * j) =
+            __floats2bfloat162_rn(o1[4 * j + 2 * r] * inv[r],
+                                  o1[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// The map of x (B, S, heads, hd) as the 4-d tensor (hd, heads, S, B) with
+// boxes of `cols` columns by `rows` rows of one head; rows past S read as
+// zeros.
+bool make_map(EncodeFn enc, CUtensorMap* map, const void* x, int B, int S,
+              int heads, int hd, int cols, int rows, bool swizzle128) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(hd) * 2,
+      static_cast<cuuint64_t>(heads) * hd * 2,
+      static_cast<cuuint64_t>(S) * heads * hd * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int H, int KV, int causal, int window,
+           float scale, cudaStream_t stream) {
+  using P = Panels<HD>;
+  const EncodeFn enc = encode_fn();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap m[6];   // q, k, v: panel 0 and panel 1 each
+  const int w1 = P::kW1 > 0 ? P::kW1 : 64;   // unused map when HD is 64
+  const bool sw1 = P::kW1 != 16;
+  if (!make_map(enc, &m[0], q, B, Sq, H, HD, 64, kBlockQ, true) ||
+      !make_map(enc, &m[1], q, B, Sq, H, HD, w1, kBlockQ, sw1) ||
+      !make_map(enc, &m[2], k, B, Skv, KV, HD, 64, kBlockKV, true) ||
+      !make_map(enc, &m[3], k, B, Skv, KV, HD, w1, kBlockKV, sw1) ||
+      !make_map(enc, &m[4], v, B, Skv, KV, HD, 64, kBlockKV, true) ||
+      !make_map(enc, &m[5], v, B, Skv, KV, HD, w1, kBlockKV, sw1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
+  fa_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o),
+      Sq, Skv, H, KV, causal, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on ``stream`` (PyTorch's current stream). q, k, v are contiguous
+// bf16 with 16-byte aligned bases; hd is 64, 80 or 128. Returns
+// cudaGetLastError(), or an error code for a head dim the kernel is not
+// built for or a tensor map cuTensorMapEncodeTiled refuses, so the caller
+// can raise.
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int Sq, int Skv, int H, int KV,
+                                           int hd, int causal, int window,
+                                           float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                      s);
+  if (hd == 80)
+    return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                      s);
+  if (hd == 128)
+    return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                       s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

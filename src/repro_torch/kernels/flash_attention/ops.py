@@ -1,10 +1,11 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash attention kernels: ``csrc/flash_attention_bf16.cu``
+(bf16, tensor cores) and ``csrc/flash_attention.cu`` (fp32, CUDA cores).
 
 Takes the ``(B, S, H, hd)`` layout of ``repro/kernels/flash_attention/
 ops.py`` and follows the port's kernel policy (``kernels/backend.py``):
 a CPU tensor takes the plain version (``ref.flash_attention_plain``), a
-CUDA tensor the compiled kernel or an error. The kernel reads the
-layout as it is, so the wrapper transposes nothing.
+CUDA tensor the compiled kernel of its dtype or an error. The kernels
+read the layout as it is, so the wrapper transposes and pads nothing.
 """
 from __future__ import annotations
 
@@ -16,22 +17,26 @@ import torch
 from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 128)           # the head dims the kernel is built for
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CSRC = Path(__file__).parent / "csrc"
+# each dtype's source and C entry point
+SOURCES = {torch.bfloat16: CSRC / "flash_attention_bf16.cu",
+           torch.float32: CSRC / "flash_attention.cu"}
+_ENTRY = {torch.bfloat16: "flash_attention_bf16_launch",
+          torch.float32: "flash_attention_f32_launch"}
+HEAD_DIMS = (64, 80, 128)       # the head dims both kernels are built for
 
-_FN = None    # the typed C entry point, resolved at the first launch
+_FN = {}      # dtype -> the typed C entry point, resolved at first launch
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = backend.load(SOURCE).flash_attention_launch
+def _launcher(dtype):
+    fn = _FN.get(dtype)
+    if fn is None:
+        fn = getattr(backend.load(SOURCES[dtype]), _ENTRY[dtype])
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[dtype] = fn
+    return fn
 
 
 def _check(q, k, v):
@@ -49,7 +54,7 @@ def _check(q, k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
                              f"{q.dtype} on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in SOURCES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
 
@@ -59,9 +64,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, S, H, hd); k/v: (B, Skv, KV, hd). Returns (B, S, H, hd).
 
     The tensors' device picks kernel or plain version; ``use_kernel=True``
-    demands the kernel and raises on CPU tensors. On the card the kernel
-    takes hd in ``HEAD_DIMS`` and contiguous tensors, and raises on
-    anything else.
+    demands the kernel and raises on CPU tensors. On the card bf16 runs
+    the tensor-core kernel and fp32 the CUDA-core one; each takes hd in
+    ``HEAD_DIMS`` and contiguous tensors with 16-byte aligned data, and
+    raises on anything else.
     """
     _check(q, k, v)
     if not backend.use_kernel(q, require=use_kernel):
@@ -74,13 +80,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the kernel's grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     B, Sq, Skv, H, KV, hd, int(causal), int(window),
-                     hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
+    rc = _launcher(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
+                            int(window), hd ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -113,21 +113,33 @@ def test_job_on_card_equals_cpu(cuda_device, fused):
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_the_card(cuda_device):
-    """Every case of the reference's flash_attention matrix, at its
-    per-dtype tolerance (the helper raises on a miss)."""
+    """Every case of the reference's flash_attention matrix (hd 64, 80
+    and 128; bf16 through the tensor-core kernel, fp32 through the
+    CUDA-core one), at its per-dtype tolerance (the helper raises on a
+    miss)."""
     errs = chip_smoke.phase_flash_vs_plain(cuda_device,
                                            chip_smoke.FLASH_MATRIX)
     assert set(errs) == set(chip_smoke.FLASH_MATRIX)
 
 
 @pytest.mark.cuda
+def test_flash_kernel_matches_plain_at_full_width(cuda_device):
+    """olmo-1b's and h2o-danube-1.8b's served shapes, and h2o's heads at
+    S 8192 with window 4096 (whole KV tiles skipped at full width)."""
+    errs = chip_smoke.phase_flash_vs_plain(cuda_device,
+                                           chip_smoke.FLASH_FULL)
+    assert set(errs) == set(chip_smoke.FLASH_FULL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gqa4_f32", "gqa4_hd80_ragged333_bf16"])
 def test_flash_wrapper_launches_and_never_takes_plain(cuda_device,
-                                                      monkeypatch):
+                                                      monkeypatch, name):
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(fa_ops, "flash_attention_plain", plain)
-    q, k, v = chip_smoke.flash_inputs(chip_smoke.FLASH_MATRIX["gqa4_f32"],
+    q, k, v = chip_smoke.flash_inputs(chip_smoke.FLASH_MATRIX[name],
                                       cuda_device)
     before = fa_ops.flash_attention.launches
     o = fa_ops.flash_attention(q, k, v, causal=True)
@@ -145,11 +157,24 @@ def test_flash_kernel_rejects_other_head_dims(cuda_device, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("attn_type", ["gqa", "swa"])
-def test_serving_on_the_card_equals_the_cpu(cuda_device, attn_type):
-    """A small dense model (hd = 64, so the kernel takes it) in fp32:
-    greedy tokens served on the card equal those served on the CPU, and
-    each prefill launched the kernel once per layer."""
+def test_flash_kernel_rejects_unaligned_data(cuda_device):
+    """The bf16 kernel's tensor maps need 16-byte aligned bases: a
+    contiguous view two bytes in raises instead of being copied."""
+    flat = torch.zeros(1 + 64 * 2 * 80, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(1, 64, 2, 80)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_type,d_head", [("gqa", 64), ("swa", 64),
+                                              ("swa", 80)])
+def test_serving_on_the_card_equals_the_cpu(cuda_device, attn_type, d_head):
+    """A small dense model in fp32 at head dim 64, and at h2o-danube-1.8b's
+    80: greedy tokens served on the card equal those served on the CPU,
+    and each prefill launched the kernel once per layer."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -157,7 +182,7 @@ def test_serving_on_the_card_equals_the_cpu(cuda_device, attn_type):
     from repro_torch.serve.engine import ServeEngine
     cfg = dataclasses.replace(
         get_smoke_config("h2o-danube-1.8b"), d_model=256, n_heads=4,
-        n_kv_heads=2, d_ff=512, d_head=64, attn_type=attn_type,
+        n_kv_heads=2, d_ff=512, d_head=d_head, attn_type=attn_type,
         sliding_window=48 if attn_type == "swa" else 0, dtype="float32",
         param_dtype="float32")
     prompts = np.random.default_rng(0).integers(

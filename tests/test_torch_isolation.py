@@ -116,6 +116,38 @@ def test_smoke_flash_and_serve_phases_rehearse_on_cpu():
     assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
 
 
+def test_smoke_h2o_phases_rehearse_on_cpu():
+    """h2o-danube-1.8b's part of the smoke: its full-width flash shapes
+    and their bounds (the window of 4096 bites only at S 8192), and its
+    serve phase at a narrow config with the served head dim of 80 (one
+    batch, as the smoke serves it): served tokens checked, no kernel
+    launched on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    cpu = torch.device("cpu")
+    assert chip_smoke.SERVE_ARCHS["h2o-danube-1.8b"] == chip_smoke.BATCH
+    full = get_config("h2o-danube-1.8b")
+    B, S, H, KV, hd, causal, window, _ = chip_smoke.FLASH_H2O
+    assert (H, KV, hd, window) == (full.n_heads, full.n_kv_heads,
+                                   full.d_head, full.sliding_window) \
+        and hd == 80 and causal
+    _, by, work = chip_smoke.flash_bound(chip_smoke.FLASH_H2O)
+    assert by == "operations"
+    assert work["flops"] == 4 * B * H * hd * (S * (S + 1) // 2)
+    _, _, long = chip_smoke.flash_bound(chip_smoke.FLASH_H2O_LONG)
+    S = chip_smoke.FLASH_H2O_LONG[1]
+    assert long["flops"] == 4 * H * hd * (window * (window + 1) // 2
+                                          + (S - window) * window)
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-1.8b"),
+                              n_heads=2, n_kv_heads=1, d_head=80)
+    assert chip_smoke.serve_kernel(cfg)[0] == "flash_attention"
+    serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
+                                   prompt_len=48, new_tokens=4)
+    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
+
+
 def test_smoke_ssd_and_mamba_serve_phases_rehearse_on_cpu():
     """The ssd_scan matrix through the wrapper (the plain version here),
     the per-layer mixer check, and the mamba2 serve phases at the SMOKE

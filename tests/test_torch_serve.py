@@ -193,6 +193,71 @@ def test_generate_greedy(pair):
     assert (logits.max(-1) - picked).max() <= lim
 
 
+HD80 = dict(n_layers=2, n_heads=2, n_kv_heads=1, d_head=80)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def hd80(request):
+    """A narrow h2o-like config at h2o-danube-1.8b's head dim of 80 (2
+    layers, 2 heads, KV 1, window 32 over 96-token prompts), with the
+    reference's weights carried across."""
+    dtype = request.param
+    jcfg = dataclasses.replace(jregistry.get_smoke_config("h2o-danube-1.8b"),
+                               dtype=dtype, param_dtype=dtype, **HD80)
+    tcfg = dataclasses.replace(tregistry.get_smoke_config("h2o-danube-1.8b"),
+                               dtype=dtype, param_dtype=dtype, **HD80)
+    assert tcfg.d_head == 80 and tcfg.attn_type == "swa"
+    jp = jtf.init_model(jcfg, jax.random.key(0))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), CPU)
+    return Pair(dtype, jcfg, tcfg, jp, tp)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_head_dim_80_forward_matches_jax(hd80, use_kernel):
+    """Logits and raw caches at head dim 80, the kernel path (the plain
+    version on the CPU) against the reference's Pallas path in interpret
+    mode, the reference path against its reference path."""
+    toks = _tokens(hd80.tcfg, seed=4)
+    want, _, jc = jtf.forward(hd80.jcfg, hd80.jp,
+                              {"tokens": jnp.asarray(toks)},
+                              use_pallas=use_kernel, want_cache=True)
+    got, _, tc = ttf.forward(hd80.tcfg, hd80.tp,
+                             {"tokens": torch.from_numpy(toks)},
+                             use_kernel=use_kernel, want_cache=True)
+    _close(got, want, hd80.dtype, "logits")
+    # the caches in fp32 at 1e-5 * max|cache|: k is rotated by fp32 angles
+    # of up to 95 rad, where both libraries sit ~1.1e-5 from a float64
+    # rope (and 1.3e-5 from each other) at |k| ~ 1
+    for i, c in enumerate(tc["blocks"]):
+        for name in ("k", "v"):
+            g = _np(c[name])
+            w = _np(jc["blocks"]["layer0"][name][i])
+            lim = (1e-5 if hd80.dtype == "float32" else 3e-2) \
+                * np.abs(w).max()
+            assert np.abs(g - w).max() <= lim, (i, name)
+
+
+def test_head_dim_80_generate_matches_jax(hd80):
+    """Greedy serving at head dim 80: the same tokens in fp32; in bf16
+    every served token a maximum, within 3e-2 * max|logits|, of the
+    reference's logits for the sequence the port served."""
+    prompts = _tokens(hd80.tcfg, seed=5)
+    max_len = S + NEW + 8
+    want = jengine.ServeEngine(hd80.jcfg, hd80.jp, max_len=max_len) \
+        .generate(prompts, NEW)
+    got = tengine.ServeEngine(hd80.tcfg, hd80.tp, max_len=max_len,
+                              device=CPU).generate(prompts, NEW)
+    assert got.shape == (B, NEW)
+    if hd80.dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+        return
+    seq = np.concatenate([prompts, got[:, :-1]], 1)
+    logits, _ = jtf.forward(hd80.jcfg, hd80.jp, {"tokens": jnp.asarray(seq)})
+    logits = _np(logits)[:, S - 1:]
+    picked = np.take_along_axis(logits, got[..., None], -1)[..., 0]
+    assert (logits.max(-1) - picked).max() <= 3e-2 * np.abs(logits).max()
+
+
 def test_temperature_sampling_follows_the_seed():
     cfg = tregistry.get_smoke_config("olmo-1b")
     eng = tengine.ServeEngine(cfg, ttf.init_model(cfg, 0, device=CPU),
