@@ -2,6 +2,13 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
     python chip_smoke.py
+    python chip_smoke.py --decode-only [--parent DIR]
+
+With no arguments the phases below run
+in order. ``--parent DIR`` also times an older flash_decode (its
+``ops.py`` and ``csrc/`` in DIR, e.g. unpacked from ``git archive`` of an
+earlier commit) in turns with this one; ``--decode-only`` runs
+flash_decode's build, checks and timing alone and prints no final line.
 
 Phases, each of which asserts (nothing is caught):
 
@@ -150,8 +157,22 @@ def zero_counts():
 # 1. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> dict:
-    """One nvcc per kernel source, all started together."""
+def load_parent(path):
+    """The ops module of an older flash_decode (``path`` holds its
+    ``ops.py`` and ``csrc/flash_decode.cu``, e.g. from ``git archive`` of
+    an earlier commit), to be timed in turns with this one."""
+    import importlib.util
+    _port()
+    spec = importlib.util.spec_from_file_location(
+        "parent_flash_decode_ops", Path(path) / "ops.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_build(only=None, parent=None) -> dict:
+    """One nvcc per kernel source (those named in ``only``, else all, and
+    ``parent``'s flash_decode where given), all started together."""
     _, _, backend, fm_ops, _ = _port()
     fa_src = _fa()[0].SOURCES
     sources = {"fused_map": fm_ops.SOURCE,
@@ -160,6 +181,10 @@ def phase_build() -> dict:
                "ssd_scan": _ssd()[0].SOURCE, "hist": _wc()[0].SOURCE,
                "bucket_slots": _slots()[0].SOURCE,
                "flash_decode": _fd()[0].SOURCE}
+    if only is not None:
+        sources = {k: sources[k] for k in only}
+    if parent is not None:
+        sources["parent_flash_decode"] = parent.SOURCE
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {k: pool.submit(backend.build, v) for k, v in sources.items()}
@@ -652,6 +677,17 @@ DECODE_MATRIX = {
     "tS5_bf16": (1, 256, 4, 2, 64, 261, "bfloat16"),
     "g4_hd80_f32": (2, 384, 8, 2, 80, 200, "float32"),
     "g4_hd80_bf16": (2, 384, 8, 2, 80, 383, "bfloat16"),
+    # the kernel's ring (4 stages of 32 keys): 600 heads take one split
+    # each on any H100, so a split of 3 tiles, fewer than the stages, and
+    # t at the ring's first wrap (128 keys) and one either side of it
+    "ring_short_bf16": (75, 96, 8, 8, 32, 90, "bfloat16"),
+    "wrap127_f32": (75, 192, 8, 8, 32, 127, "float32"),
+    "wrap128_g2_bf16": (75, 192, 16, 8, 32, 128, "bfloat16"),
+    "wrap129_f32": (75, 192, 8, 8, 32, 129, "float32"),
+    # k and v as views of the first S positions of a max_len cache
+    "view_maxlen_bf16": (2, 300, 8, 2, 128, 290, "bfloat16", 1024),
+    "g16_hd128_bf16": (2, 512, 32, 2, 128, 500, "bfloat16"),
+    "hd80_long_f32": (2, 1500, 8, 2, 80, 1499, "float32"),
 }
 # decode on the served caches (prompt 2048 + 32 new tokens): olmo-1b, and
 # h2o-danube-1.8b's grouped heads
@@ -671,14 +707,18 @@ ROUTING = (BATCH * PROMPT_LEN * 6, 64)
 
 
 def decode_inputs(case, device):
-    """Seeded q, k, v of one case, made in fp32 and cast to its dtype."""
-    B, S, H, KV, hd, t, dtype = case
+    """Seeded q, k, v of one case, made in fp32 and cast to its dtype; a
+    case with an 8th entry, max_len, gets k and v as views of the first S
+    positions of (B, max_len, KV, hd) caches."""
+    B, S, H, KV, hd, t, dtype = case[:7]
+    max_len = case[7] if len(case) > 7 else S
     rng = np.random.default_rng(S + t)
     dt = getattr(torch, dtype)
-    return tuple(
+    q, k, v = (
         torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             device=device, dtype=dt)
-        for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        for shape in ((B, H, hd), (B, max_len, KV, hd), (B, max_len, KV, hd)))
+    return q, k[:, :S], v[:, :S]
 
 
 def _int_diff(got, want) -> int:
@@ -695,7 +735,9 @@ def decode_case(case, device) -> dict:
     return dict(kernel="flash_decode", exact=False, dtype=case[6],
                 args=(q, k, v, t_dev), t=case[5],
                 run=lambda: fd_ops.flash_decode(q, k, v, t_dev),
-                plain=lambda: fd_ref.flash_decode_plain(q, k, v, t_dev))
+                plain=lambda: fd_ref.flash_decode_plain(q, k, v, t_dev),
+                variants={fill: lambda f=fill: fd_ops.flash_decode(
+                    q, k, v, t_dev, fill=f) for fill in ("rows", "tma")})
 
 
 def matrix_cases(device, hist=HIST_MATRIX, slots=SLOTS_MATRIX,
@@ -745,7 +787,8 @@ def _check_decode(name, got, want, dtype) -> float:
 def check_cases(cases: dict, outs: dict | None = None) -> dict:
     """Hold each case's output (``outs``, else one call of its entry point)
     to its plain version: bit for bit, every output, for hist and
-    bucket_slots; at ``_check_decode``'s tolerance for flash_decode.
+    bucket_slots; at ``_check_decode``'s tolerance for flash_decode, in
+    each of its fills (the case's ``variants``).
     Returns the max abs difference per case."""
     errs = {}
     for name, c in cases.items():
@@ -761,28 +804,35 @@ def check_cases(cases: dict, outs: dict | None = None) -> dict:
             errs[name] = 0
         else:
             errs[name] = _check_decode(name, got, want, c["dtype"])
+            for fill, run in c.get("variants", {}).items():
+                errs[name] = max(errs[name], _check_decode(
+                    f"{name} ({fill} fill)", run(), want, c["dtype"]))
     return errs
 
 
 def check_decode_edges(cases: dict):
-    """flash_decode on each of its cases: t as an int gives the bits of t
-    as a device tensor, and so do k and v overwritten at positions >= t
-    (never read)."""
+    """flash_decode on each of its cases, in each fill: t as an int gives
+    the bits of t as a device tensor, and so do k and v overwritten at
+    positions >= t (never read)."""
     fd_ops, _ = _fd()
     for name, c in cases.items():
         if c["kernel"] != "flash_decode":
             continue
         q, k, v, t_dev = c["args"]
         t = c["t"]
-        got = c["run"]()
-        if not torch.equal(fd_ops.flash_decode(q, k, v, t), got):
-            raise AssertionError(f"flash_decode on {name}: int t != tensor t")
-        if t < k.shape[1]:
-            k2, v2 = k.clone(), v.clone()
-            k2[:, t:], v2[:, t:] = 999.0, -999.0
-            if not torch.equal(fd_ops.flash_decode(q, k2, v2, t_dev), got):
-                raise AssertionError(f"flash_decode on {name}: positions >= "
-                                     f"t change the output")
+        for fill in fd_ops.FILLS:
+            got = fd_ops.flash_decode(q, k, v, t_dev, fill=fill)
+            if not torch.equal(fd_ops.flash_decode(q, k, v, t, fill=fill),
+                               got):
+                raise AssertionError(f"flash_decode on {name} ({fill}): int "
+                                     f"t != tensor t")
+            if t < k.shape[1]:
+                k2, v2 = k.clone(), v.clone()
+                k2[:, t:], v2[:, t:] = 999.0, -999.0
+                if not torch.equal(fd_ops.flash_decode(q, k2, v2, t_dev,
+                                                       fill=fill), got):
+                    raise AssertionError(f"flash_decode on {name} ({fill}): "
+                                         f"positions >= t change the output")
 
 
 def hist_bound(n: int, vocab: int, hash_mod: int) -> tuple[float, str, dict]:
@@ -804,7 +854,7 @@ def decode_bound(case) -> tuple[float, str, dict]:
     """Least time of one decode call: q and the K and V rows below t read
     once and the output written once, against 2 products of 2 hd FLOPs per
     (query head, visible key) at the rate of the type."""
-    B, S, H, KV, hd, t, dtype = case
+    B, S, H, KV, hd, t, dtype = case[:7]
     visible = min(max(t, 0), S)
     size = torch.finfo(getattr(torch, dtype)).bits // 8
     nbytes = (2 * B * H * hd + 2 * B * visible * KV * hd) * size
@@ -845,7 +895,6 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
     zero-argument calls of the entry point, its plain version and the
     library yardstick (or None), and its bound."""
     w = w or FULL
-    decode = DECODE_FULL if decode is None else decode
     wc_ops, wc_ref = _wc()
     sl_ops, sl_ref = _slots()
     _port()
@@ -872,7 +921,15 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
             run=lambda i=ids, e=E: sl_ops.bucket_slots(i, e),
             plain=lambda i=ids, e=E: sl_ref.bucket_slots_ref(i, e),
             library=None, bound=slots_bound(ids.numel(), E))
-    for arch, case in decode.items():
+    cases.update(decode_entry_cases(device, decode))
+    return cases
+
+
+def decode_entry_cases(device, decode=None) -> dict:
+    """``entry_cases``' decode on the served caches (``decode`` shrinks
+    them for a rehearsal), each with its SDPA yardstick and its bound."""
+    cases = {}
+    for arch, case in (DECODE_FULL if decode is None else decode).items():
         c = cases[f"decode_{arch}"] = decode_case(case, device)
         c.update(library=_sdpa_decode(*c["args"][:3], c["t"]),
                  bound=decode_bound(case))
@@ -896,9 +953,95 @@ def phase_entry(device, cases: dict) -> dict:
     return dict(launches=launches, max_abs_err=check_cases(cases, outs))
 
 
-def time_entry(cases: dict) -> dict:
+FLUSH_BYTES = 128 * 2**20      # zeroed between cold calls: > the 50 MB L2
+HOLD_CYCLES = 400_000           # ~0.2 ms of spinning: the host runs ahead
+
+
+def _cold_ms(fn, iters: int) -> float:
+    """Mean CUDA-event time of single calls of ``fn``, each after
+    FLUSH_BYTES are zeroed outside the timed span, so that the call finds
+    its inputs in device memory and not in the L2 (as a decode step does,
+    whose other layers pass through the L2 between two calls of one).
+    A spin kernel after the flush holds the stream while the host
+    enqueues the call, so the span is the device's and not the host's."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(iters):
+        flush.zero_()
+        flush.view(torch.int32).max()        # evicts the dirty lines
+        torch.cuda._sleep(HOLD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / iters
+
+
+def _device_ms(fn, iters: int) -> tuple[float, list]:
+    """Device time per call of ``fn`` run back to back: the summed time of
+    the device's own activities in a ``torch.profiler`` trace of ``iters``
+    calls, over ``iters``; and their names. The host's cost per call is
+    the event time less this."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.time_range.elapsed_us() for e in events)
+    return total_us / 1e3 / iters, sorted({e.name[:80] for e in events})
+
+
+def _in_turns(fns: dict, measure) -> dict:
+    """``measure(fn)`` of each of ``fns`` in turns, forward and then
+    backward (a, b, c, c, b, a), averaged per name."""
+    names = list(fns)
+    got = {n: [] for n in names}
+    for n in names + names[::-1]:
+        got[n].append(measure(fns[n]))
+    return {n: sum(v) / len(v) for n, v in got.items()}
+
+
+def time_decode(c: dict, parent=None) -> dict:
+    """The decode kernel on one served cache in three regimes, each taken
+    in turns with its other fills, SDPA and (``parent``, the entry point of
+    an older flash_decode, where given) that one: CUDA events around 200
+    calls back to back (``ms``), around single calls with a cold L2
+    (``cold_ms``), and the profiler's device time per call back to back
+    (``device_ms``)."""
+    q, k, v, t_dev = c["args"]
+    fns = {"kernel": c["run"], **c["variants"]}
+    if c["library"]:
+        fns["library"] = c["library"]
+    if parent is not None:
+        fns["parent"] = lambda: parent(q, k, v, t_dev)
+    warm = _in_turns(fns, lambda f: _event_ms(f, 200))
+    cold = _in_turns(fns, lambda f: _cold_ms(f, 100))
+    dev = _in_turns(fns, lambda f: _device_ms(f, 100)[0])
+    out = {}
+    for n in fns:
+        key = "" if n == "kernel" else f"{n}_"
+        out.update({f"{key}ms": warm[n], f"{key}cold_ms": cold[n],
+                    f"{key}device_ms": dev[n]})
+    out["device_kernels"] = _device_ms(c["run"], 3)[1]
+    out["plan"] = _fd()[0].plan(q, k)
+    if parent is not None:
+        out["parent_device_kernels"] = _device_ms(fns["parent"], 3)[1]
+    return out
+
+
+def time_entry(cases: dict, parent=None) -> dict:
     """CUDA-event time per call of each case's entry point, its plain
-    version and its library yardstick, beside its bound."""
+    version and its library yardstick, beside its bound; for flash_decode
+    also ``time_decode``'s regimes."""
     out = {}
     for name, c in cases.items():
         fast = c["kernel"] != "hist"
@@ -909,6 +1052,8 @@ def time_entry(cases: dict) -> dict:
             library_ms=(_event_ms(c["library"], 50)
                         if c["library"] else None),
             bound_ms=bound_ms, bound_by=bound_by, **work)
+        if c["kernel"] == "flash_decode":
+            out[name].update(time_decode(c, parent))
     return out
 
 
@@ -1265,6 +1410,8 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
     """The ``kernels`` line's entry of an entry-point kernel: its numbers
     at its ``main`` full-width case, and those of its ``other`` case."""
     t = times[main]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = [k for k in t if k.endswith("ms") and k not in keys]
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
@@ -1274,17 +1421,62 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
             "matches_plain": True, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "build_s": built[name].seconds,
+            **{k: t[k] for k in extra},
             "shape": main, other: {k: times[other][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                *keys, *extra)}}
 
 
-def main() -> int:
+def print_decode_times(times: dict):
+    for name, e in times.items():
+        if not name.startswith("decode_"):
+            continue
+        line = ", ".join(f"{k} {e[k]:.4f}" for k in sorted(e)
+                         if k.endswith("ms") and e[k] is not None)
+        print(f"entry: {name} (ms): {line}; device kernels "
+              f"{e['device_kernels']}")
+
+
+def decode_only(device, parent) -> int:
+    """``--decode-only``: flash_decode alone (built, held to its plain
+    version on its matrix, run through its entry point on the served
+    caches and timed), printing its results and no final line."""
+    phase_build(only=("flash_decode",), parent=parent)
+    matrix = matrix_cases(device, hist={}, slots={},
+                          decode={**DECODE_MATRIX, **DECODE_FULL_F32})
+    errs = check_cases(matrix)
+    check_decode_edges(matrix)
+    del matrix
+    for name, e in errs.items():
+        print(f"kernels: flash_decode ~ plain on {name}: max abs err {e}")
+    cases = decode_entry_cases(device)
+    entry = phase_entry(device, cases)
+    times = time_entry(cases, parent.flash_decode if parent else None)
+    print_decode_times(times)
+    print(json.dumps({"flash_decode": {"matrix_err": errs, **entry,
+                                       "times": times}}))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+def main(argv=()) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="directory of an older flash_decode "
+                    "(its ops.py and csrc/) to time in turns with this one")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build, check and time flash_decode alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    parent = load_parent(args.parent) if args.parent else None
+    if args.decode_only:
+        return decode_only(device, parent)
     t_start = time.perf_counter()
-    built = phase_build()
+    built = phase_build(parent=parent)
 
     err = phase_kernel_vs_plain(device, fused_matrix())
     print(f"kernels: fused_map == plain on every matrix case "
@@ -1342,13 +1534,14 @@ def main() -> int:
     print(f"entry: hist, bucket_slots and flash_decode at full width through "
           f"their entry points, launches {entry['launches']}; max abs err "
           f"to plain {entry['max_abs_err']}")
-    entry_t = time_entry(cases)
+    entry_t = time_entry(cases, parent.flash_decode if parent else None)
     del cases
     for name, e in entry_t.items():
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
         print(f"entry: {name}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"library {lib}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}: "
               f"{e['bytes']} B at 3.35 TB/s, {e['ops']} operations)")
+    print_decode_times(entry_t)
 
     job = phase_job(device, N_TOKENS, N_UNFUSED)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
@@ -1475,4 +1668,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,6 +7,10 @@ Takes the layout of ``repro/kernels/flash_decode/ops.py::flash_decode``
 error. The kernel reads q, k and v in place with their strides, so the
 wrapper transposes nothing, and reads a tensor ``t`` on the device, so a
 decode loop never waits on the host.
+
+Per call the wrapper does the checks, two dictionary lookups (the plan
+per shape and device, the scratch per device and stream), one
+``torch.empty`` for the output and one ctypes call, typed once.
 """
 from __future__ import annotations
 
@@ -22,24 +26,31 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_plain
 SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (32, 64, 80, 128)   # the head dims the kernel is built for
 MAX_GROUP = 16                  # query heads per KV head
-TILE = 64                       # keys of a staged tile
-CTAS_PER_SM = 4                 # CTAs the split aims for on each SM
+TILE = 32                       # keys of a ring stage (the kernel's kTile)
+# how the kernel's ring is filled: 16-byte cp.async copies (the default,
+# measured fastest), a cp.async.bulk copy a row, or TMA boxes
+FILLS = {"cp_async": 2, "rows": 0, "tma": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_FN = None    # the typed C entry point, resolved at the first launch
+_LIB = None       # the library, its entry points typed at the first use
+_CTAS: dict = {}      # (device, dtype, hd, G, fill) -> CTAs an SM holds
+_PLANS: dict = {}     # (device, shape, dtype, block_kv, fill) -> plan
+_SCRATCH: dict = {}   # (device, stream) -> (counters, partials)
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = backend.load(SOURCE).flash_decode_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = backend.load(SOURCE)
+        lib.flash_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.flash_decode_ctas_per_sm.restype = ctypes.c_int
+        lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 4 \
+            + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
             + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+                                         ctypes.c_int, ctypes.c_void_p]
+        lib.flash_decode_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def _check(q, k, v, t):
@@ -65,42 +76,103 @@ def _check(q, k, v, t):
                         f"{tuple(t.shape)} {t.dtype}")
 
 
+def split_plan(B: int, S: int, KV: int, block_kv: int, sms: int,
+               ctas_per_sm: int) -> tuple[int, int]:
+    """(splits, chunk) of a cache of S keys for B*KV heads on a card that
+    holds ``ctas_per_sm`` CTAs on each of its ``sms`` SMs at once: chunk
+    is the most keys a split reads, a whole number of ``TILE``-key tiles
+    and at most ``block_kv`` (one tile if ``block_kv`` is smaller); the
+    kernel gives each split an even share of the tiles below t. Within
+    that bound, the fewest waves of B*KV*splits CTAs, and as many splits
+    as fill those waves without starting another one."""
+    tiles = -(-S // TILE)
+    per_split = max(1, block_kv // TILE)        # tiles a split may read
+    slots = ctas_per_sm * sms
+    least = -(-tiles // per_split)
+    waves = -(-B * KV * least // slots)
+    splits = min(max(least, waves * slots // (B * KV)), tiles)
+    chunk = -(-tiles // splits)
+    return -(-tiles // chunk), chunk * TILE
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(B: int, S: int, KV: int, block_kv: int,
-               sms: int) -> tuple[int, int]:
-    """(splits, keys per split): enough splits of the cache that B*KV*splits
-    CTAs put ``CTAS_PER_SM`` on each of the card's ``sms`` SMs, none longer
-    than ``block_kv`` rounded up to a tile, each a whole number of
-    tiles."""
-    tiles = -(-S // TILE)
-    splits = max(-(-CTAS_PER_SM * sms // (B * KV)),
-                 -(-S // max(block_kv, TILE)))
-    splits = min(splits, tiles)
-    chunk = -(-tiles // splits) * TILE
-    return -(-S // chunk), chunk
+def plan(q, k, block_kv: int = 1024, fill: str = "cp_async") -> dict:
+    """The launch a CUDA call on these tensors makes: the kernel's CTAs
+    per SM on this card, the splits and keys per split, and the CTAs."""
+    splits, chunk = _plan(q, k, block_kv, FILLS[fill])
+    B, S, KV = k.shape[:3]
+    key = (q.device, q.dtype, q.shape[2], q.shape[1] // KV, FILLS[fill])
+    return dict(ctas_per_sm=_CTAS[key], sms=_sm_count(q.device),
+                splits=splits, chunk=chunk, ctas=B * KV * splits)
+
+
+def _ctas_per_sm(device, dtype, hd: int, G: int, fill: int) -> int:
+    key = (device, dtype, hd, G, fill)
+    if key not in _CTAS:
+        with torch.cuda.device(device):
+            n = _lib().flash_decode_ctas_per_sm(_DTYPE_CODE[dtype], hd, G,
+                                                fill)
+        if n <= 0:
+            raise RuntimeError(f"flash_decode kernel: no CTA fits an SM "
+                               f"(CUDA error {-n})")
+        _CTAS[key] = n
+    return _CTAS[key]
+
+
+def _plan(q, k, block_kv: int, fill: int) -> tuple[int, int]:
+    """``split_plan`` for this call's shape on its card, cached."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    key = (q.device, B, S, KV, H, hd, q.dtype, block_kv, fill)
+    plan = _PLANS.get(key)
+    if plan is None:
+        ctas = _ctas_per_sm(q.device, q.dtype, hd, H // KV, fill)
+        plan = _PLANS[key] = split_plan(B, S, KV, block_kv,
+                                        _sm_count(q.device), ctas)
+    return plan
+
+
+def _scratch(device, stream: int, heads: int, n_part: int):
+    """(counters, partials) for this device and stream: ``heads`` int32
+    counters, zero between calls (the kernel's last CTA of a head resets
+    its own), and ``n_part`` fp32 partials, in one allocation that grows
+    as calls need and is reused by every later call on the stream."""
+    key = (device, stream)
+    held = _SCRATCH.get(key)
+    if held is None or held[0].numel() < heads or held[1].numel() < n_part:
+        n_count = max(heads, held[0].numel() if held else 0)
+        n_float = max(n_part, held[1].numel() if held else 0)
+        pad = -(-n_count // 4) * 4               # partials 16-byte aligned
+        buf = torch.zeros(pad + n_float, dtype=torch.int32, device=device)
+        held = _SCRATCH[key] = (buf[:n_count], buf[pad:].view(torch.float32))
+    return held
 
 
 def flash_decode(q, k, v, t, *, block_kv: int = 1024,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, fill: str = "cp_async"):
     """q: (B, H, hd); k/v: (B, S, KV, hd); t: current length, an int or a
     0-dim int32 tensor (positions >= t are masked; t > S reads the whole
     cache). Returns (B, H, hd) in q's dtype.
 
     The tensors' device picks kernel or plain version; ``use_kernel=True``
     demands the kernel and raises on CPU tensors. On the card one call is
-    a split pass and a combine pass, counted once. ``block_kv`` keeps the
-    reference's signature but not its meaning: the kernel's tile is fixed
-    at ``TILE`` keys, and ``block_kv`` is the most keys one split reads, so
-    it can only raise the split count above what filling the card asks
-    for (``split_plan``). The kernel takes hd in ``HEAD_DIMS``, at most
-    ``MAX_GROUP`` query heads per KV head, a last dim of stride 1 and k, v
-    rows on 16-byte boundaries, and raises on anything else.
+    one launch, counted once. ``block_kv`` is the most keys one split
+    reads (rounded down to whole ``TILE``-key tiles, at least one): it can
+    only raise the split count above what filling the card asks for
+    (``split_plan``). ``fill`` picks how the kernel's ring is filled
+    (``FILLS``): the fills differ in speed only (``tma`` also sums a
+    score's chunks in another order). The
+    kernel takes hd in ``HEAD_DIMS``, at most ``MAX_GROUP`` query heads per
+    KV head, a last dim of stride 1 and k, v rows on 16-byte boundaries,
+    and raises on anything else.
     """
     _check(q, k, v, t)
+    if fill not in FILLS:
+        raise ValueError(f"fill is one of {tuple(FILLS)}, got {fill!r}")
     if not backend.use_kernel(q, require=use_kernel):
         return flash_decode_plain(q, k, v, t)
     B, H, hd = q.shape
@@ -125,21 +197,18 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
         t_dev = t.data_ptr()
     else:
         t_host = max(0, min(int(t), S))
-    splits, chunk = split_plan(B, S, KV, block_kv,
-                               _sm_count(q.device))
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    m_part = torch.empty((B * KV, splits, G), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B * KV, splits, G, hd), dtype=torch.float32,
-                           device=q.device)
+    code = FILLS[fill]
+    splits, chunk = _plan(q, k, block_kv, code)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), t_dev, t_host,
-                     out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-                     acc_part.data_ptr(), B, S, KV, G, hd, splits, chunk,
-                     q.stride(0), q.stride(1), *k.stride()[:3],
-                     *v.stride()[:3], hd ** -0.5, _DTYPE_CODE[q.dtype],
-                     stream)
+    count, part = _scratch(q.device, stream, B * KV,
+                           B * KV * splits * G * (hd + 2)
+                           if splits > 1 else 0)
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    rc = _lib().flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), t_dev, t_host,
+        out.data_ptr(), count.data_ptr(), part.data_ptr(), B, S, KV, G, hd,
+        splits, chunk, q.stride(0), q.stride(1), *k.stride()[:3],
+        *v.stride()[:3], hd ** -0.5, _DTYPE_CODE[q.dtype], code, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")

@@ -281,8 +281,11 @@ def attention_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *,
         cv[:, slot:slot + 1] = v
         kv_pos = t - ((slot - torch.arange(W, device=x.device)) % W)
     else:
-        ck[:, t:t + 1] = k
-        cv[:, t:t + 1] = v
+        # past the cache's end the reference's dynamic_update_slice clamps
+        # the start and overwrites the last slot; so does the port
+        slot = min(t, ck.shape[1] - 1)
+        ck[:, slot:slot + 1] = k
+        cv[:, slot:slot + 1] = v
         kv_pos = torch.arange(ck.shape[1], device=x.device)
     o, l, m = _decode_partials(q[:, 0], ck, cv, kv_pos, t + 1)
     o = combine_partials(o, l, m, None)

@@ -113,7 +113,7 @@ def test_grouped_query_heads_read_their_kv_head():
 
 
 @pytest.mark.parametrize("bad", ["use_kernel", "dtype", "mixed", "shape",
-                                 "t"])
+                                 "t", "fill"])
 def test_wrapper_policy_and_checks(bad):
     q = torch.zeros(1, 4, 64)
     k = torch.zeros(1, 16, 2, 64)
@@ -127,41 +127,80 @@ def test_wrapper_policy_and_checks(bad):
         q = q.bfloat16()
     elif bad == "shape":
         k = torch.zeros(1, 16, 3, 64)
+    elif bad == "fill":
+        kw["fill"] = "bulk"
     else:
         t = torch.tensor([3], dtype=torch.int32)
     with pytest.raises((TypeError, ValueError)):
         ops.flash_decode(q, k, k, t, **kw)
 
 
+def _waves(B, S, KV, block_kv, sms, ctas):
+    """The fewest waves of CTAs a plan within ``block_kv`` can take."""
+    tiles = -(-S // ops.TILE)
+    least = -(-tiles // max(1, block_kv // ops.TILE))
+    return -(-B * KV * least // (sms * ctas))
+
+
 def test_split_plan_covers_the_cache_in_whole_tiles():
-    for B, S, KV, block_kv, sms in [(8, 2080, 16, 1024, 132),
-                                    (8, 2080, 8, 1024, 114),
-                                    (1, 256, 2, 128, 132),
-                                    (1, 64, 1, 1024, 132),
-                                    (64, 100000, 8, 1024, 132)]:
-        splits, chunk = ops.split_plan(B, S, KV, block_kv, sms)
+    """The splits cover the cache in whole tiles, and their B*KV*splits
+    CTAs fill the fewest waves they can take, with no partial wave past
+    them: one more split a head would start another wave."""
+    for B, S, KV, block_kv, sms, ctas in [
+            (8, 2080, 16, 1024, 132, 3), (8, 2080, 8, 1024, 132, 4),
+            (8, 2080, 16, 1024, 114, 3), (8, 2080, 8, 1024, 114, 4),
+            (1, 256, 2, 128, 132, 3), (1, 64, 1, 1024, 132, 2),
+            (64, 100000, 8, 1024, 132, 3), (3, 1000, 5, 100, 7, 1)]:
+        splits, chunk = ops.split_plan(B, S, KV, block_kv, sms, ctas)
+        tiles = -(-S // ops.TILE)
         assert chunk % ops.TILE == 0
         assert (splits - 1) * chunk < S <= splits * chunk
-    # olmo-1b's cache on an H100 SXM's 132 SMs, and on a card of 114
-    assert ops.split_plan(8, 2080, 16, 1024, 132) == (5, 448)
-    assert ops.split_plan(8, 2080, 16, 1024, 114) == (4, 576)
-    # h2o-danube-1.8b's
-    assert ops.split_plan(8, 2080, 8, 1024, 132) == (9, 256)
-    assert ops.split_plan(8, 2080, 8, 1024, 114) == (7, 320)
+        slots, waves = sms * ctas, _waves(B, S, KV, block_kv, sms, ctas)
+        assert B * KV * splits <= waves * slots
+        assert splits == tiles or B * KV * (splits + 1) > waves * slots
+    # olmo-1b's and h2o-danube-1.8b's served caches (B 8, S 2080, bf16):
+    # one wave on an H100 SXM's 132 SMs at 3 and 4 CTAs an SM, and two
+    # nearly full waves on a card of 114 SMs at 3
+    for KV, ctas, want in [(16, 3, (3, 704)), (8, 3, (6, 352)),
+                           (16, 4, (4, 544)), (8, 4, (8, 288))]:
+        assert ops.split_plan(8, 2080, KV, 1024, 132, ctas) == want
+        assert 8 * KV * want[0] <= 132 * ctas
+    assert ops.split_plan(8, 2080, 16, 1024, 114, 3) == (5, 416)
+    assert ops.split_plan(8, 2080, 8, 1024, 114, 3) == (5, 416)
 
 
 def test_block_kv_bounds_the_keys_of_a_split():
-    """``block_kv`` is the most keys a split reads: below what filling the
-    card gives, it raises the split count; above, it changes nothing."""
-    assert ops.split_plan(8, 2080, 16, 64, 132) == (33, 64)
-    assert ops.split_plan(8, 2080, 16, 256, 132) == (9, 256)
-    assert ops.split_plan(8, 2080, 16, 4096, 132) == (5, 448)
+    """``block_kv`` is the most keys a split reads (whole tiles, at least
+    one): below what filling the card gives, it raises the split count;
+    above, it changes nothing."""
+    for block_kv in (1, 31, 32, 64, 100, 256, 1024, 4096):
+        _, chunk = ops.split_plan(8, 2080, 16, block_kv, 132, 3)
+        assert chunk <= max(block_kv, ops.TILE)
+    assert ops.split_plan(8, 2080, 16, 64, 132, 3) == (33, 64)
+    assert ops.split_plan(8, 2080, 16, 256, 132, 3) == (9, 256)
+    assert ops.split_plan(8, 2080, 16, 4096, 132, 3) == (3, 704)
+
+
+def test_decode_timing_takes_turns():
+    """``chip_smoke._in_turns`` measures each function forward and then
+    backward (a, b, c, c, b, a) and averages the two readings."""
+    order = []
+
+    def measure(name):
+        order.append(name)
+        return float(len(order))
+
+    got = chip_smoke._in_turns({n: n for n in "abc"}, measure)
+    assert order == list("abccba")
+    assert got == {"a": 3.5, "b": 3.5, "c": 3.5}
 
 
 def test_kernel_source_and_bound_are_wired():
     src = ops.SOURCE.read_text()
     assert 'extern "C" int flash_decode_launch(' in src
+    assert 'extern "C" int flash_decode_ctas_per_sm(' in src
     assert "flash_decode_pallas" in src         # names what it replaces
+    assert "What bounds it" in src and "mbarrier" in src
     bound_ms, by, work = chip_smoke.decode_bound(
         chip_smoke.DECODE_FULL["olmo-1b"])
     assert by == "bytes"

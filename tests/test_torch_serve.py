@@ -193,6 +193,24 @@ def test_generate_greedy(pair):
     assert (logits.max(-1) - picked).max() <= lim
 
 
+def test_generate_past_the_cache_end_matches_jax():
+    """Decoding past ``max_len``: the reference's dynamic_update_slice
+    clamps the write to the last slot, and so must the port (an empty
+    slice would drop the new key and value). olmo-1b SMOKE in fp32, 2
+    prompts of 16 tokens, max_len 18 < 16 + 8 - 1."""
+    jcfg = dataclasses.replace(jregistry.get_smoke_config("olmo-1b"),
+                               dtype="float32", param_dtype="float32")
+    tcfg = dataclasses.replace(tregistry.get_smoke_config("olmo-1b"),
+                               dtype="float32", param_dtype="float32")
+    jp = jtf.init_model(jcfg, jax.random.key(0))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), CPU)
+    prompts = _tokens(tcfg, seed=0, n=16)
+    want = jengine.ServeEngine(jcfg, jp, max_len=18).generate(prompts, 8)
+    got = tengine.ServeEngine(tcfg, tp, max_len=18,
+                              device=CPU).generate(prompts, 8)
+    np.testing.assert_array_equal(got, want)
+
+
 HD80 = dict(n_layers=2, n_heads=2, n_kv_heads=1, d_head=80)
 
 
