@@ -735,9 +735,7 @@ def decode_case(case, device) -> dict:
     return dict(kernel="flash_decode", exact=False, dtype=case[6],
                 args=(q, k, v, t_dev), t=case[5],
                 run=lambda: fd_ops.flash_decode(q, k, v, t_dev),
-                plain=lambda: fd_ref.flash_decode_plain(q, k, v, t_dev),
-                variants={fill: lambda f=fill: fd_ops.flash_decode(
-                    q, k, v, t_dev, fill=f) for fill in ("rows", "tma")})
+                plain=lambda: fd_ref.flash_decode_plain(q, k, v, t_dev))
 
 
 def matrix_cases(device, hist=HIST_MATRIX, slots=SLOTS_MATRIX,
@@ -787,8 +785,7 @@ def _check_decode(name, got, want, dtype) -> float:
 def check_cases(cases: dict, outs: dict | None = None) -> dict:
     """Hold each case's output (``outs``, else one call of its entry point)
     to its plain version: bit for bit, every output, for hist and
-    bucket_slots; at ``_check_decode``'s tolerance for flash_decode, in
-    each of its fills (the case's ``variants``).
+    bucket_slots; at ``_check_decode``'s tolerance for flash_decode.
     Returns the max abs difference per case."""
     errs = {}
     for name, c in cases.items():
@@ -804,35 +801,28 @@ def check_cases(cases: dict, outs: dict | None = None) -> dict:
             errs[name] = 0
         else:
             errs[name] = _check_decode(name, got, want, c["dtype"])
-            for fill, run in c.get("variants", {}).items():
-                errs[name] = max(errs[name], _check_decode(
-                    f"{name} ({fill} fill)", run(), want, c["dtype"]))
     return errs
 
 
 def check_decode_edges(cases: dict):
-    """flash_decode on each of its cases, in each fill: t as an int gives
-    the bits of t as a device tensor, and so do k and v overwritten at
-    positions >= t (never read)."""
+    """flash_decode on each of its cases: t as an int gives the bits of t
+    as a device tensor, and so do k and v overwritten at positions >= t
+    (never read)."""
     fd_ops, _ = _fd()
     for name, c in cases.items():
         if c["kernel"] != "flash_decode":
             continue
         q, k, v, t_dev = c["args"]
         t = c["t"]
-        for fill in fd_ops.FILLS:
-            got = fd_ops.flash_decode(q, k, v, t_dev, fill=fill)
-            if not torch.equal(fd_ops.flash_decode(q, k, v, t, fill=fill),
-                               got):
-                raise AssertionError(f"flash_decode on {name} ({fill}): int "
-                                     f"t != tensor t")
-            if t < k.shape[1]:
-                k2, v2 = k.clone(), v.clone()
-                k2[:, t:], v2[:, t:] = 999.0, -999.0
-                if not torch.equal(fd_ops.flash_decode(q, k2, v2, t_dev,
-                                                       fill=fill), got):
-                    raise AssertionError(f"flash_decode on {name} ({fill}): "
-                                         f"positions >= t change the output")
+        got = c["run"]()
+        if not torch.equal(fd_ops.flash_decode(q, k, v, t), got):
+            raise AssertionError(f"flash_decode on {name}: int t != tensor t")
+        if t < k.shape[1]:
+            k2, v2 = k.clone(), v.clone()
+            k2[:, t:], v2[:, t:] = 999.0, -999.0
+            if not torch.equal(fd_ops.flash_decode(q, k2, v2, t_dev), got):
+                raise AssertionError(f"flash_decode on {name}: positions >= "
+                                     f"t change the output")
 
 
 def hist_bound(n: int, vocab: int, hash_mod: int) -> tuple[float, str, dict]:
@@ -1012,13 +1002,13 @@ def _in_turns(fns: dict, measure) -> dict:
 
 def time_decode(c: dict, parent=None) -> dict:
     """The decode kernel on one served cache in three regimes, each taken
-    in turns with its other fills, SDPA and (``parent``, the entry point of
-    an older flash_decode, where given) that one: CUDA events around 200
+    in turns with SDPA and (``parent``, the entry point of an older
+    flash_decode, where given) that one: CUDA events around 200
     calls back to back (``ms``), around single calls with a cold L2
     (``cold_ms``), and the profiler's device time per call back to back
     (``device_ms``)."""
     q, k, v, t_dev = c["args"]
-    fns = {"kernel": c["run"], **c["variants"]}
+    fns = {"kernel": c["run"]}
     if c["library"]:
         fns["library"] = c["library"]
     if parent is not None:
@@ -1046,14 +1036,16 @@ def time_entry(cases: dict, parent=None) -> dict:
     for name, c in cases.items():
         fast = c["kernel"] != "hist"
         bound_ms, bound_by, work = c["bound"]
-        out[name] = dict(
-            ms=_event_ms(c["run"], 200 if fast else 50),
-            plain_ms=_event_ms(c["plain"], 10 if fast else 3),
-            library_ms=(_event_ms(c["library"], 50)
-                        if c["library"] else None),
-            bound_ms=bound_ms, bound_by=bound_by, **work)
+        out[name] = dict(plain_ms=_event_ms(c["plain"], 10 if fast else 3),
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by, **work)
         if c["kernel"] == "flash_decode":
             out[name].update(time_decode(c, parent))
+        else:
+            out[name].update(
+                ms=_event_ms(c["run"], 200 if fast else 50),
+                library_ms=(_event_ms(c["library"], 50)
+                            if c["library"] else None))
     return out
 
 

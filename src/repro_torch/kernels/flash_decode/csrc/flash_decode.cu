@@ -35,24 +35,16 @@
 //     most chunk keys. On an H100 that is one wave at both served caches:
 //     3 x 128 CTAs at olmo-1b's, 6 x 64 at h2o-danube-1.8b's.
 //   * A ring of kStages stages of K and V tiles in shared memory, in the
-//     cache's own dtype, filled by one producer warp and completed on
-//     mbarriers with full/empty phases; a consumer warp releases a stage
-//     (after a proxy fence: bulk and TMA copies write through the async
-//     proxy) as soon as it is done with it, and the producer refills it.
-//     Three fills (template FILL; the wrapper's ``fill``):
-//       kCpAsync (the default): 16-byte cp.async copies, 32 a warp
-//         instruction, completing on the full barrier through
-//         cp.async.mbarrier.arrive (one arrival a producer lane);
-//       kRows: one cp.async.bulk a row, issued by the 32 lanes;
-//       kTma: one cp.async.bulk.tensor box a full tile (tensor maps
-//         encoded on the host per call from the given strides, dense
-//         rows, no swizzle: hd 80 is one 160-byte box); the ragged last
-//         tile goes row by row, so no position >= t is read.
-//     chip_smoke.py times all three in turns on the served caches: a row
-//     a bulk copy issues too slowly from one warp, and TMA's boxes of
-//     160-256-byte rows are no faster than cp.async, which needs no host
-//     encoding, so cp.async is the default. The two other fills pad each
-//     staged row by 16 bytes (TMA's boxes cannot), against bank conflicts.
+//     cache's own dtype, filled by one producer warp with 16-byte cp.async
+//     copies (32 a warp instruction) that complete on the stage's full
+//     mbarrier through cp.async.mbarrier.arrive (one arrival a producer
+//     lane); a consumer warp releases the stage on its empty mbarrier as
+//     soon as it is done with it, and the producer refills it. A staged
+//     row carries a 16-byte pad, so that lanes reading their own keys'
+//     rows do not share banks. One cp.async.bulk a row, and TMA boxes
+//     (tensor maps encoded per call from the strides), were built and
+//     timed in turns with this fill on the served caches (PERF.md, PR
+//     17): neither was faster at either cache.
 //   * kWarps consumer warps with a stage each, each owning whole tiles
 //     (tile i goes to warp i % kWarps) with its own (m, l, acc) for the G
 //     rows. No __syncthreads in the loop: a warp waits on its stage's full
@@ -80,7 +72,6 @@
 //     dynamic hand-out of tiles would even them, but would make the sums'
 //     order, and so the output's last bits, vary from call to call.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,7 +82,6 @@ constexpr int kTile = 32;                    // keys a stage: a key a lane
 constexpr int kMaxG = 16;                    // query heads per KV head
 constexpr int kMaxHd = 128;
 constexpr float kNegInf = -1e30f;
-constexpr int kRows = 0, kTma = 1, kCpAsync = 2;   // the fills
 
 // The ring's shape: one stage per consumer warp (tile i sits in stage
 // i % kStages and goes to warp i % kWarps, so a warp waits on its own
@@ -119,25 +109,25 @@ __host__ __device__ constexpr int align_up(int x, int a) {
   return (x + a - 1) / a * a;
 }
 
-// bytes of one staged row: the row, plus a 16-byte pad but for TMA boxes
-template <typename T, int FILL>
+// bytes of one staged row: the row and a 16-byte pad
+template <typename T>
 __host__ __device__ int row_bytes(int hd) {
-  return hd * static_cast<int>(sizeof(T)) + (FILL == kTma ? 0 : 16);
+  return hd * static_cast<int>(sizeof(T)) + 16;
 }
 
-template <typename T, int FILL>
+template <typename T>
 __host__ __device__ int stage_bytes(int hd) {
-  return align_up(2 * kTile * row_bytes<T, FILL>(hd), 128);
+  return align_up(2 * kTile * row_bytes<T>(hd), 128);
 }
 
 // ring, then q (fp32: G*hd floats and p, kWarps x kTile x GMAX floats;
 // bf16: 16 rows of hd + 8), then the 2 * kStages mbarriers and a flag
-template <typename T, int GMAX, int FILL>
+template <typename T, int GMAX>
 __host__ __device__ int smem_bytes(int hd, int G) {
   const int q = sizeof(T) == 4
                     ? align_up(G * hd * 4, 16) + kWarps * kTile * GMAX * 4
                     : 16 * (hd + 8) * 2;
-  return kStages * stage_bytes<T, FILL>(hd) + q + 2 * kStages * 8 + 16;
+  return kStages * stage_bytes<T>(hd) + q + 2 * kStages * 8 + 16;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -147,13 +137,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void bar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
                "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
                : "memory");
 }
 
@@ -176,17 +159,6 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
-// `bytes` contiguous bytes from global memory into shared memory,
-// completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // 16 bytes from global to shared memory (L2 only), tracked by this
 // thread's cp.async group
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
@@ -202,23 +174,9 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
                : "memory");
 }
 
-// One box of the 4-d map (hd, KV, S, B), completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int head, int row,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(head), "r"(row),
-      "r"(b), "r"(bar)
-      : "memory");
-}
-
-// a consumer warp done with a stage hands it back: its reads (generic
-// proxy) are ordered before the producer's next copies into it (async
-// proxy for bulk and TMA fills), then one arrival on the empty barrier
+// a consumer warp done with a stage hands it back: once every lane's
+// reads are done, one arrival on the empty barrier
 __device__ __forceinline__ void release(uint32_t empty, int lane) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncwarp();
   if (lane == 0) bar_arrive(empty);
 }
@@ -290,7 +248,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // tile's max by shuffles, and for p·V a lane owns 4 columns, so where hd
 // is below 128 several keys go in one pass and their groups fold by
 // shuffles at the end. Leaves (m, l, acc) of its G rows in mw, lw, aw.
-template <int GMAX, int FILL>
+template <int GMAX>
 __device__ __forceinline__ void consume_fp32(
     const Args& a, const unsigned char* ring, int sb, int rb, float* qs,
     float* ps, uint32_t full0, uint32_t empty0, int start, int end,
@@ -322,11 +280,8 @@ __device__ __forceinline__ void consume_fp32(
     if (lane < n) {                          // this lane's key: G scores
       const unsigned char* row = kt + lane * rb;
       for (int c = 0; c < nch; ++c) {
-        // TMA's unpadded rows: lanes take their chunks in a rotated order,
-        // so that the 32 rows' same column does not fall in one bank
-        const int ch = FILL == kTma ? (c + lane) % nch : c;
-        const float4 kf = lds4(row + ch * 16);
-        const float* qc = qs + ch * kEpc;
+        const float4 kf = lds4(row + c * 16);
+        const float* qc = qs + c * kEpc;
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           if (g < G) {
@@ -417,7 +372,7 @@ __device__ __forceinline__ void consume_fp32(
 // over the 4 lanes of a quad); P, packed to bf16 in place, is the A of
 // O += P V, with V read transposed by ldmatrix. Leaves (m, l, o) of its G
 // rows in mw, lw, aw.
-template <int HD, int FILL>
+template <int HD>
 __device__ __forceinline__ void consume_bf16(
     const Args& a, unsigned char* ring, int sb, int rb, uint32_t qh,
     uint32_t full0, uint32_t empty0, int start, int end, int ntiles,
@@ -541,19 +496,17 @@ __device__ __forceinline__ void consume_bf16(
 
 // fp32 takes the CUDA-core path (GMAX >= G rows, any hd; HD is 0), bf16
 // the tensor-core path (HD the head dim; GMAX unused, 1).
-template <typename T, int GMAX, int HD, int FILL>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
-                  const __grid_constant__ CUtensorMap vmap) {
+template <typename T, int GMAX, int HD>
+__global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   constexpr int kEpc = 16 / sizeof(T);       // elements a 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = a.hd, G = a.G;
-  const int rb = row_bytes<T, FILL>(hd), sb = stage_bytes<T, FILL>(hd);
+  const int rb = row_bytes<T>(hd), sb = stage_bytes<T>(hd);
   unsigned char* ring = smem;
   float* qs = reinterpret_cast<float*>(smem + kStages * sb);
   float* ps = qs + align_up(G * hd, 4);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem + smem_bytes<T, GMAX, FILL>(hd, G) - 2 * kStages * 8 - 16);
+      smem + smem_bytes<T, GMAX>(hd, G) - 2 * kStages * 8 - 16);
   int* flag = reinterpret_cast<int*>(bars + 2 * kStages);
   const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
 
@@ -570,7 +523,7 @@ __global__ void __launch_bounds__(kThreads)
   const int start = first * kTile, end = min(start + ntiles * kTile, t);
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      bar_init(full0 + 8 * s, FILL == kCpAsync ? 32 : 1);
+      bar_init(full0 + 8 * s, 32);          // a cp.async arrival a lane
       bar_init(empty0 + 8 * s, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -585,34 +538,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < ntiles; ++i) {
       const int s = i % kStages, ph = (i / kStages) & 1;
       const int row0 = start + i * kTile, n = min(kTile, end - row0);
-      const uint32_t full = full0 + 8 * s;
       const uint32_t kdst = smem_u32(ring + s * sb), vdst = kdst + kTile * rb;
       bar_wait(empty0 + 8 * s, ph ^ 1);
-      if (FILL == kCpAsync) {                // 16 bytes a copy
-        for (int e = lane; e < n * per_row; e += 32) {
-          const int r = e / per_row, c = e % per_row;
-          cp_async16(kdst + r * rb + c * 16,
-                     kb + (row0 + r) * a.k_s + c * kEpc);
-          cp_async16(vdst + r * rb + c * 16,
-                     vb + (row0 + r) * a.v_s + c * kEpc);
-        }
-        cp_async_arrive(full);
-      } else if (FILL == kTma && n == kTile) {
-        if (lane == 0) {
-          bar_expect_tx(full, 2 * kTile * row_len);
-          tma_load(kdst, &kmap, full, kvh, row0, b);
-          tma_load(vdst, &vmap, full, kvh, row0, b);
-        }
-      } else {                               // a bulk copy a row
-        if (lane == 0) bar_expect_tx(full, 2 * n * row_len);
-        __syncwarp();
-        if (lane < n) {
-          bulk_load(kdst + lane * rb, kb + (row0 + lane) * a.k_s, row_len,
-                    full);
-          bulk_load(vdst + lane * rb, vb + (row0 + lane) * a.v_s, row_len,
-                    full);
-        }
+      for (int e = lane; e < n * per_row; e += 32) {
+        const int r = e / per_row, c = e % per_row;
+        cp_async16(kdst + r * rb + c * 16, kb + (row0 + r) * a.k_s + c * kEpc);
+        cp_async16(vdst + r * rb + c * 16, vb + (row0 + r) * a.v_s + c * kEpc);
       }
+      cp_async_arrive(full0 + 8 * s);       // once this lane's copies land
     }
     return;
   }
@@ -628,8 +561,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < G * hd; e += 32 * kWarps)
       qs[e] = qb[(e / hd) * a.q_h + e % hd] * a.scale;
     consumers_sync<32 * kWarps>();
-    consume_fp32<GMAX, FILL>(a, ring, sb, rb, qs, ps, full0, empty0, start,
-                             end, ntiles, warp, lane, aw, mw, lw);
+    consume_fp32<GMAX>(a, ring, sb, rb, qs, ps, full0, empty0, start, end,
+                       ntiles, warp, lane, aw, mw, lw);
   } else {
     __nv_bfloat16* qh = reinterpret_cast<__nv_bfloat16*>(qs);
     const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) +
@@ -639,8 +572,8 @@ __global__ void __launch_bounds__(kThreads)
       qh[g * (HD + 8) + d] = g < G ? qb[g * a.q_h + d] : __float2bfloat16(0.f);
     }
     consumers_sync<32 * kWarps>();
-    consume_bf16<HD, FILL>(a, ring, sb, rb, smem_u32(qh), full0, empty0,
-                           start, end, ntiles, warp, lane, aw, mw, lw);
+    consume_bf16<HD>(a, ring, sb, rb, smem_u32(qh), full0, empty0, start,
+                     end, ntiles, warp, lane, aw, mw, lw);
   }
   consumers_sync<32 * kWarps>();
 
@@ -716,91 +649,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeFn>(p);
-  }
-  return fn;
-}
-
-// The map of x (B, S, KV, hd) with element strides (sb, ss, sh) as the
-// 4-d tensor (hd, KV, S, B), boxes of kTile rows of one head, no swizzle.
-template <typename T>
-bool make_map(EncodeFn enc, CUtensorMap* map, const void* x, int B, int S,
-              int KV, int hd, long long sb, long long ss, long long sh) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(KV),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * sizeof(T),
-                                 static_cast<cuuint64_t>(ss) * sizeof(T),
-                                 static_cast<cuuint64_t>(sb) * sizeof(T)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(hd), 1, kTile, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map,
-             sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-             4, const_cast<void*>(x), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename T, int GMAX, int HD, int FILL>
+template <typename T, int GMAX, int HD>
 int ctas_per_sm(int hd, int G) {
-  auto kern = decode_kernel<T, GMAX, HD, FILL>;
+  auto kern = decode_kernel<T, GMAX, HD>;
   // the largest this instantiation takes, so any call's launch fits
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<T, GMAX, FILL>(HD ? HD : kMaxHd, kMaxG));
+      smem_bytes<T, GMAX>(HD ? HD : kMaxHd, kMaxG));
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, kern, kThreads, smem_bytes<T, GMAX, FILL>(hd, G));
+      &n, kern, kThreads, smem_bytes<T, GMAX>(hd, G));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-template <typename T, int GMAX, int HD, int FILL>
+template <typename T, int GMAX, int HD>
 int launch(const Args& a, int B, cudaStream_t s) {
-  CUtensorMap maps[2] = {};
-  if (FILL == kTma) {
-    const EncodeFn enc = encode_fn();
-    if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    if (!make_map<T>(enc, &maps[0], a.k, B, a.S, a.KV, a.hd, a.k_b, a.k_s,
-                     a.k_h) ||
-        !make_map<T>(enc, &maps[1], a.v, B, a.S, a.KV, a.hd, a.v_b, a.v_s,
-                     a.v_h))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  decode_kernel<T, GMAX, HD, FILL>
-      <<<dim3(B * a.KV, a.splits), kThreads,
-         smem_bytes<T, GMAX, FILL>(a.hd, a.G), s>>>(a, maps[0], maps[1]);
+  decode_kernel<T, GMAX, HD><<<dim3(B * a.KV, a.splits), kThreads,
+                               smem_bytes<T, GMAX>(a.hd, a.G), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 struct OccupancyFn {
   int hd, G;
-  template <typename T, int GMAX, int HD, int FILL>
+  template <typename T, int GMAX, int HD>
   int run() const {
-    return ctas_per_sm<T, GMAX, HD, FILL>(hd, G);
+    return ctas_per_sm<T, GMAX, HD>(hd, G);
   }
 };
 
@@ -808,78 +682,63 @@ struct LaunchFn {
   const Args* a;
   int B;
   cudaStream_t s;
-  template <typename T, int GMAX, int HD, int FILL>
+  template <typename T, int GMAX, int HD>
   int run() const {
-    return launch<T, GMAX, HD, FILL>(*a, B, s);
+    return launch<T, GMAX, HD>(*a, B, s);
   }
 };
 
-// f.template run<T, GMAX, HD, FILL>() for the instantiation that takes
-// dtype (0 fp32, 1 bf16), hd, G and fill: fp32 by the G rows it holds
-// (1, 4 or 16), bf16 by its head dim. The caller checks the arguments.
+// f.template run<T, GMAX, HD>() for the instantiation that takes dtype
+// (0 fp32, 1 bf16), hd and G: fp32 by the G rows it holds (1, 4 or 16),
+// bf16 by its head dim. The caller checks the arguments.
 template <typename F>
-int dispatch(int dtype, int hd, int G, int fill, F f) {
-  const int gm = G == 1 ? 1 : (G <= 4 ? 4 : 16);
-#define FD_CASE(TT, GG, HH, FF)                                            \
-  if ((dtype == 1) == (sizeof(TT) == 2) && fill == FF &&                 \
-      (sizeof(TT) == 2 ? hd == HH : gm == GG))                           \
-    return f.template run<TT, GG, HH, FF>();
-#define FD_FILLS(TT, GG, HH) \
-  FD_CASE(TT, GG, HH, kRows) \
-  FD_CASE(TT, GG, HH, kTma)  \
-  FD_CASE(TT, GG, HH, kCpAsync)
-  FD_FILLS(float, 1, 0)
-  FD_FILLS(float, 4, 0)
-  FD_FILLS(float, 16, 0)
-  FD_FILLS(__nv_bfloat16, 1, 32)
-  FD_FILLS(__nv_bfloat16, 1, 64)
-  FD_FILLS(__nv_bfloat16, 1, 80)
-  FD_FILLS(__nv_bfloat16, 1, 128)
-#undef FD_FILLS
-#undef FD_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(int dtype, int hd, int G, F f) {
+  if (dtype == 0) {
+    if (G == 1) return f.template run<float, 1, 0>();
+    if (G <= 4) return f.template run<float, 4, 0>();
+    return f.template run<float, 16, 0>();
+  }
+  if (hd == 32) return f.template run<__nv_bfloat16, 1, 32>();
+  if (hd == 64) return f.template run<__nv_bfloat16, 1, 64>();
+  if (hd == 80) return f.template run<__nv_bfloat16, 1, 80>();
+  return f.template run<__nv_bfloat16, 1, 128>();
 }
 
-bool args_ok(int dtype, int hd, int G, int fill) {
+bool args_ok(int dtype, int hd, int G) {
   return (hd == 32 || hd == 64 || hd == 80 || hd == 128) && G >= 1 &&
-         G <= kMaxG && (dtype == 0 || dtype == 1) && fill >= kRows &&
-         fill <= kCpAsync;
+         G <= kMaxG && (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
 
-// CTAs of the instantiation for (dtype, hd, G, fill) that one SM holds at
+// CTAs of the instantiation for (dtype, hd, G) that one SM holds at
 // once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on its shared
 // memory, after raising its dynamic shared-memory limit), or minus a CUDA
 // error code.
-extern "C" int flash_decode_ctas_per_sm(int dtype, int hd, int G, int fill) {
-  if (!args_ok(dtype, hd, G, fill))
-    return -static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, hd, G, fill, OccupancyFn{hd, G});
+extern "C" int flash_decode_ctas_per_sm(int dtype, int hd, int G) {
+  if (!args_ok(dtype, hd, G)) return -static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, hd, G, OccupancyFn{hd, G});
 }
 
 // Launch on ``stream`` (PyTorch's current stream), after
-// flash_decode_ctas_per_sm for the same (dtype, hd, G, fill) on this
+// flash_decode_ctas_per_sm for the same (dtype, hd, G) on this
 // device. ``t_dev`` points at a device int32 holding t, or is null and
 // t_host is t. Strides are in elements (the last dim of q, k and v has
 // stride 1). ``count`` holds B*KV int32 counters, zero before the call and
 // left zero after it, and ``part`` (B*KV, splits, G, hd + 2) fp32
 // partials (unused when splits is 1); out is (B, H, hd) contiguous.
-// dtype is 0 for fp32, 1 for bf16; hd 32, 64, 80 or 128; G at most 16;
-// fill 2 (16-byte cp.async), 0 (a bulk copy a row) or 1 (TMA boxes).
-// Returns cudaGetLastError()
-// after the launch (0 on success), or an error code for what the kernel
-// does not take or a tensor map the driver refuses, so the caller can
-// raise.
+// dtype is 0 for fp32, 1 for bf16; hd 32, 64, 80 or 128; G at most 16.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for what the kernel does not take, so the caller
+// can raise.
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, const void* t_dev,
     int t_host, void* out, void* count, void* part, int B, int S, int KV,
     int G, int hd, int splits, int chunk, long long q_b, long long q_h,
     long long k_b, long long k_s, long long k_h, long long v_b,
-    long long v_s, long long v_h, float scale, int dtype, int fill,
-    void* stream) {
+    long long v_s, long long v_h, float scale, int dtype, void* stream) {
   if (splits < 1 || splits > 65535 || chunk < 1 || chunk % kTile ||
-      B * KV < 1 || !args_ok(dtype, hd, G, fill))
+      B * KV < 1 || !args_ok(dtype, hd, G))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
@@ -905,6 +764,6 @@ extern "C" int flash_decode_launch(
   a.v_s = v_s;
   a.v_h = v_h;
   a.scale = scale * 1.4426950408889634f;
-  return dispatch(dtype, hd, G, fill,
+  return dispatch(dtype, hd, G,
                   LaunchFn{&a, B, static_cast<cudaStream_t>(stream)});
 }

@@ -27,14 +27,11 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (32, 64, 80, 128)   # the head dims the kernel is built for
 MAX_GROUP = 16                  # query heads per KV head
 TILE = 32                       # keys of a ring stage (the kernel's kTile)
-# how the kernel's ring is filled: 16-byte cp.async copies (the default,
-# measured fastest), a cp.async.bulk copy a row, or TMA boxes
-FILLS = {"cp_async": 2, "rows": 0, "tma": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = None       # the library, its entry points typed at the first use
-_CTAS: dict = {}      # (device, dtype, hd, G, fill) -> CTAs an SM holds
-_PLANS: dict = {}     # (device, shape, dtype, block_kv, fill) -> plan
+_CTAS: dict = {}      # (device, dtype, hd, G) -> CTAs an SM holds
+_PLANS: dict = {}     # (device, shape, dtype, block_kv) -> plan
 _SCRATCH: dict = {}   # (device, stream) -> (counters, partials)
 
 
@@ -42,12 +39,12 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = backend.load(SOURCE)
-        lib.flash_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.flash_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 3
         lib.flash_decode_ctas_per_sm.restype = ctypes.c_int
         lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 4 \
             + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
             + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p]
+                                         ctypes.c_void_p]
         lib.flash_decode_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -100,22 +97,21 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def plan(q, k, block_kv: int = 1024, fill: str = "cp_async") -> dict:
+def plan(q, k, block_kv: int = 1024) -> dict:
     """The launch a CUDA call on these tensors makes: the kernel's CTAs
     per SM on this card, the splits and keys per split, and the CTAs."""
-    splits, chunk = _plan(q, k, block_kv, FILLS[fill])
+    splits, chunk = _plan(q, k, block_kv)
     B, S, KV = k.shape[:3]
-    key = (q.device, q.dtype, q.shape[2], q.shape[1] // KV, FILLS[fill])
+    key = (q.device, q.dtype, q.shape[2], q.shape[1] // KV)
     return dict(ctas_per_sm=_CTAS[key], sms=_sm_count(q.device),
                 splits=splits, chunk=chunk, ctas=B * KV * splits)
 
 
-def _ctas_per_sm(device, dtype, hd: int, G: int, fill: int) -> int:
-    key = (device, dtype, hd, G, fill)
+def _ctas_per_sm(device, dtype, hd: int, G: int) -> int:
+    key = (device, dtype, hd, G)
     if key not in _CTAS:
         with torch.cuda.device(device):
-            n = _lib().flash_decode_ctas_per_sm(_DTYPE_CODE[dtype], hd, G,
-                                                fill)
+            n = _lib().flash_decode_ctas_per_sm(_DTYPE_CODE[dtype], hd, G)
         if n <= 0:
             raise RuntimeError(f"flash_decode kernel: no CTA fits an SM "
                                f"(CUDA error {-n})")
@@ -123,14 +119,14 @@ def _ctas_per_sm(device, dtype, hd: int, G: int, fill: int) -> int:
     return _CTAS[key]
 
 
-def _plan(q, k, block_kv: int, fill: int) -> tuple[int, int]:
+def _plan(q, k, block_kv: int) -> tuple[int, int]:
     """``split_plan`` for this call's shape on its card, cached."""
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    key = (q.device, B, S, KV, H, hd, q.dtype, block_kv, fill)
+    key = (q.device, B, S, KV, H, hd, q.dtype, block_kv)
     plan = _PLANS.get(key)
     if plan is None:
-        ctas = _ctas_per_sm(q.device, q.dtype, hd, H // KV, fill)
+        ctas = _ctas_per_sm(q.device, q.dtype, hd, H // KV)
         plan = _PLANS[key] = split_plan(B, S, KV, block_kv,
                                         _sm_count(q.device), ctas)
     return plan
@@ -153,7 +149,7 @@ def _scratch(device, stream: int, heads: int, n_part: int):
 
 
 def flash_decode(q, k, v, t, *, block_kv: int = 1024,
-                 use_kernel: bool = False, fill: str = "cp_async"):
+                 use_kernel: bool = False):
     """q: (B, H, hd); k/v: (B, S, KV, hd); t: current length, an int or a
     0-dim int32 tensor (positions >= t are masked; t > S reads the whole
     cache). Returns (B, H, hd) in q's dtype.
@@ -163,16 +159,11 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
     one launch, counted once. ``block_kv`` is the most keys one split
     reads (rounded down to whole ``TILE``-key tiles, at least one): it can
     only raise the split count above what filling the card asks for
-    (``split_plan``). ``fill`` picks how the kernel's ring is filled
-    (``FILLS``): the fills differ in speed only (``tma`` also sums a
-    score's chunks in another order). The
-    kernel takes hd in ``HEAD_DIMS``, at most ``MAX_GROUP`` query heads per
-    KV head, a last dim of stride 1 and k, v rows on 16-byte boundaries,
-    and raises on anything else.
+    (``split_plan``). The kernel takes hd in ``HEAD_DIMS``, at most
+    ``MAX_GROUP`` query heads per KV head, a last dim of stride 1 and k, v
+    rows on 16-byte boundaries, and raises on anything else.
     """
     _check(q, k, v, t)
-    if fill not in FILLS:
-        raise ValueError(f"fill is one of {tuple(FILLS)}, got {fill!r}")
     if not backend.use_kernel(q, require=use_kernel):
         return flash_decode_plain(q, k, v, t)
     B, H, hd = q.shape
@@ -197,8 +188,7 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
         t_dev = t.data_ptr()
     else:
         t_host = max(0, min(int(t), S))
-    code = FILLS[fill]
-    splits, chunk = _plan(q, k, block_kv, code)
+    splits, chunk = _plan(q, k, block_kv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     count, part = _scratch(q.device, stream, B * KV,
                            B * KV * splits * G * (hd + 2)
@@ -208,7 +198,7 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), t_dev, t_host,
         out.data_ptr(), count.data_ptr(), part.data_ptr(), B, S, KV, G, hd,
         splits, chunk, q.stride(0), q.stride(1), *k.stride()[:3],
-        *v.stride()[:3], hd ** -0.5, _DTYPE_CODE[q.dtype], code, stream)
+        *v.stride()[:3], hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")

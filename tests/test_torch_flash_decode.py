@@ -113,7 +113,7 @@ def test_grouped_query_heads_read_their_kv_head():
 
 
 @pytest.mark.parametrize("bad", ["use_kernel", "dtype", "mixed", "shape",
-                                 "t", "fill"])
+                                 "t"])
 def test_wrapper_policy_and_checks(bad):
     q = torch.zeros(1, 4, 64)
     k = torch.zeros(1, 16, 2, 64)
@@ -127,8 +127,6 @@ def test_wrapper_policy_and_checks(bad):
         q = q.bfloat16()
     elif bad == "shape":
         k = torch.zeros(1, 16, 3, 64)
-    elif bad == "fill":
-        kw["fill"] = "bulk"
     else:
         t = torch.tensor([3], dtype=torch.int32)
     with pytest.raises((TypeError, ValueError)):
