@@ -11,12 +11,14 @@
 // value), so a decode loop never waits on the host:
 //   * q, k, v are bf16 or fp32 (template T). fp32: q is scaled by
 //     hd**-0.5 (times log2(e): the softmax runs on exp2) before the dot;
-//     bf16: q·k of the bf16 values sums in fp32 and is scaled after it;
+//     bf16: the products of the bf16 values are exact in fp32, so q·k
+//     sums in fp32 and is scaled after the sum: the plain version's
+//     scores up to fp32 rounding;
 //   * positions at or past min(t, S) are never read; a masked key has no
 //     p, so t = 0 gives zeros;
-//   * the online softmax (m, l) and p·V's sums are fp32 (bf16 rounds p to
-//     bf16 for the tensor cores' product); the output is
-//     acc / max(l, 1e-30), cast to T.
+//   * the online softmax (m, l), p and p·V's products and sums are fp32
+//     (bf16 hands the tensor cores p as the sum of three bf16 parts, which
+//     hold its 24 bits); the output is acc / max(l, 1e-30), cast to T.
 //
 // What bounds it. Decode is bytes: K and V below t are read once (136.3 MB
 // for olmo-1b's B 8, KV 16, hd 128, t 2,079 in bf16: 0.041 ms at 3.35
@@ -31,9 +33,10 @@
 //     count so that the grid fills whole waves of the CTAs the card holds
 //     at once (flash_decode_ctas_per_sm: cudaOccupancyMaxActiveBlocks...
 //     on this kernel's shared memory and registers, times the SM count);
-//     each split takes an even share of the kTile-key tiles below t, at
-//     most chunk keys. On an H100 that is one wave at both served caches:
-//     3 x 128 CTAs at olmo-1b's, 6 x 64 at h2o-danube-1.8b's.
+//     each split takes an even share of the kTile-key tiles below t (at
+//     most block_kv keys: the split count sees to that). On an H100 that
+//     is one wave at both served caches: 3 x 128 CTAs at olmo-1b's, 6 x 64
+//     at h2o-danube-1.8b's.
 //   * A ring of kStages stages of K and V tiles in shared memory, in the
 //     cache's own dtype, filled by one producer warp with 16-byte cp.async
 //     copies (32 a warp instruction) that complete on the stage's full
@@ -55,8 +58,11 @@
 //     did not hide behind the loads; the mma path spends ~40 mma and ~40
 //     ldmatrix. The G <= 16 query rows are the 16 rows of A, staged once
 //     in shared memory; K comes by ldmatrix (its rows are B's columns); S
-//     is scaled in fp32 and masked past n by a select; P is packed to bf16
-//     in place as the A of P·V, with V read transposed by ldmatrix. In a
+//     is scaled in fp32 and masked past n by a select; P is split in
+//     place into three bf16 parts (p less each part's rounding leaves the
+//     next, exactly), each the A of an mma of P·V, with V read transposed
+//     by ldmatrix once for the three: P·V thus takes fp32 p, as the plain
+//     version does, for twice the mma a tile of rounding p to bf16. In a
 //     ragged tile the warp zeroes the V rows past n (stale or never
 //     written), so that 0 * V is 0. fp32 runs on the CUDA cores: a lane
 //     scores its key for the G rows (q broadcast from shared memory) and a
@@ -82,6 +88,10 @@ constexpr int kTile = 32;                    // keys a stage: a key a lane
 constexpr int kMaxG = 16;                    // query heads per KV head
 constexpr int kMaxHd = 128;
 constexpr float kNegInf = -1e30f;
+// bf16 parts of an fp32 p in P·V: 8 significant bits each, so three hold
+// p's 24 (for p above ~2**-100, where bf16's subnormals start to cut the
+// last part; such a p moves no output)
+constexpr int kParts = 3;
 
 // The ring's shape: one stage per consumer warp (tile i sits in stage
 // i % kStages and goes to warp i % kWarps, so a warp waits on its own
@@ -100,7 +110,7 @@ struct Args {
   void* out;                                 // (B, H, hd) contiguous
   float* part;                               // (B*KV, splits, G, hd + 2)
   int* count;                                // (B*KV), 0 between calls
-  int S, KV, G, hd, chunk, splits;
+  int S, KV, G, hd, splits;
   long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h;   // in elements
   float scale;                               // hd**-0.5 * log2(e)
 };
@@ -210,9 +220,14 @@ __device__ __forceinline__ float4 lds4(const void* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// two floats as a bf16x2 word, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two floats rounded to a bf16x2 word (the first in the low half), each
+// left holding what the rounding dropped: exact in fp32, so the parts that
+// successive calls take sum to the floats given
+__device__ __forceinline__ uint32_t take_bf16(float& lo, float& hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  const float2 f = __bfloat1622float2(x);
+  lo -= f.x;
+  hi -= f.y;
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
@@ -454,18 +469,27 @@ __device__ __forceinline__ void consume_bf16(
     }
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {         // keys 16 ks .. 16 ks + 15
-      const uint32_t pa[4] = {pack_bf16(sc[2 * ks][0], sc[2 * ks][1]),
-                              pack_bf16(sc[2 * ks][2], sc[2 * ks][3]),
-                              pack_bf16(sc[2 * ks + 1][0], sc[2 * ks + 1][1]),
-                              pack_bf16(sc[2 * ks + 1][2], sc[2 * ks + 1][3])};
+      float* s0 = sc[2 * ks];
+      float* s1 = sc[2 * ks + 1];
+      uint32_t pa[kParts][4];                // p = the sum of the parts
+#pragma unroll
+      for (int j = 0; j < kParts; ++j) {
+        pa[j][0] = take_bf16(s0[0], s0[1]);
+        pa[j][1] = take_bf16(s0[2], s0[3]);
+        pa[j][2] = take_bf16(s1[0], s1[1]);
+        pa[j][3] = take_bf16(s1[2], s1[3]);
+      }
 #pragma unroll
       for (int np = 0; np < ND / 2; ++np) {  // columns of n-tiles 2np, 2np+1
         uint32_t r[4];
         ldsm_x4<true>(vt + (ks * 16 + (mi & 1) * 8 + mr) * rb +
                           (2 * np + (mi >> 1)) * 8 * 2,
                       r);
-        mma_bf16(o[2 * np], pa, r[0], r[1]);
-        mma_bf16(o[2 * np + 1], pa, r[2], r[3]);
+#pragma unroll
+        for (int j = kParts - 1; j >= 0; --j) {   // the smallest part first
+          mma_bf16(o[2 * np], pa[j], r[0], r[1]);
+          mma_bf16(o[2 * np + 1], pa[j], r[2], r[3]);
+        }
       }
     }
     release(empty0 + 8 * s, lane);
@@ -496,8 +520,11 @@ __device__ __forceinline__ void consume_bf16(
 
 // fp32 takes the CUDA-core path (GMAX >= G rows, any hd; HD is 0), bf16
 // the tensor-core path (HD the head dim; GMAX unused, 1).
+// bf16 asks for three CTAs an SM (at most 136 registers a thread): the
+// bytes in flight that the served caches need.
 template <typename T, int GMAX, int HD>
-__global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 1)
+    decode_kernel(const Args a) {
   constexpr int kEpc = 16 / sizeof(T);       // elements a 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = a.hd, G = a.G;
@@ -515,7 +542,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   int t = a.t_dev ? *a.t_dev : a.t_host;
   t = t < 0 ? 0 : (t > a.S ? a.S : t);
   // this split's share of the tiles below t: an even one, so that no
-  // split is left with a short tail, and never more than chunk keys
+  // split is left with a short tail
   const int below = (t + kTile - 1) / kTile;
   const int first = static_cast<int>(1ll * blockIdx.y * below / a.splits);
   const int ntiles =
@@ -734,11 +761,10 @@ extern "C" int flash_decode_ctas_per_sm(int dtype, int hd, int G) {
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, const void* t_dev,
     int t_host, void* out, void* count, void* part, int B, int S, int KV,
-    int G, int hd, int splits, int chunk, long long q_b, long long q_h,
+    int G, int hd, int splits, long long q_b, long long q_h,
     long long k_b, long long k_s, long long k_h, long long v_b,
     long long v_s, long long v_h, float scale, int dtype, void* stream) {
-  if (splits < 1 || splits > 65535 || chunk < 1 || chunk % kTile ||
-      B * KV < 1 || !args_ok(dtype, hd, G))
+  if (splits < 1 || splits > 65535 || B * KV < 1 || !args_ok(dtype, hd, G))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
@@ -753,7 +779,6 @@ extern "C" int flash_decode_launch(
   a.KV = KV;
   a.G = G;
   a.hd = hd;
-  a.chunk = chunk;
   a.splits = splits;
   a.q_b = q_b;
   a.q_h = q_h;

@@ -42,7 +42,7 @@ def _lib():
         lib.flash_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 3
         lib.flash_decode_ctas_per_sm.restype = ctypes.c_int
         lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+            + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
             + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_int,
                                          ctypes.c_void_p]
         lib.flash_decode_launch.restype = ctypes.c_int
@@ -188,7 +188,7 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
         t_dev = t.data_ptr()
     else:
         t_host = max(0, min(int(t), S))
-    splits, chunk = _plan(q, k, block_kv)
+    splits, _ = _plan(q, k, block_kv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     count, part = _scratch(q.device, stream, B * KV,
                            B * KV * splits * G * (hd + 2)
@@ -197,7 +197,7 @@ def flash_decode(q, k, v, t, *, block_kv: int = 1024,
     rc = _lib().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), t_dev, t_host,
         out.data_ptr(), count.data_ptr(), part.data_ptr(), B, S, KV, G, hd,
-        splits, chunk, q.stride(0), q.stride(1), *k.stride()[:3],
+        splits, q.stride(0), q.stride(1), *k.stride()[:3],
         *v.stride()[:3], hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "

@@ -178,7 +178,8 @@ def test_smoke_entry_point_phases_rehearse_on_cpu():
     """The hist, bucket_slots and flash_decode matrices through their
     wrappers (the plain versions here), the entry-point phase at a tiny
     width (counts zeroed and read, each output held to its plain
-    version, no kernel launched on the CPU), and the full-width bounds."""
+    version, no kernel launched on the CPU), flash_decode's bf16 outputs
+    against the control of p rounded to bf16, and the full-width bounds."""
     cpu = torch.device("cpu")
     matrix = chip_smoke.matrix_cases(cpu)
     errs = chip_smoke.check_cases(matrix)
@@ -188,6 +189,13 @@ def test_smoke_entry_point_phases_rehearse_on_cpu():
         | {f"slots_{n}" for n in chip_smoke.SLOTS_MATRIX}
         | {f"decode_{n}" for n in chip_smoke.DECODE_MATRIX})
     assert max(errs.values()) == 0.0
+    # the control of p rounded to bf16 moves a large share of the bf16
+    # outputs' bits, which the kernel's gate holds it well below
+    bits = chip_smoke.check_decode_bits(matrix)
+    assert set(bits) == {f"decode_{n}" for n, c in
+                         chip_smoke.DECODE_MATRIX.items() if c[6] == "bfloat16"}
+    assert all(b["kernel"] == 0.0 and b["p_bf16"] > 0.25
+               for b in bits.values())
     assert set(chip_smoke.DECODE_FULL_F32) == {"olmo-1b_f32",
                                                "h2o-danube-1.8b_f32"}
     w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
@@ -202,6 +210,7 @@ def test_smoke_entry_point_phases_rehearse_on_cpu():
     assert entry["launches"] == {"hist": 0, "bucket_slots": 0,
                                  "flash_decode": 0}
     assert set(entry["max_abs_err"]) == set(cases)
+    assert set(entry["bits_off"]) == {"decode_tiny_gqa"}
     assert cases["hist_owner"]["run"]().shape == (4,)
     assert int(cases["slots_owner_window"]["run"]()[1].sum()) == 4 * 8 * 64
     assert cases["hist_count"]["library"] is not None
