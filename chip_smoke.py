@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python chip_smoke.py
+    python chip_smoke.py [--parent OLD/fused_map.cu]
 
 Phases, each of which asserts (nothing is caught):
 
@@ -16,7 +16,10 @@ Phases, each of which asserts (nothing is caught):
                window skips tiles; fused_map, hist and bucket_slots bit
                for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
-               events, beside the library call where there is one. The
+               events, beside the library call where there is one;
+               fused_map also by device time, at rep 1 and 16 on its hot
+               rank (the cost of one pass), and in turns with an older
+               fused_map.cu given as ``--parent``. The
                three kernels that only their own entry points reach
                (hist, bucket_slots, flash_decode) run that path here:
                ``wordcount_hist`` on the job's 2**27-token corpus in count
@@ -27,9 +30,14 @@ Phases, each of which asserts (nothing is caught):
   3. job     — MR-1S WordCount through the Job API at the documented
                fused width (V = 262,144, P = 8, S = 256, cap = 64) on a
                Zipf corpus with one 8x-hot rank: records equal to the
-               numpy oracle and the kernel launched on the main path;
-               fused equal to unfused on a 2**25-token corpus of the same
-               width (the unfused engine is ~9x slower);
+               numpy oracle and the kernel launched once a step on the
+               main path, each step a CUDA graph replay; the feed's
+               prefetch hits and its host seconds a segment; on a
+               2**25-token corpus of the same width the fused job, its
+               eager step loop (the graph's baseline) and the unfused
+               job (~9x slower), all equal; then, over a segment whose
+               input is read, the graph's and the eager loop's host
+               microseconds a step and device busy share;
   4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
                at full width through ``ServeEngine.generate``: 16
                requests (h2o: one batch) in batches of 8, 2048-token
@@ -53,7 +61,9 @@ Exits non-zero, printing no result, when no CUDA card is present.
 """
 from __future__ import annotations
 
+import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -209,7 +219,9 @@ def fused_case(seed: int, P: int, S: int, V: int, cap: int, rep, *,
 def fused_matrix():
     """The reference kernel-test matrix (capacity-1 buckets, all-duplicate
     keys, near-SAT sums at several repeats, split-key routing, vocab not a
-    multiple of a tile, S up to 1024), plus the full-width shapes."""
+    multiple of a tile, S up to 1024), the sort's edges (S = 1, L = 2,000
+    records at the shared-memory limit, an all-sentinel task, negative
+    keys, a hot rank at rep 16), plus the full-width shapes."""
     sat = 2**31 - 1
     for i, (S, V, P, cap, rep) in enumerate(
             [(32, 256, 4, 8, 1), (64, 512, 8, 16, 1), (64, 500, 8, 16, 2),
@@ -217,7 +229,19 @@ def fused_matrix():
         yield f"sweep{i}", fused_case(i, P, S, V, cap, rep, split=True)
     yield "cap1", fused_case(10, 4, 48, 128, 1, 1)
     yield "all_dup", fused_case(11, 3, 32, 100, 4, 2, dupes=True)
-    for rep in (1, 2, 3, 5):
+    yield "S1", fused_case(18, 4, 1, 64, 2, [1, 2, 1, 3])
+    yield "S1000_rep3", fused_case(19, 4, 1000, 4096, 32, 3, split=True)
+    args, P, cap = fused_case(20, 4, 64, 256, 8, [1, 2, 1, 3])
+    args["keys"][:] = sat
+    yield "all_sentinel", (args, P, cap)
+    args, P, cap = fused_case(21, 4, 96, 256, 8, [1, 3, 2, 1])
+    rng = np.random.default_rng(21)       # signed order; ghost owner
+    neg = rng.random(args["keys"].shape) < 0.3
+    args["keys"][neg] = rng.choice([-2**31, -257, -256, -5, -1],
+                                   int(neg.sum()))
+    yield "negative_keys", (args, P, cap)
+    yield "hot_rep16", fused_case(22, 8, 256, 4096, 16, [16] + [1] * 7)
+    for rep in (1, 2, 3, 5, 8):
         yield f"near_sat_rep{rep}", fused_case(12, 4, 24, 128, 4, rep,
                                                near_sat=True)
     # wrap-negative sums: rep 1, 2, 3 give three different steps
@@ -325,18 +349,68 @@ def fused_bound(args: dict, P: int, cap: int) -> tuple[float, str, dict]:
                                      "unique": uniq, "window_slots": slots}
 
 
-def time_fused(device) -> dict:
-    """CUDA-event time per launch of the kernel and of its plain version
-    at the full-width shapes, beside the step's bound."""
+def other_fused_map(source):
+    """Another build of ``fused_map.cu`` with the same C entry point (an
+    older kernel, for timing in turns), as a function of a case's inputs
+    with the wrapper's return value."""
+    _, _, backend, _, _ = _port()
+    lib = ctypes.CDLL(str(backend.build(Path(source)).path))
+    if hasattr(lib, "fused_map_prepare"):      # absent before the sort
+        assert lib.fused_map_prepare() == 0, f"{source}: prepare failed"
+    fn = lib.fused_map_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(a: dict, P: int, cap: int):
+        bk = torch.empty((P, P, cap), dtype=torch.int32, device="cuda")
+        bv = torch.empty_like(bk)
+        counts = torch.empty((P, P), dtype=torch.int32, device="cuda")
+        rc = fn(*(t.data_ptr() for t in a.values()), bk.data_ptr(),
+                bv.data_ptr(), counts.data_ptr(), P, a["keys"].shape[1],
+                a["table"].shape[-1], cap,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"{source}: CUDA error {rc}"
+        return a["table"], bk, bv, counts
+    return run
+
+
+def time_fused(device, parent=None) -> dict:
+    """Time per launch of the kernel at the full-width shapes, CUDA
+    events around 200 launches back to back (``ms``) and the profiler's
+    device time (``device_ms``), beside the step's bound and its plain
+    version. With ``parent`` (an older ``fused_map.cu``) that kernel is
+    held bit for bit to the plain version too and timed in turns with
+    this one (``parent_ms``, ``parent_device_ms``)."""
     _, _, _, ops, ref = _port()
     args, P, cap = full_width_case()
     a = _on(args, device)
-    ms = _event_ms(lambda: ops.fused_map(**a, n_procs=P, cap=cap), 200)
+    fns = {"kernel": lambda: ops.fused_map(**a, n_procs=P, cap=cap)}
+    if parent is not None:
+        run = other_fused_map(parent)
+        b = _on(args, device)
+        want = ref.fused_step_ref(**b, n_procs=P, cap=cap)
+        for g, w in zip(run(b, P, cap), want):
+            assert torch.equal(g, w), "the parent's fused_map != plain"
+        fns["parent"] = lambda: run(a, P, cap)
+    ev = _in_turns(fns, lambda f: _event_ms(f, 200))
+    dev = _in_turns(fns, lambda f: _device_ms(f, 200)[0])
+    chain = {}                  # the hot rank's chain: rep 1 and 16 on it
+    for rep0 in (1, 16):
+        c = _on(fused_case(16, P, TASK, VOCAB, cap,
+                           [rep0] + [1] * (P - 1))[0], device)
+        chain[rep0] = _device_ms(
+            lambda: ops.fused_map(**c, n_procs=P, cap=cap), 200)[0]
     plain_ms = _event_ms(lambda: ref.fused_step_ref(**a, n_procs=P, cap=cap),
                          20)
     bound_ms, bound_by, work = fused_bound(args, P, cap)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, **work)
+    out = dict(ms=ev["kernel"], device_ms=dev["kernel"], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               rep1_device_ms=chain[1], rep16_device_ms=chain[16],
+               pass_ms=(chain[16] - chain[1]) / 15, **work)
+    if parent is not None:
+        out.update(parent_ms=ev["parent"], parent_device_ms=dev["parent"])
+    return out
 
 
 # the reference's flash_attention test matrix (tests/test_kernels.py::
@@ -1095,22 +1169,38 @@ def job_input(n: int, w: Width = FULL):
     return source, reps
 
 
-def run_job(cfg, source, reps, device) -> tuple:
-    """One job through the user entry points; (result, wall seconds)."""
+def submit_job(cfg, source, reps, device, eager: bool = False):
+    """A job's handle through the user entry point. ``eager=True`` runs
+    the fused step in the engine's eager loop instead of replaying its
+    CUDA graph: the graph's baseline on the card."""
     core, _, _, _, _ = _port()
+    h = core.submit(cfg, source, device=device, repeats=reps)
+    if eager:
+        from repro_torch.core import onesided
+        h._seg_fns = onesided.segment_fns(h.spec, h._map_fn, device,
+                                          graphs=False)
+        h._carry = h._seg_fns[0]()
+    return h
+
+
+def run_job(cfg, source, reps, device, eager: bool = False) -> tuple:
+    """One job through the user entry points; (result, wall seconds, the
+    feed's stats)."""
     t0 = time.perf_counter()
-    res = core.submit(cfg, source, device=device, repeats=reps).result()
+    h = submit_job(cfg, source, reps, device, eager)
+    res = h.result()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return res, time.perf_counter() - t0, dataclasses.asdict(h.feed.stats)
 
 
 def phase_job(device, n: int, n_unfused: int, w: Width = FULL) -> dict:
     """Warm up, run the fused job on ``n`` tokens (the main path, launch
-    counts zeroed just before and read just after) and check it against
-    the oracle; then run the fused and the unfused job on a corpus of
-    ``n_unfused`` tokens of the same width and check both against its
-    oracle."""
+    counts zeroed just before and read just after: on the card one
+    fused_map launch for each step's graph replay) and check it against
+    the oracle; then, on a corpus of ``n_unfused`` tokens of the same
+    width, the fused job, its eager loop and the unfused job, each
+    checked against its oracle."""
     core, data, _, ops, _ = _port()
     source, reps = job_input(n, w)
     oracle = core.wordcount_oracle(data.read_all(source), w.vocab)
@@ -1121,8 +1211,8 @@ def phase_job(device, n: int, n_unfused: int, w: Width = FULL) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    fused_res, fused_wall = run_job(job_config(True, w), source, reps,
-                                    device)
+    fused_res, fused_wall, feed = run_job(job_config(True, w), source, reps,
+                                          device)
     launches = ops.fused_map.launches
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     assert fused_res.records == oracle, "fused records != numpy oracle"
@@ -1131,19 +1221,30 @@ def phase_job(device, n: int, n_unfused: int, w: Width = FULL) -> dict:
     steps = -(-reps.shape[1] // w.segment) * w.segment
     if cuda:
         assert launches == steps, (launches, steps)
+    from repro_torch.core import planner
+    t0 = time.perf_counter()
+    plan = planner.plan_input(n, w.task, w.n_procs)
+    planner.gather_segment(source, plan, planner.shard_task_ids(plan)[
+        :, w.segment:2 * w.segment])
+    feed_s = time.perf_counter() - t0             # one segment's host read
 
     source, reps = job_input(n_unfused, w)
-    small_res, small_wall = run_job(job_config(True, w), source, reps,
-                                    device)
+    small_res, small_wall, _ = run_job(job_config(True, w), source, reps,
+                                       device)
     assert small_res.records == core.wordcount_oracle(
         data.read_all(source), w.vocab), "fused records != numpy oracle"
-    unfused_res, unfused_wall = run_job(job_config(False, w), source, reps,
-                                        device)
+    eager_res, eager_wall, _ = run_job(job_config(True, w), source, reps,
+                                       device, eager=True)
+    assert eager_res.records == small_res.records, "eager != graph"
+    unfused_res, unfused_wall, _ = run_job(job_config(False, w), source,
+                                           reps, device)
     assert unfused_res.records == small_res.records, "fused != unfused"
     return dict(n=n, steps=steps, launches=launches, fused_wall=fused_wall,
-                tokens_per_s=n / fused_wall, peak_bytes=peak,
+                tokens_per_s=n / fused_wall, peak_bytes=peak, feed=feed,
+                feed_s_per_segment=feed_s, segments=steps // w.segment,
                 n_records=len(oracle), imbalance=fused_res.imbalance,
                 n_unfused=n_unfused, fused_wall_at_n_unfused=small_wall,
+                eager_wall_at_n_unfused=eager_wall,
                 unfused_wall=unfused_wall,
                 unfused_tokens_per_s=n_unfused / unfused_wall)
 
@@ -1174,14 +1275,33 @@ def device_profile(fn) -> dict:
                 top=[(k, t / 1e3, c) for k, (t, c) in top])
 
 
-def phase_profile(device, n: int, w: Width = FULL) -> dict:
-    """Device busy share of the fused engine over one segment."""
-    core, _, _, _, _ = _port()
+def phase_profile(device, n: int, w: Width = FULL,
+                  eager: bool = False) -> dict:
+    """The fused engine's own pace over a segment whose input the feed
+    has read already (its graph replays, or with ``eager=True`` its eager
+    loop), after a warm one: the device's busy share, then the host's
+    seconds to enqueue the segment (until ``step()`` returns) and to finish
+    it."""
+    def read_ahead():
+        while not h.feed.ready():
+            time.sleep(1e-3)
+
     source, reps = job_input(n, w)
-    with core.submit(job_config(True, w), source, device=device,
-                     repeats=reps) as h:
-        h.step()                                  # warm
-        return device_profile(h.step)
+    with submit_job(job_config(True, w), source, reps, device, eager) as h:
+        h.step()                                  # warm; captures
+        read_ahead()
+        prof = device_profile(h.step)
+        read_ahead()
+        t0 = time.perf_counter()
+        h.step()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        segment_s = time.perf_counter() - t0
+        # the profiler's host tracing slows the host's side: the share
+        # without it is the traced device time over the untraced wall
+        prof.update(enqueue_s=enqueue, segment_s=segment_s, steps=w.segment,
+                    untraced_busy_share=prof["device_s"] / segment_s)
+        return prof
 
 
 def print_profile(what: str, prof: dict):
@@ -1439,7 +1559,11 @@ def print_decode_times(times: dict):
               f"{e['device_kernels']}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an older fused_map.cu (same C entry "
+                    "point) to time in turns with this checkout's")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1450,13 +1574,27 @@ def main() -> int:
     err = phase_kernel_vs_plain(device, fused_matrix())
     print(f"kernels: fused_map == plain on every matrix case "
           f"(max abs err {err})")
-    timing = time_fused(device)
-    print(f"fused_map at P={N_PROCS} S={TASK} cap={CAP} V={VOCAB}: "
-          f"{timing['ms'] * 1e3:.1f} us/launch, plain "
+    timing = time_fused(device, parent)
+    print(f"fused_map at P={N_PROCS} S={TASK} cap={CAP} V={VOCAB}, rep 8 on "
+          f"rank 0: {timing['device_ms'] * 1e3:.2f} us/launch on the device "
+          f"({timing['ms'] * 1e3:.2f} us back to back, events), plain "
           f"{timing['plain_ms'] * 1e3:.1f} us, bound "
           f"{timing['bound_ms'] * 1e3:.3f} us ({timing['bound_by']}, "
           f"{timing['bytes']} B at 3.35 TB/s; {timing['unique']} unique "
           f"keys, {timing['window_slots']} window slots)")
+    print(f"fused_map: the hot rank at rep 1 / 16: "
+          f"{timing['rep1_device_ms'] * 1e3:.2f} / "
+          f"{timing['rep16_device_ms'] * 1e3:.2f} us/launch on the device, "
+          f"{timing['pass_ms'] * 1e3:.3f} us a pass over L = {2 * TASK}")
+    if parent is None:
+        print("fused_map: no older kernel timed in turns (pass --parent "
+              "<an older fused_map.cu>)")
+    else:
+        print(f"fused_map in turns with {parent}: "
+              f"{timing['device_ms'] * 1e3:.2f} against "
+              f"{timing['parent_device_ms'] * 1e3:.2f} us/launch on the "
+              f"device, {timing['ms'] * 1e3:.2f} against "
+              f"{timing['parent_ms'] * 1e3:.2f} back to back")
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1521,18 +1659,30 @@ def main() -> int:
     job = phase_job(device, N_TOKENS, N_UNFUSED)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
           f"cap={CAP} segment={SEGMENT}, {job['steps']} steps, "
-          f"{job['n_records']} records == oracle; fused == unfused at "
-          f"N={job['n_unfused']}")
+          f"{job['n_records']} records == oracle; fused (graph) == fused "
+          f"(eager loop) == unfused at N={job['n_unfused']}")
     print(f"job: fused {job['fused_wall']:.2f} s "
           f"({job['tokens_per_s']:.0f} tokens/s), fused_map launches "
-          f"{job['launches']}, peak device memory "
+          f"{job['launches']} (one a graph replay), peak device memory "
           f"{job['peak_bytes'] / 2**20:.1f} MiB, imbalance "
-          f"{job['imbalance']:.2f}; at N={job['n_unfused']}: fused "
-          f"{job['fused_wall_at_n_unfused']:.2f} s, unfused "
+          f"{job['imbalance']:.2f}; feed {job['feed']['prefetch_hits']} "
+          f"prefetch hits, {job['feed']['prefetch_misses']} misses of "
+          f"{job['segments']} segments, {job['feed_s_per_segment']:.4f} s "
+          f"to read one on the host")
+    print(f"job: at N={job['n_unfused']}: fused with the graph "
+          f"{job['fused_wall_at_n_unfused']:.2f} s, fused in the eager loop "
+          f"{job['eager_wall_at_n_unfused']:.2f} s, unfused "
           f"{job['unfused_wall']:.2f} s "
           f"({job['unfused_tokens_per_s']:.0f} tokens/s)")
-    prof = phase_profile(device, 2 * SEGMENT * TASK * N_PROCS)
-    print_profile(f"one fused segment ({SEGMENT} steps)", prof)
+    prof = {}
+    for what, eager in (("graph", False), ("eager", True)):
+        p = prof[what] = phase_profile(device, 4 * SEGMENT * TASK * N_PROCS,
+                                       eager=eager)
+        print_profile(f"one fused segment ({SEGMENT} steps, {what})", p)
+        print(f"profile: {what}: host {p['enqueue_s'] / p['steps'] * 1e6:.2f} "
+              f"us a step to enqueue, {p['segment_s'] / p['steps'] * 1e6:.2f} "
+              f"us a step to finish, its input read already; busy share "
+              f"{p['untraced_busy_share']:.3f} without the profiler")
 
     get_config, _, _ = _serve()
     serves = {}
@@ -1592,7 +1742,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_map/kernel.py:162",
         "launches": job["launches"], "max_abs_err": err,
         "matches_plain": True,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "ms": timing["ms"], "device_ms": timing["device_ms"],
+        "pass_ms": timing["pass_ms"],
+        **{k: timing[k] for k in ("parent_ms", "parent_device_ms")
+           if k in timing},
+        "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
         "build_s": built["fused_map"].seconds}, {

@@ -17,6 +17,11 @@ columns, one step for all P ranks at a time. ``JobSpec.fused_map`` runs
 phases II-III of a step as the ``fused_map`` CUDA kernel, which folds
 into the carry's window in place; the default path composes the same
 torch ops as the kernel's plain version. Both give identical carries.
+
+On a CUDA device the fused step is one CUDA graph (:class:`StepGraphs`),
+captured once for each distinct ``max_rep`` on the carry's own buffers
+and replayed once a step, as the reference runs a segment as one
+compiled program. The CPU and the unfused path run the eager loop.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.core.windows import (STATUS_REDUCE, DenseWindow,
                                       EngineCarry, combine_records,
                                       init_carry)
 from repro_torch.distributed.collectives import all_to_all_blocks
+from repro_torch.kernels.fused_map import ops as fused_ops
 from repro_torch.kernels.fused_map.ops import fused_map
 
 
@@ -66,17 +72,124 @@ def _step(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
                           cursor=carry.cursor + 1)
 
 
+def _fused_step_into(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+                     task, task_id, rep, max_rep: int):
+    """The fused step written into the carry's own buffers (the window,
+    the pending chunk, the cursor): what :class:`StepGraphs` captures.
+    Equal to ``_step``'s fused carry."""
+    keys, vals = map_fn(task, task_id, rep, max_rep)
+    _, bk, bv, _ = fused_map(
+        keys.contiguous(), vals.contiguous(), rep, task_id, carry.owner_map,
+        carry.owner_split, carry.pending_k, carry.pending_v, carry.table,
+        n_procs=spec.n_procs, cap=spec.push_cap)
+    all_to_all_blocks(bk, out=carry.pending_k)
+    all_to_all_blocks(bv, out=carry.pending_v)
+    carry.cursor.add_(1)
+
+
+class StepGraphs:
+    """The fused step as CUDA graphs on one carry's buffers: one graph for
+    each distinct ``max_rep`` (it sizes ``map_fn``'s repeat pass), each
+    holding one ``fused_map`` launch. A step copies its column into one
+    static input buffer, ``[tokens (P*S) | task ids (P) | repeats (P)]``,
+    and replays; a failed capture or replay raises."""
+
+    def __init__(self, spec: JobSpec, map_fn: Callable, carry: EngineCarry):
+        P, S = spec.n_procs, spec.task_size
+        self.spec, self.map_fn, self.carry = spec, map_fn, carry
+        self.device = carry.table.device
+        self.static = torch.empty(P * S + 2 * P, dtype=torch.int32,
+                                  device=self.device)
+        self.inputs = (self.static[:P * S].view(P, S),
+                       self.static[P * S:P * S + P], self.static[P * S + P:])
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.replays = 0
+
+    def holds(self, carry: EngineCarry) -> bool:
+        """True when ``carry`` is the carry these graphs write."""
+        return all(a is b for a, b in zip(carry, self.carry))
+
+    def _capture(self, max_rep: int) -> torch.cuda.CUDAGraph:
+        fused_ops.prepare()             # nvcc, load, smem limit: not in it
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):   # the torch ops once, off the carry
+            self.map_fn(*self.inputs, max_rep)
+            pending = self.carry.pending_k.clone()
+            all_to_all_blocks(pending.clone(), out=pending)
+            self.carry.cursor.clone().add_(1)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = fused_map.captured
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            _fused_step_into(self.spec, self.map_fn, self.carry,
+                             *self.inputs, max_rep)
+        if fused_map.captured - before != 1:
+            raise RuntimeError(f"the step graph holds "
+                               f"{fused_map.captured - before} fused_map "
+                               f"launches, not 1")
+        self.graphs[max_rep] = graph
+        return graph
+
+    def step(self, column: torch.Tensor, max_rep: int):
+        """One engine step: ``column`` is the step's packed input."""
+        self.static.copy_(column)
+        graph = self.graphs.get(max_rep) or self._capture(max_rep)
+        graph.replay()
+        self.replays += 1
+        fused_map.launches += 1         # the graph's one fused_map node
+
+
 def _segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry, tokens,
-             task_ids, repeats, max_rep) -> EngineCarry:
+             task_ids, repeats, max_rep,
+             graphs: StepGraphs | None = None) -> EngineCarry:
     """Advance one segment: ``tokens (P, n, S)``, ``task_ids``/``repeats``
-    (P, n) on the device, ``max_rep (n,)`` on the host."""
+    (P, n) on the device, ``max_rep (n,)`` on the host. With ``graphs``
+    each step replays a graph; without, the eager loop runs."""
+    n = tokens.shape[1]
+    max_rep = np.asarray(max_rep).tolist()
+    if graphs is not None:
+        packed = torch.cat([tokens.transpose(0, 1).reshape(n, -1),
+                            task_ids.t(), repeats.t()], dim=1)
+        for column, m in zip(packed.unbind(0), max_rep):
+            graphs.step(column, m)
+        return carry
     tokens = tokens.transpose(0, 1).contiguous()      # (n, P, S)
     task_ids = task_ids.t().contiguous()
     repeats = repeats.t().contiguous()
-    for c, m in enumerate(np.asarray(max_rep).tolist()):
+    for c, m in enumerate(max_rep):
         carry = _step(spec, map_fn, carry, tokens[c], task_ids[c],
                       repeats[c], m)
     return carry
+
+
+class SegmentFns:
+    """One job's engine: ``init`` makes the carry, ``segment`` advances a
+    segment, ``finish`` drains and combines. With ``graphs=True`` the
+    fused step runs as :class:`StepGraphs`, bound to the carry that
+    ``segment`` is given and released by ``finish``."""
+
+    def __init__(self, spec: JobSpec, map_fn: Callable, device,
+                 graphs: bool):
+        self.spec, self.map_fn, self.device = spec, map_fn, device
+        self.use_graphs = graphs
+        self.graphs: StepGraphs | None = None
+
+    def init(self) -> EngineCarry:
+        return init_carry(self.spec, self.device)
+
+    def segment(self, carry, tokens, task_ids, repeats, max_rep):
+        graphs = None
+        if self.use_graphs:
+            if self.graphs is None or not self.graphs.holds(carry):
+                self.graphs = StepGraphs(self.spec, self.map_fn, carry)
+            graphs = self.graphs
+        return _segment(self.spec, self.map_fn, carry, tokens, task_ids,
+                        repeats, max_rep, graphs)
+
+    def finish(self, carry):
+        self.graphs = None
+        return _finish(self.spec, carry)
 
 
 def _drain(carry: EngineCarry) -> EngineCarry:
@@ -98,6 +211,14 @@ def _finish(spec: JobSpec, carry: EngineCarry):
     return tree_combine(keys, vals, spec.n_procs, overflow)
 
 
+def segment_fns(spec: JobSpec, map_fn: Callable, device, graphs: bool):
+    """``(init_fn, segment_fn, finish_fn)`` of one job's
+    :class:`SegmentFns`; ``graphs=False`` is the eager loop, also on the
+    card (the graphs' baseline)."""
+    fns = SegmentFns(spec, map_fn, device, graphs)
+    return fns.init, fns.segment, fns.finish
+
+
 @register_backend("1s")
 class OneSidedBackend:
     """The decoupled engine behind the ``Backend`` protocol."""
@@ -110,23 +231,24 @@ class OneSidedBackend:
         """Full job over host arrays tokens (P, T, S) and task_ids/repeats
         (P, T). Returns rank-0 records as host arrays."""
         repeats = np.asarray(repeats, np.int32)
-        carry = _segment(
-            spec, map_fn, init_carry(spec, device),
+        init_fn, segment_fn, finish_fn = self.make_segment_fns(
+            spec, map_fn, device)
+        carry = segment_fn(
+            init_fn(),
             torch.as_tensor(np.asarray(tokens, np.int32)).to(device),
             torch.as_tensor(np.asarray(task_ids, np.int32)).to(device),
             torch.as_tensor(repeats).to(device), repeats.max(axis=0))
-        keys, vals, _ = _finish(spec, carry)
+        keys, vals, _ = finish_fn(carry)
         return keys[0].cpu().numpy(), vals[0].cpu().numpy()
 
     def make_segment_fns(self, spec: JobSpec, map_fn: Callable, device):
         """``(init_fn, segment_fn, finish_fn)`` — the checkpointable path.
         ``segment_fn(carry, tokens, task_ids, repeats, max_rep)`` advances
         one segment; ``finish_fn(carry)`` returns ``(keys, vals,
-        overflow)`` with a leading rank dim."""
-        return (lambda: init_carry(spec, device),
-                lambda carry, tok, tid, rep, max_rep: _segment(
-                    spec, map_fn, carry, tok, tid, rep, max_rep),
-                lambda carry: _finish(spec, carry))
+        overflow)`` with a leading rank dim. The fused step replays CUDA
+        graphs on a CUDA device."""
+        return segment_fns(spec, map_fn, device, graphs=spec.fused_map
+                           and torch.device(device).type == "cuda")
 
 
 def run_job(spec, map_fn, device, tokens, task_ids, repeats):

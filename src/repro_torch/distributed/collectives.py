@@ -14,12 +14,16 @@ def axis_index(n_procs: int, device) -> torch.Tensor:
     return torch.arange(n_procs, dtype=torch.int32, device=device)
 
 
-def all_to_all_blocks(x: torch.Tensor) -> torch.Tensor:
+def all_to_all_blocks(x: torch.Tensor, out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """Exchange equal blocks. ``x[i]`` is rank i's ``(P, ...)`` send
     buffer, one block per peer; row j of rank i's result is the block
-    rank j addressed to rank i, i.e. ``x[j, i]``."""
+    rank j addressed to rank i, i.e. ``x[j, i]``. Written into ``out``
+    when it is given (the receive buffers stay where they are)."""
     assert x.shape[0] == x.shape[1], x.shape
-    return x.transpose(0, 1).contiguous()
+    if out is None:
+        return x.transpose(0, 1).contiguous()
+    return out.copy_(x.transpose(0, 1))
 
 
 def psum(x: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,8 @@
 //   1. the dup-sum of the task's S records with key-ascending ranks (the
 //      layout of kv.local_reduce), int32 sums wrapping mod 2^32;
 //   2. the whole footnote-5 repeat recurrence, rep[r] - 1 more dup-sums,
-//      each seeded with the previous result's negative slots (not
-//      idempotent on wrap-negative sums, so never shortened);
+//      each over the task's S records plus the previous result's negative
+//      slots (not idempotent on wrap-negative sums, so never shortened);
 //   3. the owner lookup in the carried owner_map/owner_split rows, split
 //      keys picking a replica by mix32(task_id);
 //   4. bucket placement into the (P, cap) push buckets with
@@ -15,21 +15,37 @@
 //   5. the fold of the pending chunk and of the bucket overflow into the
 //      window table[r] — IN PLACE.
 //
-// Design. The TPU kernel streams the whole (V,) window through VMEM over
-// a sequential vocab grid, because a TPU cannot scatter. Hopper can: the
-// fold is an int32 atomicAdd of the P*cap pending records and the
-// overflow into table[r], touching P*cap + S slots instead of V. That is
-// exact because int32 sums are order-free mod 2^32. One block runs one
-// rank; the record pass lives in shared memory (8S ints + 2S bytes, 34 KB
-// at S = 1024) as the reference's S x S first-occurrence compare.
+// What bounds it. The bytes are tiny (about 120 KB a step at P = 8,
+// S = 256, cap = 64, V = 262,144: 0.04 us at 3.35 TB/s), and so are the
+// operations. What the card cannot hide is the hot rank's chain of
+// dependent passes: each of its rep[r] dup-sums needs the one before
+// (its negative slots), so the kernel takes as long as one block runs
+// rep[r] passes in sequence, whatever the other ranks do. The TPU kernel
+// did each pass as an O(L^2) compare matrix (L = 2S), which its matrix
+// unit eats; on this card that loop was the whole time.
 //
-// What bounds it. The bytes are tiny (about 150 KB a step at P = 8,
-// S = 256, cap = 64, V = 262,144), so no byte or operation roof is near:
-// the kernel is bound by latency — P blocks on 132 SMs, and an O(L^2)
-// compare pass per dup-sum (L = 2S in a repeat) done by one block. The
-// design keeps every record intermediate in shared memory and never
-// touches the untouched part of the window; spreading a rank over more
-// blocks (or a block sort) is the next step.
+// Design. One block serves one rank: a cluster would only pay if a
+// single pass were bound by the block's width, and a pass is bound by its
+// chain of shuffles and barriers. Each pass is a sort-based reduce of its
+// own L = 2S records, nothing of the previous pass carried but the
+// (uk, uv) dependency:
+//   * a bitonic sort of NP = pow2(2S) >= 64 (key, value) pairs in signed
+//     key order (KEY_SENTINEL = INT_MAX sorts last), NP / 2 threads each
+//     holding the pairs 2t and 2t + 1 in registers, the stages unrolled
+//     for each NP. Stride 1 stays inside a thread, strides 2-32 go through
+//     warp shuffles with no barrier, and only strides of 64 or more meet
+//     in shared memory: a double-buffered exchange, one barrier a stage;
+//   * head flags and one block-wide segmented scan give each run of equal
+//     keys its unsigned sum (wrapping mod 2^32) and its rank: the heads
+//     before it, which is its slot. Slots at or past S are dropped, as
+//     the ghost slot of _dup_sum drops them.
+// Bucketize is a scan too: thread t holds slot t (NP / 2 >= S), and
+// __match_any_sync groups a warp's slots by owner, a popc gives each
+// slot's place among its warp's, and per-warp owner counts in shared
+// memory give the places of earlier warps, so no atomic decides a slot.
+// The overflow and pending folds stay int32 atomicAdds into table[r]:
+// their sums are order-free. The window's untouched slots are never read
+// (the TPU kernel streams all of it through VMEM: it cannot scatter).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +53,9 @@
 namespace {
 
 constexpr int kSentinel = 0x7fffffff;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -48,95 +66,212 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// Dup-sum of the L records k[0:L), v[0:L) in shared memory into out_cap
-// slots uk/uv, key ascending and sentinel padded: value-identical to
-// kv.local_reduce for n_unique <= out_cap. Ends with a barrier.
-__device__ void dup_sum(const int* k, const int* v, int L, int* sums,
-                        unsigned char* first, int* uk, int* uv,
-                        int out_cap) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const int ki = k[i];
-    unsigned int s = 0u;
-    bool f = ki != kSentinel;
-    if (f) {
-      for (int j = 0; j < L; ++j) {
-        if (k[j] == ki) {
-          s += static_cast<unsigned int>(v[j]);
-          f = f && j >= i;
+// The segmented-scan element: heads so far, and the sum of the current
+// run so far. ``combine(a, b)`` is ``a`` followed by ``b``; {0, 0} is its
+// identity.
+struct Seg {
+  unsigned heads;
+  unsigned sum;
+};
+
+__device__ __forceinline__ Seg combine(Seg a, Seg b) {
+  return Seg{a.heads + b.heads, b.heads ? b.sum : a.sum + b.sum};
+}
+
+__device__ __forceinline__ Seg warp_scan(Seg x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Seg y{__shfl_up_sync(kFull, x.heads, d),
+                __shfl_up_sync(kFull, x.sum, d)};
+    if (lane >= d) x = combine(y, x);
+  }
+  return x;
+}
+
+// One compare-exchange: element ``i`` holding ``key`` and seeing its
+// partner's (pk, pv) at stride ``j`` of a bitonic merge of size ``k``.
+// The lower index of an ascending pair keeps the smaller key; on equal
+// keys both sides keep their own pair.
+__device__ __forceinline__ void exchange(int i, int k, int j, int pk, int pv,
+                                         int& key, int& val) {
+  const bool keep_min = ((i & k) == 0) == ((i & j) == 0);
+  if (keep_min ? pk < key : pk > key) {
+    key = pk;
+    val = pv;
+  }
+}
+
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n / 2);
+}
+
+// Sort the block's NP pairs, thread t holding pairs 2t and 2t + 1, into
+// signed key order. ``x`` holds two NP-wide exchange buffers of
+// (key, value); ``buf`` is the one the next shared stage uses.
+template <int NP>
+__device__ __forceinline__ void bitonic_sort(int (&key)[2], int (&val)[2],
+                                             int2* x, int& buf) {
+  constexpr int kLog = log2_of(NP);
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int lk = 1; lk <= kLog; ++lk) {
+    const int k = 1 << lk;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      if (j == 1) {                       // partner in this thread
+        if (((2 * t) & k) == 0 ? key[1] < key[0] : key[1] > key[0]) {
+          const int tk = key[0], tv = val[0];
+          key[0] = key[1];
+          val[0] = val[1];
+          key[1] = tk;
+          val[1] = tv;
         }
+      } else if (j < 64) {                // partner in this warp
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pk = __shfl_xor_sync(kFull, key[e], j >> 1);
+          const int pv = __shfl_xor_sync(kFull, val[e], j >> 1);
+          exchange(2 * t + e, k, j, pk, pv, key[e], val[e]);
+        }
+      } else {                            // partner in another warp
+        int4* ex = reinterpret_cast<int4*>(x + buf * NP);
+        ex[t] = make_int4(key[0], val[0], key[1], val[1]);
+        __syncthreads();
+        const int4 p = ex[t ^ (j >> 1)];
+        exchange(2 * t, k, j, p.x, p.y, key[0], val[0]);
+        exchange(2 * t + 1, k, j, p.z, p.w, key[1], val[1]);
+        buf ^= 1;
       }
     }
-    sums[i] = static_cast<int>(s);
-    first[i] = f ? 1 : 0;
   }
-  for (int i = threadIdx.x; i < out_cap; i += blockDim.x) {
-    uk[i] = kSentinel;
-    uv[i] = 0;
+}
+
+// One dup-sum pass: sorts and reduces the task's S records plus the
+// dependency on the previous pass (uk[i], uv[i] where uv[i] < 0) into
+// uk/uv[0:S), key ascending and sentinel padded — value-identical to
+// kv.local_reduce(concat(task, dep), S). Ends with a barrier.
+template <int NP>
+__device__ void dup_sum_pass(const int* tk, const int* tv, int* uk, int* uv,
+                             int S, int2* x, Seg* wscan, int& buf) {
+  constexpr int B = NP / 2;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int key[2], val[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = 2 * t + e;
+    if (i < S) {
+      key[e] = tk[i];
+      val[e] = tv[i];
+    } else if (i < 2 * S && uv[i - S] < 0) {
+      key[e] = uk[i - S];
+      val[e] = uv[i - S];
+    } else {
+      key[e] = kSentinel;
+      val[e] = 0;
+    }
+  }
+  __syncthreads();                        // every dependency is read
+  if (t < S) {                            // B >= S
+    uk[t] = kSentinel;
+    uv[t] = 0;
+  }
+  bitonic_sort<NP>(key, val, x, buf);
+
+  // the sorted pairs, for each run's neighbours
+  int2* sx = x + buf * NP;
+  reinterpret_cast<int4*>(sx)[t] = make_int4(key[0], val[0], key[1], val[1]);
+  __syncthreads();
+
+  // the segmented scan: a head starts each run of equal keys
+  const int prev = t > 0 ? sx[2 * t - 1].x : 0;
+  const int next = t < B - 1 ? sx[2 * t + 2].x : 0;
+  const Seg el0{(t == 0 || prev != key[0]) ? 1u : 0u,
+                static_cast<unsigned>(val[0])};
+  const Seg el1{key[1] != key[0] ? 1u : 0u, static_cast<unsigned>(val[1])};
+  const Seg inc = warp_scan(combine(el0, el1), lane);
+  if (lane == 31) wscan[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    constexpr int nw = B / 32;
+    Seg w = lane < nw ? wscan[lane] : Seg{0u, 0u};
+    w = warp_scan(w, lane);
+    if (lane < nw) wscan[lane] = w;
   }
   __syncthreads();
-  // rank = number of distinct keys strictly smaller -> sorted layout
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    if (first[i]) {
-      const int ki = k[i];
-      int rank = 0;
-      for (int j = 0; j < L; ++j) rank += (first[j] && k[j] < ki) ? 1 : 0;
-      if (rank < out_cap) {
-        uk[rank] = ki;
-        uv[rank] = sums[i];
-      }
-    }
+  Seg run{__shfl_up_sync(kFull, inc.heads, 1),
+          __shfl_up_sync(kFull, inc.sum, 1)};
+  if (lane == 0) run = Seg{0u, 0u};
+  if (warp > 0) run = combine(wscan[warp - 1], run);
+  run = combine(run, el0);
+  // a run's last pair holds its sum; its heads less one are its slot,
+  // and a slot past S is the ghost slot: dropped
+  int slot = static_cast<int>(run.heads) - 1;
+  if (key[1] != key[0] && key[0] != kSentinel && slot < S) {
+    uk[slot] = key[0];
+    uv[slot] = static_cast<int>(run.sum);
+  }
+  run = combine(run, el1);
+  slot = static_cast<int>(run.heads) - 1;
+  if ((t == B - 1 || next != key[1]) && key[1] != kSentinel && slot < S) {
+    uk[slot] = key[1];
+    uv[slot] = static_cast<int>(run.sum);
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads) fused_map_kernel(
+template <int NP>
+__global__ void __launch_bounds__(NP / 2) fused_map_kernel(
     const int* __restrict__ keys, const int* __restrict__ vals,
     const int* __restrict__ rep, const int* __restrict__ task_id,
     const int* __restrict__ owner_map, const int* __restrict__ owner_split,
     const int* __restrict__ pending_k, const int* __restrict__ pending_v,
     int* __restrict__ table, int* __restrict__ bk, int* __restrict__ bv,
     int* __restrict__ counts, int P, int S, int V, int cap) {
-  extern __shared__ int smem[];
-  int* kbuf = smem;          // 2S: the task's records, then the dependency
-  int* vbuf = kbuf + 2 * S;  // 2S
-  int* sums = vbuf + 2 * S;  // 2S: dup sums, later each slot's owner
-  int* uk = sums + 2 * S;    // S: reduced records, key ascending
-  int* uv = uk + S;          // S
-  int* tot = uv + S;         // P: records per owner
-  unsigned char* first = reinterpret_cast<unsigned char*>(tot + P);  // 2S
+  extern __shared__ int4 smem4[];
+  constexpr int B = NP / 2, nw = B / 32;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int2* x = reinterpret_cast<int2*>(smem4);   // 2 NP: sort exchange
+  int* tk = reinterpret_cast<int*>(x + 2 * NP);  // S: the task's records
+  int* tv = tk + S;               // S
+  int* uk = tv + S;               // S: reduced records, key ascending
+  int* uv = uk + S;               // S
+  Seg* wscan = reinterpret_cast<Seg*>(uv + S);          // 32: warp scan
+  int* wcnt = reinterpret_cast<int*>(wscan + kMaxWarps);  // nw * P
+  int* tot = wcnt + nw * P;       // P: records per owner
 
   const int r = blockIdx.x;
   const long long rec = static_cast<long long>(r) * S;
   const long long win = static_cast<long long>(r) * V;
   const long long buck = static_cast<long long>(r) * P * cap;
 
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    kbuf[i] = keys[rec + i];
-    vbuf[i] = vals[rec + i];
+  for (int i = t; i < S; i += B) {
+    const int k = keys[rec + i];
+    tk[i] = k;
+    tv[i] = k == kSentinel ? 0 : vals[rec + i];   // invalid adds nothing
+    uk[i] = kSentinel;                            // no dependency yet
+    uv[i] = 0;
   }
-  for (int p = threadIdx.x; p < P; p += blockDim.x) tot[p] = 0;
+  for (int i = t; i < nw * P; i += B) wcnt[i] = 0;
   __syncthreads();
 
-  // local reduce and the footnote-5 repeat recurrence, rep[r] passes
-  dup_sum(kbuf, vbuf, S, sums, first, uk, uv, S);
+  // local reduce and the footnote-5 repeat recurrence: rep[r] passes,
+  // each sorting and reducing its own 2S records
   const int n_rep = max(rep[r], 1);
-  for (int it = 1; it < n_rep; ++it) {
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-      const bool neg = uv[i] < 0;
-      kbuf[S + i] = neg ? uk[i] : kSentinel;
-      vbuf[S + i] = neg ? uv[i] : 0;
-    }
-    __syncthreads();
-    dup_sum(kbuf, vbuf, 2 * S, sums, first, uk, uv, S);
+  int buf = 0;
+  for (int it = 0; it < n_rep; ++it) {
+    dup_sum_pass<NP>(tk, tv, uk, uv, S, x, wscan, buf);
   }
 
-  // owner lookup: partition.lookup_owner on this rank's carried maps
-  int* owner = sums;
-  const uint32_t mixed = mix32(static_cast<uint32_t>(task_id[r]));
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const int u = uk[i];
-    int o = P;
+  // owner lookup: partition.lookup_owner on this rank's carried maps;
+  // thread t holds slot t (blockDim >= S), threads past S owner -1
+  int o = -1, u = kSentinel, w = 0;
+  if (t < S) {
+    u = uk[t];
+    w = uv[t];
+    o = P;
     if (u != kSentinel && u >= 0 && u < V) {
+      const uint32_t mixed = mix32(static_cast<uint32_t>(task_id[r]));
       const int base = owner_map[win + u];
       const int ks = max(owner_split[win + u], 1);
       const unsigned int pick =
@@ -144,64 +279,132 @@ __global__ void __launch_bounds__(kThreads) fused_map_kernel(
       o = static_cast<int>(static_cast<unsigned int>(base) + pick) % P;
       if (o < 0) o += P;
     }
-    owner[i] = o;
   }
-  for (int i = threadIdx.x; i < P * cap; i += blockDim.x) {
-    bk[buck + i] = kSentinel;
-    bv[buck + i] = 0;
+
+  // bucketize by scan: a slot's place in its owner's bucket is the count
+  // of earlier same-owner slots (the stable owner sort of kv.bucketize)
+  const unsigned same = __match_any_sync(kFull, o);
+  const int before_in_warp = __popc(same & ((1u << lane) - 1u));
+  if (o >= 0 && o < P && lane == __ffs(same) - 1) {
+    wcnt[warp * P + o] = __popc(same);
   }
   __syncthreads();
-
-  // bucketize: the slots are key ascending, so a record's position in
-  // its owner's bucket is the count of earlier same-owner slots (the
-  // stable owner sort of kv.bucketize); past cap it stays local
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const int o = owner[i];
-    if (o >= P) continue;  // sentinel / out of window: neither pushed nor kept
-    int pos = 0;
-    for (int j = 0; j < i; ++j) pos += owner[j] == o ? 1 : 0;
-    atomicAdd(&tot[o], 1);
+  for (int p = t; p < P; p += B) {
+    int n = 0;
+    for (int q = 0; q < nw; ++q) n += wcnt[q * P + p];
+    tot[p] = n;
+  }
+  if (o >= 0 && o < P) {    // sentinel / out of window: neither pushed nor kept
+    int pos = before_in_warp;
+    for (int q = 0; q < warp; ++q) pos += wcnt[q * P + o];
     if (pos < cap) {
       const long long at = buck + static_cast<long long>(o) * cap + pos;
-      bk[at] = uk[i];
-      bv[at] = uv[i];
+      bk[at] = u;
+      bv[at] = w;
     } else {
-      atomicAdd(&table[win + uk[i]], uv[i]);  // ownership transfer
+      atomicAdd(&table[win + u], w);      // ownership transfer
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < P * cap; i += B) {  // the buckets' empty tails
+    if (i % cap >= min(tot[i / cap], cap)) {
+      bk[buck + i] = kSentinel;
+      bv[buck + i] = 0;
     }
   }
   // fold the in-flight chunk; keys follow the reference scatter (sentinel
   // and out-of-range dropped, [-V, 0) wraps)
-  for (int i = threadIdx.x; i < P * cap; i += blockDim.x) {
+  for (int i = t; i < P * cap; i += B) {
     int k = pending_k[buck + i];
     if (k == kSentinel) continue;
     if (k < 0) k += V;
     if (k >= 0 && k < V) atomicAdd(&table[win + k], pending_v[buck + i]);
   }
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+  for (int p = t; p < P; p += B) {
     counts[static_cast<long long>(r) * P + p] = min(tot[p], cap);
   }
 }
 
+constexpr int kMaxSmem = 227 * 1024;
+
+// The pairs a pass sorts: 2S records padded to a power of two, two a
+// thread, a warp at least.
+int pairs_of(int S) {
+  int np = 64;
+  while (np < 2 * S) np <<= 1;
+  return np;
+}
+
+size_t smem_of(int P, int S) {
+  const int np = pairs_of(S);
+  return static_cast<size_t>(4 * np + 4 * S + (np / 64) * P + P) *
+             sizeof(int) + kMaxWarps * sizeof(Seg);
+}
+
+template <int NP>
+cudaError_t launch(const int* keys, const int* vals, const int* rep,
+                   const int* task_id, const int* owner_map,
+                   const int* owner_split, const int* pending_k,
+                   const int* pending_v, int* table, int* bk, int* bv,
+                   int* counts, int P, int S, int V, int cap, size_t smem,
+                   cudaStream_t s) {
+  fused_map_kernel<NP><<<P, NP / 2, smem, s>>>(
+      keys, vals, rep, task_id, owner_map, owner_split, pending_k,
+      pending_v, table, bk, bv, counts, P, S, V, cap);
+  return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(fused_map_kernel<NP>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem);
+}
+
 }  // namespace
 
+// Once, before the first launch (and outside any graph capture): let the
+// kernel take dynamic shared memory past 48 KB. Returns a cudaError_t.
+extern "C" int fused_map_prepare() {
+  const cudaError_t errs[] = {allow_smem<64>(), allow_smem<128>(),
+                              allow_smem<256>(), allow_smem<512>(),
+                              allow_smem<1024>(), allow_smem<2048>()};
+  for (const cudaError_t e : errs) {
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 // Launch on ``stream`` (PyTorch's current stream); returns
-// cudaGetLastError() so the caller can raise on a refused launch.
+// cudaGetLastError() so the caller can raise on a refused launch. Takes
+// S <= 1024: NP = pow2(2S) pairs, NP / 2 threads.
 extern "C" int fused_map_launch(
     const int* keys, const int* vals, const int* rep, const int* task_id,
     const int* owner_map, const int* owner_split, const int* pending_k,
     const int* pending_v, int* table, int* bk, int* bv, int* counts,
     int P, int S, int V, int cap, void* stream) {
-  const size_t smem = static_cast<size_t>(8 * S + P) * sizeof(int) +
-                      static_cast<size_t>(2 * S);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = smem_of(P, S);
+  if (smem > static_cast<size_t>(kMaxSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  fused_map_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      keys, vals, rep, task_id, owner_map, owner_split, pending_k,
-      pending_v, table, bk, bv, counts, P, S, V, cap);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (pairs_of(S)) {
+#define FUSED_MAP_CASE(np)                                                  \
+  case np:                                                                  \
+    e = launch<np>(keys, vals, rep, task_id, owner_map, owner_split,        \
+                   pending_k, pending_v, table, bk, bv, counts, P, S, V,    \
+                   cap, smem, s);                                           \
+    break;
+    FUSED_MAP_CASE(64)
+    FUSED_MAP_CASE(128)
+    FUSED_MAP_CASE(256)
+    FUSED_MAP_CASE(512)
+    FUSED_MAP_CASE(1024)
+    FUSED_MAP_CASE(2048)
+#undef FUSED_MAP_CASE
+    default:
+      e = cudaErrorInvalidValue;          // S > 1024
+  }
+  return static_cast<int>(e);
 }

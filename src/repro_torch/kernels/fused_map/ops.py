@@ -4,6 +4,10 @@ Follows the port's kernel policy (``kernels/backend.py``): a CPU tensor
 takes the plain version (``ref.fused_step_ref``), a CUDA tensor the
 compiled kernel or an error. Either way the window ``table`` is updated
 in place and returned, so the two paths have one contract.
+
+A launch recorded into a CUDA graph under capture is not a launch: it
+counts in ``fused_map.captured``, and whoever replays the graph adds one
+to ``fused_map.launches`` for each replay (``core/onesided.py``).
 """
 from __future__ import annotations
 
@@ -16,21 +20,32 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.fused_map.ref import fused_step_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_map.cu"
-MAX_TASK_SIZE = 1024    # the record pass keeps 8 S ints in shared memory
+MAX_TASK_SIZE = 1024    # 2 S pairs sorted two a thread: 1,024 threads
 
 
 _FN = None    # the typed C entry point, resolved at the first launch
 
 
 def _launcher():
+    """The kernel's C entry point: built, loaded and its shared-memory
+    limit raised on the first call, which must not be under capture."""
     global _FN
     if _FN is None:
-        fn = backend.load(SOURCE).fused_map_launch
+        lib = backend.load(SOURCE)
+        rc = lib.fused_map_prepare()
+        if rc != 0:
+            raise RuntimeError(f"fused_map_prepare failed: CUDA error {rc}")
+        fn = lib.fused_map_launch
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def prepare():
+    """Build and load the kernel now (before a graph capture records it)."""
+    _launcher()
 
 
 def _check(args: dict, n_procs: int, cap: int):
@@ -91,8 +106,12 @@ def fused_map(keys, vals, rep, task_id, owner_map, owner_split, pending_k,
     if rc != 0:
         raise RuntimeError(f"fused_map kernel launch failed: CUDA error "
                            f"{rc}")
-    fused_map.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fused_map.captured += 1
+    else:
+        fused_map.launches += 1
     return table, bk, bv, counts
 
 
 fused_map.launches = 0    # kernel launches so far (not plain-version calls)
+fused_map.captured = 0    # launches recorded into CUDA graphs

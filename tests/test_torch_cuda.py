@@ -5,7 +5,10 @@ GPU host can run them on their own:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import os
 import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -109,6 +112,77 @@ def test_job_on_card_equals_cpu(cuda_device, fused):
     assert_equal(gpu.windows(), cpu.windows())
     assert gpu.result().records == cpu.result().records == \
         wordcount_oracle(data, 700)
+
+
+@pytest.mark.cuda
+def test_fused_job_replays_one_graph_a_step(cuda_device, monkeypatch):
+    """The fused job through ``submit`` on the card replays a CUDA graph
+    for every step: one graph for each distinct max_rep (the last
+    segment's padding changes it), replays == steps == fused_map
+    launches, the carry written in place; windows and records equal to
+    the CPU's."""
+    from repro_torch.core.onesided import StepGraphs
+    data = np.random.default_rng(5).integers(0, 700, 30_000).astype(
+        np.int32)
+    cfg = JobConfig(WordCount(vocab=700), task_size=128, push_cap=16,
+                    n_procs=8, segment=7, fused_map=True)
+    reps = np.random.default_rng(6).integers(1, 4, (8, 30)).astype(np.int32)
+    reps[0] = 3            # max_rep 3, then 1 on the last segment's padding
+    monkeypatch.setattr(ops.fused_map, "launches", 0)
+    gpu = submit(cfg, data, device=cuda_device, repeats=reps)
+    cpu = submit(cfg, data, device="cpu", repeats=reps)
+    gpu.step()
+    cpu.step()
+    graphs = gpu._seg_fns[1].__self__.graphs
+    assert isinstance(graphs, StepGraphs)
+    assert graphs.holds(gpu.carry)
+    buffers = [t.data_ptr() for t in gpu.carry]
+    assert_equal(gpu.windows(), cpu.windows())
+    while gpu.step():
+        pass
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in gpu.carry] == buffers
+    assert sorted(graphs.graphs) == [1, 3]
+    assert graphs.replays == 35 == ops.fused_map.launches
+    assert ops.fused_map.captured >= 2
+    assert gpu.result().records == cpu.result().records == \
+        wordcount_oracle(data, 700)
+    assert gpu._seg_fns[1].__self__.graphs is None     # released
+
+
+@pytest.mark.cuda
+def test_fused_job_raises_when_its_graph_cannot_be_captured(cuda_device,
+                                                            tmp_path):
+    """A map that syncs with the host cannot be captured: the job raises
+    and launches nothing eagerly on the card. In a process of its own,
+    so a failed capture leaves no state behind for the other tests."""
+    script = tmp_path / "capture_fails.py"
+    script.write_text(textwrap.dedent("""
+        import numpy as np, torch
+        from repro_torch.core import JobConfig, WordCount, submit
+        from repro_torch.kernels.fused_map import ops
+
+        class Syncing(WordCount):
+            def map_emit(self, tokens, task_id):
+                int(tokens.max())                # a host sync
+                return super().map_emit(tokens, task_id)
+
+        cfg = JobConfig(Syncing(vocab=300), task_size=64, push_cap=8,
+                        n_procs=4, segment=2, fused_map=True)
+        data = np.arange(4096, dtype=np.int32) % 300
+        try:
+            submit(cfg, data, device="cuda").result()
+        except RuntimeError as e:
+            print("RAISED", ops.fused_map.launches, str(e)[:200])
+        else:
+            print("NO ERROR")
+    """))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(chip_smoke.ROOT, "src"),
+         os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run([sys.executable, str(script)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert "RAISED 0 " in proc.stdout, (proc.stdout, proc.stderr[-2000:])
 
 
 @pytest.mark.cuda

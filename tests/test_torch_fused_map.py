@@ -39,9 +39,10 @@ def test_fused_step_ref_matches_pallas_kernel(name, case):
 
 
 def test_plain_version_takes_task_sizes_past_the_kernel_limit():
-    """The 1024 limit is the CUDA kernel's (8 S ints of shared memory), not
-    the function's: on CPU tensors the wrapper computes S = 2048 as the
-    reference's Pallas kernel does, on every output of every rank."""
+    """The 1024 limit is the CUDA kernel's (2 S pairs sorted two a thread
+    in one block), not the function's: on CPU tensors the wrapper computes
+    S = 2048 as the reference's Pallas kernel does, on every output of
+    every rank."""
     assert ops.MAX_TASK_SIZE < 2048
     args, P, cap = chip_smoke.fused_case(17, 2, 2048, 4096, 64, [1, 2],
                                          split=True)
