@@ -88,9 +88,10 @@ class InvertedIndex:
         return self.n_docs * len(self.queries)
 
     def map_emit(self, tokens, task_id):
-        q = torch.tensor(self.queries, dtype=torch.int32,
-                         device=tokens.device)
-        eq = tokens.unsqueeze(-1) == q                      # (P, S, Q)
+        # one compare a query against a scalar: no host-to-device copy,
+        # so the map can be captured in the fused step's CUDA graph
+        eq = torch.stack([tokens == int(q) for q in self.queries],
+                         dim=-1)                            # (P, S, Q)
         # first matching query (argmax keeps first-index ties; it
         # refuses bool, hence the cast)
         qidx = eq.to(torch.uint8).argmax(dim=-1).to(torch.int32)

@@ -151,6 +151,27 @@ def test_fused_job_replays_one_graph_a_step(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("usecase", ["Histogram(700, 13)",
+                                     "InvertedIndex((3, 7, 11, 650), 4, 8)"])
+def test_fused_usecases_replay_on_the_card(cuda_device, usecase):
+    """Every built-in use-case's map can be captured: its fused job on the
+    card (one graph replay a step) gives the CPU's windows and output."""
+    from repro_torch import core
+    data = np.random.default_rng(7).integers(0, 700, 1 << 14).astype(
+        np.int32)
+    uc = eval(usecase, vars(core))
+    cfg = JobConfig(uc, task_size=128, push_cap=16, n_procs=8, segment=4,
+                    fused_map=True)
+    gpu = submit(cfg, data, device=cuda_device)
+    cpu = submit(cfg, data, device="cpu")
+    gpu.step()
+    cpu.step()
+    assert gpu._seg_fns[1].__self__.graphs.replays == 4
+    assert_equal(gpu.windows(), cpu.windows())
+    assert gpu.result().records == cpu.result().records
+
+
+@pytest.mark.cuda
 def test_fused_job_raises_when_its_graph_cannot_be_captured(cuda_device,
                                                             tmp_path):
     """A map that syncs with the host cannot be captured: the job raises
