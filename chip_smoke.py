@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python chip_smoke.py [--parent OLD/fused_map.cu]
+    python chip_smoke.py
 
 Phases, each of which asserts (nothing is caught):
 
@@ -17,9 +17,8 @@ Phases, each of which asserts (nothing is caught):
                for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
                events, beside the library call where there is one;
-               fused_map also by device time, at rep 1 and 16 on its hot
-               rank (the cost of one pass), and in turns with an older
-               fused_map.cu given as ``--parent``. The
+               fused_map also by device time, and at rep 1 and 16 on its
+               hot rank (the cost of one pass). The
                three kernels that only their own entry points reach
                (hist, bucket_slots, flash_decode) run that path here:
                ``wordcount_hist`` on the job's 2**27-token corpus in count
@@ -61,9 +60,7 @@ Exits non-zero, printing no result, when no CUDA card is present.
 """
 from __future__ import annotations
 
-import argparse
 import copy
-import ctypes
 import dataclasses
 import json
 import math
@@ -349,52 +346,17 @@ def fused_bound(args: dict, P: int, cap: int) -> tuple[float, str, dict]:
                                      "unique": uniq, "window_slots": slots}
 
 
-def other_fused_map(source):
-    """Another build of ``fused_map.cu`` with the same C entry point (an
-    older kernel, for timing in turns), as a function of a case's inputs
-    with the wrapper's return value."""
-    _, _, backend, _, _ = _port()
-    lib = ctypes.CDLL(str(backend.build(Path(source)).path))
-    if hasattr(lib, "fused_map_prepare"):      # absent before the sort
-        assert lib.fused_map_prepare() == 0, f"{source}: prepare failed"
-    fn = lib.fused_map_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(a: dict, P: int, cap: int):
-        bk = torch.empty((P, P, cap), dtype=torch.int32, device="cuda")
-        bv = torch.empty_like(bk)
-        counts = torch.empty((P, P), dtype=torch.int32, device="cuda")
-        rc = fn(*(t.data_ptr() for t in a.values()), bk.data_ptr(),
-                bv.data_ptr(), counts.data_ptr(), P, a["keys"].shape[1],
-                a["table"].shape[-1], cap,
-                torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, f"{source}: CUDA error {rc}"
-        return a["table"], bk, bv, counts
-    return run
-
-
-def time_fused(device, parent=None) -> dict:
+def time_fused(device) -> dict:
     """Time per launch of the kernel at the full-width shapes, CUDA
     events around 200 launches back to back (``ms``) and the profiler's
     device time (``device_ms``), beside the step's bound and its plain
-    version. With ``parent`` (an older ``fused_map.cu``) that kernel is
-    held bit for bit to the plain version too and timed in turns with
-    this one (``parent_ms``, ``parent_device_ms``)."""
+    version."""
     _, _, _, ops, ref = _port()
     args, P, cap = full_width_case()
     a = _on(args, device)
-    fns = {"kernel": lambda: ops.fused_map(**a, n_procs=P, cap=cap)}
-    if parent is not None:
-        run = other_fused_map(parent)
-        b = _on(args, device)
-        want = ref.fused_step_ref(**b, n_procs=P, cap=cap)
-        for g, w in zip(run(b, P, cap), want):
-            assert torch.equal(g, w), "the parent's fused_map != plain"
-        fns["parent"] = lambda: run(a, P, cap)
-    ev = _in_turns(fns, lambda f: _event_ms(f, 200))
-    dev = _in_turns(fns, lambda f: _device_ms(f, 200)[0])
+    ms = _event_ms(lambda: ops.fused_map(**a, n_procs=P, cap=cap), 200)
+    device_ms = _device_ms(lambda: ops.fused_map(**a, n_procs=P, cap=cap),
+                           200)[0]
     chain = {}                  # the hot rank's chain: rep 1 and 16 on it
     for rep0 in (1, 16):
         c = _on(fused_case(16, P, TASK, VOCAB, cap,
@@ -404,13 +366,10 @@ def time_fused(device, parent=None) -> dict:
     plain_ms = _event_ms(lambda: ref.fused_step_ref(**a, n_procs=P, cap=cap),
                          20)
     bound_ms, bound_by, work = fused_bound(args, P, cap)
-    out = dict(ms=ev["kernel"], device_ms=dev["kernel"], plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by,
-               rep1_device_ms=chain[1], rep16_device_ms=chain[16],
-               pass_ms=(chain[16] - chain[1]) / 15, **work)
-    if parent is not None:
-        out.update(parent_ms=ev["parent"], parent_device_ms=dev["parent"])
-    return out
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                rep1_device_ms=chain[1], rep16_device_ms=chain[16],
+                pass_ms=(chain[16] - chain[1]) / 15, **work)
 
 
 # the reference's flash_attention test matrix (tests/test_kernels.py::
@@ -1172,14 +1131,12 @@ def job_input(n: int, w: Width = FULL):
 def submit_job(cfg, source, reps, device, eager: bool = False):
     """A job's handle through the user entry point. ``eager=True`` runs
     the fused step in the engine's eager loop instead of replaying its
-    CUDA graph: the graph's baseline on the card."""
+    CUDA graphs (the engine's ``graphs`` released before the first
+    segment): the graphs' baseline on the card."""
     core, _, _, _, _ = _port()
     h = core.submit(cfg, source, device=device, repeats=reps)
     if eager:
-        from repro_torch.core import onesided
-        h._seg_fns = onesided.segment_fns(h.spec, h._map_fn, device,
-                                          graphs=False)
-        h._carry = h._seg_fns[0]()
+        h.engine.graphs = None
     return h
 
 
@@ -1297,8 +1254,10 @@ def phase_profile(device, n: int, w: Width = FULL,
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
         segment_s = time.perf_counter() - t0
-        # the profiler's host tracing slows the host's side: the share
-        # without it is the traced device time over the untraced wall
+        # the profiler's host tracing slows the host's side, so the share
+        # without it mixes two segments of the same work (the same grid of
+        # repeats, each input read already): the device time traced in one
+        # over the wall of the next, untraced one
         prof.update(enqueue_s=enqueue, segment_s=segment_s, steps=w.segment,
                     untraced_busy_share=prof["device_s"] / segment_s)
         return prof
@@ -1559,11 +1518,7 @@ def print_decode_times(times: dict):
               f"{e['device_kernels']}")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="an older fused_map.cu (same C entry "
-                    "point) to time in turns with this checkout's")
-    parent = ap.parse_args(argv).parent
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1574,7 +1529,7 @@ def main(argv=None) -> int:
     err = phase_kernel_vs_plain(device, fused_matrix())
     print(f"kernels: fused_map == plain on every matrix case "
           f"(max abs err {err})")
-    timing = time_fused(device, parent)
+    timing = time_fused(device)
     print(f"fused_map at P={N_PROCS} S={TASK} cap={CAP} V={VOCAB}, rep 8 on "
           f"rank 0: {timing['device_ms'] * 1e3:.2f} us/launch on the device "
           f"({timing['ms'] * 1e3:.2f} us back to back, events), plain "
@@ -1586,15 +1541,6 @@ def main(argv=None) -> int:
           f"{timing['rep1_device_ms'] * 1e3:.2f} / "
           f"{timing['rep16_device_ms'] * 1e3:.2f} us/launch on the device, "
           f"{timing['pass_ms'] * 1e3:.3f} us a pass over L = {2 * TASK}")
-    if parent is None:
-        print("fused_map: no older kernel timed in turns (pass --parent "
-              "<an older fused_map.cu>)")
-    else:
-        print(f"fused_map in turns with {parent}: "
-              f"{timing['device_ms'] * 1e3:.2f} against "
-              f"{timing['parent_device_ms'] * 1e3:.2f} us/launch on the "
-              f"device, {timing['ms'] * 1e3:.2f} against "
-              f"{timing['parent_ms'] * 1e3:.2f} back to back")
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1682,7 +1628,8 @@ def main(argv=None) -> int:
         print(f"profile: {what}: host {p['enqueue_s'] / p['steps'] * 1e6:.2f} "
               f"us a step to enqueue, {p['segment_s'] / p['steps'] * 1e6:.2f} "
               f"us a step to finish, its input read already; busy share "
-              f"{p['untraced_busy_share']:.3f} without the profiler")
+              f"{p['untraced_busy_share']:.3f} without the profiler (device "
+              f"time of the traced segment over the next one's wall)")
 
     get_config, _, _ = _serve()
     serves = {}
@@ -1744,8 +1691,6 @@ def main(argv=None) -> int:
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],
         "pass_ms": timing["pass_ms"],
-        **{k: timing[k] for k in ("parent_ms", "parent_device_ms")
-           if k in timing},
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,

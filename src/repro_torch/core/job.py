@@ -192,6 +192,14 @@ class JobHandle:
         """The current EngineCarry (segmented mode)."""
         return self._carry
 
+    @property
+    def engine(self):
+        """The backend's segment functions, made (with the carry) on first
+        use: the ``"1s"`` engine's :class:`~repro_torch.core.onesided.
+        SegmentFns`."""
+        self._ensure_engine()
+        return self._seg_fns
+
     def windows(self) -> np.ndarray:
         """Per-rank dense Key-Value windows, host-side (P, window), with
         the in-flight ``pending_*`` chunk folded in."""
@@ -208,7 +216,8 @@ class JobHandle:
         if self._seg_fns is None:
             self._seg_fns = self.backend.make_segment_fns(
                 self.spec, self._map_fn, self.device)
-            self._carry = self._seg_fns[0]()
+            init_fn, _, _ = self._seg_fns
+            self._carry = init_fn()
 
     def _advance(self, n_segments: int) -> bool:
         _, seg_fn, _ = self._seg_fns

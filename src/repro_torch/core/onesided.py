@@ -105,10 +105,6 @@ class StepGraphs:
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
         self.replays = 0
 
-    def holds(self, carry: EngineCarry) -> bool:
-        """True when ``carry`` is the carry these graphs write."""
-        return all(a is b for a, b in zip(carry, self.carry))
-
     def _capture(self, max_rep: int) -> torch.cuda.CUDAGraph:
         fused_ops.prepare()             # nvcc, load, smem limit: not in it
         side = torch.cuda.Stream(self.device)
@@ -153,7 +149,7 @@ def _segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry, tokens,
                             task_ids.t(), repeats.t()], dim=1)
         for column, m in zip(packed.unbind(0), max_rep):
             graphs.step(column, m)
-        return carry
+        return graphs.carry
     tokens = tokens.transpose(0, 1).contiguous()      # (n, P, S)
     task_ids = task_ids.t().contiguous()
     repeats = repeats.t().contiguous()
@@ -164,28 +160,30 @@ def _segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry, tokens,
 
 
 class SegmentFns:
-    """One job's engine: ``init`` makes the carry, ``segment`` advances a
-    segment, ``finish`` drains and combines. With ``graphs=True`` the
-    fused step runs as :class:`StepGraphs`, bound to the carry that
-    ``segment`` is given and released by ``finish``."""
+    """One job's engine, unpacked as ``(init_fn, segment_fn, finish_fn)``:
+    ``init`` makes the carry and, for the fused step on a CUDA device, the
+    :class:`StepGraphs` that write it; ``segment`` advances a segment,
+    replaying ``graphs`` when there are any and running the eager loop
+    otherwise; ``finish`` releases the graphs, drains and combines. Setting
+    ``graphs = None`` after ``init`` runs the eager loop on the card too:
+    the graphs' baseline."""
 
-    def __init__(self, spec: JobSpec, map_fn: Callable, device,
-                 graphs: bool):
+    def __init__(self, spec: JobSpec, map_fn: Callable, device):
         self.spec, self.map_fn, self.device = spec, map_fn, device
-        self.use_graphs = graphs
         self.graphs: StepGraphs | None = None
 
+    def __iter__(self):
+        return iter((self.init, self.segment, self.finish))
+
     def init(self) -> EngineCarry:
-        return init_carry(self.spec, self.device)
+        carry = init_carry(self.spec, self.device)
+        if self.spec.fused_map and torch.device(self.device).type == "cuda":
+            self.graphs = StepGraphs(self.spec, self.map_fn, carry)
+        return carry
 
     def segment(self, carry, tokens, task_ids, repeats, max_rep):
-        graphs = None
-        if self.use_graphs:
-            if self.graphs is None or not self.graphs.holds(carry):
-                self.graphs = StepGraphs(self.spec, self.map_fn, carry)
-            graphs = self.graphs
         return _segment(self.spec, self.map_fn, carry, tokens, task_ids,
-                        repeats, max_rep, graphs)
+                        repeats, max_rep, self.graphs)
 
     def finish(self, carry):
         self.graphs = None
@@ -209,14 +207,6 @@ def _finish(spec: JobSpec, carry: EngineCarry):
     carry = _drain(carry)
     keys, vals, overflow = combine_records(carry.table, spec)
     return tree_combine(keys, vals, spec.n_procs, overflow)
-
-
-def segment_fns(spec: JobSpec, map_fn: Callable, device, graphs: bool):
-    """``(init_fn, segment_fn, finish_fn)`` of one job's
-    :class:`SegmentFns`; ``graphs=False`` is the eager loop, also on the
-    card (the graphs' baseline)."""
-    fns = SegmentFns(spec, map_fn, device, graphs)
-    return fns.init, fns.segment, fns.finish
 
 
 @register_backend("1s")
@@ -245,10 +235,9 @@ class OneSidedBackend:
         """``(init_fn, segment_fn, finish_fn)`` — the checkpointable path.
         ``segment_fn(carry, tokens, task_ids, repeats, max_rep)`` advances
         one segment; ``finish_fn(carry)`` returns ``(keys, vals,
-        overflow)`` with a leading rank dim. The fused step replays CUDA
-        graphs on a CUDA device."""
-        return segment_fns(spec, map_fn, device, graphs=spec.fused_map
-                           and torch.device(device).type == "cuda")
+        overflow)`` with a leading rank dim, as a :class:`SegmentFns`:
+        the fused step replays CUDA graphs on a CUDA device."""
+        return SegmentFns(spec, map_fn, device)
 
 
 def run_job(spec, map_fn, device, tokens, task_ids, repeats):

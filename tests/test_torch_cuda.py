@@ -133,9 +133,9 @@ def test_fused_job_replays_one_graph_a_step(cuda_device, monkeypatch):
     cpu = submit(cfg, data, device="cpu", repeats=reps)
     gpu.step()
     cpu.step()
-    graphs = gpu._seg_fns[1].__self__.graphs
+    graphs = gpu.engine.graphs
     assert isinstance(graphs, StepGraphs)
-    assert graphs.holds(gpu.carry)
+    assert graphs.carry is gpu.carry
     buffers = [t.data_ptr() for t in gpu.carry]
     assert_equal(gpu.windows(), cpu.windows())
     while gpu.step():
@@ -147,7 +147,7 @@ def test_fused_job_replays_one_graph_a_step(cuda_device, monkeypatch):
     assert ops.fused_map.captured >= 2
     assert gpu.result().records == cpu.result().records == \
         wordcount_oracle(data, 700)
-    assert gpu._seg_fns[1].__self__.graphs is None     # released
+    assert gpu.engine.graphs is None                   # released
 
 
 @pytest.mark.cuda
@@ -166,7 +166,7 @@ def test_fused_usecases_replay_on_the_card(cuda_device, usecase):
     cpu = submit(cfg, data, device="cpu")
     gpu.step()
     cpu.step()
-    assert gpu._seg_fns[1].__self__.graphs.replays == 4
+    assert gpu.engine.graphs.replays == 4
     assert_equal(gpu.windows(), cpu.windows())
     assert gpu.result().records == cpu.result().records
 

@@ -120,16 +120,15 @@ def test_step_graphs_replay_the_job(data, jax_records, P, monkeypatch):
     cfg = core.JobConfig(core.WordCount(VOCAB), task_size=TASK, push_cap=CAP,
                          n_procs=P, segment=SEGMENT, fused_map=True)
     graph_job = core.submit(cfg, data, device="cpu", repeats=reps)
-    graph_job._seg_fns = onesided.segment_fns(
-        graph_job.spec, graph_job._map_fn, "cpu", graphs=True)
-    graph_job._carry = graph_job._seg_fns[0]()
-    fns = graph_job._seg_fns[1].__self__
+    fns = graph_job.engine
+    assert fns.graphs is None                 # the CPU runs the eager loop
+    graphs = fns.graphs = onesided.StepGraphs(fns.spec, fns.map_fn,
+                                              graph_job.carry)
     eager_job = core.submit(cfg, data, device="cpu", repeats=reps)
     graph_job.step()
     eager_job.step()
     assert_equal(graph_job.windows(), eager_job.windows())
-    graphs = fns.graphs
-    assert graphs.holds(graph_job.carry)
+    assert graphs.carry is graph_job.carry
     steps = graph_job.feed.total_columns
     steps += -steps % SEGMENT
     res = graph_job.result()
