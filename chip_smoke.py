@@ -7,8 +7,8 @@ Phases, each of which asserts (nothing is caught):
 
   1. build   — compile all six kernels from the sources in this
                checkout (one nvcc per source, all started together;
-               flash_attention has two: bf16 on the tensor cores, fp32
-               on the CUDA cores);
+               flash_attention and ssd_scan have two each: bf16 on the
+               tensor cores, fp32 on the CUDA cores);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
                shapes (flash_attention at olmo-1b's and h2o-danube-1.8b's
@@ -18,7 +18,11 @@ Phases, each of which asserts (nothing is caught):
                reference's per-dtype tolerance), and time both with CUDA
                events, beside the library call where there is one;
                fused_map also by device time, and at rep 1 and 16 on its
-               hot rank (the cost of one pass). The
+               hot rank (the cost of one pass); ssd_scan also by device
+               time, its device kernels a call (three passes in bf16),
+               the fp32 kernel at the same shape, and the share of its
+               bf16 outputs off the plain version's bits against a
+               control's (``check_ssd_bits``). The
                three kernels that only their own entry points reach
                (hist, bucket_slots, flash_decode) run that path here:
                ``wordcount_hist`` on the job's 2**27-token corpus in count
@@ -161,10 +165,13 @@ def phase_build() -> dict:
     """One nvcc per kernel source, all started together."""
     _, _, backend, fm_ops, _ = _port()
     fa_src = _fa()[0].SOURCES
+    ssd_src = _ssd()[0].SOURCES
     sources = {"fused_map": fm_ops.SOURCE,
                "flash_attention": fa_src[torch.bfloat16],
                "flash_attention_fp32": fa_src[torch.float32],
-               "ssd_scan": _ssd()[0].SOURCE, "hist": _wc()[0].SOURCE,
+               "ssd_scan": ssd_src[torch.bfloat16],
+               "ssd_scan_fp32": ssd_src[torch.float32],
+               "hist": _wc()[0].SOURCE,
                "bucket_slots": _slots()[0].SOURCE,
                "flash_decode": _fd()[0].SOURCE}
     t0 = time.perf_counter()
@@ -492,9 +499,12 @@ def time_flash(device) -> dict:
 
 # the reference's ssd_scan test matrix (tests/test_kernels.py::
 # test_ssd_scan_sweep; its "ragged" 384/128 divides), a truly ragged S, a
-# two-group case, a case whose decay overflows above the diagonal, and the
-# served shape: (B, S, H, P, N, G, chunk, dtype of x/B/C, dtype of dt,
-# A of every head with dt = 1, or None for the reference's random dt, A)
+# two-group case, a case whose decay overflows above the diagonal, in bf16
+# a single row, S below one chunk, a chain of 32 chunks, four groups at the
+# served P and N, the overflow and the (P, N) pairs not covered above, and
+# the served shape: (B, S, H, P, N,
+# G, chunk, dtype of x/B/C, dtype of dt, A of every head with dt = 1, or
+# None for the reference's random dt, A)
 SSD_MATRIX = {
     "sweep0_f32": (2, 512, 4, 64, 32, 1, 128, "float32", "float32", None),
     "sweep1_f32": (1, 256, 8, 32, 16, 1, 64, "float32", "float32", None),
@@ -505,6 +515,15 @@ SSD_MATRIX = {
                           None),
     # cum falls by 50 a row: exp(cum_i - cum_j) is inf for j > i + 1
     "overflow_f32": (1, 160, 2, 32, 16, 1, 64, "float32", "float32", -50.0),
+    "s1_bf16": (2, 1, 4, 64, 32, 1, 256, "bfloat16", "bfloat16", None),
+    "s37_bf16": (1, 37, 4, 32, 16, 1, 64, "bfloat16", "float32", None),
+    "chain32_bf16": (1, 2048, 2, 64, 128, 1, 64, "bfloat16", "bfloat16",
+                     None),
+    "g4_bf16": (1, 256, 8, 64, 128, 4, 128, "bfloat16", "bfloat16", None),
+    "overflow_bf16": (1, 160, 2, 32, 16, 1, 64, "bfloat16", "bfloat16",
+                      -50.0),
+    "p32n128_bf16": (2, 192, 4, 32, 128, 2, 64, "bfloat16", "float32", None),
+    "p32n32_bf16": (1, 320, 4, 32, 32, 1, 128, "bfloat16", "bfloat16", None),
 }
 SSD_SERVED = (BATCH, PROMPT_LEN, 48, 64, 128, 1, 256, "bfloat16", "bfloat16",
               None)
@@ -581,18 +600,107 @@ def ssd_bound(case) -> tuple[float, str, dict]:
     return max(t_ops, t_bytes), by, {"flops": flops, "bytes": nbytes}
 
 
+def _plain_scores_bf16(x, dt, A, B, C, chunk):
+    """The control of ``check_ssd_bits``: ``ssd_plain`` with the decayed
+    scores (C Bᵀ ∘ L times dt_j) rounded to one bf16 before the product
+    with x, as a kernel that gave the tensor cores bf16 scores would
+    compute. Returns y."""
+    Bb, S, H, P = x.shape
+    rep = H // B.shape[2]
+    chunk = min(chunk, S)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bh = B.float().repeat_interleave(rep, dim=2)
+    Ch = C.float().repeat_interleave(rep, dim=2)
+    ii = torch.arange(chunk, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    state = torch.zeros((Bb, H, P, B.shape[3]), device=x.device)
+    y = torch.empty_like(x)
+    for c0 in range(0, S, chunk):
+        c1 = min(S, c0 + chunk)
+        n = c1 - c0
+        xc, dtc = xf[:, c0:c1].transpose(1, 2), dtf[:, c0:c1].transpose(1, 2)
+        Bc, Cc = Bh[:, c0:c1].transpose(1, 2), Ch[:, c0:c1].transpose(1, 2)
+        cum = torch.cumsum(dtc * Af[None, :, None], -1)
+        L = torch.where(causal[:n, :n],
+                        torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+        M = (Cc @ Bc.transpose(-1, -2)) * L * dtc[..., None, :]
+        yc = M.bfloat16().float() @ xc + (
+            Cc @ state.transpose(-1, -2)) * torch.exp(cum)[..., None]
+        y[:, c0:c1] = yc.transpose(1, 2).to(x.dtype)
+        last = cum[..., -1:]
+        upd = (xc * (dtc * torch.exp(last - cum))[..., None]).transpose(
+            -1, -2) @ Bc
+        state = state * torch.exp(last)[..., None] + upd
+    return y
+
+
+def check_ssd_bits(device, cases: dict) -> dict:
+    """For each bf16 case, the share of ``ssd``'s y outputs whose bits
+    differ from ``ssd_plain``'s, and the share of the control's
+    (``_plain_scores_bf16``). The kernel hands the tensor cores its fp32
+    operands as bf16 parts, so its outputs leave the plain version's only
+    where fp32 sums in another order cross a bf16 rounding step; scores
+    rounded to one bf16 move a large share of them. Raises where the
+    kernel's share is not below a quarter of the control's."""
+    ssd_ops, ssd_ref = _ssd()
+    shares = {}
+    for name, case in cases.items():
+        if case[7] != "bfloat16":
+            continue
+        args = ssd_inputs(case, device)
+        chunk = case[6]
+        want = ssd_ref.ssd_plain(*args, chunk=chunk)[0]
+        kernel = (ssd_ops.ssd(*args, chunk=chunk)[0] != want).float().mean()
+        control = (_plain_scores_bf16(*args, chunk) != want).float().mean()
+        kernel, control = kernel.item(), control.item()
+        if kernel > control / 4:
+            raise AssertionError(f"ssd_scan on {name}: {kernel} of y leave "
+                                 f"the plain version's bits, scores rounded "
+                                 f"to bf16 {control}")
+        shares[name] = {"kernel": kernel, "scores_bf16": control}
+    return shares
+
+
+def _device_kernels(fn, iters: int = 10) -> tuple[float, list]:
+    """Device activities per call of ``fn`` (warm) in a ``torch.profiler``
+    trace of ``iters`` calls, and their names. (The trace of a single call
+    can miss its first activity.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(names) / iters, sorted({n[:80] for n in names})
+
+
 def time_ssd(device) -> dict:
-    """CUDA-event time per call of the kernel and of its plain version at
-    the served shape, beside the bound. No single PyTorch call computes
-    the scan, so there is no library time."""
+    """At the served shape: CUDA-event and profiler device time per call of
+    the bf16 kernel, its device kernels a call (checked against the
+    wrapper's ``DEVICE_KERNELS``), the fp32 kernel's event time on the
+    same inputs in fp32, and the plain version's, beside the bound. No
+    single PyTorch call computes the scan, so there is no library time."""
     ssd_ops, ssd_ref = _ssd()
     args = ssd_inputs(SSD_SERVED, device)
     chunk = SSD_SERVED[6]
-    ms = _event_ms(lambda: ssd_ops.ssd(*args, chunk=chunk), 20)
+    run = lambda: ssd_ops.ssd(*args, chunk=chunk)   # noqa: E731
+    ms = _event_ms(run, 20)
+    device_ms = _device_ms(run, 20)[0]
+    per_call, kernels = _device_kernels(run)
+    assert round(per_call) == ssd_ops.DEVICE_KERNELS[torch.bfloat16], kernels
+    args32 = ssd_inputs((*SSD_SERVED[:7], "float32", "float32", None),
+                        device)
+    fp32_ms = _event_ms(lambda: ssd_ops.ssd(*args32, chunk=chunk), 5)
+    del args32
     plain_ms = _event_ms(lambda: ssd_ref.ssd_plain(*args, chunk=chunk), 3)
     bound_ms, bound_by, work = ssd_bound(SSD_SERVED)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, **work)
+    return dict(ms=ms, device_ms=device_ms, device_kernels=round(per_call),
+                device_kernel_names=kernels,
+                fp32_ms=fp32_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, **work)
 
 
 # ---------------------------------------------------------------------------
@@ -1206,10 +1314,11 @@ def phase_job(device, n: int, n_unfused: int, w: Width = FULL) -> dict:
                 unfused_tokens_per_s=n_unfused / unfused_wall)
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, keep: tuple = ()) -> dict:
     """Device busy share of ``fn()``: the summed time of the device's own
     activities (kernels, copies) in the profiler's trace against the host
-    wall of the same window, and the six costliest names."""
+    wall of the same window, the six costliest names, and every name that
+    holds one of ``keep``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1226,10 +1335,12 @@ def device_profile(fn) -> dict:
             t[0] += e.time_range.elapsed_us()
             t[1] += 1
     device_us = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    kept = [kv for kv in ranked if any(k in kv[0] for k in keep)]
     return dict(wall_s=wall, device_s=device_us / 1e6,
                 busy_share=device_us / 1e6 / wall,
-                top=[(k, t / 1e3, c) for k, (t, c) in top])
+                top=[(k, t / 1e3, c) for k, (t, c) in ranked[:6]],
+                kept=[(k, t / 1e3, c) for k, (t, c) in kept])
 
 
 def phase_profile(device, n: int, w: Width = FULL,
@@ -1269,6 +1380,8 @@ def print_profile(what: str, prof: dict):
           f"{prof['busy_share']}")
     for key, ms, count in prof["top"]:
         print(f"  {ms:10.3f} ms  x{count:<6d} {key[:100]}")
+    for key, ms, count in prof.get("kept", []):
+        print(f"  named: {ms:10.3f} ms  x{count:<6d} {key[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1407,7 +1520,8 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
         profiles = {}
         if cuda:
             profiles["prefill"] = device_profile(
-                lambda: engine._prefill(model, tokens))
+                lambda: engine._prefill(model, tokens),
+                keep=SSD_PASSES if ssm else ())
             t = prompt_len + new_tokens - 1
             profiles["decode_4_steps"] = device_profile(
                 lambda: [engine._step(model, cache, tok, t + i)
@@ -1447,6 +1561,9 @@ def ssm_layer_errs(cfg, model, tokens) -> list:
 # reference than the bf16 reference path does: 1.24 was read at B 2, S 512
 # on an H100 and 0.80 at B 1, S 512 on the CPU (PERF.md, Findings)
 SSM_DRIFT_FACTOR = 1.5
+
+# the bf16 ssd_scan kernel's three passes, as the profiler names them
+SSD_PASSES = ("chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
 
 
 def ssm_drift(cfg32, model32, tokens, lk, lr) -> dict:
@@ -1563,9 +1680,16 @@ def main() -> int:
                                            "served": SSD_SERVED})
     for name, e in ssd_errs.items():
         print(f"kernels: ssd_scan ~ plain on {name}: max abs err {e}")
+    ssd_bits = check_ssd_bits(device, {**SSD_MATRIX, "served": SSD_SERVED})
+    for name, b in ssd_bits.items():
+        print(f"kernels: ssd_scan on {name}: y off the plain version's bits "
+              f"{b['kernel']}, scores rounded to bf16 {b['scores_bf16']}")
     ssd = time_ssd(device)
     print(f"ssd_scan at B={BATCH} S={PROMPT_LEN} H=48 P=64 N=128 G=1 chunk=256 "
-          f"bf16: {ssd['ms']:.3f} ms, plain {ssd['plain_ms']:.3f} ms, bound "
+          f"bf16: {ssd['ms']:.4f} ms (device {ssd['device_ms']:.4f} ms, "
+          f"{ssd['device_kernels']} device kernels a call: "
+          f"{ssd['device_kernel_names']}), fp32 kernel in fp32 "
+          f"{ssd['fp32_ms']:.3f} ms, plain {ssd['plain_ms']:.3f} ms, bound "
           f"{ssd['bound_ms']:.4f} ms ({ssd['bound_by']}: "
           f"{ssd['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
           f"{ssd['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s)")
@@ -1675,7 +1799,8 @@ def main() -> int:
             print_profile(f"serve {arch} {what}", p)
     print(json.dumps({"job": job, "profile": prof, "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
-                      "ssd_scan": {**ssd, "max_abs_err": ssd_errs},
+                      "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
+                                   "bits_off": ssd_bits},
                       "entry": {**entry, "times": entry_t,
                                 "flash_decode_matrix_err": fd_errs,
                                 "flash_decode_matrix_bits_off": fd_bits},
@@ -1712,14 +1837,18 @@ def main() -> int:
         "shape": "olmo-1b", "h2o-danube-1.8b": {k: fa["h2o"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bf16.cu",
+        "fp32_source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:77",
         "launches": serves["mamba2-780m"]["launches"],
+        "device_kernels_per_launch": ssd["device_kernels"],
         "max_abs_err": max(ssd_errs.values()),
-        "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "ms": ssd["ms"], "device_ms": ssd["device_ms"],
+        "fp32_ms": ssd["fp32_ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None,
-        "build_s": built["ssd_scan"].seconds},
+        "build_s": built["ssd_scan"].seconds,
+        "fp32_build_s": built["ssd_scan_fp32"].seconds},
         entry_kernel("hist", "wordcount_hash/csrc/hist.cu",
                      "wordcount_hash/kernel.py:66", entry, entry_t,
                      "hist_count", "hist_owner", built, 0),

@@ -1,13 +1,18 @@
-"""Wrapper of the chunked SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the chunked SSD scan kernels: ``csrc/ssd_scan_bf16.cu``
+(bf16, three chunk-parallel passes on the tensor cores) and
+``csrc/ssd_scan.cu`` (fp32, CUDA cores).
 
 Takes the layout of ``repro/kernels/ssd_scan/ops.py::ssd`` and follows
 the port's kernel policy (``kernels/backend.py``): a CPU tensor takes the
-plain version (``ref.ssd_plain``), a CUDA tensor the compiled kernel or
-an error. The kernel reads (B, S, H, P) and (B, S, G, N) in place, head
-h reading group ``h // (H // G)``, and masks the ragged tail itself, so
-the wrapper neither transposes, repeats nor pads. ``init_state`` is
-folded in around either path in the reference wrapper's closed form
-(``ref.fold_init_state``); the serving path never passes it.
+plain version (``ref.ssd_plain``), a CUDA tensor the compiled kernel of
+x's dtype or an error. The kernels read (B, S, H, P) and (B, S, G, N) in
+place, head h reading group ``h // (H // G)``, and mask the ragged tail
+themselves, so the wrapper neither transposes, repeats nor pads; for bf16
+it allocates the passes' scratch (each chunk's state, cum and dt). A call
+counts one launch however many device kernels it runs
+(``DEVICE_KERNELS``). ``init_state`` is folded in around either path in
+the reference wrapper's closed form (``ref.fold_init_state``); the
+serving path never passes it.
 """
 from __future__ import annotations
 
@@ -19,24 +24,32 @@ import torch
 from repro_torch.kernels import backend
 from repro_torch.kernels.ssd_scan.ref import fold_init_state, ssd_plain
 
-SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
-HEAD_DIMS = (32, 64)              # P the kernel is built for
-STATE_DIMS = (16, 32, 128)        # N the kernel is built for
-CHUNKS = (64, 128, 256)           # chunk lengths the kernel takes
+CSRC = Path(__file__).parent / "csrc"
+# each dtype's source, C entry point (its pointer and int arguments) and
+# device kernels a call runs
+SOURCES = {torch.bfloat16: CSRC / "ssd_scan_bf16.cu",
+           torch.float32: CSRC / "ssd_scan.cu"}
+_ENTRY = {torch.bfloat16: ("ssd_scan_bf16_launch", 9, 8),
+          torch.float32: ("ssd_scan_launch", 7, 9)}
+DEVICE_KERNELS = {torch.bfloat16: 3, torch.float32: 1}
+HEAD_DIMS = (32, 64)              # P the kernels are built for
+STATE_DIMS = (16, 32, 128)        # N the kernels are built for
+CHUNKS = (64, 128, 256)           # chunk lengths the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_FN = None    # the typed C entry point, resolved at the first launch
+_FN = {}      # dtype -> the typed C entry point, resolved at first launch
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = backend.load(SOURCE).ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+def _launcher(dtype):
+    fn = _FN.get(dtype)
+    if fn is None:
+        name, n_ptr, n_int = _ENTRY[dtype]
+        fn = getattr(backend.load(SOURCES[dtype]), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[dtype] = fn
+    return fn
 
 
 def _check(x, dt, A, B, C):
@@ -76,10 +89,27 @@ def _launch(x, dt, A, B, C, chunk: int):
     y = torch.empty_like(x)
     state = torch.empty((Bb, H, Pd, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _launcher()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                     C.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H,
-                     G, Pd, N, chunk, _DTYPE_CODE[x.dtype],
-                     _DTYPE_CODE[dt.dtype], stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr())
+    if x.dtype == torch.bfloat16:
+        for name, t in (("x", x), ("B", B), ("C", C)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must have 16-byte aligned data")
+        n_chunks = -(-S // chunk)
+        # pass (a) writes each chunk's state from zero into ``work`` and its
+        # cum and dt (fp32) into ``cumdt``; pass (b) writes the entering
+        # states over ``work``, which pass (c) reads
+        work = torch.empty(Bb * H * n_chunks * Pd * N, dtype=torch.float32,
+                           device=x.device)
+        cumdt = torch.empty(Bb * H * n_chunks * 2 * chunk,
+                            dtype=torch.float32, device=x.device)
+        rc = _launcher(x.dtype)(*ptrs, work.data_ptr(), cumdt.data_ptr(), Bb,
+                                S, H, G, Pd, N, chunk, _DTYPE_CODE[dt.dtype],
+                                stream)
+    else:
+        rc = _launcher(x.dtype)(*ptrs, Bb, S, H, G, Pd, N, chunk,
+                                _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype],
+                                stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd.launches += 1
@@ -92,9 +122,11 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256, init_state=None,
     Returns (y (B, S, H, P) in x's dtype, final_state (B, H, P, N) fp32).
 
     The tensors' device picks kernel or plain version; ``use_kernel=True``
-    demands the kernel and raises on CPU tensors. On the card the kernel
-    takes P in ``HEAD_DIMS``, N in ``STATE_DIMS``, chunk in ``CHUNKS`` and
-    contiguous tensors, and raises on anything else.
+    demands the kernel and raises on CPU tensors. On the card bf16 runs
+    the tensor-core kernel and fp32 the CUDA-core one; each takes P in
+    ``HEAD_DIMS``, N in ``STATE_DIMS``, chunk in ``CHUNKS`` and contiguous
+    tensors (bf16 also 16-byte aligned data), and raises on anything
+    else.
     """
     _check(x, dt, A, B, C)
     if backend.use_kernel(x, require=use_kernel):

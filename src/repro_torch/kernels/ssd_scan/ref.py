@@ -58,6 +58,53 @@ def ssd_plain(x, dt, A, B, C, *, chunk: int = 256):
     return y, state
 
 
+def ssd_chunked_plain(x, dt, A, B, C, *, chunk: int = 256):
+    """The bf16 kernel's three passes (``csrc/ssd_scan_bf16.cu``) in torch
+    on fp32, for the tests: the published Mamba-2 chunk decomposition of
+    ``ssd_plain``'s function. With cum the cumsum of dt·A within each
+    chunk and last_c its value at the chunk's last row:
+
+      (a) U_c   = (x·dt·exp(last_c - cum))ᵀ B       each chunk from zero
+      (b) S_in  = 0, then S_in[c] = S_in[c-1]·exp(last_{c-1}) + U_{c-1};
+                  the final state is the same step past the last chunk
+      (c) y     = (C Bᵀ ∘ L ∘ dt_j) x + exp(cum)·(C S_inᵀ)
+
+    Rows past S are dt = 0 and zeros, as the kernel reads them. Same
+    arguments and returns as ``ssd_plain``."""
+    Bb, S, H, Pd = x.shape
+    G, N = B.shape[2], B.shape[3]
+    n_c = -(-S // chunk)
+    pad = n_c * chunk - S
+
+    def chunks(t):            # (B, S, H, k) -> (B, H, n_c, chunk, k)
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(Bb, n_c, chunk, H, -1).permute(0, 3, 1, 2, 4)
+
+    xc = chunks(x)
+    Bc = chunks(B.repeat_interleave(H // G, dim=2))
+    Cc = chunks(C.repeat_interleave(H // G, dim=2))
+    dtc = chunks(dt[..., None])[..., 0]                   # (B,H,n_c,chunk)
+    cum = torch.cumsum(dtc * A.float()[None, :, None, None], -1)
+    last = cum[..., -1]                                   # (B,H,n_c)
+    # (a)
+    w = dtc * torch.exp(last[..., None] - cum)
+    U = (xc * w[..., None]).transpose(-1, -2) @ Bc        # (B,H,n_c,P,N)
+    # (b)
+    S_in = torch.empty_like(U)
+    state = torch.zeros_like(U[:, :, 0])
+    for c in range(n_c):
+        S_in[:, :, c] = state
+        state = state * torch.exp(last[:, :, c])[..., None, None] + U[:, :, c]
+    # (c)
+    ii = torch.arange(chunk, device=x.device)
+    decay = torch.where(ii[:, None] >= ii[None, :],
+                        torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    M = (Cc @ Bc.transpose(-1, -2)) * decay * dtc[..., None, :]
+    y = M @ xc + torch.exp(cum)[..., None] * (Cc @ S_in.transpose(-1, -2))
+    y = y.permute(0, 2, 3, 1, 4).reshape(Bb, n_c * chunk, H, Pd)[:, :S]
+    return y.to(x.dtype), state
+
+
 def fold_init_state(y, state, dt, A, C, init_state):
     """Add a carried-in ``init_state`` (B, H, P, N) to a scan run from
     zero, in the closed form of the reference wrapper

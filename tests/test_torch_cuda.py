@@ -303,6 +303,16 @@ def test_ssd_kernel_matches_plain_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_ssd_bits_on_the_card(cuda_device):
+    """Every bf16 case of SSD_MATRIX: the share of the kernel's y off
+    ``ssd_plain``'s bits is below a quarter of the control's, whose
+    decayed scores are rounded to bf16 (the helper raises on a miss)."""
+    shares = chip_smoke.check_ssd_bits(cuda_device, chip_smoke.SSD_MATRIX)
+    assert set(shares) == {n for n, c in chip_smoke.SSD_MATRIX.items()
+                           if c[7] == "bfloat16"}
+
+
+@pytest.mark.cuda
 def test_ssd_wrapper_launches_and_never_takes_plain(cuda_device,
                                                     monkeypatch):
     def plain(*a, **k):
@@ -357,6 +367,41 @@ def test_ssm_serving_on_the_card_equals_the_cpu(cuda_device):
         .generate(prompts, 8)
     assert ssd_ops.ssd.launches == before + cfg.n_layers
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_serving_on_the_card(cuda_device):
+    """A 2-layer mamba2 model in bf16 at the served head and state widths
+    (P 64, N 128; chunk 64 and 200-token prompts, so the last chunk is
+    ragged): a prefill through the tensor-core kernel launches it once per
+    layer, and its last-position logits keep ``ssm_drift``'s rule against
+    the same weights in fp32: the fp32 kernel path within 1e-3 *
+    max|logits| of the fp32 reference path, and the bf16 kernel path no
+    more than SSM_DRIFT_FACTOR times as far from it as the bf16 reference
+    path."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_smoke_config("mamba2-780m"), d_model=256,
+                              ssm_head_dim=64, ssm_state=128, ssm_chunk=64)
+    assert cfg.n_layers == 2 and cfg.dtype == "bfloat16"
+    model = tf.init_model(cfg, 0, device=cuda_device)
+    tokens = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32)).to(cuda_device)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    with torch.inference_mode():
+        before = ssd_ops.ssd.launches
+        lk = tf.prefill(cfg, model, tokens, use_kernel=True)[:, 0].float()
+        torch.cuda.synchronize()
+        assert ssd_ops.ssd.launches == before + cfg.n_layers
+        lr = tf.prefill(cfg, model, tokens, use_kernel=False)[:, 0].float()
+        drift = chip_smoke.ssm_drift(cfg32, copy.deepcopy(model).float(),
+                                     tokens, lk, lr)
+    assert drift["fp32_err_over_limit"] <= 1.0
+    assert (drift["kernel_low_vs_fp32"]
+            <= chip_smoke.SSM_DRIFT_FACTOR * drift["ref_low_vs_fp32"])
 
 
 @pytest.mark.cuda

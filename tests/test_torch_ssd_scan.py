@@ -14,6 +14,12 @@
   up to 512 rows to values above 100.
 * A case whose exp(cum_i - cum_j) overflows above the diagonal stays
   finite, and ``ssd_bound`` counts the served shape's bytes and FLOPs.
+* ``ref.ssd_chunked_plain``, the bf16 kernel's three passes (each
+  chunk's state from zero, the chain of entering states, the outputs) in
+  torch, against the Pallas kernel and ``ssd_plain`` over the matrix and
+  S = 1 and 37 in fp32, y and final state at ``_tol``; and the premise of
+  the card's bits check (``chip_smoke.check_ssd_bits``): fp32 sums in
+  another order move few of y's bf16 bits, scores rounded to bf16 many.
 
 Inputs are seeded numpy arrays (``chip_smoke.ssd_inputs``), the same
 the smoke holds the kernel to on the card.
@@ -33,6 +39,12 @@ from repro_torch.models import ssm as tssm  # noqa: E402
 
 CASES = chip_smoke.SSD_MATRIX
 CPU = torch.device("cpu")
+# the chunked plain version's extra cases: one row, and S below a chunk
+CHUNKED_CASES = {
+    **CASES,
+    "s1_f32": (1, 1, 2, 32, 16, 1, 64, "float32", "float32", None),
+    "s37_f32": (2, 37, 4, 64, 32, 2, 64, "float32", "float32", None),
+}
 
 
 def _np(x):
@@ -69,6 +81,47 @@ def test_plain_version_matches_pallas_kernel(name):
     tol = chip_smoke.flash_tol(dtype)
     np.testing.assert_allclose(_np(y), _np(jy), **tol)
     np.testing.assert_allclose(_np(st), _np(jst), **tol)
+
+
+@pytest.mark.parametrize("name", list(CHUNKED_CASES))
+def test_chunked_plain_matches_pallas_kernel_and_plain(name):
+    case = CHUNKED_CASES[name]
+    (x, dt, A, B, C), j = _both(case)
+    chunk, dtype = case[6], case[7]
+    y, st = ref.ssd_chunked_plain(x, dt, A, B, C, chunk=chunk)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == (
+        x.shape[0], x.shape[2], x.shape[3], B.shape[3])
+    jy, jst = jops.ssd(*j, chunk=chunk, interpret=True)
+    py, pst = ref.ssd_plain(x, dt, A, B, C, chunk=chunk)
+    tol = chip_smoke.flash_tol(dtype)
+    for want_y, want_st in ((jy, jst), (py, pst)):
+        np.testing.assert_allclose(_np(y), _np(want_y), **tol)
+        np.testing.assert_allclose(_np(st), _np(want_st), **tol)
+
+
+@pytest.mark.parametrize("name", ["sweep3_bf16", "g4_bf16"])
+def test_bf16_scores_move_more_bits_than_reordered_sums(name):
+    """What ``check_ssd_bits`` holds the card to: against ``ssd_plain``'s
+    bf16 y, the chunked passes (the same fp32 function, summed in another
+    order) differ in under a quarter of the share that the control, with
+    its decayed scores rounded to bf16, differs in."""
+    case = CASES[name]
+    args, _ = _both(case)
+    want = ref.ssd_plain(*args, chunk=case[6])[0]
+    chunked = ref.ssd_chunked_plain(*args, chunk=case[6])[0]
+    control = chip_smoke._plain_scores_bf16(*args, case[6])
+    reordered = (chunked != want).float().mean().item()
+    rounded = (control != want).float().mean().item()
+    assert rounded > 0.1
+    assert reordered < rounded / 4
+
+
+def test_wrapper_picks_the_source_by_dtype():
+    assert ops.SOURCES[torch.bfloat16].name == "ssd_scan_bf16.cu"
+    assert ops.SOURCES[torch.float32].name == "ssd_scan.cu"
+    assert all(p.exists() for p in ops.SOURCES.values())
+    assert ops.DEVICE_KERNELS == {torch.bfloat16: 3, torch.float32: 1}
 
 
 def test_init_state_matches_reference():
