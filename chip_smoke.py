@@ -502,9 +502,8 @@ def time_flash(device) -> dict:
 # two-group case, a case whose decay overflows above the diagonal, in bf16
 # a single row, S below one chunk, a chain of 32 chunks, four groups at the
 # served P and N, the overflow and the (P, N) pairs not covered above, and
-# the served shape: (B, S, H, P, N,
-# G, chunk, dtype of x/B/C, dtype of dt, A of every head with dt = 1, or
-# None for the reference's random dt, A)
+# the served shape: (B, S, H, P, N, G, chunk, dtype of x/B/C, dtype of dt,
+# A of every head with dt = 1, or None for the reference's random dt, A)
 SSD_MATRIX = {
     "sweep0_f32": (2, 512, 4, 64, 32, 1, 128, "float32", "float32", None),
     "sweep1_f32": (1, 256, 8, 32, 16, 1, 64, "float32", "float32", None),
@@ -661,22 +660,6 @@ def check_ssd_bits(device, cases: dict) -> dict:
     return shares
 
 
-def _device_kernels(fn, iters: int = 10) -> tuple[float, list]:
-    """Device activities per call of ``fn`` (warm) in a ``torch.profiler``
-    trace of ``iters`` calls, and their names. (The trace of a single call
-    can miss its first activity.)"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(names) / iters, sorted({n[:80] for n in names})
-
-
 def time_ssd(device) -> dict:
     """At the served shape: CUDA-event and profiler device time per call of
     the bf16 kernel, its device kernels a call (checked against the
@@ -688,8 +671,7 @@ def time_ssd(device) -> dict:
     chunk = SSD_SERVED[6]
     run = lambda: ssd_ops.ssd(*args, chunk=chunk)   # noqa: E731
     ms = _event_ms(run, 20)
-    device_ms = _device_ms(run, 20)[0]
-    per_call, kernels = _device_kernels(run)
+    device_ms, kernels, per_call = _device_ms(run, 20)
     assert round(per_call) == ssd_ops.DEVICE_KERNELS[torch.bfloat16], kernels
     args32 = ssd_inputs((*SSD_SERVED[:7], "float32", "float32", None),
                         device)
@@ -1130,11 +1112,12 @@ def _cold_ms(fn, iters: int) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / iters
 
 
-def _device_ms(fn, iters: int) -> tuple[float, list]:
+def _device_ms(fn, iters: int) -> tuple[float, list, float]:
     """Device time per call of ``fn`` run back to back: the summed time of
     the device's own activities in a ``torch.profiler`` trace of ``iters``
-    calls, over ``iters``; and their names. The host's cost per call is
-    the event time less this."""
+    calls, over ``iters``; their names; and their number over ``iters``
+    (a trace can miss its first activity, so not one call's trace). The
+    host's cost per call is the event time less this."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1145,7 +1128,8 @@ def _device_ms(fn, iters: int) -> tuple[float, list]:
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     total_us = sum(e.time_range.elapsed_us() for e in events)
-    return total_us / 1e3 / iters, sorted({e.name[:80] for e in events})
+    return (total_us / 1e3 / iters, sorted({e.name[:80] for e in events}),
+            len(events) / iters)
 
 
 def _in_turns(fns: dict, measure) -> dict:

@@ -362,16 +362,26 @@ chunk_state_kernel(const bf16* __restrict__ x, const void* __restrict__ dt,
     __syncthreads();                   // xs and this B stage are free
   }
 
-  float* u = work + (static_cast<long long>(bh) * n_chunks + c) * P * N;
+  // U through shared memory (B's stages are free), then out in 16-byte
+  // pieces, neighbouring threads on neighbouring addresses
+  constexpr int kLdU = N + 4;
+  static_assert(P * kLdU * 4 <= 2 * kTile * kLdN * 2, "U fits B's stages");
+  float* us = reinterpret_cast<float*>(bs);                  // [P][kLdU]
   const int r0 = lane >> 2, c2 = (lane & 3) * 2;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int col = n0 + nt * 8 + c2;
-    *reinterpret_cast<float2*>(u + (m0 + r0) * N + col) =
+    *reinterpret_cast<float2*>(us + (m0 + r0) * kLdU + col) =
         make_float2(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<float2*>(u + (m0 + r0 + 8) * N + col) =
+    *reinterpret_cast<float2*>(us + (m0 + r0 + 8) * kLdU + col) =
         make_float2(acc[nt][2], acc[nt][3]);
   }
+  __syncthreads();
+  float4* u = reinterpret_cast<float4*>(
+      work + (static_cast<long long>(bh) * n_chunks + c) * P * N);
+  for (int i = tid; i < P * N / 4; i += T)
+    u[i] = *reinterpret_cast<const float4*>(us + (4 * i / N) * kLdU +
+                                            4 * i % N);
 }
 
 // ---------------------------------------------------------------------------

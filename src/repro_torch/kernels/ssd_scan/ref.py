@@ -16,6 +16,10 @@ state chunk by chunk:
 y is cast to x's dtype at the end; the state stays fp32. Head h reads
 group ``h // (H // G)`` of B and C. A last chunk shorter than ``chunk``
 is the TPU kernel's zero padding left out (dt = 0 rows are a no-op).
+
+``ssd_chunked_plain`` computes the same function as the bf16 kernel's
+three passes do (each chunk's state from zero, the chain of entering
+states, the outputs); only the tests call it.
 """
 from __future__ import annotations
 
