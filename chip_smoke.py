@@ -5,10 +5,11 @@
 
 Phases, each of which asserts (nothing is caught):
 
-  1. build   — compile all six kernels from the sources in this
+  1. build   — compile all nine kernels from the nine sources in this
                checkout (one nvcc per source, all started together;
                flash_attention and ssd_scan have two each: bf16 on the
-               tensor cores, fp32 on the CUDA cores);
+               tensor cores, fp32 on the CUDA cores; fleetlint's three
+               mutant kernels share ``mutants.cu``);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
                shapes (flash_attention at olmo-1b's and h2o-danube-1.8b's
@@ -30,6 +31,22 @@ Phases, each of which asserts (nothing is caught):
                routing of a served batch and on one segment's owner
                window, ``flash_decode`` on the olmo-1b and h2o-danube-1.8b
                served caches;
+  2c. lint   — fleetlint's kernel half (``python -m
+               repro_torch.analysis.lint``) on the card: ``--kernels``
+               clean over the six shipping wrappers and ``--selftest``
+               PASS over the eight kernel and ops mutants, each near
+               twin's kernel (copy_rows, table_add, copy_rows_i32)
+               launched once on that path; then each held bit for bit to
+               its plain version on seeded inputs and timed beside
+               ``x.clone()`` or ``table + recs[0]``;
+  2d. memcheck — the script again, in child processes under
+               ``compute-sanitizer --tool memcheck`` with PyTorch's
+               caching allocator off: a probe, then (a) every shipping
+               kernel's small matrix and the near twins, 0 errors, and
+               (b) each PAL001 bad twin in a child of its own, an invalid
+               global read in its kernel. Where the tool is absent or does
+               not run on the card, one line says so and nothing is held;
+               the phase's seconds;
   3. job     — MR-1S WordCount through the Job API at the documented
                fused width (V = 262,144, P = 8, S = 256, cap = 64) on a
                Zipf corpus with one 8x-hot rank: records equal to the
@@ -58,7 +75,7 @@ Phases, each of which asserts (nothing is caught):
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
-of 2, then 3 and each arch of 4) and read just after it.
+of 2, the lint of 2c, then 3 and each arch of 4) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -68,6 +85,9 @@ import copy
 import dataclasses
 import json
 import math
+import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -141,14 +161,25 @@ def _fd():
     return ops, ref
 
 
+def _lint():
+    """The port's fleetlint: its corpus, CLI, and the mutant kernels'
+    wrappers and plain versions."""
+    _port()
+    from repro_torch.analysis import corpus, lint
+    from repro_torch.analysis.mutant_kernels import ops, ref
+    return corpus, lint, ops, ref
+
+
 def wrappers() -> dict:
     """Every kernel's name and its wrapper, which carries the count."""
+    mutant_ops = _lint()[2]
     return {"fused_map": _port()[3].fused_map,
             "flash_attention": _fa()[0].flash_attention,
             "ssd_scan": _ssd()[0].ssd,
             "hist": _wc()[0].wordcount_hist,
             "bucket_slots": _slots()[0].bucket_slots,
-            "flash_decode": _fd()[0].flash_decode}
+            "flash_decode": _fd()[0].flash_decode,
+            **{k: getattr(mutant_ops, k) for k in MUTANT_KERNELS.values()}}
 
 
 def zero_counts():
@@ -173,7 +204,8 @@ def phase_build() -> dict:
                "ssd_scan_fp32": ssd_src[torch.float32],
                "hist": _wc()[0].SOURCE,
                "bucket_slots": _slots()[0].SOURCE,
-               "flash_decode": _fd()[0].SOURCE}
+               "flash_decode": _fd()[0].SOURCE,
+               "mutants": _lint()[2].SOURCE}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {k: pool.submit(backend.build, v) for k, v in sources.items()}
@@ -381,7 +413,7 @@ def time_fused(device) -> dict:
 
 # the reference's flash_attention test matrix (tests/test_kernels.py::
 # test_flash_attention_sweep) and the served shape: (B, S, H, KV, hd,
-# causal, window, dtype)
+# causal, window, dtype), and for k and v of another length than q, Skv
 FLASH_MATRIX = {
     "mha_f32": (2, 256, 4, 4, 64, True, 0, "float32"),
     "gqa4_f32": (1, 512, 8, 2, 64, True, 0, "float32"),
@@ -394,6 +426,18 @@ FLASH_MATRIX = {
     # fp32 with a window
     "gqa4_hd80_ragged333_bf16": (1, 333, 8, 2, 80, True, 0, "bfloat16"),
     "swa96_hd80_f32": (1, 384, 4, 4, 80, True, 96, "float32"),
+    # the tensor-core kernel's other branches: no causal mask (every KV
+    # tile, kt_hi = n_kt), MQA (KV = 1), and Sq != Skv both ways, ragged
+    # (TMA's zero fill on both tails); past Skv + window a row sees no key
+    # and comes out 0
+    "bidir_bf16": (1, 384, 4, 4, 64, False, 0, "bfloat16"),
+    "mqa_hd128_bf16": (2, 256, 4, 1, 128, True, 0, "bfloat16"),
+    "sq128_skv384_gqa_bf16": (1, 128, 8, 2, 64, True, 0, "bfloat16", 384),
+    "sq384_skv128_bf16": (1, 384, 4, 4, 64, True, 0, "bfloat16", 128),
+    "bidir_mqa_sq200_skv333_hd80_bf16": (1, 200, 8, 1, 80, False, 0,
+                                         "bfloat16", 333),
+    "swa64_sq512_skv192_bf16": (1, 512, 4, 2, 64, True, 64, "bfloat16",
+                                192),
 }
 # the served shapes: olmo-1b's prefill, and h2o-danube-1.8b's (its window
 # of 4096 is wider than the prompt); h2o's heads at S 8192, where the
@@ -412,14 +456,16 @@ def flash_tol(dtype: str) -> dict:
 
 
 def flash_inputs(case, device):
-    """Seeded q, k, v of one case, made in fp32 and cast to its dtype."""
-    B, S, H, KV, hd, _, _, dtype = case
+    """Seeded q, k, v of one case, made in fp32 and cast to its dtype; k
+    and v have the case's Skv positions where it names one."""
+    B, S, H, KV, hd, _, _, dtype = case[:8]
+    Skv = case[8] if len(case) > 8 else S
     rng = np.random.default_rng(S + H)
     dt = getattr(torch, dtype)
     return tuple(
         torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             device=device, dtype=dt)
-        for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        for shape in ((B, S, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
 
 
 def phase_flash_vs_plain(device, cases: dict) -> dict:
@@ -429,7 +475,7 @@ def phase_flash_vs_plain(device, cases: dict) -> dict:
     errs = {}
     for name, case in cases.items():
         q, k, v = flash_inputs(case, device)
-        causal, window, dtype = case[5:]
+        causal, window, dtype = case[5:8]
         got = fa_ops.flash_attention(q, k, v, causal=causal,
                                      window=window).float()
         want = fa_ref.flash_attention_plain(q, k, v, causal=causal,
@@ -1186,6 +1232,254 @@ def time_entry(cases: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 2c. fleetlint's kernel half on the card, and its mutant kernels
+# ---------------------------------------------------------------------------
+
+# the mutant corpus's near twins and the kernel each one launches
+MUTANT_KERNELS = {"pal001-near": "copy_rows",
+                  "pal001-fused-near": "table_add",
+                  "pal002-near": "copy_rows_i32"}
+# the PAL001 bad twins, whose maps leave their arrays, and the device
+# kernel that memcheck must name in each one's report
+PAL001_BAD = {"pal001-bad": "copy_blocks",
+              "pal001-fused-bad": "table_add_kernel"}
+# the TPU kernel each replaces: the function that reaches pallas_call
+MUTANT_REPLACES = {"copy_rows": "corpus.py:372",
+                   "table_add": "corpus.py:397",
+                   "copy_rows_i32": "corpus.py:415"}
+
+
+def mutant_call(name: str, device) -> dict:
+    """One kernel mutant of the corpus in ``entry_cases``' form: its
+    wrapper with its declared spec (the map PAL001 checks), on the spec's
+    input operands made from a seed (f32 standard normal; int32 over its
+    whole range, so table_add's sums wrap), its plain version, the
+    one-call library yardstick (``x.clone()``, ``table + recs[0]``) and
+    the bound: each operand read or written once (of recs, the one entry
+    the kernel reads)."""
+    corpus, _, _, ref = _lint()
+    kc = next(m for m in corpus.MUTANTS if m.name == name).build()
+    fn, _, kw = kc.build(device)
+    rng = np.random.default_rng(len(name))
+    args = []
+    for op in kc.spec.operands:
+        if op.output:
+            continue
+        a = (rng.standard_normal(op.shape, np.float32)
+             if op.dtype == torch.float32
+             else rng.integers(-2**31, 2**31, op.shape).astype(np.int32))
+        args.append(torch.from_numpy(a).to(device))
+    add = fn.__name__ == "table_add"
+    plain = ref.table_add_plain if add else ref.copy_rows_plain
+    nbytes = sum(math.prod(op.shape) * op.dtype.itemsize
+                 for op in kc.spec.operands if op.name != "recs") + 4 * add
+    return dict(kernel=fn.__name__, exact=True,
+                run=lambda: fn(*args, **kw),
+                plain=lambda: plain(*args, kc.spec),
+                library=((lambda: args[0] + args[1][0]) if add
+                         else (lambda: args[0].clone())),
+                bound=_bound(nbytes, 0, SCALAR_OPS_PER_S))
+
+
+def phase_lint(device) -> dict:
+    """fleetlint's kernel half on ``device``, the mutant kernels' path:
+    ``--kernels`` (the six shipping wrappers, none launched) and
+    ``--selftest`` (the eight mutants: each near twin's kernel launched
+    once, no bad twin), launch counts zeroed just before and read just
+    after; then each near twin's kernel held bit for bit to its plain
+    version on seeded inputs (``check_cases``)."""
+    _, lint, _, _ = _lint()
+    fns = wrappers()
+    zero_counts()
+    rc_kernels = lint.main(["--kernels", "--device", str(device)])
+    rc_selftest = lint.main(["--selftest", "--device", str(device)])
+    _sync(device)
+    launches = {k: fns[k].launches for k in MUTANT_KERNELS.values()}
+    assert rc_kernels == 0 and rc_selftest == 0, (rc_kernels, rc_selftest)
+    if device.type == "cuda":
+        assert all(n == 1 for n in launches.values()), launches
+    cases = {name: mutant_call(name, device) for name in MUTANT_KERNELS}
+    return dict(launches=launches, cases=cases,
+                max_abs_err=check_cases(cases))
+
+
+# ---------------------------------------------------------------------------
+# 2d. memcheck: the kernels under compute-sanitizer, each run a child
+# ---------------------------------------------------------------------------
+
+MEMCHECK = ("--tool", "memcheck", "--error-exitcode", "1")
+# unowned bytes after each allocation, so that a one-block overrun lands
+# in no live allocation (with PyTorch's caching allocator off)
+MEMCHECK_PADDING = 4096
+MEMCHECK_TIMEOUT = 600
+
+
+def sanitizer() -> Path | None:
+    """``$CUDA_HOME/bin/compute-sanitizer``, or None where it is absent."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = Path(CUDA_HOME or "/nonexistent") / "bin" / "compute-sanitizer"
+    return tool if tool.exists() else None
+
+
+def memcheck_cases(device) -> dict:
+    """What memcheck (a) runs: every shipping kernel over its small
+    matrix (never a full-width shape; every dtype, causal and not,
+    window, GQA and MQA, ragged S, hist's two modes) and the three near
+    twins, as ``name: (kernel, zero-argument call)``."""
+    fm_ops, fa_ops, ssd_ops = _port()[3], _fa()[0], _ssd()[0]
+    calls = {}
+    for name, (args, P, cap) in fused_matrix():
+        if name != "full_width":
+            a = _on(args, device)
+            calls[f"fused_{name}"] = ("fused_map", lambda a=a, P=P, c=cap:
+                                      fm_ops.fused_map(**a, n_procs=P, cap=c))
+    for name, case in FLASH_MATRIX.items():
+        q, k, v = flash_inputs(case, device)
+        calls[f"flash_{name}"] = (
+            "flash_attention", lambda q=q, k=k, v=v, c=case:
+            fa_ops.flash_attention(q, k, v, causal=c[5], window=c[6]))
+    for name, case in SSD_MATRIX.items():
+        args = ssd_inputs(case, device)
+        calls[f"ssd_{name}"] = ("ssd_scan", lambda a=args, c=case[6]:
+                                ssd_ops.ssd(*a, chunk=c))
+    for name, c in matrix_cases(device).items():
+        calls[name] = (c["kernel"], c["run"])
+    for name in MUTANT_KERNELS:
+        c = mutant_call(name, device)
+        calls[name] = (c["kernel"], c["run"])
+    return calls
+
+
+def memcheck_child(what: str) -> int:
+    """The smoke's child under memcheck: ``probe`` (one allocation and
+    one sum: does the tool run here at all), ``shipping`` (memcheck (a):
+    every call of ``memcheck_cases``, each synchronised, then the launch
+    counts) or a PAL001 bad twin's name (memcheck (b): its kernel once,
+    on purpose, with the map that leaves its array)."""
+    device = torch.device("cuda", 0)
+    if what == "probe":
+        x = torch.arange(1024, dtype=torch.float32, device=device)
+        print(f"memcheck-child: probe {x.sum().item()}", flush=True)
+        return 0
+    if what == "shipping":
+        calls = memcheck_cases(device)
+        fns = wrappers()
+        zero_counts()
+        for name, (kernel, run) in calls.items():
+            run()
+            torch.cuda.synchronize()
+            print(f"memcheck-case: {kernel} {name}", flush=True)
+        print("memcheck-launches: " + json.dumps(
+            {k: fns[k].launches for k, _ in calls.values()}), flush=True)
+        return 0
+    if what not in PAL001_BAD:
+        raise SystemExit(f"unknown memcheck child {what!r}")
+    c = mutant_call(what, device)
+    c["run"]()
+    torch.cuda.synchronize()
+    print(f"memcheck-case: {c['kernel']} {what}", flush=True)
+    return 0
+
+
+def _memcheck(tool: Path, what: str, padding: bool) -> tuple[int, str]:
+    """Run ``memcheck_child(what)`` under memcheck in its own process
+    group (killed whole at the time limit), with PyTorch's caching
+    allocator off: an overrun inside a cached segment is no error to the
+    tool. Returns the exit code and the merged output."""
+    cmd = [str(tool), *MEMCHECK,
+           *(("--padding", str(MEMCHECK_PADDING)) if padding else ()),
+           sys.executable, str(Path(__file__).resolve()), "--memcheck-child",
+           what]
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    with subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          start_new_session=True) as proc:
+        try:
+            out, _ = proc.communicate(timeout=MEMCHECK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+    return proc.returncode, out
+
+
+def _error_summary(out: str) -> int | None:
+    m = re.search(r"ERROR SUMMARY: (\d+) error", out)
+    return int(m.group(1)) if m else None
+
+
+def _report(out: str, limit: int = 40) -> str:
+    """The tool's own lines of ``out`` without host stack frames."""
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("=========") and "Host Frame" not in ln]
+    return "\n".join(lines[:limit])
+
+
+def phase_memcheck() -> dict:
+    """memcheck of the kernels on the card, each run a child of this
+    script under ``compute-sanitizer --tool memcheck --error-exitcode 1``
+    (``--padding`` where the tool has it). A probe first: where the tool
+    is absent or does not run on this card, that is printed on a line of
+    its own and nothing is held. Else (a) every shipping kernel's small
+    matrix and the near twins: 0 errors, each case's kernel launched; (b)
+    each PAL001 bad twin in a child of its own (an out-of-bounds read can
+    poison the context): an invalid __global__ read in that kernel and a
+    non-zero exit, which shows that (a)'s 0 means something."""
+    t0 = time.perf_counter()
+    tool = sanitizer()
+    if tool is None:
+        print("memcheck: no compute-sanitizer under CUDA_HOME: not run; the "
+              "kernels' bounds are unchecked on this card")
+        return dict(ran=False, reason="compute-sanitizer not found",
+                    seconds=time.perf_counter() - t0)
+    version = subprocess.run([str(tool), "--version"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[-1]
+    padding = "--padding" in subprocess.run(
+        [str(tool), "--help"], capture_output=True, text=True).stdout
+    rc, out = _memcheck(tool, "probe", padding)
+    if rc != 0 or "memcheck-child: probe" not in out \
+            or _error_summary(out) != 0:
+        reason = next((ln.strip("= ") for ln in out.splitlines()
+                       if "Error:" in ln), f"exit code {rc}")
+        print(f"memcheck: {version}: the tool does not run on this card "
+              f"({reason!r}; a probe of one allocation and one sum under "
+              f"memcheck exits {rc}): not run; the bounds of the six "
+              f"shipping kernels and the near twins are unchecked here")
+        print(f"memcheck: the probe's report:\n{_report(out, 12)}")
+        return dict(ran=False, version=version, reason=reason, probe_rc=rc,
+                    padding=padding, seconds=time.perf_counter() - t0)
+
+    rc, out = _memcheck(tool, "shipping", padding)
+    errors = _error_summary(out)
+    if rc != 0 or errors != 0:
+        raise AssertionError(f"memcheck (a): exit {rc}, {errors} errors\n"
+                             f"{_report(out)}\n{out[-2000:]}")
+    ran: dict[str, int] = {}
+    for ln in out.splitlines():
+        if ln.startswith("memcheck-case: "):
+            kernel = ln.split()[1]
+            ran[kernel] = ran.get(kernel, 0) + 1
+    launched = next((json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
+                     if ln.startswith("memcheck-launches: ")), None)
+    assert launched == ran, (launched, ran)
+    for kernel, n in ran.items():
+        print(f"memcheck: {kernel}: {n} cases, {n} launches, 0 errors")
+    bad = {}
+    for name, symbol in PAL001_BAD.items():
+        rc, out = _memcheck(tool, name, padding)
+        reads = sum("Invalid __global__ read" in ln for ln in out.splitlines())
+        if rc == 0 or not reads or symbol not in out:
+            raise AssertionError(f"memcheck (b) missed {name}'s read past its "
+                                 f"array: exit {rc}\n{_report(out)}")
+        bad[name] = dict(rc=rc, invalid_reads=reads, kernel=symbol,
+                         errors=_error_summary(out))
+        print(f"memcheck: {name} ({symbol}): {reads} invalid __global__ "
+              f"reads reported, exit {rc}")
+    return dict(ran=True, version=version, padding=padding, cases=ran,
+                bad=bad, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # 3. the slice at full width
 # ---------------------------------------------------------------------------
 
@@ -1609,6 +1903,23 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
                 *keys, *extra)}}
 
 
+def mutant_kernel(name: str, lint: dict, times: dict, built: dict) -> dict:
+    """The ``kernels`` line's entry of a near twin's mutant kernel."""
+    t = times[name]
+    kernel = MUTANT_KERNELS[name]
+    return {"name": kernel, "route": "cuda",
+            "source": "src/repro_torch/analysis/mutant_kernels/csrc/"
+                      "mutants.cu",
+            "replaces": f"src/repro/analysis/{MUTANT_REPLACES[kernel]}",
+            "launches": lint["launches"][kernel],
+            "max_abs_err": lint["max_abs_err"][name],
+            "matches_plain": True, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "build_s": built["mutants"].seconds,
+            "shape": name}
+
+
 def print_decode_times(times: dict):
     for name, e in times.items():
         if not name.startswith("decode_"):
@@ -1619,10 +1930,14 @@ def print_decode_times(times: dict):
               f"{e['device_kernels']}")
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--memcheck-child"]:
+        return memcheck_child(argv[1])
+    if argv:
+        raise SystemExit(f"chip_smoke.py takes no arguments, got {argv}")
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     built = phase_build()
@@ -1710,6 +2025,22 @@ def main() -> int:
               f"{e['bytes']} B at 3.35 TB/s, {e['ops']} operations)")
     print_decode_times(entry_t)
 
+    lint = phase_lint(device)
+    lint_t = time_entry(lint["cases"])
+    for name, c in lint["cases"].items():    # the kernel's own time
+        lint_t[name]["device_ms"] = _device_ms(c["run"], 200)[0]
+    print(f"lint: fleetlint --kernels and --selftest on the card: clean and "
+          f"PASS; near twins' launches {lint['launches']}, each == plain bit "
+          f"for bit on seeded inputs")
+    for name, e in lint_t.items():
+        print(f"lint: {MUTANT_KERNELS[name]} ({name}): {e['ms']:.5f} ms "
+              f"(device {e['device_ms']:.5f} ms), plain "
+              f"{e['plain_ms']:.5f} ms, library {e['library_ms']:.5f} ms, "
+              f"bound {e['bound_ms']:.7f} ms ({e['bound_by']}: {e['bytes']} B "
+              f"at 3.35 TB/s; launch-bound)")
+    memcheck = phase_memcheck()
+    print(f"memcheck: {memcheck['seconds']:.1f} s")
+
     job = phase_job(device, N_TOKENS, N_UNFUSED)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
           f"cap={CAP} segment={SEGMENT}, {job['steps']} steps, "
@@ -1788,7 +2119,10 @@ def main() -> int:
                       "entry": {**entry, "times": entry_t,
                                 "flash_decode_matrix_err": fd_errs,
                                 "flash_decode_matrix_bits_off": fd_bits},
-                      "serve": serves}))
+                      "lint": {"launches": lint["launches"],
+                               "max_abs_err": lint["max_abs_err"],
+                               "times": lint_t},
+                      "memcheck": memcheck, "serve": serves}))
 
     fa_archs = [a for a in serves
                 if serve_kernel(get_config(a))[0] == "flash_attention"]
@@ -1842,7 +2176,9 @@ def main() -> int:
         entry_kernel("flash_decode", "flash_decode/csrc/flash_decode.cu",
                      "flash_decode/kernel.py:71", entry, entry_t,
                      "decode_olmo-1b", "decode_h2o-danube-1.8b", built,
-                     max(fd_errs.values()))]}))
+                     max(fd_errs.values())),
+        *(mutant_kernel(name, lint, lint_t, built) for name in MUTANT_KERNELS)
+    ]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1856,4 +2192,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

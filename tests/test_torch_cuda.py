@@ -506,3 +506,52 @@ def test_entry_point_kernels_reject_what_they_do_not_take(cuda_device, bad):
                         dtype=dtype)[..., 1:]
     with pytest.raises((TypeError, ValueError)):
         fd_ops.flash_decode(q, k, k, 10)
+
+
+def _mutant_launches():
+    from repro_torch.analysis.mutant_kernels import ops as m_ops
+    return {k: getattr(m_ops, k).launches
+            for k in chip_smoke.MUTANT_KERNELS.values()}
+
+
+@pytest.mark.cuda
+def test_mutant_kernels_match_plain_on_the_card(cuda_device):
+    """Each near twin's kernel (copy_rows, table_add, copy_rows_i32) bit
+    for bit against its plain version on seeded inputs, one launch each."""
+    cases = {n: chip_smoke.mutant_call(n, cuda_device)
+             for n in chip_smoke.MUTANT_KERNELS}
+    before = _mutant_launches()
+    errs = chip_smoke.check_cases(cases)
+    torch.cuda.synchronize()
+    assert errs == {n: 0 for n in cases}
+    assert _mutant_launches() == {k: n + 1 for k, n in before.items()}
+
+
+@pytest.mark.cuda
+def test_lint_on_the_card(cuda_device, capsys):
+    """The CLI with its default device (the card): the shipping kernels
+    clean without a launch, the selftest PASS with each near twin's kernel
+    launched once and no bad twin's."""
+    from repro_torch.analysis import lint
+    before = _mutant_launches()
+    assert lint.main(["--kernels"]) == 0
+    assert _mutant_launches() == before
+    assert lint.main(["--selftest"]) == 0
+    torch.cuda.synchronize()
+    assert "PASS" in capsys.readouterr().out
+    assert _mutant_launches() == {k: n + 1 for k, n in before.items()}
+
+
+@pytest.mark.cuda
+def test_mutant_wrappers_never_take_plain_on_the_card(cuda_device,
+                                                      monkeypatch):
+    from repro_torch.analysis.mutant_kernels import ops as m_ops
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(m_ops, "copy_rows_plain", plain)
+    monkeypatch.setattr(m_ops, "table_add_plain", plain)
+    for name in chip_smoke.MUTANT_KERNELS:
+        out = chip_smoke.mutant_call(name, cuda_device)["run"]()
+        assert out.is_cuda
+    torch.cuda.synchronize()

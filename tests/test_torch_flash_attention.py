@@ -32,7 +32,7 @@ def _both(name):
     """(case, torch q/k/v on the CPU, the same values as JAX arrays)."""
     case = CASES[name]
     tq = chip_smoke.flash_inputs(case, CPU)
-    jq = tuple(jnp.asarray(t.float().numpy(), jnp.dtype(case[-1]))
+    jq = tuple(jnp.asarray(t.float().numpy(), jnp.dtype(case[7]))
                for t in tq)
     return case, tq, jq
 
@@ -46,7 +46,7 @@ def _np(x):
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_version_matches_pallas_kernel(name):
     case, (q, k, v), (jq, jk, jv) = _both(name)
-    causal, window, dtype = case[5:]
+    causal, window, dtype = case[5:8]
     got = ref.flash_attention_plain(q, k, v, causal=causal, window=window)
     want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
                                 block_q=128, block_kv=128, interpret=True)
@@ -58,7 +58,7 @@ def test_plain_version_matches_pallas_kernel(name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_chunked_reference_matches_jax(name):
     case, (q, k, v), (jq, jk, jv) = _both(name)
-    causal, window, dtype = case[5:]
+    causal, window, dtype = case[5:8]
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
     got = tattn.flash_attention_ref(q, k, v, causal=causal, window=window)
     want = jattn.flash_attention_ref(jq, jk, jv, causal=causal,
