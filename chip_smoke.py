@@ -26,8 +26,9 @@ Phases, each of which asserts (nothing is caught):
                control's (``check_ssd_bits``). The
                three kernels that only their own entry points reach
                (hist, bucket_slots, flash_decode) run that path here:
-               ``wordcount_hist`` on the job's 2**27-token corpus in count
-               and owner mode, ``bucket_slots`` on deepseek-v2-lite's
+               ``wordcount_hist`` on the job's 2**27-token corpus and on
+               as many uniform keys over V, in count and owner mode (also
+               by device time), ``bucket_slots`` on deepseek-v2-lite's
                routing of a served batch and on one segment's owner
                window, ``flash_decode`` on the olmo-1b and h2o-danube-1.8b
                served caches;
@@ -38,7 +39,8 @@ Phases, each of which asserts (nothing is caught):
                twin's kernel (copy_rows, table_add, copy_rows_i32)
                launched once on that path; then each held bit for bit to
                its plain version on seeded inputs and timed beside
-               ``x.clone()`` or ``table + recs[0]``;
+               ``x.clone()`` or ``table + recs[0]``, by events and, in
+               turns with that call, by device time;
   2d. memcheck — the script again, in child processes under
                ``compute-sanitizer --tool memcheck`` with PyTorch's
                caching allocator off: a probe, then (a) every shipping
@@ -46,6 +48,19 @@ Phases, each of which asserts (nothing is caught):
                (b) each PAL001 bad twin in a child of its own, an invalid
                global read in its kernel. Where the tool is absent or does
                not run on the card, one line says so and nothing is held;
+               the phase's seconds;
+  2e. guard  — a bounds check that needs no tool: every shipping
+               kernel's cases of 2d, each input copied between two 1 MiB
+               bands of a pattern in one allocation (``banded``), run under
+               two fills (floats NaN and 1e4, integers two keys the kernel
+               counts apart): every band untouched and every output equal
+               to the unbanded call's (integers bit for bit, floats at the
+               smoke's tolerance, finite). fused_map's table, which it
+               updates in place, is banded as an input; hist also writes
+               through its C entry point into a banded output, on its
+               matrix and on the 2**27-token corpus in both modes. Each
+               PAL001 bad twin over banded inputs must change its output
+               between the fills. Per kernel its cases and launches, and
                the phase's seconds;
   3. job     — MR-1S WordCount through the Job API at the documented
                fused width (V = 262,144, P = 8, S = 256, cap = 64) on a
@@ -75,7 +90,8 @@ Phases, each of which asserts (nothing is caught):
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
-of 2, the lint of 2c, then 3 and each arch of 4) and read just after it.
+of 2, the lint of 2c, the guard band of 2e, then 3 and each arch of 4)
+and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -83,6 +99,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -741,7 +758,14 @@ SENT = 2**31 - 1
 # test_wordcount_hist_sweep, ..._with_sentinels) and edge cases: keys below
 # 0 and at or past vocab, vocabs that are no multiple of the TPU's 512-key
 # tile, all tokens SENTINEL, one token, owner mode into fewer bins than
-# hash_mod: (n, vocab, hash_mod, kind of tokens)
+# hash_mod; the CUDA kernel's limits: vocab at and one past its 16 keys
+# counted a thread and its 40,960 keys counted a CTA (the keys at both ends
+# present), owner mode at and past 16 bins and into the CTA's counters,
+# hash_mod 2**31 - 1 and a non-power of two near it (tokens whose hashes
+# land at the ends of the divisor's periods), n a multiple of the 4-token
+# vector plus 3, and Zipf tokens with runs that give whole warps one key
+# (a counter of a thread, of the CTA, and a global one): (n, vocab,
+# hash_mod, kind of tokens)
 HIST_MATRIX = {
     "sweep0": (256, 128, 0, "uniform"),
     "sweep1": (1024, 512, 0, "uniform"),
@@ -755,20 +779,59 @@ HIST_MATRIX = {
     "all_sentinel": (1000, 600, 0, "all_sentinel"),
     "one_token": (1, 5, 0, "uniform"),
     "owner8_into5": (1500, 5, 8, "uniform"),
+    "vocab16": (2048, 16, 0, "ends"),
+    "vocab17": (2048, 17, 0, "ends"),
+    "vocab40960": (2048, 40960, 0, "ends"),
+    "vocab40961": (2048, 40961, 0, "ends"),
+    "owner16": (2048, 16, 16, "uniform"),
+    "owner17": (2048, 17, 17, "uniform"),
+    "owner5000_into4000": (2048, 4000, 5000, "uniform"),
+    "hash_mod_2p31m1": (2048, 25000, 2**31 - 1, "hash_ends"),
+    "hash_mod_2147483629": (2048, 25000, 2_147_483_629, "hash_ends"),
+    "hash_mod_2p31m1_into16": (2048, 16, 2**31 - 1, "hash_ends"),
+    "n4099": (4099, 1000, 0, "uniform"),
+    "zipf_warp_runs": (2048, 50000, 0, "zipf_runs"),
 }
+
+
+def _unmix32(h: np.ndarray) -> np.ndarray:
+    """The tokens (int32) whose Murmur3 fmix32 is ``h`` (uint32 values):
+    fmix32 is a bijection, undone step by step (xorshifts and the
+    multiplicative inverses of its two constants mod 2**32)."""
+    m32 = np.uint64(0xFFFFFFFF)
+    h = h.astype(np.uint64)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x7ED1B41D)) & m32
+    h ^= (h >> np.uint64(13)) ^ (h >> np.uint64(26))
+    h = (h * np.uint64(0xA5CB9243)) & m32
+    h ^= h >> np.uint64(16)
+    return h.astype(np.uint32).view(np.int32)
 
 
 def hist_tokens(case) -> np.ndarray:
     """Seeded tokens of one HIST_MATRIX case."""
-    n, vocab, _, kind = case
+    n, vocab, mod, kind = case
     rng = np.random.default_rng(n + vocab)
-    if kind == "uniform":
-        return rng.integers(0, vocab, n).astype(np.int32)
+    if kind in ("uniform", "ends"):
+        t = rng.integers(0, vocab, n).astype(np.int32)
+        if kind == "ends":
+            t[:4] = [0, vocab - 1, vocab - 1, vocab - 2]
+        return t
     if kind == "wide":                 # keys in [-vocab - 3, 2 vocab)
         t = rng.integers(-vocab - 3, 2 * vocab, n)
         t[rng.random(n) < 0.1] = SENT
         t[:3] = [-2**31, -1, SENT - 1]
         return t.astype(np.int32)
+    if kind == "hash_ends":            # hashes k * mod + r, r < vocab + 8
+        k = rng.integers(0, 2**32 // mod, n)
+        h = k * mod + rng.integers(0, vocab + 8, n)
+        h[:6] = [mod - 1, mod, mod + 1, 2**32 - 1, 2**32 - 2, 0]
+        return _unmix32(np.minimum(h, 2**32 - 1))
+    if kind == "zipf_runs":            # warp-wide runs of one key
+        t = (rng.zipf(1.3, n) % vocab).astype(np.int32)
+        for start, key in ((64, 1), (256, 700), (512, vocab - 1)):
+            t[start: start + 128] = key
+        return t
     head = {"sentinels": [1, 2, 1, SENT, 3, SENT],
             "out_of_range": [-1, -2, 3, 8, 9, 3, 5],
             "all_sentinel": []}[kind]
@@ -878,7 +941,7 @@ def decode_case(case, device) -> dict:
     t_dev = torch.tensor(case[5], dtype=torch.int32, device=device)
     return dict(kernel="flash_decode", exact=False, dtype=case[6],
                 args=(q, k, v, t_dev), t=case[5],
-                run=lambda: fd_ops.flash_decode(q, k, v, t_dev),
+                run=functools.partial(fd_ops.flash_decode, q, k, v, t_dev),
                 plain=lambda: fd_ref.flash_decode_plain(q, k, v, t_dev))
 
 
@@ -886,7 +949,8 @@ def matrix_cases(device, hist=HIST_MATRIX, slots=SLOTS_MATRIX,
                  decode=DECODE_MATRIX) -> dict:
     """The three entry-point kernels' matrices in ``entry_cases``' form:
     each case names its kernel and holds zero-argument calls of the entry
-    point and of its plain version."""
+    point (a ``functools.partial`` that carries its inputs) and of its
+    plain version."""
     wc_ops, wc_ref = _wc()
     sl_ops, sl_ref = _slots()
     cases = {}
@@ -895,15 +959,15 @@ def matrix_cases(device, hist=HIST_MATRIX, slots=SLOTS_MATRIX,
         _, vocab, mod, _ = case
         cases[f"hist_{name}"] = dict(
             kernel="hist", exact=True,
-            run=lambda x=tokens, v=vocab, m=mod: wc_ops.wordcount_hist(x, v, m),
-            plain=lambda x=tokens, v=vocab, m=mod: wc_ref.hist_plain(
-                x, v, hash_mod=m))
+            run=functools.partial(wc_ops.wordcount_hist, tokens, vocab, mod),
+            plain=functools.partial(wc_ref.hist_plain, tokens, vocab,
+                                    hash_mod=mod))
     for name, (T, E, kind) in slots.items():
         ids = torch.from_numpy(slot_ids((T, E, kind))).to(device)
         cases[f"slots_{name}"] = dict(
             kernel="bucket_slots", exact=True,
-            run=lambda i=ids, e=E: sl_ops.bucket_slots(i, e),
-            plain=lambda i=ids, e=E: sl_ref.bucket_slots_ref(i, e))
+            run=functools.partial(sl_ops.bucket_slots, ids, E),
+            plain=functools.partial(sl_ref.bucket_slots_ref, ids, E))
     for name, case in decode.items():
         cases[f"decode_{name}"] = decode_case(case, device)
     return cases
@@ -1063,8 +1127,10 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
                 decode=None) -> dict:
     """The three entry points at full width (``w``, ``routing`` and
     ``decode`` shrink them for a rehearsal): the histogram of the job's
-    corpus in count mode (vocab V) and owner mode (P bins); the slots of
-    one served batch's routing (deepseek-v2-lite) and of one segment's
+    corpus in count mode (vocab V) and owner mode (P bins), and of as many
+    uniform keys over V, seeded on the device (the worst case for the
+    kernel's per-CTA counters: most keys go to global atomics); the slots
+    of one served batch's routing (deepseek-v2-lite) and of one segment's
     owner window (P x segment x task records, ids mix32(token) % P); and
     decode on the served caches. Each case names its kernel and holds
     zero-argument calls of the entry point, its plain version and the
@@ -1075,17 +1141,23 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
     _port()
     from repro_torch.core.kv import owner_of
     tokens = torch.from_numpy(corpus).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    uniform = torch.randint(0, w.vocab, tokens.shape, generator=gen,
+                            device=device, dtype=torch.int32)
     cases = {}
-    for mode, vocab, mod in (("count", w.vocab, 0),
-                             ("owner", w.n_procs, w.n_procs)):
-        cases[f"hist_{mode}"] = dict(
-            kernel="hist", exact=True,
-            run=lambda v=vocab, m=mod: wc_ops.wordcount_hist(tokens, v, m),
-            plain=lambda v=vocab, m=mod: wc_ref.hist_plain(tokens, v,
-                                                           hash_mod=m),
-            library=(lambda: torch.bincount(tokens, minlength=w.vocab))
-            if not mod else None,
-            bound=hist_bound(tokens.numel(), vocab, mod))
+    for corpus_name, toks in (("", tokens), ("_uniform", uniform)):
+        for mode, vocab, mod in (("count", w.vocab, 0),
+                                 ("owner", w.n_procs, w.n_procs)):
+            cases[f"hist_{mode}{corpus_name}"] = dict(
+                kernel="hist", exact=True,
+                run=functools.partial(wc_ops.wordcount_hist, toks, vocab,
+                                      mod),
+                plain=functools.partial(wc_ref.hist_plain, toks, vocab,
+                                        hash_mod=mod),
+                library=None if mod else functools.partial(
+                    torch.bincount, toks, minlength=vocab),
+                bound=hist_bound(toks.numel(), vocab, mod))
     route = torch.from_numpy(np.random.default_rng(0).integers(
         0, routing[1], routing[0]).astype(np.int32)).to(device)
     window = owner_of(tokens[:w.n_procs * w.segment * w.task], w.n_procs)
@@ -1212,8 +1284,8 @@ def time_decode(c: dict) -> dict:
 
 def time_entry(cases: dict) -> dict:
     """CUDA-event time per call of each case's entry point, its plain
-    version and its library yardstick, beside its bound; for flash_decode
-    also ``time_decode``'s regimes."""
+    version and its library yardstick, beside its bound; for hist also the
+    profiler's device time; for flash_decode ``time_decode``'s regimes."""
     out = {}
     for name, c in cases.items():
         fast = c["kernel"] != "hist"
@@ -1228,6 +1300,8 @@ def time_entry(cases: dict) -> dict:
                 ms=_event_ms(c["run"], 200 if fast else 50),
                 library_ms=(_event_ms(c["library"], 50)
                             if c["library"] else None))
+        if c["kernel"] == "hist":
+            out[name]["device_ms"] = _device_ms(c["run"], 50)[0]
     return out
 
 
@@ -1274,7 +1348,7 @@ def mutant_call(name: str, device) -> dict:
     nbytes = sum(math.prod(op.shape) * op.dtype.itemsize
                  for op in kc.spec.operands if op.name != "recs") + 4 * add
     return dict(kernel=fn.__name__, exact=True,
-                run=lambda: fn(*args, **kw),
+                run=functools.partial(fn, *args, **kw),
                 plain=lambda: plain(*args, kc.spec),
                 library=((lambda: args[0] + args[1][0]) if add
                          else (lambda: args[0].clone())),
@@ -1325,23 +1399,22 @@ def memcheck_cases(device) -> dict:
     """What memcheck (a) runs: every shipping kernel over its small
     matrix (never a full-width shape; every dtype, causal and not,
     window, GQA and MQA, ragged S, hist's two modes) and the three near
-    twins, as ``name: (kernel, zero-argument call)``."""
+    twins, as ``name: (kernel, zero-argument call)``; each call is a
+    ``functools.partial`` of the wrapper, so its inputs can be re-bound
+    (the guard band, phase 2e)."""
     fm_ops, fa_ops, ssd_ops = _port()[3], _fa()[0], _ssd()[0]
     calls = {}
     for name, (args, P, cap) in fused_matrix():
         if name != "full_width":
-            a = _on(args, device)
-            calls[f"fused_{name}"] = ("fused_map", lambda a=a, P=P, c=cap:
-                                      fm_ops.fused_map(**a, n_procs=P, cap=c))
+            calls[f"fused_{name}"] = ("fused_map", functools.partial(
+                fm_ops.fused_map, **_on(args, device), n_procs=P, cap=cap))
     for name, case in FLASH_MATRIX.items():
-        q, k, v = flash_inputs(case, device)
-        calls[f"flash_{name}"] = (
-            "flash_attention", lambda q=q, k=k, v=v, c=case:
-            fa_ops.flash_attention(q, k, v, causal=c[5], window=c[6]))
+        calls[f"flash_{name}"] = ("flash_attention", functools.partial(
+            fa_ops.flash_attention, *flash_inputs(case, device),
+            causal=case[5], window=case[6]))
     for name, case in SSD_MATRIX.items():
-        args = ssd_inputs(case, device)
-        calls[f"ssd_{name}"] = ("ssd_scan", lambda a=args, c=case[6]:
-                                ssd_ops.ssd(*a, chunk=c))
+        calls[f"ssd_{name}"] = ("ssd_scan", functools.partial(
+            ssd_ops.ssd, *ssd_inputs(case, device), chunk=case[6]))
     for name, c in matrix_cases(device).items():
         calls[name] = (c["kernel"], c["run"])
     for name in MUTANT_KERNELS:
@@ -1477,6 +1550,187 @@ def phase_memcheck() -> dict:
               f"reads reported, exit {rc}")
     return dict(ran=True, version=version, padding=padding, cases=ran,
                 bad=bad, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# 2e. guard band: each kernel's inputs and outputs between bands of a pattern
+# ---------------------------------------------------------------------------
+
+# each band: larger than any tile one block of the six kernels reads or
+# writes, and a multiple of 256 bytes, so the view keeps the allocation's
+# alignment (the kernels demand 16 bytes)
+GUARD_BAND_BYTES = 2**20
+# the two fills of a float band: values no kernel would pass over unchanged
+GUARD_FLOAT_FILLS = (float("nan"), 1e4)
+# the inputs a kernel updates in place, copied for the unbanded call
+GUARD_WRITES = {"fused_map": ("table",)}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements as integers of the same width, so that NaN bands
+    compare bit for bit."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def banded(t: torch.Tensor, fill):
+    """A copy of ``t`` with ``t``'s shape and strides, on its device, as a
+    view into one larger allocation that puts a band of GUARD_BAND_BYTES
+    filled with ``fill`` before it and at least as much after it (up to a
+    256-byte boundary), and fills every element that ``t``'s strides skip
+    as well. Returns ``(view, intact)``:
+    ``intact()`` is True while every element outside the view still holds
+    ``fill``, bit for bit."""
+    device = t.device
+    size = t.element_size()
+    extent = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride())) \
+        if t.numel() else 0
+    front = GUARD_BAND_BYTES // size
+    back = (GUARD_BAND_BYTES + (-extent * size) % 256) // size
+    buf = torch.full((front + extent + back,), fill, dtype=t.dtype,
+                     device=device)
+    view = buf.as_strided(t.shape, t.stride(), front)
+    view.copy_(t)
+    want = _bits(torch.full((), fill, dtype=t.dtype))
+    outside = None
+    if extent != t.numel():                  # a view with gaps
+        outside = torch.ones(buf.shape, dtype=torch.bool, device=device)
+        outside.as_strided(t.shape, t.stride(), front).fill_(False)
+
+    def intact() -> bool:
+        b = _bits(buf)
+        b = torch.cat((b[:front], b[front + extent:])) if outside is None \
+            else b[outside]
+        return bool((b == want.to(device)).all())
+    return view, intact
+
+
+def guard_fills(kernel: str, run) -> tuple:
+    """The two fills of an integer band of ``run``'s inputs: two keys the
+    kernel counts into different bins (bucket_slots: experts 0 and E - 1;
+    hist, fused_map's keys and tables: 0 and 1)."""
+    return (0, run.args[1] - 1) if kernel == "bucket_slots" else (0, 1)
+
+
+def hist_into_band(tokens, vocab: int, hash_mod: int, fill: int):
+    """hist's C entry point (``ops._launcher()``) on ``tokens`` into a
+    zero-filled (vocab,) output view between bands of ``fill``: its
+    global atomics are the writes a band must see. Returns the counts and
+    the output's ``intact``."""
+    ops = _wc()[0]
+    out, intact = banded(torch.zeros(vocab, dtype=torch.int32,
+                                     device=tokens.device), fill)
+    rc = ops._launcher()(tokens.data_ptr(), tokens.numel(), out.data_ptr(),
+                         vocab, hash_mod,
+                         torch.cuda.current_stream(tokens.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
+    return out, intact
+
+
+def guard_call(kernel: str, run, fill: int):
+    """``run`` once with each tensor input copied between bands (the
+    ``fill``-th of GUARD_FLOAT_FILLS or of ``guard_fills``), hist on the
+    card into a banded output too. Returns its outputs (a tuple) and
+    whether every band is still intact."""
+    ints = guard_fills(kernel, run)
+    checks = []
+
+    def band(x):
+        if not torch.is_tensor(x):
+            return x
+        v, ok = banded(x, (GUARD_FLOAT_FILLS if x.is_floating_point()
+                           else ints)[fill])
+        checks.append(ok)
+        return v
+    args = [band(a) for a in run.args]
+    kw = {k: band(v) for k, v in run.keywords.items()}
+    if kernel == "hist" and args[0].is_cuda:
+        out, ok = hist_into_band(*args, ints[fill])
+        checks.append(ok)
+    else:
+        out = run.func(*args, **kw)
+    return (out if isinstance(out, tuple) else (out,),
+            all(ok() for ok in checks))
+
+
+def guard_diff(name: str, got: tuple, want: tuple) -> float:
+    """The largest difference of a banded call's outputs from the
+    unbanded call's; raises where they differ: integers bit for bit,
+    floats past the smoke's tolerance of the dtype (``flash_tol``) or not
+    finite."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if not g.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"guard band: {name}'s output changed "
+                                     f"(max abs {_int_diff(g, w)})")
+            continue
+        tol = flash_tol("bfloat16" if g.dtype == torch.bfloat16
+                        else "float32")
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        if not bool(torch.isfinite(g).all()) or bool(
+                (diff > tol["atol"] + tol["rtol"] * w.abs()).any()):
+            raise AssertionError(f"guard band: {name}'s output changed (max "
+                                 f"abs {diff.max().item()}, {tol})")
+        worst = max(worst, diff.max().item())
+    return worst
+
+
+def phase_guard(device, corpus=None) -> dict:
+    """The guard band of every shipping kernel: each case of
+    ``memcheck_cases`` once unbanded (inputs it writes copied) and once
+    with each pair of fills, hist through its C entry point into a banded
+    output; every band intact and every output equal to the unbanded
+    call's. Then, on ``corpus`` (the full-width Zipf tokens), hist in
+    count and owner mode the same way. Launch counts are zeroed just
+    before and read just after. On the card, each PAL001 bad twin runs
+    over banded inputs too, and its read past the array must change its
+    output between the two fills (on the CPU their plain versions raise
+    instead)."""
+    t0 = time.perf_counter()
+    calls = {n: c for n, c in memcheck_cases(device).items()
+             if c[0] not in MUTANT_KERNELS.values()}
+    if corpus is not None:
+        wc_ops = _wc()[0]
+        for mode, vocab, mod in (("count", VOCAB, 0),
+                                 ("owner", N_PROCS, N_PROCS)):
+            calls[f"hist_full_width_{mode}"] = ("hist", functools.partial(
+                wc_ops.wordcount_hist, corpus, vocab, mod))
+    fns = wrappers()
+    zero_counts()
+    kernels: dict[str, dict] = {}
+    for name, (kernel, run) in calls.items():
+        writes = GUARD_WRITES.get(kernel, ())
+        want = run.func(*run.args, **{k: v.clone() if k in writes else v
+                                      for k, v in run.keywords.items()})
+        want = want if isinstance(want, tuple) else (want,)
+        k = kernels.setdefault(kernel, dict(cases=0, max_abs_diff=0.0))
+        k["cases"] += 1
+        for fill in (0, 1):
+            got, intact = guard_call(kernel, run, fill)
+            if not intact:
+                raise AssertionError(f"guard band: {name} wrote a band "
+                                     f"(fill {fill})")
+            k["max_abs_diff"] = max(k["max_abs_diff"],
+                                    guard_diff(name, got, want))
+    _sync(device)
+    for kernel, k in kernels.items():
+        k["launches"] = fns[kernel].launches
+    # guard_call's calls of hist's C entry point, which no wrapper counts
+    kernels["hist"]["c_entry_calls"] = 2 * kernels["hist"]["cases"] \
+        if device.type == "cuda" else 0
+    bad = {}
+    if device.type == "cuda":
+        for name in PAL001_BAD:
+            run = mutant_call(name, device)["run"]
+            outs = [guard_call("mutant", run, fill)[0][0] for fill in (0, 1)]
+            if torch.equal(_bits(outs[0]), _bits(outs[1])):
+                raise AssertionError(f"guard band missed {name}'s read past "
+                                     f"its array")
+            bad[name] = "flagged: its output changed between the two fills"
+    return dict(kernels=kernels, bad=bad, seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -1882,10 +2136,10 @@ def cache_bytes(raw) -> dict:
 # ---------------------------------------------------------------------------
 
 def entry_kernel(name: str, source: str, replaces: str, entry: dict,
-                 times: dict, main: str, other: str, built: dict,
+                 times: dict, main: str, others: tuple, built: dict,
                  matrix_err: float) -> dict:
     """The ``kernels`` line's entry of an entry-point kernel: its numbers
-    at its ``main`` full-width case, and those of its ``other`` case."""
+    at its ``main`` full-width case, and those of its ``others``."""
     t = times[main]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = [k for k in t if k.endswith("ms") and k not in keys]
@@ -1893,14 +2147,13 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": entry["launches"][name],
-            "max_abs_err": max(matrix_err, entry["max_abs_err"][main],
-                               entry["max_abs_err"][other]),
+            "max_abs_err": max(matrix_err, *(entry["max_abs_err"][c]
+                                             for c in (main, *others))),
             "matches_plain": True, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "build_s": built[name].seconds,
-            **{k: t[k] for k in extra},
-            "shape": main, other: {k: times[other][k] for k in (
-                *keys, *extra)}}
+            **{k: t[k] for k in extra}, "shape": main,
+            **{o: {k: times[o][k] for k in (*keys, *extra)} for o in others}}
 
 
 def mutant_kernel(name: str, lint: dict, times: dict, built: dict) -> dict:
@@ -1916,8 +2169,9 @@ def mutant_kernel(name: str, lint: dict, times: dict, built: dict) -> dict:
             "matches_plain": True, "ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "build_s": built["mutants"].seconds,
-            "shape": name}
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "build_s": built["mutants"].seconds, "shape": name}
 
 
 def print_decode_times(times: dict):
@@ -2017,29 +2271,49 @@ def main(argv=()) -> int:
           f"to plain {entry['max_abs_err']}; flash_decode outputs off the "
           f"plain version's bits (p rounded to bf16) {entry['bits_off']}")
     entry_t = time_entry(cases)
+    zipf = cases["hist_count"]["run"].args[0]     # kept for phase 2e
     del cases
     for name, e in entry_t.items():
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
-        print(f"entry: {name}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+        dev = (f" (device {e['device_ms']:.4f} ms)"
+               if name.startswith("hist") else "")
+        print(f"entry: {name}: {e['ms']:.4f} ms{dev}, plain "
+              f"{e['plain_ms']:.4f} ms, "
               f"library {lib}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}: "
               f"{e['bytes']} B at 3.35 TB/s, {e['ops']} operations)")
     print_decode_times(entry_t)
 
     lint = phase_lint(device)
     lint_t = time_entry(lint["cases"])
-    for name, c in lint["cases"].items():    # the kernel's own time
-        lint_t[name]["device_ms"] = _device_ms(c["run"], 200)[0]
+    for name, c in lint["cases"].items():    # device time, in turns
+        dev = _in_turns({"kernel": c["run"], "library": c["library"]},
+                        lambda f: _device_ms(f, 200)[0])
+        lint_t[name].update(device_ms=dev["kernel"],
+                            library_device_ms=dev["library"])
     print(f"lint: fleetlint --kernels and --selftest on the card: clean and "
           f"PASS; near twins' launches {lint['launches']}, each == plain bit "
           f"for bit on seeded inputs")
     for name, e in lint_t.items():
         print(f"lint: {MUTANT_KERNELS[name]} ({name}): {e['ms']:.5f} ms "
               f"(device {e['device_ms']:.5f} ms), plain "
-              f"{e['plain_ms']:.5f} ms, library {e['library_ms']:.5f} ms, "
+              f"{e['plain_ms']:.5f} ms, library {e['library_ms']:.5f} ms "
+              f"(device {e['library_device_ms']:.5f} ms), "
               f"bound {e['bound_ms']:.7f} ms ({e['bound_by']}: {e['bytes']} B "
               f"at 3.35 TB/s; launch-bound)")
     memcheck = phase_memcheck()
     print(f"memcheck: {memcheck['seconds']:.1f} s")
+    guard = phase_guard(device, zipf)
+    del zipf
+    for kernel, k in guard["kernels"].items():
+        direct = (f" and {k['c_entry_calls']} calls of its C entry point "
+                  f"into a banded output" if "c_entry_calls" in k else "")
+        print(f"guard: {kernel}: {k['cases']} cases x 2 fills, launches "
+              f"{k['launches']}{direct}; bands untouched, outputs unchanged "
+              f"(max abs diff {k['max_abs_diff']})")
+    for name, verdict in guard["bad"].items():
+        print(f"guard: {name} ({PAL001_BAD[name]}) over banded inputs: "
+              f"{verdict}")
+    print(f"guard: {guard['seconds']:.1f} s")
 
     job = phase_job(device, N_TOKENS, N_UNFUSED)
     print(f"job: N={job['n']} WordCount V={VOCAB} P={N_PROCS} S={TASK} "
@@ -2122,7 +2396,8 @@ def main(argv=()) -> int:
                       "lint": {"launches": lint["launches"],
                                "max_abs_err": lint["max_abs_err"],
                                "times": lint_t},
-                      "memcheck": memcheck, "serve": serves}))
+                      "memcheck": memcheck, "guard": guard,
+                      "serve": serves}))
 
     fa_archs = [a for a in serves
                 if serve_kernel(get_config(a))[0] == "flash_attention"]
@@ -2169,13 +2444,14 @@ def main(argv=()) -> int:
         "fp32_build_s": built["ssd_scan_fp32"].seconds},
         entry_kernel("hist", "wordcount_hash/csrc/hist.cu",
                      "wordcount_hash/kernel.py:66", entry, entry_t,
-                     "hist_count", "hist_owner", built, 0),
+                     "hist_count", ("hist_owner", "hist_count_uniform",
+                                    "hist_owner_uniform"), built, 0),
         entry_kernel("bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
                      "moe_dispatch/kernel.py:51", entry, entry_t,
-                     "slots_routing", "slots_owner_window", built, 0),
+                     "slots_routing", ("slots_owner_window",), built, 0),
         entry_kernel("flash_decode", "flash_decode/csrc/flash_decode.cu",
                      "flash_decode/kernel.py:71", entry, entry_t,
-                     "decode_olmo-1b", "decode_h2o-danube-1.8b", built,
+                     "decode_olmo-1b", ("decode_h2o-danube-1.8b",), built,
                      max(fd_errs.values())),
         *(mutant_kernel(name, lint, lint_t, built) for name in MUTANT_KERNELS)
     ]}))

@@ -487,6 +487,28 @@ def test_entry_point_wrappers_launch_and_never_take_plain(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 100_003])
+@pytest.mark.parametrize("mode", ["count", "owner"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_hist_kernel_takes_a_view_at_any_offset(cuda_device, offset, mode,
+                                                n):
+    """A view that starts 1-3 ints past a 16-byte boundary: the kernel
+    counts the unaligned head and the tail itself, bit for bit with the
+    plain version, in one launch, and counts nothing around the view."""
+    from repro_torch.kernels.wordcount_hash.ref import hist_plain
+    vocab, mod = (50_000, 0) if mode == "count" else (8, 8)
+    base = to_torch(np.random.default_rng(offset).integers(
+        0, vocab, offset + n + 7).astype(np.int32)).to(cuda_device)
+    view = base[offset: offset + n]
+    assert view.data_ptr() % 16 == 4 * offset
+    before = wc_ops.wordcount_hist.launches
+    got = wc_ops.wordcount_hist(view, vocab, mod)
+    torch.cuda.synchronize()
+    assert wc_ops.wordcount_hist.launches == before + 1
+    assert_equal(got, hist_plain(view, vocab, hash_mod=mod).cpu())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["experts", "hd96", "group32", "fp16",
                                  "stride"])
 def test_entry_point_kernels_reject_what_they_do_not_take(cuda_device, bad):

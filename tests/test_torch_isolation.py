@@ -204,7 +204,8 @@ def test_smoke_entry_point_phases_rehearse_on_cpu():
     cases = chip_smoke.entry_cases(
         cpu, read_all(source), w, routing=(3000, 16),
         decode={"tiny_gqa": (2, 200, 8, 2, 80, 150, "bfloat16")})
-    assert set(cases) == {"hist_count", "hist_owner", "slots_routing",
+    assert set(cases) == {"hist_count", "hist_owner", "hist_count_uniform",
+                          "hist_owner_uniform", "slots_routing",
                           "slots_owner_window", "decode_tiny_gqa"}
     entry = chip_smoke.phase_entry(cpu, cases)
     assert entry["launches"] == {"hist": 0, "bucket_slots": 0,
