@@ -841,7 +841,11 @@ def hist_tokens(case) -> np.ndarray:
 # the reference's bucket_slots matrix (tests/test_kernels.py::
 # test_moe_bucket_slots_sweep) and edge cases: invalid ids (-1, E and
 # 2**31 - 1), all ids equal, one record, a record past the first 1,024-id
-# block, the most experts the kernel takes: (T, E, kind of ids)
+# block, the most experts the kernel takes; the CUDA kernel's limits: T
+# one below, at and one above its tile (1,024 ids at these sizes) and
+# two tiles, one id in every tile and in a run across a tile's edge (the
+# carry crosses tiles), every id invalid, one expert, 256 experts over
+# eight tiles, a T that is no multiple of 4: (T, E, kind of ids)
 SLOTS_MATRIX = {
     "sweep0": (256, 8, "uniform"),
     "sweep1": (1024, 16, "uniform"),
@@ -852,19 +856,43 @@ SLOTS_MATRIX = {
     "T1": (1, 4, "uniform"),
     "T1025": (1025, 32, "uniform"),
     "E256": (5000, 256, "uniform"),
+    "T1023": (1023, 16, "uniform"),
+    "T1024": (1024, 32, "uniform"),
+    "T2047": (2047, 16, "uniform"),
+    "T2048": (2048, 16, "uniform"),
+    "T2049": (2049, 16, "uniform"),
+    "repeat_across_tiles": (8192, 16, "repeat"),
+    "all_invalid": (3000, 8, "all_invalid"),
+    "E1": (4100, 1, "invalid"),
+    "E256_eight_tiles": (8192, 256, "uniform"),
+    "T4099": (4099, 32, "uniform"),
+}
+# card only (too long for the Pallas kernel's interpret mode): tiles
+# enough that the kernel's look-back over earlier tiles takes several
+# rounds (32 tiles a round at E = 256, 128 at E = 64, 256 at E = 9; 98,
+# 256 and 513 tiles of 4, 8 and 8 ids a thread on 132 SMs)
+SLOTS_LOOKBACK = {
+    "lookback_E256": (400_000, 256, "uniform"),
+    "lookback_E64": (2**21, 64, "repeat"),
+    "lookback_E9": (2**22 + 3, 9, "invalid"),
 }
 
 
 def slot_ids(case) -> np.ndarray:
-    """Seeded ids of one SLOTS_MATRIX case."""
+    """Seeded ids of one SLOTS_MATRIX or SLOTS_LOOKBACK case."""
     T, E, kind = case
     rng = np.random.default_rng(T * E)
     ids = rng.integers(0, E, T)
     if kind == "invalid":
         bad = rng.random(T) < 0.3
         ids[bad] = rng.choice([-1, E, SENT], int(bad.sum()))
+    elif kind == "all_invalid":
+        ids = rng.choice([-1, E, SENT, -2**31], T)
     elif kind == "equal":
         ids[:] = 5
+    elif kind == "repeat":      # id 3 in every tile, and 80 across a tile edge
+        ids[::5] = 3
+        ids[T // 2 - 40: T // 2 + 40] = 3
     return ids.astype(np.int32)
 
 
@@ -1138,8 +1166,6 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
     w = w or FULL
     wc_ops, wc_ref = _wc()
     sl_ops, sl_ref = _slots()
-    _port()
-    from repro_torch.core.kv import owner_of
     tokens = torch.from_numpy(corpus).to(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -1158,11 +1184,7 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
                 library=None if mod else functools.partial(
                     torch.bincount, toks, minlength=vocab),
                 bound=hist_bound(toks.numel(), vocab, mod))
-    route = torch.from_numpy(np.random.default_rng(0).integers(
-        0, routing[1], routing[0]).astype(np.int32)).to(device)
-    window = owner_of(tokens[:w.n_procs * w.segment * w.task], w.n_procs)
-    for name, ids, E in (("routing", route, routing[1]),
-                         ("owner_window", window, w.n_procs)):
+    for name, (ids, E) in slots_inputs(device, tokens, w, routing).items():
         cases[f"slots_{name}"] = dict(
             kernel="bucket_slots", exact=True,
             run=lambda i=ids, e=E: sl_ops.bucket_slots(i, e),
@@ -1170,6 +1192,22 @@ def entry_cases(device, corpus: np.ndarray, w=None, routing=ROUTING,
             library=None, bound=slots_bound(ids.numel(), E))
     cases.update(decode_entry_cases(device, decode))
     return cases
+
+
+def slots_inputs(device, tokens, w=None, routing=ROUTING) -> dict:
+    """bucket_slots' two full-width inputs as ``name: (ids, E)``: the
+    routing of one served batch (``routing`` = (T, E), ids seeded
+    uniform over the E experts) and one segment's owner window (the
+    first P x segment x task of the corpus ``tokens``, ids mix32(token)
+    % P)."""
+    w = w or FULL
+    _port()
+    from repro_torch.core.kv import owner_of
+    route = torch.from_numpy(np.random.default_rng(0).integers(
+        0, routing[1], routing[0]).astype(np.int32)).to(device)
+    window = owner_of(tokens[:w.n_procs * w.segment * w.task], w.n_procs)
+    return {"routing": (route, routing[1]),
+            "owner_window": (window, w.n_procs)}
 
 
 def decode_entry_cases(device, decode=None) -> dict:
@@ -1230,21 +1268,28 @@ def _cold_ms(fn, iters: int) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / iters
 
 
-def _device_ms(fn, iters: int) -> tuple[float, list, float]:
+def _device_ms(fn, iters: int, tries: int = 3) -> tuple[float, list, float]:
     """Device time per call of ``fn`` run back to back: the summed time of
     the device's own activities in a ``torch.profiler`` trace of ``iters``
     calls, over ``iters``; their names; and their number over ``iters``
     (a trace can miss its first activity, so not one call's trace). The
-    host's cost per call is the event time less this."""
+    host's cost per call is the event time less this. Every call timed
+    here launches at least one activity, so a trace that holds fewer
+    than ``iters`` has dropped some: it is taken again, up to ``tries``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if len(events) >= iters:
+            break
     total_us = sum(e.time_range.elapsed_us() for e in events)
     return (total_us / 1e3 / iters, sorted({e.name[:80] for e in events}),
             len(events) / iters)
@@ -1284,10 +1329,13 @@ def time_decode(c: dict) -> dict:
 
 def time_entry(cases: dict) -> dict:
     """CUDA-event time per call of each case's entry point, its plain
-    version and its library yardstick, beside its bound; for hist also the
-    profiler's device time; for flash_decode ``time_decode``'s regimes."""
+    version and its library yardstick, beside its bound; for hist and
+    bucket_slots also the profiler's device time and device activities a
+    call (bucket_slots: one, or this raises), and the seconds all this
+    took; for flash_decode ``time_decode``'s regimes."""
     out = {}
     for name, c in cases.items():
+        t0 = time.perf_counter()
         fast = c["kernel"] != "hist"
         bound_ms, bound_by, work = c["bound"]
         out[name] = dict(plain_ms=_event_ms(c["plain"], 10 if fast else 3),
@@ -1300,8 +1348,18 @@ def time_entry(cases: dict) -> dict:
                 ms=_event_ms(c["run"], 200 if fast else 50),
                 library_ms=(_event_ms(c["library"], 50)
                             if c["library"] else None))
-        if c["kernel"] == "hist":
-            out[name]["device_ms"] = _device_ms(c["run"], 50)[0]
+        if c["kernel"] in ("hist", "bucket_slots"):
+            dev, acts, per_call = _device_ms(
+                c["run"], 50 if c["kernel"] == "hist" else 200)
+            out[name].update(device_ms=dev, device_activities=acts,
+                             device_activities_per_call=per_call)
+            # one kernel a call: one name, never more than one a call (a
+            # trace drops activities, and never adds one)
+            if c["kernel"] == "bucket_slots" and not (
+                    len(acts) == 1 and 0 < per_call <= 1.0):
+                raise AssertionError(f"bucket_slots on {name}: {per_call} "
+                                     f"device activities a call ({acts})")
+        out[name]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -1628,11 +1686,47 @@ def hist_into_band(tokens, vocab: int, hash_mod: int, fill: int):
     return out, intact
 
 
+def slots_into_band(ids, n_experts: int, fill: int):
+    """bucket_slots' C entry point (``ops._launcher()``) on ``ids`` into
+    slots, counts and scratch (zeroed, as the wrapper allocates it) that
+    are views between bands of ``fill``, twice: the second call finds the
+    status words the first left. Raises where the two calls' outputs
+    differ. Returns the first call's slots and counts and ``intact`` over
+    the three views."""
+    ops = _slots()[0]
+    T, dev = ids.numel(), ids.device
+    items, tiles = ops.plan(T, ops.sm_count(dev))
+    scratch, ok_w = banded(torch.zeros(1 + tiles * n_experts,
+                                       dtype=torch.int64, device=dev), fill)
+    outs = []
+    for _ in range(2):
+        slots, ok_s = banded(torch.empty(T, dtype=torch.int32, device=dev),
+                             fill)
+        counts, ok_c = banded(torch.empty(n_experts, dtype=torch.int32,
+                                          device=dev), fill)
+        rc = ops._launcher()(ids.data_ptr(), T, n_experts, items,
+                             slots.data_ptr(), counts.data_ptr(),
+                             scratch.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"bucket_slots kernel launch failed: CUDA "
+                               f"error {rc}")
+        outs.append(((slots, counts), (ok_s, ok_c)))
+    (first, oks), (second, _) = outs
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError("bucket_slots: a second call on the same "
+                                 "scratch changed the output")
+    checks = [ok_w, *oks, *outs[1][1]]
+    return first, lambda: all(ok() for ok in checks)
+
+
 def guard_call(kernel: str, run, fill: int):
     """``run`` once with each tensor input copied between bands (the
-    ``fill``-th of GUARD_FLOAT_FILLS or of ``guard_fills``), hist on the
-    card into a banded output too. Returns its outputs (a tuple) and
-    whether every band is still intact."""
+    ``fill``-th of GUARD_FLOAT_FILLS or of ``guard_fills``), hist and
+    bucket_slots on the card through their C entry points into banded
+    outputs (and bucket_slots' scratch) too. Returns its outputs (a tuple)
+    and whether every band is still intact."""
     ints = guard_fills(kernel, run)
     checks = []
 
@@ -1647,6 +1741,9 @@ def guard_call(kernel: str, run, fill: int):
     kw = {k: band(v) for k, v in run.keywords.items()}
     if kernel == "hist" and args[0].is_cuda:
         out, ok = hist_into_band(*args, ints[fill])
+        checks.append(ok)
+    elif kernel == "bucket_slots" and args[0].is_cuda:
+        out, ok = slots_into_band(*args, ints[fill])
         checks.append(ok)
     else:
         out = run.func(*args, **kw)
@@ -1706,8 +1803,10 @@ def phase_guard(device, corpus=None) -> dict:
         want = run.func(*run.args, **{k: v.clone() if k in writes else v
                                       for k, v in run.keywords.items()})
         want = want if isinstance(want, tuple) else (want,)
-        k = kernels.setdefault(kernel, dict(cases=0, max_abs_diff=0.0))
+        k = kernels.setdefault(kernel, dict(cases=0, max_abs_diff=0.0,
+                                            seconds=0.0))
         k["cases"] += 1
+        t_case = time.perf_counter()
         for fill in (0, 1):
             got, intact = guard_call(kernel, run, fill)
             if not intact:
@@ -1715,12 +1814,16 @@ def phase_guard(device, corpus=None) -> dict:
                                      f"(fill {fill})")
             k["max_abs_diff"] = max(k["max_abs_diff"],
                                     guard_diff(name, got, want))
+        k["seconds"] += time.perf_counter() - t_case
     _sync(device)
     for kernel, k in kernels.items():
         k["launches"] = fns[kernel].launches
-    # guard_call's calls of hist's C entry point, which no wrapper counts
-    kernels["hist"]["c_entry_calls"] = 2 * kernels["hist"]["cases"] \
-        if device.type == "cuda" else 0
+    # guard_call's calls of hist's and bucket_slots' C entry points, which
+    # no wrapper counts
+    for kernel, calls_a_case in (("hist", 2), ("bucket_slots", 4)):
+        kernels[kernel]["c_entry_calls"] = \
+            calls_a_case * kernels[kernel]["cases"] \
+            if device.type == "cuda" else 0
     bad = {}
     if device.type == "cuda":
         for name in PAL001_BAD:
@@ -2142,7 +2245,8 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
     at its ``main`` full-width case, and those of its ``others``."""
     t = times[main]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = [k for k in t if k.endswith("ms") and k not in keys]
+    extra = [k for k in t if (k.endswith("ms") and k not in keys)
+             or k == "device_activities_per_call"]
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
@@ -2247,7 +2351,8 @@ def main(argv=()) -> int:
           f"{ssd['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
           f"{ssd['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s)")
 
-    matrix = matrix_cases(device, decode={**DECODE_MATRIX, **DECODE_FULL_F32})
+    matrix = matrix_cases(device, slots={**SLOTS_MATRIX, **SLOTS_LOOKBACK},
+                          decode={**DECODE_MATRIX, **DECODE_FULL_F32})
     m_errs = check_cases(matrix)
     check_decode_edges(matrix)
     fd_bits = check_decode_bits(matrix)
@@ -2275,8 +2380,11 @@ def main(argv=()) -> int:
     del cases
     for name, e in entry_t.items():
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
-        dev = (f" (device {e['device_ms']:.4f} ms)"
-               if name.startswith("hist") else "")
+        dev = (f" (device {e['device_ms']:.5f} ms, "
+               f"{e['device_activities_per_call']:.2f} device activities a "
+               f"call: {e['device_activities']}; timed in "
+               f"{e['seconds']:.1f} s)"
+               if "device_activities_per_call" in e else "")
         print(f"entry: {name}: {e['ms']:.4f} ms{dev}, plain "
               f"{e['plain_ms']:.4f} ms, "
               f"library {lib}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}: "
@@ -2306,10 +2414,10 @@ def main(argv=()) -> int:
     del zipf
     for kernel, k in guard["kernels"].items():
         direct = (f" and {k['c_entry_calls']} calls of its C entry point "
-                  f"into a banded output" if "c_entry_calls" in k else "")
+                  f"into banded outputs" if "c_entry_calls" in k else "")
         print(f"guard: {kernel}: {k['cases']} cases x 2 fills, launches "
               f"{k['launches']}{direct}; bands untouched, outputs unchanged "
-              f"(max abs diff {k['max_abs_diff']})")
+              f"(max abs diff {k['max_abs_diff']}); {k['seconds']:.2f} s")
     for name, verdict in guard["bad"].items():
         print(f"guard: {name} ({PAL001_BAD[name]}) over banded inputs: "
               f"{verdict}")

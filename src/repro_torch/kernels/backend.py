@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+_CAPABILITY: dict = {}    # CUDA device -> its capability, read once
+
+
 def use_kernel(t: torch.Tensor, require: bool = False) -> bool:
     """True when a wrapper given ``t`` launches its compiled kernel, False
     when it takes the plain version. ``require=True`` (a wrapper's
@@ -43,7 +46,10 @@ def use_kernel(t: torch.Tensor, require: bool = False) -> bool:
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no kernel policy for device {t.device}")
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = _CAPABILITY.get(t.device)
+    if cap is None:
+        cap = _CAPABILITY[t.device] = torch.cuda.get_device_capability(
+            t.device)
     if cap != REQUIRED_CAPABILITY:
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); "

@@ -486,6 +486,116 @@ def test_entry_point_wrappers_launch_and_never_take_plain(cuda_device,
     assert o.is_cuda and o.shape == q.shape and o.dtype == q.dtype
 
 
+def _slot_case(case, device):
+    ids = to_torch(chip_smoke.slot_ids(case)).to(device)
+    return ids, case[1], sl_ops.bucket_slots_ref(ids, case[1])
+
+
+def _assert_slots(got, want, what=""):
+    assert_equal(got[0], want[0].cpu().numpy(), f"{what} slots")
+    assert_equal(got[1], want[1].cpu().numpy(), f"{what} counts")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(chip_smoke.SLOTS_LOOKBACK))
+def test_bucket_slots_looks_back_over_many_tiles(cuda_device, name):
+    """Cases whose look-back over earlier tiles takes several rounds, bit
+    for bit with the plain version."""
+    ids, E, want = _slot_case(chip_smoke.SLOTS_LOOKBACK[name], cuda_device)
+    _assert_slots(sl_ops.bucket_slots(ids, E), want, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["routing", "owner_window"])
+def test_bucket_slots_is_one_device_kernel_a_call(cuda_device, shape):
+    """At both full-width shapes a call is one device activity: no fill,
+    no second pass."""
+    T, E = chip_smoke.ROUTING if shape == "routing" else (
+        chip_smoke.N_PROCS * chip_smoke.SEGMENT * chip_smoke.TASK,
+        chip_smoke.N_PROCS)
+    ids = to_torch(np.random.default_rng(T).integers(0, E, T).astype(
+        np.int32)).to(cuda_device)
+    _, names, per_call = chip_smoke._device_ms(
+        lambda: sl_ops.bucket_slots(ids, E), 50)
+    # a trace can drop activities, never add one
+    assert len(names) == 1 and 0 < per_call <= 1.0, (names, per_call)
+    _assert_slots(sl_ops.bucket_slots(ids, E),
+                  sl_ops.bucket_slots_ref(ids, E), shape)
+
+
+@pytest.mark.cuda
+def test_bucket_slots_calls_in_a_row_agree(cuda_device):
+    """Ten calls in a row on one stream, and calls of other shapes between
+    them on the same scratch (which grows, and keeps the words of larger
+    calls), each equal to the plain version: every call's epoch leaves
+    the status words ready for the next."""
+    cases = [_slot_case(chip_smoke.SLOTS_MATRIX[n], cuda_device) for n in
+             ("repeat_across_tiles", "T2049", "E256_eight_tiles", "T1")]
+    cases.append(_slot_case(chip_smoke.SLOTS_LOOKBACK["lookback_E64"],
+                            cuda_device))
+    ids, E, want = cases[0]
+    outs = [sl_ops.bucket_slots(ids, E) for _ in range(10)]
+    for i, got in enumerate(outs):
+        _assert_slots(got, want, f"call {i}")
+    for _ in range(3):
+        for ids, E, want in cases + cases[::-1]:
+            _assert_slots(sl_ops.bucket_slots(ids, E), want, f"E {E}")
+
+
+@pytest.mark.cuda
+def test_bucket_slots_on_two_streams(cuda_device):
+    """Calls on two CUDA streams, interleaved: each stream keeps its own
+    scratch, and every output equals the plain version."""
+    a = _slot_case(chip_smoke.SLOTS_MATRIX["repeat_across_tiles"],
+                   cuda_device)
+    b = _slot_case(chip_smoke.SLOTS_LOOKBACK["lookback_E9"], cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(5):
+        for s, (ids, E, _) in zip(streams, (a, b)):
+            with torch.cuda.stream(s):
+                outs.append(sl_ops.bucket_slots(ids, E))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        _assert_slots(got, (a, b)[i % 2][2], f"call {i}")
+    for s in streams:
+        assert (cuda_device, s.cuda_stream) in sl_ops._SCRATCH
+
+
+@pytest.mark.cuda
+def test_bucket_slots_renews_its_scratch_before_the_epochs_run_out(
+        cuda_device, monkeypatch):
+    """With a scratch good for 3 calls, the fourth call gets a zeroed one,
+    and every call stays equal to the plain version."""
+    monkeypatch.setattr(sl_ops, "_SCRATCH", {})
+    monkeypatch.setattr(sl_ops, "MAX_CALLS", 3)
+    ids, E, want = _slot_case(chip_smoke.SLOTS_MATRIX["repeat_across_tiles"],
+                              cuda_device)
+    held = []
+    for i in range(8):
+        _assert_slots(sl_ops.bucket_slots(ids, E), want, f"call {i}")
+        held.append(next(iter(sl_ops._SCRATCH.values()))[0])
+    assert len({id(t) for t in held}) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_bucket_slots_takes_a_view_at_any_offset(cuda_device, offset):
+    """A view that starts 1-3 ints past a 16-byte boundary, invalid ids
+    included, bit for bit with the plain version, in one launch."""
+    T, E = 5001, 16
+    base = to_torch(np.random.default_rng(offset).integers(
+        -1, E + 1, offset + T + 7).astype(np.int32)).to(cuda_device)
+    view = base[offset: offset + T]
+    assert view.data_ptr() % 16 == 4 * offset
+    before = sl_ops.bucket_slots.launches
+    got = sl_ops.bucket_slots(view, E)
+    torch.cuda.synchronize()
+    assert sl_ops.bucket_slots.launches == before + 1
+    _assert_slots(got, sl_ops.bucket_slots_ref(view, E), f"offset {offset}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [5, 100_003])
 @pytest.mark.parametrize("mode", ["count", "owner"])

@@ -92,12 +92,16 @@ def test_use_kernel_true_on_cpu_raises():
 
 def test_policy_on_cuda_tensors(monkeypatch):
     """A CUDA tensor takes the kernel on sm_90, demanded or not, and
-    raises on any other card — decided without a card by faking one."""
+    raises on any other card — decided without a card by faking one
+    (the policy reads a device's capability once, so each fake card
+    starts from an empty cache)."""
     fake = types.SimpleNamespace(device=torch.device("cuda", 0))
+    monkeypatch.setattr(backend, "_CAPABILITY", {})
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda d=None: (9, 0))
     assert backend.use_kernel(fake) is True
     assert backend.use_kernel(fake, require=True) is True
+    monkeypatch.setattr(backend, "_CAPABILITY", {})
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda d=None: (8, 0))
     monkeypatch.setattr(torch.cuda, "get_device_name",

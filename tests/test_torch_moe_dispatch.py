@@ -6,6 +6,8 @@ the plain version the CUDA kernel is held to) must equal the reference's
 its oracle ``bucket_slots_ref``, slots and counts, on every case of the
 matrix ``chip_smoke.py`` holds the kernel to on the card. Tolerance 0.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -75,3 +77,56 @@ def test_kernel_source_is_wired():
     assert 'extern "C" int bucket_slots_launch(' in src
     assert "bucket_slots_pallas" in src         # names what it replaces
     assert "cudaGetLastError" in src
+
+
+def test_kernel_constants_match_the_source():
+    """The wrapper's threads, ids a thread and expert limit are the
+    kernel's, and its epochs fit the 30 bits a status word gives them."""
+    src = ops.SOURCE.read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kThreads"] == ops.THREADS
+    assert consts["kMaxExperts"] == ops.MAX_EXPERTS
+    assert [int(k) for k in re.findall(r"case (\d+): return launch<", src)] \
+        == list(ops.ITEMS)
+    assert ops.MAX_CALLS < 2**30 - 1
+
+
+@pytest.mark.parametrize("T,sms,want", [
+    (1, 132, (1, 1)),
+    (98_304, 132, (1, 96)),           # the routing shape: 96 tiles of 1,024
+    (135_168, 132, (1, 132)),         # one wave exactly
+    (135_169, 132, (2, 67)),
+    (2**20, 132, (8, 128)),           # the owner window: 128 tiles of 8,192
+    (2**20 + 3, 132, (8, 129)),       # past one wave even at 8 ids a thread
+    (2**22 + 3, 132, (8, 513)),
+    (400_000, 132, (4, 98)),
+    (2**20, 114, (8, 128)),           # a card of fewer SMs
+    (500_000, 114, (8, 62)),
+])
+def test_plan_fills_one_wave_with_the_fewest_ids_a_thread(T, sms, want):
+    assert ops.plan(T, sms) == want
+    items, tiles = want
+    assert tiles == -(-T // (ops.THREADS * items))
+
+
+def test_scratch_is_kept_per_stream_grown_and_renewed(monkeypatch):
+    """One zeroed int64 scratch per (device, stream), reused by later
+    calls with no fill, grown when a call needs more, and replaced by a
+    zeroed one after MAX_CALLS calls."""
+    monkeypatch.setattr(ops, "_SCRATCH", {})
+    monkeypatch.setattr(ops, "MAX_CALLS", 5)
+    cpu = torch.device("cpu")
+    a = ops._scratch(cpu, 1, 10)
+    assert a.dtype == torch.int64 and a.numel() == 10
+    assert int(a.abs().sum()) == 0
+    a.fill_(3)                       # as a kernel would leave it
+    assert ops._scratch(cpu, 1, 4) is a
+    assert ops._scratch(cpu, 2, 4) is not a
+    b = ops._scratch(cpu, 1, 20)
+    assert b.numel() == 20 and int(b.abs().sum()) == 0
+    b.fill_(3)
+    for _ in range(4):
+        assert ops._scratch(cpu, 1, 20) is b
+    c = ops._scratch(cpu, 1, 4)
+    assert c is not b and c.numel() == 20 and int(c.abs().sum()) == 0
