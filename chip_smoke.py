@@ -73,6 +73,25 @@ Phases, each of which asserts (nothing is caught):
                job (~9x slower), all equal; then, over a segment whose
                input is read, the graph's and the eager loop's host
                microseconds a step and device busy share;
+  3b. compare — MR-2S against the fused MR-1S at phase 3's width on its
+               2**27-token corpus, read once into host memory and fed as
+               an array, after a warm-up of each, under three repeat
+               grids (balanced, phase 3's unbalanced, and the Zipf rank
+               skew s 1.1, mean repeat 4 of the reference's
+               fig9_imbalance): every job's records equal to the oracle;
+               each job's wall, tokens/s, the feed's host seconds a
+               segment, fused_map launches (1S one a step, 2S none), the
+               device's busy share and kernels over one segment, and the
+               hot rank's repeats; then both oneshot on the unbalanced
+               grid, each peak of device memory beside the Fig 6 buffers
+               from their shapes;
+  3c. snapshots — on the same corpus and unbalanced grid, the segmented
+               fused 1S job without and with ``handle.checkpoint`` after
+               every 8th segment (keep 2), in turns, and its overhead; the
+               older kept snapshot restored into a fresh handle and
+               finished; the same for 2S; a 1S job re-planned halfway by
+               ``replan_handle``; every job's records equal to the
+               uninterrupted job's;
   4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
                at full width through ``ServeEngine.generate``: 16
                requests (h2o: one batch) in batches of 8, 2048-token
@@ -90,8 +109,8 @@ Phases, each of which asserts (nothing is caught):
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
-of 2, the lint of 2c, the guard band of 2e, then 3 and each arch of 4)
-and read just after it.
+of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b and
+3c, and each arch of 4) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -1861,14 +1880,15 @@ def job_config(fused: bool, w: Width = FULL):
                           fused_map=fused)
 
 
+def tasks_per_rank(n: int, w: Width = FULL) -> int:
+    return -(-(-(-n // w.task)) // w.n_procs)
+
+
 def job_input(n: int, w: Width = FULL):
     """The PUMA-like corpus and its imbalance grid (one hot rank at 8x)."""
     _, data, _, _, _ = _port()
     source = data.ZipfSource(n=n, vocab=w.vocab, a=1.3, seed=0)
-    T = -(-(-(-n // w.task)) // w.n_procs)
-    reps = data.imbalance_repeats(w.n_procs, T, mode="unbalanced",
-                                  hot_factor=8, hot_fraction=0.125)
-    return source, reps
+    return source, grid_repeats("unbalanced", tasks_per_rank(n, w), w)
 
 
 def submit_job(cfg, source, reps, device, eager: bool = False):
@@ -1952,8 +1972,9 @@ def phase_job(device, n: int, n_unfused: int, w: Width = FULL) -> dict:
 def device_profile(fn, keep: tuple = ()) -> dict:
     """Device busy share of ``fn()``: the summed time of the device's own
     activities (kernels, copies) in the profiler's trace against the host
-    wall of the same window, the six costliest names, and every name that
-    holds one of ``keep``."""
+    wall of the same window, the six costliest names, every name that
+    holds one of ``keep``, and the count of kernels (copies and fills
+    apart)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1975,7 +1996,9 @@ def device_profile(fn, keep: tuple = ()) -> dict:
     return dict(wall_s=wall, device_s=device_us / 1e6,
                 busy_share=device_us / 1e6 / wall,
                 top=[(k, t / 1e3, c) for k, (t, c) in ranked[:6]],
-                kept=[(k, t / 1e3, c) for k, (t, c) in kept])
+                kept=[(k, t / 1e3, c) for k, (t, c) in kept],
+                kernels=sum(c for k, (_, c) in ranked
+                            if not k.startswith(("Memcpy", "Memset"))))
 
 
 def phase_profile(device, n: int, w: Width = FULL,
@@ -2017,6 +2040,275 @@ def print_profile(what: str, prof: dict):
         print(f"  {ms:10.3f} ms  x{count:<6d} {key[:100]}")
     for key, ms, count in prof.get("kept", []):
         print(f"  named: {ms:10.3f} ms  x{count:<6d} {key[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# 3b. MR-1S against MR-2S, 3c. snapshots and re-planning
+# ---------------------------------------------------------------------------
+
+# the comparison's repeat grids: the balanced one, phase 3's (one rank of
+# 8 at 8x, the paper's footnote 5) and the Zipf rank skew of the
+# reference's fig9_imbalance (s 1.1, mean repeat 4, seed 1)
+GRIDS = ("balanced", "unbalanced", "zipf")
+CKPT_EVERY, CKPT_KEEP = 8, 2
+
+
+def grid_repeats(name: str, T: int, w: Width = FULL) -> np.ndarray:
+    _, data, _, _, _ = _port()
+    if name == "zipf":
+        return data.zipf_skew_repeats(w.n_procs, T, 1.1, mean_rep=4, seed=1)
+    return data.imbalance_repeats(w.n_procs, T, mode=name, hot_factor=8,
+                                  hot_fraction=0.125)
+
+
+def engine_config(backend: str, w: Width = FULL, segment: int | None = None):
+    """WordCount at the width ``w`` under ``backend``: ``"1s"`` with the
+    fused step (its CUDA graphs on the card), ``"2s"`` as it is (it has
+    no fused path)."""
+    core, _, _, _, _ = _port()
+    return core.JobConfig(core.WordCount(vocab=w.vocab), backend=backend,
+                          task_size=w.task, push_cap=w.cap,
+                          n_procs=w.n_procs,
+                          segment=w.segment if segment is None else segment,
+                          fused_map=backend == "1s")
+
+
+def run_engine(cfg, corpus, reps, device, every: int = 0, mgr=None) -> dict:
+    """One job through ``submit``, step by step, its fused_map launches
+    counted from 0; with ``mgr``, ``handle.checkpoint(mgr)`` after every
+    ``every``-th segment and the writes waited for inside the wall."""
+    core, _, _, ops, _ = _port()
+    zero_counts()
+    t0 = time.perf_counter()
+    h = core.submit(cfg, corpus, device=device, repeats=reps)
+    k, more = 0, cfg.segment > 0
+    while more:
+        more = h.step()
+        k += 1
+        if mgr is not None and k % every == 0:
+            h.checkpoint(mgr)
+    res = h.result()
+    if mgr is not None:
+        mgr.wait()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = h.feed.stats
+    return dict(result=res, wall_s=wall, tokens_per_s=len(corpus) / wall,
+                launches=ops.fused_map.launches,
+                segments=st.segments_built,
+                feed_s_per_segment=st.build_seconds / st.segments_built,
+                prefetch_hits=st.prefetch_hits)
+
+
+def segment_profile(cfg, corpus, reps, device) -> dict:
+    """``device_profile`` over one segment whose input the feed has read
+    already, after a warm one: the device's busy share and its kernels
+    (copies and fills apart) a segment."""
+    core, _, _, _, _ = _port()
+    with core.submit(cfg, corpus, device=device, repeats=reps) as h:
+        h.step()
+        while not h.feed.ready():
+            time.sleep(1e-3)
+        return device_profile(h.step, keep=("fused_map",))
+
+
+def fig6_bytes(n: int, w: Width = FULL) -> dict:
+    """The oneshot job's device buffers from their shapes (the reference's
+    ``benchmarks/fig6_memory.py`` model, all P ranks on one card):
+    both hold the input, the windows and owner maps; 1S its graph path's
+    packed copy of the input; 2S every task's buckets to send and as
+    received (keys and values) and the local overflow."""
+    T = tasks_per_rank(n, w)
+    tokens = w.n_procs * T * w.task * 4
+    carry = 3 * w.n_procs * w.vocab * 4
+    send = 2 * w.n_procs * w.n_procs * T * w.cap * 4
+    overflow = 2 * w.n_procs * T * w.task * 4
+    return {"input": tokens, "carry": carry, "send": send,
+            "received": send, "overflow": overflow,
+            "1s": tokens + tokens + carry,
+            "2s": tokens + carry + 2 * send + overflow}
+
+
+def warm_up(device, corpus: np.ndarray, w: Width = FULL):
+    """Each engine once over four segments of ``corpus`` (the first fused
+    job builds ``fused_map``)."""
+    warm = corpus[: 4 * w.segment * w.task * w.n_procs]
+    T = tasks_per_rank(len(warm), w)
+    for backend in ("2s", "1s"):
+        run_engine(engine_config(backend, w), warm,
+                   grid_repeats("unbalanced", T, w), device)
+
+
+def phase_compare(device, corpus: np.ndarray, w: Width = FULL) -> dict:
+    """MR-2S against the fused MR-1S on ``corpus`` held in host memory,
+    after a warm-up of each, under each of ``GRIDS``: each job's records
+    equal to the numpy oracle, its wall, tokens/s, feed seconds a
+    segment and fused_map launches (1S: one a step; 2S: none), and on the
+    card its device busy share and kernels a segment. Then both oneshot
+    on the unbalanced grid, each from a reset peak: its peak device
+    memory beside ``fig6_bytes``."""
+    core, data, _, _, _ = _port()
+    cuda = device.type == "cuda"
+    n = len(corpus)
+    oracle = core.wordcount_oracle(corpus, w.vocab)
+    T = tasks_per_rank(n, w)
+    warm_up(device, corpus, w)
+    out = {"n": n, "steps": -(-T // w.segment) * w.segment}
+    for grid in GRIDS:
+        reps = grid_repeats(grid, T, w)
+        work = reps.sum(axis=1)
+        row = out[grid] = {"hot_rank_repeats": int(work.max()),
+                           "mean_rank_repeats": float(work.mean()),
+                           "lockstep_passes": int(reps.max(axis=0).sum())}
+        for backend in ("2s", "1s"):
+            cfg = engine_config(backend, w)
+            r = run_engine(cfg, corpus, reps, device)
+            assert r.pop("result").records == oracle, (grid, backend)
+            if cuda:
+                want = out["steps"] if backend == "1s" else 0
+                assert r["launches"] == want, (grid, backend, r["launches"])
+                r["profile"] = segment_profile(cfg, corpus, reps, device)
+            row[backend] = r
+        row["wall_2s_over_1s"] = row["2s"]["wall_s"] / row["1s"]["wall_s"]
+    reps = grid_repeats("unbalanced", T, w)
+    one = out["oneshot"] = {"analytic": fig6_bytes(n, w)}
+    for backend in ("2s", "1s"):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        r = run_engine(engine_config(backend, w, segment=0), corpus, reps,
+                       device)
+        assert r.pop("result").records == oracle, ("oneshot", backend)
+        if cuda:
+            r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        one[backend] = r
+    return out
+
+
+def phase_snapshots(device, corpus: np.ndarray, w: Width = FULL) -> dict:
+    """Checkpoints on the unbalanced grid, after a warm-up: the fused 1S
+    job segmented,
+    without and with ``handle.checkpoint`` after every ``CKPT_EVERY``-th
+    segment into a temporary directory keeping ``CKPT_KEEP``, in turns
+    (without, with, with, without); the older kept snapshot restored
+    into a fresh handle and finished. The same for 2S (one pair). Then a
+    1S job re-planned halfway by ``replan_handle``, its hot rank slowed
+    in the tracker. Every job's records equal to the uninterrupted
+    job's."""
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ft.straggler import ThroughputTracker, replan_handle
+    core, _, _, _, _ = _port()
+    T = tasks_per_rank(len(corpus), w)
+    reps = grid_repeats("unbalanced", T, w)
+    warm_up(device, corpus, w)
+    out = {}
+    for backend, turns in (("1s", (False, True, True, False)),
+                           ("2s", (False, True))):
+        cfg = engine_config(backend, w)
+        row = out[backend] = {"plain_s": [], "ckpt_s": []}
+        want = None
+        for ckpt in turns:
+            with tempfile.TemporaryDirectory() as d:
+                mgr = CheckpointManager(d, keep=CKPT_KEEP)
+                r = run_engine(cfg, corpus, reps, device, CKPT_EVERY,
+                               mgr if ckpt else None)
+                records = r["result"].records
+                want = records if want is None else want
+                assert records == want, (backend, ckpt)
+                row["ckpt_s" if ckpt else "plain_s"].append(r["wall_s"])
+                if not ckpt or "restored_s" in row:
+                    continue
+                steps = mgr.steps()
+                assert len(steps) == CKPT_KEEP, steps
+                t0 = time.perf_counter()
+                h = core.submit(cfg, corpus, device=device, repeats=reps)
+                res = h.restore(mgr, step=steps[0]).result()
+                row["restored_s"] = time.perf_counter() - t0
+                row["restored_from"] = steps[0]
+                assert res.records == want, (backend, "restored")
+        row["overhead"] = (sum(row["ckpt_s"]) / len(row["ckpt_s"])
+                           / (sum(row["plain_s"]) / len(row["plain_s"]))
+                           - 1.0)
+    t0 = time.perf_counter()
+    h = core.submit(engine_config("1s", w), corpus, device=device,
+                    repeats=reps)
+    h.step(-(-T // w.segment) // 2)
+    before = h.feed.total_columns - h.cursor
+    tracker = ThroughputTracker(n_procs=w.n_procs, alpha=1.0)
+    tracker.update(reps.sum(axis=1))          # seconds follow each work
+    grid = replan_handle(h, tracker)
+    res = h.result()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    assert res.records == want, "replanned"
+    out["replan"] = {"wall_s": time.perf_counter() - t0,
+                     "columns_before": before,
+                     "columns_after": int(grid.shape[1]),
+                     "hot_rank_tasks_after": int((grid[0] >= 0).sum()),
+                     "tasks_after": int((grid >= 0).sum())}
+    return out
+
+
+def print_compare(c: dict, w: Width = FULL):
+    print(f"compare: MR-2S against MR-1S (fused), N={c['n']} in host "
+          f"memory, V={w.vocab} P={w.n_procs} S={w.task} cap={w.cap} "
+          f"segment={w.segment}, {c['steps']} 1S steps; every job's records "
+          f"== oracle")
+    for grid in GRIDS:
+        row = c[grid]
+        print(f"compare: {grid}: hot rank {row['hot_rank_repeats']} repeats "
+              f"(mean {row['mean_rank_repeats']:.1f}; the lockstep runs "
+              f"{row['lockstep_passes']} repeat passes a rank); 2S/1S wall "
+              f"{row['wall_2s_over_1s']:.4f}")
+        for backend in ("2s", "1s"):
+            r = row[backend]
+            prof = r.get("profile")
+            dev = (f", busy share {prof['busy_share']:.3f} and "
+                   f"{prof['kernels']} device kernels over one segment"
+                   if prof else "")
+            print(f"compare: {grid} {backend}: {r['wall_s']:.3f} s, "
+                  f"{r['tokens_per_s']:.0f} tokens/s, feed "
+                  f"{r['feed_s_per_segment']:.5f} s a segment "
+                  f"({r['prefetch_hits']} prefetch hits of {r['segments']}), "
+                  f"fused_map launches {r['launches']}{dev}")
+    one = c["oneshot"]
+    a = one["analytic"]
+    for backend in ("2s", "1s"):
+        r = one[backend]
+        peak = r.get("peak_bytes")
+        peak = "not measured" if peak is None else f"{peak / 1e9:.3f} GB"
+        print(f"compare: oneshot unbalanced {backend}: {r['wall_s']:.3f} s "
+              f"(feed {r['feed_s_per_segment']:.3f} s), peak device memory "
+              f"{peak} against {a[backend] / 1e9:.3f} GB of buffers from "
+              f"their shapes")
+    print(f"compare: buffers (GB): input {a['input'] / 1e9:.3f}, carry "
+          f"{a['carry'] / 1e9:.3f}, 2S send {a['send'] / 1e9:.3f}, "
+          f"received {a['received'] / 1e9:.3f}, overflow "
+          f"{a['overflow'] / 1e9:.3f}")
+    print(f"compare: {c['seconds']:.1f} s")
+
+
+def print_snapshots(c: dict):
+    for backend in ("1s", "2s"):
+        r = c[backend]
+        print(f"snapshots: {backend}: plain {r['plain_s']} s, with a "
+              f"checkpoint every {CKPT_EVERY}th segment (keep "
+              f"{CKPT_KEEP}) {r['ckpt_s']} s: overhead "
+              f"{r['overhead'] * 100:.2f} %; step {r['restored_from']} "
+              f"restored into a fresh handle and finished in "
+              f"{r['restored_s']:.3f} s; records == uninterrupted")
+    r = c["replan"]
+    print(f"snapshots: 1s re-planned halfway by replan_handle (hot rank "
+          f"slowed in the tracker): {r['tasks_after']} unread tasks from "
+          f"{r['columns_before']} columns to {r['columns_after']}, "
+          f"{r['hot_rank_tasks_after']} on the hot rank; {r['wall_s']:.3f} s; "
+          f"records == uninterrupted")
+    print(f"snapshots: {c['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2369,7 +2661,8 @@ def main(argv=()) -> int:
               f"version's bits {b['kernel']}, p rounded to bf16 "
               f"{b['p_bf16']}")
     _, data, _, _, _ = _port()
-    cases = entry_cases(device, data.read_all(job_input(N_TOKENS)[0]))
+    corpus = data.read_all(job_input(N_TOKENS)[0])   # phases 2, 3b and 3c
+    cases = entry_cases(device, corpus)
     entry = phase_entry(device, cases)
     print(f"entry: hist, bucket_slots and flash_decode at full width through "
           f"their entry points, launches {entry['launches']}; max abs err "
@@ -2452,6 +2745,16 @@ def main(argv=()) -> int:
               f"{p['untraced_busy_share']:.3f} without the profiler (device "
               f"time of the traced segment over the next one's wall)")
 
+    t0 = time.perf_counter()
+    compare = phase_compare(device, corpus)
+    compare["seconds"] = time.perf_counter() - t0
+    print_compare(compare)
+    t0 = time.perf_counter()
+    snaps = phase_snapshots(device, corpus)
+    snaps["seconds"] = time.perf_counter() - t0
+    print_snapshots(snaps)
+    del corpus
+
     get_config, _, _ = _serve()
     serves = {}
     for arch, requests in SERVE_ARCHS.items():
@@ -2494,7 +2797,8 @@ def main(argv=()) -> int:
                   f"(limit {SSM_DRIFT_FACTOR})")
         for what, p in serve["profiles"].items():
             print_profile(f"serve {arch} {what}", p)
-    print(json.dumps({"job": job, "profile": prof, "fused_map": timing,
+    print(json.dumps({"job": job, "profile": prof, "compare": compare,
+                      "snapshots": snaps, "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
                                    "bits_off": ssd_bits},

@@ -21,6 +21,7 @@ import torch
 from repro_torch.analysis.mutant_kernels import ops as mutant_ops
 from repro_torch.analysis.rules import BlockMap, KernelCheck, LaunchSpec, \
     Operand
+from repro_torch.device import resolve_device
 from repro_torch.kernels import backend
 
 # -- shipping kernels -------------------------------------------------------
@@ -219,10 +220,12 @@ MUTANTS = (
 )
 
 
-def run_mutant(mutant: Mutant, device="cpu") -> list:
+def run_mutant(mutant: Mutant, device=None) -> list:
     """Run the matching checker over one mutant; returns its findings. A
-    kernel near twin is launched on ``device``; a bad twin never is."""
+    kernel near twin is launched on ``device`` (the card unless given); a
+    bad twin never is."""
     from repro_torch.analysis import rules
+    device = resolve_device(device)
     built = mutant.build()
     if mutant.kind == "kernel":
         return rules.check_kernel(built, device)

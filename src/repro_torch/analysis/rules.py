@@ -29,6 +29,7 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.analysis.findings import Finding
+from repro_torch.device import resolve_device
 
 # -- the declared launch ----------------------------------------------------
 
@@ -83,11 +84,13 @@ class KernelCheck:
     spec: LaunchSpec | None = None
 
 
-def check_kernel(kc: KernelCheck, device="cpu") -> list[Finding]:
+def check_kernel(kc: KernelCheck, device=None) -> list[Finding]:
     """PAL001 on the declared spec first, then PAL002 and PAL003. Only a
-    kernel with a spec and no finding is launched, on ``device``: a spec
-    that fails PAL001 never runs. A kernel without a spec is not launched;
-    its output dtypes come from its plain version on the CPU."""
+    kernel with a spec and no finding is launched, on ``device`` (the
+    card unless given): a spec that fails PAL001 never runs. A kernel
+    without a spec is not launched; its output dtypes come from its plain
+    version on the CPU."""
+    device = resolve_device(device)
     findings = check_block_bounds(kc.spec, kc.name) if kc.spec else []
     if kc.spec is not None:
         dtypes = [op.dtype for op in kc.spec.operands if op.output]

@@ -1,0 +1,1 @@
+from repro_torch.ckpt.checkpoint import CheckpointManager

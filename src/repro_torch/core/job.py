@@ -7,15 +7,25 @@ reference's ``mesh=``::
                     task_size=4_096, push_cap=1_024, n_procs=8)
     result = submit(cfg, tokens).result()          # oneshot, on cuda
 
-    cfg = dataclasses.replace(cfg, segment=2)      # streaming mode
+    cfg = dataclasses.replace(cfg, segment=2)      # streaming / ckpt mode
     handle = submit(cfg, MmapTokenSource("corpus.bin"), device="cpu")
     while handle.step():                           # one segment at a time
-        ...
+        handle.checkpoint(manager)                 # async window snapshot
     result = handle.result()
 
-A :class:`~repro_torch.data.feed.SegmentFeed` reads each segment in a
-background thread and starts its device copy while the engine computes
-the previous one; oneshot mode is one segment spanning the input.
+``backend`` is ``"1s"`` (the decoupled engine) or ``"2s"`` (the
+bulk-synchronous baseline); both run through the same handle, feed and
+result. A :class:`~repro_torch.data.feed.SegmentFeed` reads each segment
+in a background thread and starts its device copy while the engine
+computes the previous one; oneshot mode is one segment spanning the
+input.
+
+A checkpoint snapshot carries the feed's cursor and task assignment, so
+``restore`` *seeks* the stream (no read is replayed), and a straggler
+re-plan (``repro_torch.ft.straggler.replan_handle``) re-routes exactly
+the not-yet-read tasks through the same feed. ``restore`` and ``load``
+copy the snapshot into the carry's own buffers, which the fused step's
+CUDA graphs replay into.
 
 Options of the reference that are not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -27,6 +37,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core import planner
 from repro_torch.core.kv import KEY_SENTINEL
@@ -37,8 +48,6 @@ from repro_torch.core.windows import DenseWindow
 from repro_torch.data.feed import SegmentFeed
 from repro_torch.data.source import as_source
 from repro_torch.device import resolve_device
-
-_CKPT = "ROADMAP Queue 1 item 5 (checkpoint, restore and re-planning)"
 
 
 @dataclass(frozen=True)
@@ -112,7 +121,7 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
     ``repeats`` is the optional (n_procs, tasks_per_proc) compute-repeat
     grid (the paper's footnote-5 imbalance model). ``prefetch=False``
     disables the background read."""
-    backend = get_backend(config.backend)      # "2s" raises: not ported
+    backend = get_backend(config.backend)      # fail fast on bad names
     if config.stealing:
         raise NotImplementedError("stealing=True: device-side work "
                                   "stealing is ROADMAP Queue 1 item 7")
@@ -184,6 +193,11 @@ class JobHandle:
     # -- introspection ------------------------------------------------------
 
     @property
+    def cursor(self) -> int:
+        """Per-rank task slots completed so far (segmented mode)."""
+        return self.feed.cursor
+
+    @property
     def done(self) -> bool:
         return self._result is not None
 
@@ -196,7 +210,7 @@ class JobHandle:
     def engine(self):
         """The backend's segment functions, made (with the carry) on first
         use: the ``"1s"`` engine's :class:`~repro_torch.core.onesided.
-        SegmentFns`."""
+        SegmentFns`, the ``"2s"`` engine's triple."""
         self._ensure_engine()
         return self._seg_fns
 
@@ -210,6 +224,11 @@ class JobHandle:
                 self._carry.pending_v.reshape(P, -1))
         return win.table.cpu().numpy()
 
+    def remaining_task_ids(self) -> np.ndarray:
+        """Global ids of tasks not yet executed (segmented mode) — what a
+        straggler-aware re-plan redistributes."""
+        return self.feed.remaining_task_ids()
+
     # -- segmented execution ------------------------------------------------
 
     def _ensure_engine(self):
@@ -218,6 +237,22 @@ class JobHandle:
                 self.spec, self._map_fn, self.device)
             init_fn, _, _ = self._seg_fns
             self._carry = init_fn()
+
+    def _ensure_segmented(self):
+        if self.config.segment <= 0:
+            raise RuntimeError(
+                "step()/checkpoint() need a segmented job — set "
+                "JobConfig(segment=N) with N tasks per step")
+        self._ensure_engine()
+
+    def _install(self, carry):
+        """Copy ``carry`` (tensors or host arrays) into the live carry's
+        buffers: the fused step's CUDA graphs replay into those, so a
+        carry that only replaced ``_carry`` would be ignored by them."""
+        for dst, src in zip(self._carry, carry, strict=True):
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.ascontiguousarray(src, np.int32))
+            dst.copy_(src)
 
     def _advance(self, n_segments: int) -> bool:
         _, seg_fn, _ = self._seg_fns
@@ -236,24 +271,89 @@ class JobHandle:
         work remains."""
         if self._result is not None:
             return False
-        if self.config.segment <= 0:
-            raise RuntimeError(
-                "step() needs a segmented job — set JobConfig(segment=N) "
-                "with N tasks per step")
-        self._ensure_engine()
+        self._ensure_segmented()
         return self._advance(n_segments)
 
+    def replan(self, task_id_grid) -> JobHandle:
+        """Install a re-planned (P, W) assignment of the *unread* tasks
+        (from ``repro_torch.ft.straggler``); each task keeps its
+        compute-repeat factor, so results stay exact by construction."""
+        self._ensure_segmented()
+        grid = np.asarray(task_id_grid, np.int32)
+        by_task = {int(t): int(r) for t, r in
+                   zip(self.feed.task_ids_grid.ravel(),
+                       self.feed.repeats_grid.ravel()) if t >= 0}
+        reps = np.ones_like(grid)
+        for idx in zip(*np.nonzero(grid >= 0)):
+            # unknown ids fall through to the feed's coverage check,
+            # which names the offending tasks
+            reps[idx] = by_task.get(int(grid[idx]), 1)
+        self.feed.replan(grid, reps)
+        return self
+
     def checkpoint(self, manager, **extra):
-        raise NotImplementedError(f"checkpoint: {_CKPT}")
+        """Snapshot the window carry into ``manager`` (a
+        :class:`repro_torch.ckpt.CheckpointManager`) asynchronously: the
+        carry is copied before this returns, and its transfer and write
+        overlap the next segment. The manifest holds the reference's
+        keys: the feed's position and task assignment, so that restore
+        can seek, and what restore's guards check."""
+        self._ensure_segmented()
+        # reserved keys win over caller extras: restore() trusts them
+        return manager.save_async(
+            self.cursor, self._carry,
+            extra={**extra,
+                   "cursor": self.cursor,
+                   "backend": self.backend.name,
+                   "stealing": self.config.stealing,
+                   "coslots": 1,
+                   # provenance only: the fused and unfused paths give
+                   # the same carries, so snapshots cross the flag
+                   "fused_map": self.spec.fused_map,
+                   "code_rate": self.config.code_rate,
+                   "partitioner": self.spec.partitioner,
+                   # lists in the manifest, made in the manager's worker
+                   "task_ids": self.feed.task_ids_grid.copy(),
+                   "repeats": self.feed.repeats_grid.copy()})
 
-    def restore(self, manager, step=None):
-        raise NotImplementedError(f"restore: {_CKPT}")
+    def restore(self, manager, step: int | None = None) -> JobHandle:
+        """Resume from a snapshot taken by :meth:`checkpoint`, by this
+        package or the reference (possibly in another process): install
+        the carry, then *seek* the feed to the saved cursor and
+        assignment — no segment read is replayed.
 
-    def replan(self, task_id_grid):
-        raise NotImplementedError(f"replan: {_CKPT}")
+        Raises ``ValueError`` if the snapshot was taken by another
+        backend, or with another ``stealing``, ``coslots``,
+        ``code_rate`` or ``partitioner``."""
+        self._ensure_segmented()
+        found, extra = manager.peek(step)
+        mine = {"backend": self.backend.name,
+                "stealing": self.config.stealing, "coslots": 1,
+                "code_rate": self.config.code_rate,
+                "partitioner": self.spec.partitioner}
+        for key, want in mine.items():
+            saved = extra.get(key)
+            if saved is not None and saved != want:
+                raise ValueError(
+                    f"checkpoint step {found} was taken with {key}="
+                    f"{saved!r} — it cannot restore into a handle with "
+                    f"{key}={want!r}; resubmit with the snapshot's {key}")
+        # load exactly the snapshot the guard inspected (a concurrent
+        # async save could otherwise re-resolve "latest" to a newer step)
+        _, carry, extra = manager.restore(self._carry, step=found)
+        self._install(carry)
+        self.feed.seek(int(extra["cursor"]),
+                       task_ids=extra.get("task_ids"),
+                       repeats=extra.get("repeats"))
+        return self
 
-    def load(self, carry, cursor: int):
-        raise NotImplementedError(f"load: {_CKPT}")
+    def load(self, carry, cursor: int) -> JobHandle:
+        """Install an in-memory carry snapshot (tensors or host arrays in
+        the carry's layout) and seek the feed to ``cursor``."""
+        self._ensure_segmented()
+        self._install(carry)
+        self.feed.seek(int(cursor))
+        return self
 
     def elastic_load(self, table, owner_map, owner_split, task_ids,
                      repeats):

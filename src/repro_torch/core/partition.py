@@ -72,8 +72,9 @@ def resolve_partitioner(p) -> Partitioner:
 def lookup_owner(owner_map: torch.Tensor, owner_split: torch.Tensor,
                  keys: torch.Tensor, task_id: torch.Tensor,
                  n_procs: int) -> torch.Tensor:
-    """Owner of each key of ``keys (P, L)`` under each rank's dense
-    ``(owner_map, owner_split)`` row, for the rank's task ``task_id (P,)``.
+    """Owner of each key of ``keys (P, ..., L)`` under each rank's dense
+    ``(owner_map, owner_split)`` row, for the task ``task_id (P, ...)``
+    of each row of records.
 
     Split keys (``owner_split[key] = k > 1``) resolve to one of the k
     consecutive replica ranks ``(base + j) % P``, picked by the mixed
@@ -82,9 +83,9 @@ def lookup_owner(owner_map: torch.Tensor, owner_split: torch.Tensor,
     """
     vocab = owner_map.shape[-1]
     valid = (keys != KEY_SENTINEL) & (keys >= 0) & (keys < vocab)
-    idx = torch.where(valid, keys, 0).long()
-    base = owner_map.gather(-1, idx)
-    k = owner_split.gather(-1, idx).clamp(min=1)
+    idx = torch.where(valid, keys, 0).long().reshape(keys.shape[0], -1)
+    base = owner_map.gather(-1, idx).view(keys.shape)
+    k = owner_split.gather(-1, idx).view(keys.shape).clamp(min=1)
     pick = (mix32(task_id).unsqueeze(-1) % k).to(torch.int32)
     owner = (base + torch.where(k > 1, pick, 0)) % n_procs
     return torch.where(valid, owner, n_procs)

@@ -59,15 +59,32 @@ def read_tasks(source, plan: TaskPlan, task_ids: np.ndarray,
                out: np.ndarray | None = None) -> np.ndarray:
     """Vectorized :func:`read_task` over an array of global task ids (any
     shape, -1 for padding), into ``out`` when given. Tasks are read in
-    ascending id order, so a source that generates or pages in blocks
-    sees each block's tasks together."""
+    ascending id order, each run of consecutive ids with one
+    ``source.read`` (a segment of the round-robin grid is one run), so a
+    source that generates or pages in blocks sees each block's tasks
+    together."""
     ids = np.asarray(task_ids)
+    S = plan.task_size
     if out is None:
-        out = np.empty(ids.shape + (plan.task_size,), np.int32)
-    flat_ids = ids.reshape(-1)
-    flat_out = out.reshape(-1, plan.task_size)
-    for i in np.argsort(flat_ids, kind="stable").tolist():
-        flat_out[i] = read_task(source, plan, int(flat_ids[i]))
+        out = np.empty(ids.shape + (S,), np.int32)
+    flat_ids = ids.reshape(-1).astype(np.int64)
+    flat_out = out.reshape(-1, S)
+    order = np.argsort(flat_ids, kind="stable")
+    sid = flat_ids[order]
+    live = int(np.searchsorted(sid, 0))
+    flat_out[order[:live]] = KEY_SENTINEL          # padding tasks
+    starts = np.flatnonzero(np.diff(sid[live:]) != 1) + 1 + live
+    for lo, hi in zip([live, *starts.tolist()],
+                      [*starts.tolist(), len(sid)]):
+        if lo == hi:
+            continue
+        n = hi - lo
+        chunk = source.read(plan.file_offset(int(sid[lo])), n * S)
+        if len(chunk) < n * S:                     # short read at EOF
+            chunk = np.concatenate(
+                [chunk, np.full((n * S - len(chunk),), KEY_SENTINEL,
+                                np.int32)])
+        flat_out[order[lo:hi]] = chunk.reshape(n, S)
     return out
 
 

@@ -1,8 +1,8 @@
 """Backend registry — pluggable MapReduce engines behind one protocol.
 
 Counterpart of ``repro/core/registry.py``. ``"1s"`` (the decoupled
-engine, ``core/onesided.py``) registers on first resolution; ``"2s"`` is
-not ported yet and raises.
+engine, ``core/onesided.py``) and ``"2s"`` (the bulk-synchronous
+baseline, ``core/twosided.py``) register on first resolution.
 """
 from __future__ import annotations
 
@@ -11,9 +11,8 @@ from collections.abc import Callable
 from dataclasses import dataclass, field
 from typing import Protocol, runtime_checkable
 
-_BUILTIN_MODULES = {"1s": "repro_torch.core.onesided"}
-_NOT_PORTED = {"2s": "the bulk-synchronous MR-2S backend is not ported "
-                     "yet: ROADMAP Queue 1 item 4"}
+_BUILTIN_MODULES = {"1s": "repro_torch.core.onesided",
+                    "2s": "repro_torch.core.twosided"}
 _REGISTRY: dict[str, type] = {}
 _INSTANCES: dict[str, Backend] = {}
 
@@ -76,8 +75,6 @@ def register_backend(name: str):
 
 def get_backend(name: str) -> Backend:
     """Resolve a backend name to its (singleton) engine instance."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"backend {name!r}: {_NOT_PORTED[name]}")
     if name not in _REGISTRY and name in _BUILTIN_MODULES:
         importlib.import_module(_BUILTIN_MODULES[name])
     if name not in _REGISTRY:

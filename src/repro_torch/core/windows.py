@@ -107,8 +107,9 @@ def carry_from_numpy(leaves, device) -> EngineCarry:
 
 def carry_to_numpy(carry: EngineCarry) -> EngineCarry:
     """The carry as host int32 arrays, same layout (an ``EngineCarry``
-    of numpy arrays)."""
-    return EngineCarry(*(t.detach().cpu().numpy() for t in carry))
+    of numpy arrays). They are copies: the engine folds into the carry
+    in place."""
+    return EngineCarry(*(np.array(t.detach().cpu()) for t in carry))
 
 
 def combine_records(table: torch.Tensor, spec):

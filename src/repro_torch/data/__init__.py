@@ -1,4 +1,5 @@
-from repro_torch.data.corpus import imbalance_repeats
+from repro_torch.data.corpus import (imbalance_repeats, synth_corpus,
+                                     zipf_skew_repeats, zipf_tokens)
 from repro_torch.data.feed import FeedStats, Segment, SegmentFeed
 from repro_torch.data.source import (ArraySource, ConcatSource, DataSource,
                                      MmapTokenSource, ZipfSource, as_source,

@@ -1,10 +1,25 @@
-"""The paper's imbalance model (footnote 5) as a compute-repeat grid.
+"""Synthetic PUMA-like corpus and the paper's imbalance models.
 
-A numpy copy of ``repro/data/corpus.py::imbalance_repeats``.
+Numpy copies of ``repro/data/corpus.py``: a Zipf word-law token stream
+(the statistically relevant property of PUMA-Wikipedia) and the
+compute-repeat grids (footnote 5: a task is *computed* r times while
+its input is read once). Each gives the reference's arrays for the same
+arguments and seed.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def zipf_tokens(n: int, vocab: int, a: float = 1.3, seed: int = 0,
+                dtype=np.int32) -> np.ndarray:
+    """Zipf-distributed token ids in [0, vocab). a≈1.3 matches natural text."""
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(a, size=n) % vocab).astype(dtype)
+
+
+def synth_corpus(n_tokens: int, vocab: int, seed: int = 0) -> np.ndarray:
+    return zipf_tokens(n_tokens, vocab, seed=seed)
 
 
 def imbalance_repeats(n_procs: int, tasks_per_proc: int, *,
@@ -31,3 +46,22 @@ def imbalance_repeats(n_procs: int, tasks_per_proc: int, *,
         return rng.integers(1, hot_factor + 1,
                             size=(n_procs, tasks_per_proc)).astype(np.int32)
     raise ValueError(mode)
+
+
+def zipf_skew_repeats(n_procs: int, tasks_per_proc: int, s: float, *,
+                      mean_rep: int = 4, seed: int = 0) -> np.ndarray:
+    """Key-distribution skew as a repeat grid (Fan et al.,
+    arXiv:1401.0355): a budget of about ``n_procs * tasks_per_proc *
+    mean_rep`` repeats spread over the ranks by a Zipf law of exponent
+    ``s``, so every task of a hot rank is hot. A per-task jitter of 0 or
+    +1 keeps a rank's tasks apart, and each task runs at least once.
+    """
+    assert s >= 0.0
+    weights = (np.arange(1, n_procs + 1, dtype=np.float64)) ** (-s)
+    weights /= weights.sum()
+    budget = float(n_procs * tasks_per_proc * mean_rep)
+    per_rank = np.maximum(1.0, budget * weights / tasks_per_proc)
+    rng = np.random.default_rng(seed)
+    jitter = rng.integers(0, 2, size=(n_procs, tasks_per_proc))
+    reps = np.round(per_rank[:, None]).astype(np.int64) + jitter
+    return np.maximum(reps, 1).astype(np.int32)

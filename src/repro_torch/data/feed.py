@@ -18,11 +18,18 @@ stream: segments are host tensors.
 
 Segments are padded to the fixed ``segment`` column width with no-op
 tasks (id -1, all-sentinel tokens, repeat 1). The feed owns the job's
-assignment grids and column cursor; peak host residency is O(segment).
+assignment grids and column cursor, which makes it the seam for
+checkpoint restore (``seek``: reposition without replaying a read) and
+straggler re-planning (``replan``: swap the unread columns). Each
+prefetch is tagged with the generation of the plan it read; a seek or
+replan starts a new generation, so a prefetch of the old plan, even one
+still in flight on the feed's thread and stream, is dropped. Peak host
+residency is O(segment).
 """
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import NamedTuple
@@ -41,6 +48,8 @@ class FeedStats:
     prefetch_hits: int = 0       # segments served from the background read
     prefetch_misses: int = 0     # segments built synchronously
     max_live_bytes: int = 0      # high-water mark of feed-held host bytes
+    build_seconds: float = 0.0   # host seconds spent reading and staging
+                                 #   segments (the feed's thread included)
     _live: dict = field(default_factory=dict, repr=False)
 
     def _track(self, key, nbytes: int):
@@ -86,7 +95,9 @@ class SegmentFeed:
         self._reps = np.array(repeats, np.int32)       # (P, T)
         self._cursor = 0                               # columns consumed
         self._prefetch = prefetch
-        self._pending: tuple[int, Future] | None = None
+        self._gen = 0                                  # seek/replan epoch
+        # (start column, its read, the generation it read)
+        self._pending: tuple[int, Future, int] | None = None
         self._pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="segment-feed")
         self._closed = False
@@ -106,6 +117,10 @@ class SegmentFeed:
     # -- assignment state ---------------------------------------------------
 
     @property
+    def cursor(self) -> int:
+        return self._cursor
+
+    @property
     def total_columns(self) -> int:
         return self._ids.shape[1]
 
@@ -121,6 +136,17 @@ class SegmentFeed:
     @property
     def exhausted(self) -> bool:
         return self._cursor >= self.total_columns
+
+    def remaining_task_ids(self) -> np.ndarray:
+        """Global ids of the not-yet-consumed tasks, sorted."""
+        ids = self._ids[:, self._cursor:]
+        return np.sort(ids[ids >= 0])
+
+    def consumed_task_ids(self) -> np.ndarray:
+        """Global ids of the already-executed tasks (columns before the
+        cursor), sorted."""
+        ids = self._ids[:, : self._cursor]
+        return np.sort(ids[ids >= 0])
 
     def read_tasks(self, task_ids) -> np.ndarray:
         """Serve arbitrary tasks by *global id* on the host, independent
@@ -142,9 +168,10 @@ class SegmentFeed:
         reps[:, : end - start] = self._reps[:, start:end]
         return ids, reps
 
-    def _build(self, start: int) -> _Staged:
+    def _build(self, start: int, gen: int) -> _Staged:
         """Read one segment's tasks by file offset and start its device
         copy — the body that runs in the feed thread."""
+        t0 = time.perf_counter()
         ids, reps = self._grids(start)
         n_tok = ids.size * self.plan.task_size
         if self.device.type != "cuda":
@@ -174,7 +201,9 @@ class SegmentFeed:
         with self._stats_lock:
             self.stats.bytes_read += n_tok * 4
             self.stats.segments_built += 1
-            self.stats._track(start, n_tok * 4)
+            self.stats.build_seconds += time.perf_counter() - t0
+            if gen == self._gen:    # a stale prefetch is not tracked
+                self.stats._track((gen, start), n_tok * 4)
         return staged
 
     def _schedule(self, start: int):
@@ -182,7 +211,9 @@ class SegmentFeed:
                 or start >= self.total_columns):
             self._pending = None
             return
-        self._pending = (start, self._pool.submit(self._build, start))
+        self._pending = (start,
+                         self._pool.submit(self._build, start, self._gen),
+                         self._gen)
 
     def _segment(self, staged: _Staged) -> Segment:
         flat = staged.flat
@@ -206,15 +237,16 @@ class SegmentFeed:
         with self._lock:
             if self.exhausted:
                 return None
-            start = self._cursor
-            if self._pending is not None and self._pending[0] == start:
-                staged = self._pending[1].result()
+            start, gen = self._cursor, self._gen
+            p = self._pending
+            if p is not None and (p[0], p[2]) == (start, gen):
+                staged = p[1].result()
                 self.stats.prefetch_hits += 1
             else:
-                staged = self._build(start)
+                staged = self._build(start, gen)
                 self.stats.prefetch_misses += 1
             with self._stats_lock:
-                self.stats._release(start)
+                self.stats._release((gen, start))
             self._cursor = min(start + self.segment, self.total_columns)
             self._schedule(self._cursor)
             return self._segment(staged)
@@ -225,7 +257,9 @@ class SegmentFeed:
             if self.exhausted or self._closed:
                 return True
             p = self._pending
-            return p is not None and p[0] == self._cursor and p[1].done()
+            return (p is not None and (p[0], p[2]) == (self._cursor,
+                                                       self._gen)
+                    and p[1].done())
 
     def prime(self):
         """Start the background read of the segment at the cursor without
@@ -233,6 +267,60 @@ class SegmentFeed:
         with self._lock:
             if self._pending is None:
                 self._schedule(self._cursor)
+
+    def seek(self, cursor: int, task_ids=None, repeats=None):
+        """Reposition the stream (checkpoint restore): install the saved
+        assignment grids and cursor. No segment before ``cursor`` is
+        re-read: restore seeks, it does not replay."""
+        with self._lock:
+            if task_ids is not None:
+                self._ids = np.array(task_ids, np.int32)
+            if repeats is not None:
+                self._reps = np.array(repeats, np.int32)
+            self._cursor = int(cursor)
+            self._invalidate()
+        return self
+
+    def replan(self, task_ids: np.ndarray, repeats: np.ndarray):
+        """Re-route the *unread* tasks (straggler mitigation): columns
+        before the cursor keep their history; columns from the cursor on
+        are replaced by the new (P, W) assignment, which must hold every
+        unread task exactly once. A prefetch of the old assignment is
+        dropped."""
+        task_ids = np.asarray(task_ids, np.int32)
+        repeats = np.asarray(repeats, np.int32)
+        if task_ids.shape != repeats.shape:
+            raise ValueError(f"task ids {task_ids.shape} and repeats "
+                             f"{repeats.shape} differ in shape")
+        if task_ids.ndim != 2 or task_ids.shape[0] != self._ids.shape[0]:
+            raise ValueError(f"replan needs a ({self._ids.shape[0]}, W) "
+                             f"grid, got {task_ids.shape}: the rank count "
+                             "is fixed")
+        with self._lock:
+            old = self.remaining_task_ids().tolist()
+            new = sorted(task_ids[task_ids >= 0].tolist())
+            if new != old:
+                raise ValueError(
+                    "replan must cover exactly the unread tasks once "
+                    f"(unread={old}, got={new})")
+            self._ids = np.concatenate(
+                [self._ids[:, : self._cursor], task_ids], axis=1)
+            self._reps = np.concatenate(
+                [self._reps[:, : self._cursor], repeats], axis=1)
+            self._invalidate()
+        return self
+
+    def _invalidate(self):
+        """Start a new generation: drop the pending prefetch (cancelled,
+        or read and thrown away when its read has begun) and schedule
+        the segment at the cursor."""
+        with self._stats_lock:
+            self._gen += 1
+            self.stats._live.clear()
+        if self._pending is not None:
+            self._pending[1].cancel()
+            self._pending = None
+        self._schedule(self._cursor)
 
     def close(self):
         """Stop the prefetch thread, waiting for a read in progress so no

@@ -1,0 +1,4 @@
+from repro_torch.ft.straggler import (ThroughputTracker, outer_rebalance,
+                                      plan_next_segment, rebalance_hook,
+                                      rebalance_tasks, replan_handle,
+                                      tracker_from_result)

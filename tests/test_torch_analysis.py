@@ -306,6 +306,20 @@ def test_cli_device_defaults_to_the_card(monkeypatch):
         lint.main(["--selftest"])
 
 
+@pytest.mark.parametrize("name", ["pal001-near", "pal002-near",
+                                  "pal003-near"])
+def test_analysis_functions_default_to_the_card(monkeypatch, name):
+    """With no device given, ``check_kernel`` and ``run_mutant`` resolve
+    the card, as every entry point does: without one they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mutant = _mutant(corpus.MUTANTS, name)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        corpus.run_mutant(mutant)
+    if mutant.kind == "kernel":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            rules.check_kernel(mutant.build())
+
+
 def test_cli_waiver_matching():
     f = Finding("PAL002", "moe_dispatch", "output 0", "msg")
     assert lint._is_waived(f, [("PAL002", "moe")])

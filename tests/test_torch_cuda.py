@@ -151,6 +151,66 @@ def test_fused_job_replays_one_graph_a_step(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("how", ["restore", "load"])
+def test_restore_into_captured_step_graphs_finishes_exact(cuda_device,
+                                                          tmp_path, how):
+    """A snapshot installed into a fused job whose step graphs are
+    already captured lands in the buffers the graphs replay into: the job
+    finishes with the uninterrupted job's records, and a snapshot taken
+    on the card holds the carry of its call."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.windows import carry_to_numpy
+    data = np.random.default_rng(8).integers(0, 700, 30_000).astype(
+        np.int32)
+    cfg = JobConfig(WordCount(vocab=700), task_size=128, push_cap=16,
+                    n_procs=8, segment=5, fused_map=True)
+    reps = np.random.default_rng(9).integers(1, 4, (8, 30)).astype(np.int32)
+    want = submit(cfg, data, device=cuda_device,
+                  repeats=reps).result().records
+    a = submit(cfg, data, device=cuda_device, repeats=reps)
+    a.step(2)
+    mgr = CheckpointManager(str(tmp_path))
+    fut = a.checkpoint(mgr)
+    snap = carry_to_numpy(a.carry)
+    a.step()                             # folds in place before the write
+    fut.result(timeout=120)
+    b = submit(cfg, data, device=cuda_device, repeats=reps)
+    b.step(4)                            # its graphs captured, carry ahead
+    buffers = [t.data_ptr() for t in b.carry]
+    if how == "restore":
+        b.restore(mgr)
+    else:
+        b.load(snap, 10)
+    assert b.cursor == 10 and b.engine.graphs.carry is b.carry
+    assert [t.data_ptr() for t in b.carry] == buffers
+    for x, y in zip(carry_to_numpy(b.carry), snap):
+        assert_equal(x, y)
+    assert b.result().records == want == wordcount_oracle(data, 700)
+    assert a.result().records == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["1s", "2s"])
+def test_both_backends_on_the_card_equal_the_cpu(cuda_device, backend):
+    """``"2s"`` (and ``"1s"``, fused) on the card: the CPU's windows after
+    a segment, the oracle's records."""
+    data = np.random.default_rng(10).integers(0, 700, 1 << 15).astype(
+        np.int32)
+    cfg = JobConfig(WordCount(vocab=700), backend=backend, task_size=128,
+                    push_cap=16, n_procs=8, segment=4,
+                    fused_map=backend == "1s")
+    reps = np.random.default_rng(11).integers(1, 4, (8, 32)).astype(
+        np.int32)
+    gpu = submit(cfg, data, device=cuda_device, repeats=reps)
+    cpu = submit(cfg, data, device="cpu", repeats=reps)
+    gpu.step()
+    cpu.step()
+    assert_equal(gpu.windows(), cpu.windows())
+    assert gpu.result().records == cpu.result().records == \
+        wordcount_oracle(data, 700)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("usecase", ["Histogram(700, 13)",
                                      "InvertedIndex((3, 7, 11, 650), 4, 8)"])
 def test_fused_usecases_replay_on_the_card(cuda_device, usecase):

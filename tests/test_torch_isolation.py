@@ -95,6 +95,43 @@ def test_smoke_phases_rehearse_on_cpu():
     assert np.asarray(source.read(0, 10)).max() < 2048
 
 
+def test_smoke_compare_and_snapshot_phases_rehearse_on_cpu():
+    """Phases 3b and 3c at a tiny width on the CPU: both engines under
+    each grid against the oracle (checked inside), the oneshot runs and
+    the Fig 6 buffers, the snapshots in turns, the restore of the older
+    kept snapshot and the halfway re-plan."""
+    _, data, _, _, _ = chip_smoke._port()
+    cpu = torch.device("cpu")
+    w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    corpus = data.read_all(chip_smoke.job_input(1 << 15, w)[0])
+    c = chip_smoke.phase_compare(cpu, corpus, w)
+    assert c["steps"] == 128
+    for grid in chip_smoke.GRIDS:
+        row = c[grid]
+        assert row["1s"]["launches"] == row["2s"]["launches"] == 0
+        assert row["1s"]["segments"] == row["2s"]["segments"] == 16
+        assert row["hot_rank_repeats"] >= row["mean_rank_repeats"]
+        assert row["wall_2s_over_1s"] > 0
+    assert c["unbalanced"]["hot_rank_repeats"] == 8 * 128
+    assert c["balanced"]["lockstep_passes"] == 128
+    assert c["oneshot"]["2s"]["segments"] == 1
+    a = c["oneshot"]["analytic"]
+    assert a["send"] == 2 * 4 * 4 * 128 * 16 * 4
+    assert a["2s"] - a["1s"] == 2 * a["send"] + a["overflow"] - a["input"]
+    full = chip_smoke.fig6_bytes(chip_smoke.N_TOKENS)
+    assert round(full["send"] / 1e9, 2) == 2.15
+    assert round(full["overflow"] / 1e9, 2) == 1.07
+    assert full["2s"] > 5.9e9 > 1.1e9 > full["1s"]
+    chip_smoke.print_compare({**c, "seconds": 0.0}, w)
+    s = chip_smoke.phase_snapshots(cpu, corpus, w)
+    assert len(s["1s"]["plain_s"]) == len(s["1s"]["ckpt_s"]) == 2
+    assert s["1s"]["restored_from"] == s["2s"]["restored_from"] == 64
+    assert s["replan"]["columns_before"] == 64
+    assert s["replan"]["tasks_after"] == 4 * 64
+    assert s["replan"]["hot_rank_tasks_after"] < 256 // 8
+    chip_smoke.print_snapshots({**s, "seconds": 0.0})
+
+
 def test_smoke_flash_and_serve_phases_rehearse_on_cpu():
     """The flash_attention matrix through the wrapper (the plain version
     here), its bound, and the serve phase at a SMOKE config: served

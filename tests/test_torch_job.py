@@ -6,7 +6,9 @@ repeats, fused on and off; records, JobResult stats and per-rank
 windows equal to the JAX package's (P = 1 in this process, P = 8 in one
 8-device subprocess for the module); a JAX carry loaded through
 ``carry_from_numpy`` finishes with JAX's records; every option outside
-the port so far raises NotImplementedError.
+the port so far raises NotImplementedError. MR-2S and checkpoint,
+restore and re-planning have their own files (``test_torch_twosided``,
+``test_torch_ckpt``).
 """
 import numpy as np
 import pytest
@@ -21,23 +23,13 @@ from repro_torch.core.planner import gather_segment  # noqa: E402
 from repro_torch.core.planner import plan_input, shard_task_ids  # noqa: E402
 from repro_torch.data.feed import SegmentFeed  # noqa: E402
 from repro_torch.data.source import ArraySource  # noqa: E402
-from torch_parity import assert_equal  # noqa: E402
+from torch_parity import STATS as _STATS  # noqa: E402
+from torch_parity import USECASES, assert_equal  # noqa: E402
+from torch_parity import usecase as _usecase  # noqa: E402
+from torch_parity import (  # noqa: E402
+    assert_same_result as _assert_same_result)
 
 VOCAB, N, TASK, CAP = 300, 8192, 64, 8
-# one constructor expression per use-case, evaluated against each package
-USECASES = {
-    "wordcount": "WordCount(vocab=300)",
-    "histogram": "Histogram(300, 13)",
-    "inverted": "InvertedIndex((3, 7, 11, 250), 4, 8)",
-}
-
-
-def _usecase(pkg, name):
-    return eval(USECASES[name], {k: getattr(pkg, k) for k in
-                                 ("WordCount", "Histogram",
-                                  "InvertedIndex")})
-
-
 @pytest.fixture(scope="module")
 def data():
     rng = np.random.default_rng(0)
@@ -83,20 +75,6 @@ def test_usecases_equal_oracles(data, P, segment, fused):
 # ---------------------------------------------------------------------------
 # parity with JAX
 # ---------------------------------------------------------------------------
-
-_STATS = ("n_tasks", "tasks_per_rank", "work_per_rank", "steals_per_rank",
-          "partitioner", "n_split_keys", "combine_overflow", "keys",
-          "values")
-
-
-def _assert_same_result(got, want):
-    assert got.records == want.records
-    assert got.backend == want.backend
-    for f in _STATS:
-        assert_equal(np.asarray(getattr(got, f)),
-                     np.asarray(getattr(want, f)), f)
-    assert got.imbalance == want.imbalance and got.n_steals == want.n_steals
-
 
 @pytest.mark.parametrize("name", list(USECASES))
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
@@ -240,8 +218,7 @@ _CFG = dict(usecase=core.WordCount(64), task_size=8, n_procs=1, segment=2)
 
 
 @pytest.mark.parametrize("option", [
-    "stealing", "code_rate", "backend_2s", "sampled", "sampled+split",
-    "feed_budget", "checkpoint", "restore", "replan", "load",
+    "stealing", "code_rate", "sampled", "sampled+split", "feed_budget",
     "elastic_load"])
 def test_options_outside_the_port_raise_not_implemented(option):
     tokens = np.zeros((64,), np.int32)
@@ -251,23 +228,14 @@ def test_options_outside_the_port_raise_not_implemented(option):
         cfg["stealing"] = True
     elif option == "code_rate":
         cfg["code_rate"] = 2
-    elif option == "backend_2s":
-        cfg["backend"] = "2s"
     elif option in ("sampled", "sampled+split"):
         cfg["partitioner"] = option
     elif option == "feed_budget":
         kw["feed_budget"] = object()
-    if option in ("checkpoint", "restore", "replan", "load",
-                  "elastic_load"):
+    if option == "elastic_load":
         h = core.submit(core.JobConfig(**cfg), tokens, device="cpu")
-        call = {"checkpoint": lambda: h.checkpoint(None),
-                "restore": lambda: h.restore(None),
-                "replan": lambda: h.replan(None),
-                "load": lambda: h.load(None, 0),
-                "elastic_load": lambda: h.elastic_load(None, None, None,
-                                                       None, None)}[option]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            h.elastic_load(None, None, None, None, None)
         h.close()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -281,7 +249,7 @@ def test_submit_without_a_card_raises(monkeypatch):
 
 
 def test_registry_and_step_contract(data):
-    assert core.available_backends() == ["1s"]
+    assert core.available_backends() == ["1s", "2s"]
     assert core.get_backend("1s") is core.get_backend("1s")
     with pytest.raises(core.UnknownBackendError):
         core.get_backend("nope")

@@ -16,6 +16,25 @@ if REPO not in sys.path:            # chip_smoke.py lives at the repo root
 
 SENT = 2**31 - 1
 
+# one constructor expression per use-case, evaluated against each package
+USECASES = {
+    "wordcount": "WordCount(vocab=300)",
+    "histogram": "Histogram(300, 13)",
+    "inverted": "InvertedIndex((3, 7, 11, 250), 4, 8)",
+}
+
+# the JobResult fields held equal between the packages
+STATS = ("n_tasks", "tasks_per_rank", "work_per_rank", "steals_per_rank",
+         "partitioner", "n_split_keys", "combine_overflow", "keys",
+         "values")
+
+
+def usecase(pkg, name):
+    """``USECASES[name]`` built from ``pkg``'s use-case classes."""
+    return eval(USECASES[name], {k: getattr(pkg, k) for k in
+                                 ("WordCount", "Histogram",
+                                  "InvertedIndex")})
+
 
 def to_torch(a):
     import torch
@@ -28,6 +47,16 @@ def assert_equal(got, want, msg=""):
         got = got.detach().cpu().numpy()
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
                                   err_msg=msg)
+
+
+def assert_same_result(got, want):
+    """Two JobResults (either package) agree: records, backend, stats."""
+    assert got.records == want.records
+    assert got.backend == want.backend
+    for f in STATS:
+        assert_equal(np.asarray(getattr(got, f)),
+                     np.asarray(getattr(want, f)), f)
+    assert got.imbalance == want.imbalance and got.n_steals == want.n_steals
 
 
 @pytest.fixture

@@ -1,0 +1,64 @@
+#!/usr/bin/env python3
+"""MR-1S against MR-2S, and their snapshots, on one CUDA card.
+
+    python tools/compare_turns.py [--phases compare,snapshots] [--out FILE]
+
+Phases 3b and 3c of ``chip_smoke.py`` on their own (its
+``phase_compare`` and ``phase_snapshots``, at its full width on its
+2**27-token corpus read once into host memory), without the smoke's
+other phases: both engines under the three repeat grids and oneshot,
+then a checkpoint every 8th segment in turns, a restore and a re-plan.
+Every job's records are held to the oracle or the uninterrupted job's.
+``fused_map`` is built from this checkout at its first use.
+
+Prints the smoke's lines for each phase, one JSON line of the numbers
+(also written to ``--out``), and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="compare,snapshots")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_turns: no CUDA device is available", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    _, data, _, _, _ = cs._port()
+    corpus = data.read_all(cs.job_input(cs.N_TOKENS)[0])
+    out = {}
+    for phase in args.phases.split(","):
+        run, show = {"compare": (cs.phase_compare, cs.print_compare),
+                     "snapshots": (cs.phase_snapshots,
+                                   cs.print_snapshots)}[phase]
+        t0 = time.perf_counter()
+        out[phase] = run(device, corpus)
+        out[phase]["seconds"] = time.perf_counter() - t0
+        show(out[phase])
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        Path(args.out).write_text(line + "\n")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
