@@ -73,7 +73,8 @@ Phases, each of which asserts (nothing is caught):
                job (~9x slower), all equal; then, over a segment whose
                input is read, the graph's and the eager loop's host
                microseconds a step and device busy share;
-  3b. compare — MR-2S against the fused MR-1S at phase 3's width on its
+  3b. compare — MR-2S against the fused MR-1S, without and with work
+               stealing (``1s+steal``), at phase 3's width on its
                2**27-token corpus, read once into host memory and fed as
                an array, after a warm-up of each, under three repeat
                grids (balanced, phase 3's unbalanced, and the Zipf rank
@@ -82,9 +83,14 @@ Phases, each of which asserts (nothing is caught):
                each job's wall, tokens/s, the feed's host seconds a
                segment, fused_map launches (1S one a step, 2S none), the
                device's busy share and kernels over one segment, and the
-               hot rank's repeats; then both oneshot on the unbalanced
-               grid, each peak of device memory beside the Fig 6 buffers
-               from their shapes;
+               hot rank's repeats; the stealing job's lockstep passes
+               (the max repeats its steps ran with), and its steals and
+               work row as the card advanced them from the gathered
+               columns, equal to the host replay's (no steal on the
+               balanced grid), and its schedule's host seconds a
+               segment; then 2S and 1S oneshot on the unbalanced grid,
+               each peak of device memory beside the Fig 6 buffers from
+               their shapes;
   3c. snapshots — on the same corpus and unbalanced grid, the segmented
                fused 1S job without and with ``handle.checkpoint`` after
                every 8th segment (keep 2), in turns, and its overhead; the
@@ -92,6 +98,17 @@ Phases, each of which asserts (nothing is caught):
                finished; the same for 2S; a 1S job re-planned halfway by
                ``replan_handle``; every job's records equal to the
                uninterrupted job's;
+  3d. keyskew — the reference's fig10_keyskew: ``ZipfSource`` keys at
+               a 1.3 and 1.8 (2**25 tokens, read once into host memory) at
+               phase 3's width on the unbalanced grid, each partitioner
+               (hash, sampled, sampled+split with split_threshold 0.05)
+               through the fused 1S without and with stealing, and a 2S
+               job with sampled+split at a 1.8: every job's records equal
+               to the oracle, split keys in every sampled+split job; its
+               wall, the pre-pass's seconds and tasks read, split keys,
+               and max over mean of the owner loads modelled under the
+               job's own maps and of the records each rank's window
+               holds;
   4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
                at full width through ``ServeEngine.generate``: 16
                requests (h2o: one batch) in batches of 8, 2048-token
@@ -109,8 +126,8 @@ Phases, each of which asserts (nothing is caught):
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
-of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b and
-3c, and each arch of 4) and read just after it.
+of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c
+and 3d, and each arch of 4) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -2050,6 +2067,9 @@ def print_profile(what: str, prof: dict):
 # 8 at 8x, the paper's footnote 5) and the Zipf rank skew of the
 # reference's fig9_imbalance (s 1.1, mean repeat 4, seed 1)
 GRIDS = ("balanced", "unbalanced", "zipf")
+# the engines the comparison runs: 2S, the fused 1S, and the fused 1S
+# with work stealing (the reference's fig9_imbalance runs it too)
+ENGINES = ("2s", "1s", "1s+steal")
 CKPT_EVERY, CKPT_KEEP = 8, 2
 
 
@@ -2061,26 +2081,41 @@ def grid_repeats(name: str, T: int, w: Width = FULL) -> np.ndarray:
                                   hot_fraction=0.125)
 
 
-def engine_config(backend: str, w: Width = FULL, segment: int | None = None):
+def engine_config(backend: str, w: Width = FULL, segment: int | None = None,
+                  partitioner="hash"):
     """WordCount at the width ``w`` under ``backend``: ``"1s"`` with the
-    fused step (its CUDA graphs on the card), ``"2s"`` as it is (it has
-    no fused path)."""
+    fused step (its CUDA graphs on the card), ``"1s+steal"`` the same
+    with work stealing, ``"2s"`` as it is (it has no fused path)."""
     core, _, _, _, _ = _port()
-    return core.JobConfig(core.WordCount(vocab=w.vocab), backend=backend,
+    engine = backend.split("+")[0]
+    return core.JobConfig(core.WordCount(vocab=w.vocab), backend=engine,
                           task_size=w.task, push_cap=w.cap,
                           n_procs=w.n_procs,
                           segment=w.segment if segment is None else segment,
-                          fused_map=backend == "1s")
+                          fused_map=engine == "1s",
+                          stealing=backend.endswith("+steal"),
+                          partitioner=partitioner)
 
 
-def run_engine(cfg, corpus, reps, device, every: int = 0, mgr=None) -> dict:
+def run_engine(cfg, corpus, reps, device, every: int = 0, mgr=None,
+               maps: bool = False) -> dict:
     """One job through ``submit``, step by step, its fused_map launches
     counted from 0; with ``mgr``, ``handle.checkpoint(mgr)`` after every
-    ``every``-th segment and the writes waited for inside the wall."""
+    ``every``-th segment and the writes waited for inside the wall. A
+    job also returns its steals and the records each rank's window holds
+    at the end (with ``maps``, the owner maps it ran with), a stealing
+    job its engine's ``StealStats``, a sampled job the pre-pass's seconds
+    (``step(0)``, inside the wall)."""
     core, _, _, ops, _ = _port()
     zero_counts()
     t0 = time.perf_counter()
     h = core.submit(cfg, corpus, device=device, repeats=reps)
+    extra = {}
+    if cfg.partitioner != "hash":
+        h.engine                              # the carry, before the sample
+        t1 = time.perf_counter()
+        h.step(0)                             # the pre-pass alone
+        extra["prepass_s"] = time.perf_counter() - t1
     k, more = 0, cfg.segment > 0
     while more:
         more = h.step()
@@ -2094,11 +2129,39 @@ def run_engine(cfg, corpus, reps, device, every: int = 0, mgr=None) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = h.feed.stats
+    if cfg.stealing:
+        extra["steal"] = dataclasses.asdict(h.engine.steal)
+    extra["window_records"] = (h.carry.table != 0).sum(dim=1).tolist()
+    if maps:
+        extra["owner_map"] = h.carry.owner_map[0].cpu().numpy()
+        extra["owner_split"] = h.carry.owner_split[0].cpu().numpy()
     return dict(result=res, wall_s=wall, tokens_per_s=len(corpus) / wall,
+                n_steals=res.n_steals,
                 launches=ops.fused_map.launches,
                 segments=st.segments_built,
                 feed_s_per_segment=st.build_seconds / st.segments_built,
-                prefetch_hits=st.prefetch_hits)
+                prefetch_hits=st.prefetch_hits,
+                sample_tasks_read=st.sample_tasks_read, **extra)
+
+
+def steal_replay(n: int, reps: np.ndarray, w: Width = FULL) -> dict:
+    """The port's host replay of a stealing job's schedule over the grid
+    of ``n`` tokens and ``reps``, segment by segment as the feed pads
+    them, ``work0`` carried: the lockstep passes, steals and final work
+    row that the job must realize."""
+    _port()
+    from repro_torch.core import planner, steal
+    ids = planner.shard_task_ids(planner.plan_input(n, w.task, w.n_procs))
+    T = ids.shape[1]
+    work, passes, steals = None, 0, 0
+    for lo in range(0, T, w.segment):
+        g = np.full((w.n_procs, w.segment), -1, np.int32)
+        r = np.ones((w.n_procs, w.segment), np.int32)
+        g[:, :min(w.segment, T - lo)] = ids[:, lo:lo + w.segment]
+        r[:, :min(w.segment, T - lo)] = reps[:, lo:lo + w.segment]
+        s = steal.steal_schedule(g, r, work0=work)
+        work, passes, steals = s.work, passes + s.passes, steals + s.n_stolen
+    return {"passes": passes, "steals": steals, "work": work.tolist()}
 
 
 def segment_profile(cfg, corpus, reps, device) -> dict:
@@ -2141,13 +2204,17 @@ def warm_up(device, corpus: np.ndarray, w: Width = FULL):
 
 
 def phase_compare(device, corpus: np.ndarray, w: Width = FULL) -> dict:
-    """MR-2S against the fused MR-1S on ``corpus`` held in host memory,
-    after a warm-up of each, under each of ``GRIDS``: each job's records
-    equal to the numpy oracle, its wall, tokens/s, feed seconds a
-    segment and fused_map launches (1S: one a step; 2S: none), and on the
-    card its device busy share and kernels a segment. Then both oneshot
-    on the unbalanced grid, each from a reset peak: its peak device
-    memory beside ``fig6_bytes``."""
+    """MR-2S against the fused MR-1S, without and with work stealing, on
+    ``corpus`` held in host memory, after a warm-up of each, under each of
+    ``GRIDS``: each job's records equal to the numpy oracle, its wall,
+    tokens/s, feed seconds a segment and fused_map launches (1S: one a
+    step; 2S: none), and on the card its device busy share and kernels a
+    segment. The stealing job's passes (the max repeats its steps ran
+    with) and the steals and work row that the card advanced from the
+    columns it gathered equal the host replay's (``steal_replay``), with
+    no steal on the balanced grid. Then 2S and 1S oneshot on the
+    unbalanced grid, each from a reset peak: its peak device memory
+    beside ``fig6_bytes``."""
     core, data, _, _, _ = _port()
     cuda = device.type == "cuda"
     n = len(corpus)
@@ -2161,16 +2228,25 @@ def phase_compare(device, corpus: np.ndarray, w: Width = FULL) -> dict:
         row = out[grid] = {"hot_rank_repeats": int(work.max()),
                            "mean_rank_repeats": float(work.mean()),
                            "lockstep_passes": int(reps.max(axis=0).sum())}
-        for backend in ("2s", "1s"):
+        for backend in ENGINES:
             cfg = engine_config(backend, w)
             r = run_engine(cfg, corpus, reps, device)
-            assert r.pop("result").records == oracle, (grid, backend)
+            res = r.pop("result")
+            assert res.records == oracle, (grid, backend)
             if cuda:
-                want = out["steps"] if backend == "1s" else 0
+                want = 0 if backend == "2s" else out["steps"]
                 assert r["launches"] == want, (grid, backend, r["launches"])
                 r["profile"] = segment_profile(cfg, corpus, reps, device)
+            if cfg.stealing:
+                replay = r["replay"] = steal_replay(n, reps, w)
+                assert r["steal"]["passes"] == replay["passes"], grid
+                assert r["n_steals"] == replay["steals"], grid
+                assert res.work_per_rank.tolist() == replay["work"], grid
+                assert grid != "balanced" or r["n_steals"] == 0
             row[backend] = r
         row["wall_2s_over_1s"] = row["2s"]["wall_s"] / row["1s"]["wall_s"]
+        row["wall_2s_over_1s_steal"] = (row["2s"]["wall_s"]
+                                        / row["1s+steal"]["wall_s"])
     reps = grid_repeats("unbalanced", T, w)
     one = out["oneshot"] = {"analytic": fig6_bytes(n, w)}
     for backend in ("2s", "1s"):
@@ -2264,8 +2340,9 @@ def print_compare(c: dict, w: Width = FULL):
         print(f"compare: {grid}: hot rank {row['hot_rank_repeats']} repeats "
               f"(mean {row['mean_rank_repeats']:.1f}; the lockstep runs "
               f"{row['lockstep_passes']} repeat passes a rank); 2S/1S wall "
-              f"{row['wall_2s_over_1s']:.4f}")
-        for backend in ("2s", "1s"):
+              f"{row['wall_2s_over_1s']:.4f}, 2S/(1S+steal) "
+              f"{row['wall_2s_over_1s_steal']:.4f}")
+        for backend in ENGINES:
             r = row[backend]
             prof = r.get("profile")
             dev = (f", busy share {prof['busy_share']:.3f} and "
@@ -2276,6 +2353,13 @@ def print_compare(c: dict, w: Width = FULL):
                   f"{r['feed_s_per_segment']:.5f} s a segment "
                   f"({r['prefetch_hits']} prefetch hits of {r['segments']}), "
                   f"fused_map launches {r['launches']}{dev}")
+        st = row["1s+steal"]["steal"]
+        print(f"compare: {grid} 1s+steal: {row['1s+steal']['n_steals']} "
+              f"steals, "
+              f"{st['passes']} lockstep passes (== the host replay's; "
+              f"{row['lockstep_passes']} unstolen), work row == the "
+              f"replay's; schedule {st['schedule_s'] / st['segments']:.5f} "
+              f"s a segment on the host ({st['segments']} segments)")
     one = c["oneshot"]
     a = one["analytic"]
     for backend in ("2s", "1s"):
@@ -2291,6 +2375,125 @@ def print_compare(c: dict, w: Width = FULL):
           f"received {a['received'] / 1e9:.3f}, overflow "
           f"{a['overflow'] / 1e9:.3f}")
     print(f"compare: {c['seconds']:.1f} s")
+
+
+# 3d: the reference's fig10_keyskew, its real-run half: Zipf keys at two
+# skews, each partitioner through the fused 1S without and with stealing,
+# and one 2S job with hot keys split
+KEYSKEW_N = 2**25
+KEYSKEW_A = (1.3, 1.8)
+PARTITIONERS = ("hash", "sampled", "sampled+split")
+# the sampled histogram counts a key once a task, so a key weighs at most
+# the 16 sampled tasks (1637 records at a 1.3, 472 at 1.8): the default
+# split_threshold, half a rank's share, splits no key at this width, and
+# 0.05 splits those in nearly every sampled task
+KEYSKEW_SPLIT_THRESHOLD = 0.05
+
+
+def keyskew_partitioner(name: str):
+    """``name`` as 3d runs it: ``sampled+split`` at the threshold that
+    splits keys at this width."""
+    _port()
+    from repro_torch.core import partition
+    if name == "sampled+split":
+        return partition.SampledPartitioner(
+            split=True, split_threshold=KEYSKEW_SPLIT_THRESHOLD)
+    return name
+
+
+def key_histogram(corpus: np.ndarray, w: Width = FULL) -> np.ndarray:
+    """The sampled partitioners' histogram of ``corpus`` (16 tasks spread
+    over it, as their pre-pass reads them)."""
+    core, data, _, _, _ = _port()
+    from repro_torch.core import partition, planner
+    plan = planner.plan_input(len(corpus), w.task, w.n_procs)
+    src = data.ArraySource(corpus)
+    return partition.sample_key_histogram(
+        lambda ids: planner.read_tasks(src, plan, ids), plan,
+        core.WordCount(vocab=w.vocab), 16, window=w.vocab)
+
+
+def imbalance(x) -> float:
+    x = np.asarray(x, np.float64)
+    return float(x.max() / x.mean())
+
+
+def phase_keyskew(device, w: Width = FULL, n: int = KEYSKEW_N,
+                  skews=KEYSKEW_A) -> dict:
+    """For each Zipf skew ``a``: ``ZipfSource(n, V, a, seed 0)`` read once
+    into host memory, each of ``PARTITIONERS`` through the fused 1S on the
+    unbalanced grid without and with stealing (a warm-up first), and at
+    the largest ``a`` a 2S job with ``sampled+split``: every job's
+    records equal to the oracle, and split keys in every ``sampled+split``
+    job; its wall, pre-pass seconds and tasks read, split keys, the
+    model's owner loads (``owner_loads`` of the sampled histogram under
+    the maps the job ran with) and the measured records of each rank's
+    window, each as max over mean."""
+    core, data, _, _, _ = _port()
+    from repro_torch.core import partition
+    split = keyskew_partitioner("sampled+split")
+    cuda = device.type == "cuda"
+    out = {"n": n}
+    for a in skews:
+        corpus = data.read_all(data.ZipfSource(n=n, vocab=w.vocab, a=a,
+                                               seed=0))
+        oracle = core.wordcount_oracle(corpus, w.vocab)
+        T = tasks_per_rank(n, w)
+        reps = grid_repeats("unbalanced", T, w)
+        hist = key_histogram(corpus, w)
+        steps = -(-T // w.segment) * w.segment
+        jobs = [(p, e) for p in PARTITIONERS for e in ("1s", "1s+steal")]
+        if a == max(skews):
+            jobs.append(("sampled+split", "2s"))
+        warm = corpus[: 2 * w.segment * w.task * w.n_procs]
+        for backend in ("1s", "1s+steal", "2s"):
+            run_engine(engine_config(backend, w, partitioner=split),
+                       warm, grid_repeats("unbalanced", tasks_per_rank(
+                           len(warm), w), w), device)
+        rows = out[str(a)] = {"records": len(oracle)}
+        for part, backend in jobs:
+            cfg = engine_config(backend, w,
+                                partitioner=keyskew_partitioner(part))
+            r = run_engine(cfg, corpus, reps, device, maps=True)
+            res = r.pop("result")
+            assert res.records == oracle, (a, part, backend)
+            assert part != "sampled+split" or res.n_split_keys > 0, (a,
+                                                                     backend)
+            if cuda:
+                want = 0 if backend == "2s" else steps
+                assert r["launches"] == want, (a, part, backend)
+            r.update(n_split_keys=res.n_split_keys,
+                     model_imbalance=imbalance(partition.owner_loads(
+                         hist, r.pop("owner_map"), r.pop("owner_split"),
+                         w.n_procs)),
+                     window_imbalance=imbalance(r["window_records"]))
+            rows[f"{part} {backend}"] = r
+    return out
+
+
+def print_keyskew(c: dict, w: Width = FULL):
+    print(f"keyskew: ZipfSource N={c['n']} V={w.vocab} seed 0 in host "
+          f"memory, P={w.n_procs} S={w.task} cap={w.cap} "
+          f"segment={w.segment}, the unbalanced grid, sampled+split at "
+          f"split_threshold {KEYSKEW_SPLIT_THRESHOLD}; every job's records "
+          f"== oracle")
+    for a, rows in c.items():
+        if a in ("n", "seconds"):
+            continue
+        print(f"keyskew: a={a}: {rows['records']} distinct keys")
+        for job, r in rows.items():
+            if job == "records":
+                continue
+            pre = (f"pre-pass {r['prepass_s']:.4f} s, "
+                   f"{r['sample_tasks_read']} tasks read; "
+                   if "prepass_s" in r else "")
+            print(f"keyskew: a={a} {job}: {r['wall_s']:.3f} s "
+                  f"({r['tokens_per_s']:.0f} tokens/s); {pre}"
+                  f"{r['n_split_keys']} split keys, {r['n_steals']} steals; "
+                  f"owner loads max/mean {r['model_imbalance']:.4f} (model), "
+                  f"window records max/mean {r['window_imbalance']:.4f} "
+                  f"(measured: {r['window_records']})")
+    print(f"keyskew: {c['seconds']:.1f} s")
 
 
 def print_snapshots(c: dict):
@@ -2754,6 +2957,10 @@ def main(argv=()) -> int:
     snaps["seconds"] = time.perf_counter() - t0
     print_snapshots(snaps)
     del corpus
+    t0 = time.perf_counter()
+    keyskew = phase_keyskew(device)
+    keyskew["seconds"] = time.perf_counter() - t0
+    print_keyskew(keyskew)
 
     get_config, _, _ = _serve()
     serves = {}
@@ -2798,7 +3005,8 @@ def main(argv=()) -> int:
         for what, p in serve["profiles"].items():
             print_profile(f"serve {arch} {what}", p)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
-                      "snapshots": snaps, "fused_map": timing,
+                      "snapshots": snaps, "keyskew": keyskew,
+                      "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
                                    "bits_off": ssd_bits},
@@ -2817,7 +3025,15 @@ def main(argv=()) -> int:
         "name": "fused_map", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_map/csrc/fused_map.cu",
         "replaces": "src/repro/kernels/fused_map/kernel.py:162",
-        "launches": job["launches"], "max_abs_err": err,
+        "launches": job["launches"],
+        "launches_by_path": {
+            "job": job["launches"],
+            "1s+steal": {g: compare[g]["1s+steal"]["launches"]
+                         for g in GRIDS},
+            "keyskew": {f"{a} {k}": r["launches"]
+                        for a in map(str, KEYSKEW_A)
+                        for k, r in keyskew[a].items() if k != "records"}},
+        "max_abs_err": err,
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],
         "pass_ms": timing["pass_ms"],

@@ -3,6 +3,8 @@
 from repro_torch.core.job import (CombineOverflowError, JobConfig, JobHandle,
                                   JobResult, submit)
 from repro_torch.core.partition import (HashPartitioner, Partitioner,
+                                        SampledPartitioner,
+                                        available_partitioners,
                                         resolve_partitioner)
 from repro_torch.core.registry import (Backend, JobSpec, UnknownBackendError,
                                        available_backends, get_backend,

@@ -27,6 +27,11 @@ the not-yet-read tasks through the same feed. ``restore`` and ``load``
 copy the snapshot into the carry's own buffers, which the fused step's
 CUDA graphs replay into.
 
+``stealing=True`` rebalances work inside each 1S segment
+(``core/steal.py``); ``partitioner="sampled"`` or ``"sampled+split"``
+builds the owner map from a pre-pass over a few sampled tasks, at the
+first step or checkpoint, into the same carry buffers.
+
 Options of the reference that are not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
@@ -41,7 +46,8 @@ import torch
 
 from repro_torch.core import planner
 from repro_torch.core.kv import KEY_SENTINEL
-from repro_torch.core.partition import Partitioner, resolve_partitioner
+from repro_torch.core.partition import (Partitioner, resolve_partitioner,
+                                        sample_key_histogram)
 from repro_torch.core.registry import Backend, JobSpec, get_backend
 from repro_torch.core.usecase import UseCase, as_map_fn, finalize
 from repro_torch.core.windows import DenseWindow
@@ -61,8 +67,11 @@ class JobConfig:
     segment: int = 0          # 0 -> oneshot; >0 -> tasks per step()
     window: int = 0           # 0 -> usecase.window
     combine_capacity: int = 0
-    stealing: bool = False    # not ported (ROADMAP Queue 1 item 7)
+    stealing: bool = False    # work stealing inside the 1S segment
+                              #   (core/steal.py)
     partitioner: str | Partitioner = "hash"
+                              # "hash", "sampled", "sampled+split" or a
+                              #   Partitioner (core/partition.py)
     fused_map: bool = False   # per-step hot path as the fused_map CUDA
                               #   kernel — identical results
     code_rate: int = 1        # not ported beyond 1 (ROADMAP Queue 1 item 9)
@@ -122,9 +131,11 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
     grid (the paper's footnote-5 imbalance model). ``prefetch=False``
     disables the background read."""
     backend = get_backend(config.backend)      # fail fast on bad names
-    if config.stealing:
-        raise NotImplementedError("stealing=True: device-side work "
-                                  "stealing is ROADMAP Queue 1 item 7")
+    if config.stealing and not getattr(backend, "supports_stealing", False):
+        raise ValueError(
+            f"backend {config.backend!r} does not implement work stealing "
+            "(no supports_stealing attribute) — drop stealing=True or use "
+            "backend '1s'")
     if config.code_rate > 1:
         raise NotImplementedError("code_rate > 1: the coded shuffle is "
                                   "ROADMAP Queue 1 item 9")
@@ -142,8 +153,8 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
     spec = JobSpec(vocab=window, task_size=config.task_size,
                    push_cap=config.push_cap, n_procs=config.n_procs,
                    combine_capacity=config.combine_capacity,
-                   segment=config.segment, fused_map=config.fused_map,
-                   partitioner=partitioner.name)
+                   segment=config.segment, stealing=config.stealing,
+                   fused_map=config.fused_map, partitioner=partitioner.name)
     source = as_source(dataset)
     plan = planner.plan_input(source.len_elements(), config.task_size,
                               config.n_procs)
@@ -174,6 +185,8 @@ class JobHandle:
         self._map_fn = as_map_fn(config.usecase)
         self._seg_fns = None
         self._carry = None
+        self._owner_ready = False   # sampled owner map installed (or a
+                                    #   snapshot's map adopted)
         self._wall = 0.0
         self._result: JobResult | None = None
 
@@ -238,6 +251,34 @@ class JobHandle:
             init_fn, _, _ = self._seg_fns
             self._carry = init_fn()
 
+    def _ensure_owner_map(self):
+        """Install the partitioner's owner map in the carry's buffers (a
+        pre-pass through the feed, so the sample's reads land in
+        ``feed.stats``), which the step graphs read. Deferred to the first
+        advance or checkpoint, so that a ``restore``, which adopts the
+        snapshot's map, never pays for a sample; the pre-pass counts into
+        ``wall_time``."""
+        if self._owner_ready:
+            return
+        if self.partitioner.needs_sample:   # else the carry's seed map
+            t0 = time.perf_counter()
+            self._install_partitioner()
+            self._wall += time.perf_counter() - t0
+        self._owner_ready = True
+
+    def _install_partitioner(self):
+        # the histogram has the engine's window (a JobConfig(window=) may
+        # widen it past usecase.window), the carry's shape
+        hist = sample_key_histogram(
+            self.feed.sample_tasks, self.plan, self.config.usecase,
+            getattr(self.partitioner, "sample_tasks", 16),
+            window=self.spec.vocab)
+        omap, osplit = self.partitioner.build(hist, self.spec.n_procs)
+        for dst, row in ((self._carry.owner_map, omap),
+                         (self._carry.owner_split, osplit)):
+            dst.copy_(torch.from_numpy(np.asarray(row, np.int32))
+                      .expand_as(dst))
+
     def _ensure_segmented(self):
         if self.config.segment <= 0:
             raise RuntimeError(
@@ -253,16 +294,19 @@ class JobHandle:
             if not isinstance(src, torch.Tensor):
                 src = torch.from_numpy(np.ascontiguousarray(src, np.int32))
             dst.copy_(src)
+        self._owner_ready = True        # the snapshot's map is the map
+        if self.spec.stealing:
+            self._seg_fns.host_work = None  # read the new work row back
 
     def _advance(self, n_segments: int) -> bool:
+        self._ensure_owner_map()
         _, seg_fn, _ = self._seg_fns
         t0 = time.perf_counter()
         for _ in range(n_segments):
             seg = self.feed.next_segment()
             if seg is None:
                 break
-            self._carry = seg_fn(self._carry, seg.tokens, seg.task_ids,
-                                 seg.repeats, seg.max_rep)
+            self._carry = seg_fn(self._carry, seg)
         self._wall += time.perf_counter() - t0
         return not self.feed.exhausted
 
@@ -299,6 +343,8 @@ class JobHandle:
         keys: the feed's position and task assignment, so that restore
         can seek, and what restore's guards check."""
         self._ensure_segmented()
+        self._ensure_owner_map()    # a snapshot before the first step
+                                    #   holds the sampled map, not the seed
         # reserved keys win over caller extras: restore() trusts them
         return manager.save_async(
             self.cursor, self._carry,
@@ -390,6 +436,13 @@ class JobHandle:
         records = dict(zip(keys[valid].tolist(), vals[valid].tolist()))
         ids, reps = self.feed.task_ids_grid, self.feed.repeats_grid
         task_valid = ids >= 0
+        if self.config.stealing:
+            # the executed distribution, from the carry's progress rows
+            work = self._carry.work[0].cpu().numpy()
+            steals = self._carry.stolen[0].cpu().numpy()
+        else:
+            work = (reps * task_valid).sum(axis=1)
+            steals = np.zeros((self.config.n_procs,), np.int32)
         return JobResult(
             records=records,
             output=finalize(self.config.usecase, records),
@@ -398,8 +451,8 @@ class JobHandle:
             backend=self.backend.name,
             n_tasks=self.plan.n_tasks,
             tasks_per_rank=task_valid.sum(axis=1),
-            work_per_rank=(reps * task_valid).sum(axis=1),
-            steals_per_rank=np.zeros((self.config.n_procs,), np.int32),
+            work_per_rank=work,
+            steals_per_rank=steals,
             partitioner=self.spec.partitioner,
             n_split_keys=int((self._carry.owner_split[0] > 1).sum()),
             combine_overflow=overflow,

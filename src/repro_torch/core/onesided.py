@@ -22,14 +22,24 @@ On a CUDA device the fused step is one CUDA graph (:class:`StepGraphs`),
 captured once for each distinct ``max_rep`` on the carry's own buffers
 and replayed once a step, as the reference runs a segment as one
 compiled program. The CPU and the unfused path run the eager loop.
+
+With ``JobSpec.stealing`` a segment's whole claim schedule is computed
+on the host first (``core/steal.py``), from its grid and the carry's
+work row, and each step's column is gathered from the schedule: step k
+runs on executor e the task that e claimed at step k, wherever its input
+lies. Steps then run as above, so the stealing job replays the same
+graphs, one a step.
 """
 from __future__ import annotations
 
+import time
 from collections.abc import Callable
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch.core import steal
 from repro_torch.core.combine import tree_combine
 from repro_torch.core.kv import KEY_SENTINEL, bucketize, local_reduce_repeated
 from repro_torch.core.partition import lookup_owner
@@ -37,6 +47,7 @@ from repro_torch.core.registry import JobSpec, register_backend
 from repro_torch.core.windows import (STATUS_REDUCE, DenseWindow,
                                       EngineCarry, combine_records,
                                       init_carry)
+from repro_torch.data.feed import Segment
 from repro_torch.distributed.collectives import all_to_all_blocks
 from repro_torch.kernels.fused_map import ops as fused_ops
 from repro_torch.kernels.fused_map.ops import fused_map
@@ -136,27 +147,104 @@ class StepGraphs:
         fused_map.launches += 1         # the graph's one fused_map node
 
 
-def _segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry, tokens,
-             task_ids, repeats, max_rep,
-             graphs: StepGraphs | None = None) -> EngineCarry:
-    """Advance one segment: ``tokens (P, n, S)``, ``task_ids``/``repeats``
-    (P, n) on the device, ``max_rep (n,)`` on the host. With ``graphs``
-    each step replays a graph; without, the eager loop runs."""
-    n = tokens.shape[1]
+def _run_steps(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+               tokens, task_ids, repeats, max_rep,
+               graphs: StepGraphs | None,
+               stats: StealStats | None = None) -> EngineCarry:
+    """Run a segment's steps in order: ``tokens (n, P, S)`` and
+    ``task_ids``/``repeats (n, P)`` step-major on the device, ``max_rep``
+    (n,) on the host. With ``graphs`` each step replays a graph; without,
+    the eager loop runs. ``stats`` counts the repeat passes the steps
+    were given."""
+    n = tokens.shape[0]
     max_rep = np.asarray(max_rep).tolist()
+    if stats is not None:
+        stats.passes += sum(max_rep)
     if graphs is not None:
-        packed = torch.cat([tokens.transpose(0, 1).reshape(n, -1),
-                            task_ids.t(), repeats.t()], dim=1)
+        packed = torch.cat([tokens.reshape(n, -1), task_ids, repeats], dim=1)
         for column, m in zip(packed.unbind(0), max_rep):
             graphs.step(column, m)
         return graphs.carry
-    tokens = tokens.transpose(0, 1).contiguous()      # (n, P, S)
-    task_ids = task_ids.t().contiguous()
-    repeats = repeats.t().contiguous()
+    tokens = tokens.contiguous()
+    task_ids = task_ids.contiguous()
+    repeats = repeats.contiguous()
     for c, m in enumerate(max_rep):
         carry = _step(spec, map_fn, carry, tokens[c], task_ids[c],
                       repeats[c], m)
     return carry
+
+
+def _segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+             seg: Segment, graphs: StepGraphs | None = None) -> EngineCarry:
+    """Advance one segment: ``seg.tokens (P, n, S)``, ``seg.task_ids``/
+    ``seg.repeats`` (P, n) on the device; column c is step c."""
+    return _run_steps(spec, map_fn, carry, seg.tokens.transpose(0, 1),
+                      seg.task_ids.t(), seg.repeats.t(), seg.max_rep, graphs)
+
+
+@dataclass
+class StealStats:
+    """Host-side counters of a stealing engine."""
+    segments: int = 0
+    schedule_s: float = 0.0    # host seconds computing the schedules and
+                               #   staging them for the device
+    passes: int = 0            # lockstep repeat passes: the max repeat
+                               #   each step was run with, summed
+
+
+def _to_device(host: np.ndarray, device) -> torch.Tensor:
+    """A small host array on ``device`` without waiting for the device:
+    through pinned memory on a CUDA device (a copy from pageable memory
+    would wait for the steps already queued on the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _steal_segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+                   seg: Segment, work0: np.ndarray,
+                   graphs: StepGraphs | None, stats: StealStats):
+    """Advance one segment under work stealing: ``seg`` on the device
+    with its host grids, ``work0`` the host mirror of the carry's work
+    row. The schedule is computed from the host grids; then, on the
+    device, executor e's column at step k is gathered from the segment by
+    the slot e claimed: its tokens, global id and repeat (sentinel tokens,
+    id -1 and repeat 0 when it idles; it runs ``max(rep, 1)``, as the
+    reference's). Every step runs. The carry's ``work`` and ``stolen``
+    rows advance on the device by what was gathered, as the reference's
+    psum does. Returns the carry and the schedule's work row."""
+    P, n, S = seg.tokens.shape
+    device = seg.tokens.device
+    t0 = time.perf_counter()
+    sched = steal.steal_schedule(seg.ids, seg.reps, work0=work0)
+    live = sched.src_rank >= 0
+    # src_col indexes the source rank's compacted row: map it back
+    # through that rank's permutation to the segment's column
+    perm = steal.compact_columns(seg.ids)
+    col = perm[np.maximum(sched.src_rank, 0), np.maximum(sched.src_col, 0)]
+    src = np.where(live, sched.src_rank * n + col, -1)
+    max_rep = np.maximum(sched.exec_reps, 1).max(axis=0)
+    src = _to_device(src.T.astype(np.int32), device)       # (n, P)
+    stats.schedule_s += time.perf_counter() - t0
+    got = src >= 0
+    at = src.clamp(min=0).view(-1)
+
+    def gather(x, fill):
+        rows = x.reshape(P * n, -1).index_select(0, at)
+        return torch.where(got.view(-1, 1), rows, fill).view(n, P, -1)
+
+    tokens = gather(seg.tokens, KEY_SENTINEL)
+    ids = gather(seg.task_ids, -1).view(n, P)
+    reps = gather(seg.repeats, 0).view(n, P)
+    mine = torch.arange(P, device=device)
+    carry.work.add_(reps.sum(dim=0, dtype=torch.int32))
+    carry.stolen.add_((got & (src // n != mine)).sum(dim=0,
+                                                     dtype=torch.int32))
+    carry = _run_steps(spec, map_fn, carry, tokens, ids, reps.clamp(min=1),
+                       max_rep, graphs, stats)
+    stats.segments += 1
+    return carry, sched.work
 
 
 class SegmentFns:
@@ -166,11 +254,18 @@ class SegmentFns:
     replaying ``graphs`` when there are any and running the eager loop
     otherwise; ``finish`` releases the graphs, drains and combines. Setting
     ``graphs = None`` after ``init`` runs the eager loop on the card too:
-    the graphs' baseline."""
+    the graphs' baseline.
+
+    Under ``spec.stealing`` ``host_work`` mirrors the carry's work row on
+    the host; ``None`` (after ``init``, or after a carry was installed)
+    reads it back from the carry once. ``steal`` counts the schedules'
+    host seconds and the lockstep passes the steps ran."""
 
     def __init__(self, spec: JobSpec, map_fn: Callable, device):
         self.spec, self.map_fn, self.device = spec, map_fn, device
         self.graphs: StepGraphs | None = None
+        self.host_work: np.ndarray | None = None
+        self.steal = StealStats()
 
     def __iter__(self):
         return iter((self.init, self.segment, self.finish))
@@ -179,11 +274,18 @@ class SegmentFns:
         carry = init_carry(self.spec, self.device)
         if self.spec.fused_map and torch.device(self.device).type == "cuda":
             self.graphs = StepGraphs(self.spec, self.map_fn, carry)
+        self.host_work = None
         return carry
 
-    def segment(self, carry, tokens, task_ids, repeats, max_rep):
-        return _segment(self.spec, self.map_fn, carry, tokens, task_ids,
-                        repeats, max_rep, self.graphs)
+    def segment(self, carry, seg: Segment):
+        if not self.spec.stealing:
+            return _segment(self.spec, self.map_fn, carry, seg, self.graphs)
+        if self.host_work is None:
+            self.host_work = carry.work[0].cpu().numpy()
+        carry, self.host_work = _steal_segment(
+            self.spec, self.map_fn, carry, seg, self.host_work, self.graphs,
+            self.steal)
+        return carry
 
     def finish(self, carry):
         self.graphs = None
@@ -213,28 +315,27 @@ def _finish(spec: JobSpec, carry: EngineCarry):
 class OneSidedBackend:
     """The decoupled engine behind the ``Backend`` protocol."""
 
-    # honors JobSpec.fused_map (the per-step hot path as one CUDA kernel)
+    # honors JobSpec.stealing (work stealing inside a segment,
+    # core/steal.py); submit() refuses the flag on backends without this
+    supports_stealing = True
+    # ... and JobSpec.fused_map (the per-step hot path as one CUDA kernel)
     supports_fused_map = True
 
     def run_job(self, spec: JobSpec, map_fn: Callable, device, tokens,
                 task_ids, repeats):
         """Full job over host arrays tokens (P, T, S) and task_ids/repeats
         (P, T). Returns rank-0 records as host arrays."""
-        repeats = np.asarray(repeats, np.int32)
         init_fn, segment_fn, finish_fn = self.make_segment_fns(
             spec, map_fn, device)
-        carry = segment_fn(
-            init_fn(),
-            torch.as_tensor(np.asarray(tokens, np.int32)).to(device),
-            torch.as_tensor(np.asarray(task_ids, np.int32)).to(device),
-            torch.as_tensor(repeats).to(device), repeats.max(axis=0))
+        carry = segment_fn(init_fn(),
+                           Segment.of(tokens, task_ids, repeats, device))
         keys, vals, _ = finish_fn(carry)
         return keys[0].cpu().numpy(), vals[0].cpu().numpy()
 
     def make_segment_fns(self, spec: JobSpec, map_fn: Callable, device):
         """``(init_fn, segment_fn, finish_fn)`` — the checkpointable path.
-        ``segment_fn(carry, tokens, task_ids, repeats, max_rep)`` advances
-        one segment; ``finish_fn(carry)`` returns ``(keys, vals,
+        ``segment_fn(carry, seg)`` advances one feed ``Segment``;
+        ``finish_fn(carry)`` returns ``(keys, vals,
         overflow)`` with a leading rank dim, as a :class:`SegmentFns`:
         the fused step replays CUDA graphs on a CUDA device."""
         return SegmentFns(spec, map_fn, device)

@@ -27,6 +27,8 @@ class JobSpec:
     n_procs: int
     combine_capacity: int = 0    # 0 -> vocab
     segment: int = 0             # tasks per segment (0 -> oneshot)
+    stealing: bool = False       # work stealing inside the 1S segment
+                                 #   (core/steal.py)
     fused_map: bool = False      # per-step hot path as the fused_map
                                  #   kernel; identical results
     partitioner: str = field(default="hash", compare=False)
@@ -55,7 +57,8 @@ class Backend(Protocol):
 
     def make_segment_fns(self, spec: JobSpec, map_fn: MapFn, device):
         """``(init_fn, segment_fn, finish_fn)`` sharing the
-        :class:`~repro_torch.core.windows.EngineCarry` carry."""
+        :class:`~repro_torch.core.windows.EngineCarry` carry;
+        ``segment_fn(carry, seg)`` advances one feed ``Segment``."""
         ...
 
 

@@ -147,9 +147,9 @@ class TwoSidedBackend:
         def init():
             return init_carry(spec, device)
 
-        def segment(carry, tokens, task_ids, repeats, max_rep):
-            return _segment(spec, map_fn, carry, tokens, task_ids, repeats,
-                            max_rep)
+        def segment(carry, seg):
+            return _segment(spec, map_fn, carry, seg.tokens, seg.task_ids,
+                            seg.repeats, seg.max_rep)
 
         def finish(carry):
             return _finish(spec, carry)

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.kv import KEY_SENTINEL, local_reduce, owner_of
+from repro_torch.core.kv import (KEY_SENTINEL, local_reduce, merge_sorted,
+                                 owner_of)
 
 STATUS_INIT = 0
 STATUS_MAP = 1
@@ -53,6 +54,30 @@ class DenseWindow(NamedTuple):
         valid = self.table != 0
         return (torch.where(valid, keys, KEY_SENTINEL),
                 torch.where(valid, self.table, 0))
+
+
+class SortedWindow(NamedTuple):
+    """Generic Key-Value windows: sorted unique runs, merged on arrival.
+    ``keys``/``values`` are ``(..., capacity)``, one row a rank."""
+    keys: torch.Tensor            # (..., capacity) int32, KEY_SENTINEL padded
+    values: torch.Tensor
+
+    @staticmethod
+    def alloc(capacity: int, dtype=torch.int32, lead: tuple = (),
+              device=None) -> SortedWindow:
+        """Empty windows of shape ``lead + (capacity,)``."""
+        shape = tuple(lead) + (capacity,)
+        return SortedWindow(
+            torch.full(shape, KEY_SENTINEL, dtype=torch.int32,
+                       device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+    def put(self, keys: torch.Tensor, values: torch.Tensor) -> SortedWindow:
+        """Merge ``(..., L)`` key-ascending records into each row, summing
+        duplicates; past ``capacity`` unique keys are dropped."""
+        k, v = merge_sorted(self.keys, self.values, keys, values,
+                            self.keys.shape[-1])
+        return SortedWindow(k, v)
 
 
 class EngineCarry(NamedTuple):

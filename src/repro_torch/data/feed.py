@@ -37,8 +37,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.planner import gather_segment, read_tasks
-
 
 @dataclass
 class FeedStats:
@@ -50,6 +48,9 @@ class FeedStats:
     max_live_bytes: int = 0      # high-water mark of feed-held host bytes
     build_seconds: float = 0.0   # host seconds spent reading and staging
                                  #   segments (the feed's thread included)
+    sample_tasks_read: int = 0   # tasks read by a partitioner pre-pass
+                                 #   (core/partition.py); their bytes are
+                                 #   included in bytes_read
     _live: dict = field(default_factory=dict, repr=False)
 
     def _track(self, key, nbytes: int):
@@ -62,11 +63,29 @@ class FeedStats:
 
 
 class Segment(NamedTuple):
-    """One segment on the feed's device, plus the host-side loop bound."""
+    """One segment on the feed's device, plus its grids on the host."""
     tokens: torch.Tensor      # (P, n, S) int32
     task_ids: torch.Tensor    # (P, n) int32
     repeats: torch.Tensor     # (P, n) int32
-    max_rep: np.ndarray       # (n,) per-column max repeat, on the host
+    ids: np.ndarray           # (P, n) ``task_ids`` on the host
+    reps: np.ndarray          # (P, n) ``repeats`` on the host
+
+    @property
+    def max_rep(self) -> np.ndarray:
+        """(n,) per-column max repeat, the host-side loop bound."""
+        return self.reps.max(axis=0)
+
+    @classmethod
+    def of(cls, tokens, task_ids, repeats, device) -> Segment:
+        """A segment of host arrays ``tokens (P, n, S)`` and
+        ``task_ids``/``repeats (P, n)``, copied to ``device``."""
+        ids = np.asarray(task_ids, np.int32)
+        reps = np.asarray(repeats, np.int32)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.int32)).to(device)
+
+        return cls(dev(tokens), dev(ids), dev(reps), ids, reps)
 
 
 class _Staged(NamedTuple):
@@ -152,9 +171,19 @@ class SegmentFeed:
         """Serve arbitrary tasks by *global id* on the host, independent
         of the grids or cursor (reads are pure); the bytes count into
         ``stats``."""
+        from repro_torch.core.planner import read_tasks  # lazy: no cycle
         tokens = read_tasks(self.source, self.plan, task_ids)
         with self._stats_lock:
             self.stats.bytes_read += tokens.nbytes
+        return tokens
+
+    def sample_tasks(self, task_ids) -> np.ndarray:
+        """:meth:`read_tasks` for a partitioner's sampling pre-pass: the
+        same read by global id, counted apart so that a job's stats show
+        what the skew sample cost."""
+        tokens = self.read_tasks(task_ids)
+        with self._stats_lock:
+            self.stats.sample_tasks_read += int(np.asarray(task_ids).size)
         return tokens
 
     # -- segment construction ----------------------------------------------
@@ -171,6 +200,7 @@ class SegmentFeed:
     def _build(self, start: int, gen: int) -> _Staged:
         """Read one segment's tasks by file offset and start its device
         copy — the body that runs in the feed thread."""
+        from repro_torch.core.planner import gather_segment  # lazy: no cycle
         t0 = time.perf_counter()
         ids, reps = self._grids(start)
         n_tok = ids.size * self.plan.task_size
@@ -227,7 +257,7 @@ class SegmentFeed:
             tokens=flat[:n_tok].view(ids.shape + (self.plan.task_size,)),
             task_ids=flat[n_tok: n_tok + ids.size].view(ids.shape),
             repeats=flat[n_tok + ids.size:].view(ids.shape),
-            max_rep=staged.reps.max(axis=0))
+            ids=ids, reps=staged.reps)
 
     # -- the streaming contract --------------------------------------------
 

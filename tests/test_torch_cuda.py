@@ -210,6 +210,143 @@ def test_both_backends_on_the_card_equal_the_cpu(cuda_device, backend):
         wordcount_oracle(data, 700)
 
 
+def _steal_job(device, eager=False, partitioner="hash", segment=4):
+    """A fused stealing job with a hot rank at 8x, on ``device``; with
+    ``eager`` the card runs its eager loop instead of the graphs."""
+    data = np.random.default_rng(12).zipf(1.3, 1 << 15) % 700
+    cfg = JobConfig(WordCount(vocab=700), task_size=128, push_cap=16,
+                    n_procs=8, segment=segment, fused_map=True,
+                    stealing=True, partitioner=partitioner)
+    reps = np.ones((8, 32), np.int32)
+    reps[0] = 8
+    h = submit(cfg, data.astype(np.int32), device=device, repeats=reps)
+    if eager:
+        h.engine.graphs = None
+    return h, data.astype(np.int32)
+
+
+@pytest.mark.cuda
+def test_stealing_graphs_equal_the_eager_stealing_loop(cuda_device,
+                                                       monkeypatch):
+    """The stealing job's graph replays on the card equal its eager loop
+    on the card and the CPU's job bit for bit, carry field by field after
+    every segment: one replay and one fused_map launch a step, the
+    steals of the host replay, the records of the oracle."""
+    from repro_torch.core.windows import carry_to_numpy
+    monkeypatch.setattr(ops.fused_map, "launches", 0)
+    graph, data = _steal_job(cuda_device)
+    eager, _ = _steal_job(cuda_device, eager=True)
+    cpu, _ = _steal_job("cpu")
+    more = True
+    while more:
+        more = graph.step()
+        eager.step()
+        cpu.step()
+        want = carry_to_numpy(cpu.carry)
+        for got in (carry_to_numpy(graph.carry), carry_to_numpy(eager.carry)):
+            for f, x, y in zip(want._fields, got, want):
+                assert_equal(x, y, f)
+    graphs = graph.engine.graphs
+    assert graphs.replays == 32
+    res = graph.result()
+    assert res.records == eager.result().records == cpu.result().records \
+        == wordcount_oracle(data, 700)
+    assert res.n_steals > 0
+    assert ops.fused_map.launches == 32 + 32      # graph + eager, one a step
+
+
+@pytest.mark.cuda
+def test_stealing_after_a_replan_with_holes_inside_rows_on_the_card(
+        cuda_device):
+    """A re-plan onto rows with -1 holes inside them (each rank's deque
+    order then differs from its columns): the graph job on the card
+    equals the CPU's job carry for carry after every segment, its work
+    and stolen rows included, and its records equal the oracle."""
+    from repro_torch.core.windows import carry_to_numpy
+    (graph, data), (cpu, _) = _steal_job(cuda_device), _steal_job("cpu")
+    for h in (graph, cpu):
+        h.step()
+        rem = np.random.default_rng(7).permutation(h.remaining_task_ids())
+        W = -(-len(rem) // 8) + 3
+        grid = np.full(8 * W, -1, np.int32)
+        grid[np.sort(np.random.default_rng(8).choice(
+            8 * W - 8, len(rem), replace=False))] = rem
+        h.replan(grid.reshape(8, W))
+    more = True
+    while more:
+        more = graph.step()
+        cpu.step()
+        want = carry_to_numpy(cpu.carry)
+        for f, x, y in zip(want._fields, carry_to_numpy(graph.carry), want):
+            assert_equal(x, y, f)
+    assert graph.engine.graphs.replays > 0
+    res = graph.result()
+    assert res.n_steals > 0
+    assert res.records == cpu.result().records == wordcount_oracle(data, 700)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stealing", [False, True])
+def test_a_sampled_map_installed_after_capture_routes_the_graphs(
+        cuda_device, stealing):
+    """A split map installed after the step graphs were captured is the
+    map they route by: after a segment each rank's window holds the CPU
+    job's records under that map (split keys included, picked by each
+    task's global id), and not the hash map's."""
+    from repro_torch.core import SampledPartitioner
+    part = SampledPartitioner(sample_tasks=32, split=True,
+                              split_threshold=0.05)
+    data = (np.random.default_rng(13).zipf(1.6, 1 << 15) % 700).astype(
+        np.int32)
+    cfg = dict(task_size=128, push_cap=16, n_procs=8, segment=4,
+               fused_map=True, stealing=stealing)
+    reps = np.ones((8, 32), np.int32)
+    reps[0] = 4
+    jobs = {}
+    for name, device, p in (("graph", cuda_device, part), ("cpu", "cpu", part),
+                            ("hash", cuda_device, "hash")):
+        h = jobs[name] = submit(JobConfig(WordCount(vocab=700),
+                                          partitioner=p, **cfg), data,
+                                device=device, repeats=reps)
+        if name == "graph":
+            h.engine.graphs._capture(4)     # captured on the hash seed
+            assert h.engine.graphs.graphs
+        h.step()
+    assert jobs["graph"].engine.graphs.replays == 4
+    assert int((jobs["graph"].carry.owner_split[0] > 1).sum()) > 0
+    assert_equal(jobs["graph"].windows(), jobs["cpu"].windows())
+    assert not np.array_equal(jobs["graph"].windows() != 0,
+                              jobs["hash"].windows() != 0)
+    res = jobs["graph"].result()
+    assert res.n_split_keys > 0
+    assert res.records == jobs["cpu"].result().records == \
+        jobs["hash"].result().records == wordcount_oracle(data, 700)
+
+
+@pytest.mark.cuda
+def test_stealing_restore_into_captured_graphs_finishes_exact(cuda_device,
+                                                              tmp_path):
+    """A stealing snapshot restored into a job whose graphs are captured
+    and whose carry is ahead: the job finishes with the uninterrupted
+    job's records, work row and steals."""
+    from repro_torch.ckpt import CheckpointManager
+    want = _steal_job(cuda_device)[0].result()
+    a, _ = _steal_job(cuda_device)
+    a.step(3)
+    mgr = CheckpointManager(str(tmp_path))
+    a.checkpoint(mgr).result(timeout=120)
+    a.close()
+    b, _ = _steal_job(cuda_device)
+    b.step(5)
+    buffers = [t.data_ptr() for t in b.carry]
+    b.restore(mgr)
+    assert b.cursor == 12 and [t.data_ptr() for t in b.carry] == buffers
+    res = b.result()
+    assert res.records == want.records
+    assert_equal(res.work_per_rank, want.work_per_rank)
+    assert_equal(res.steals_per_rank, want.steals_per_rank)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("usecase", ["Histogram(700, 13)",
                                      "InvertedIndex((3, 7, 11, 650), 4, 8)"])

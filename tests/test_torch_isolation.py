@@ -59,6 +59,26 @@ def test_importing_everything_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+@pytest.mark.parametrize("first", ["repro_torch.data", "repro_torch.data.feed",
+                                   "repro_torch.core"])
+def test_each_package_imports_first_in_a_fresh_interpreter(first):
+    """No import cycle between the feed, the planner and the Job API: each
+    imports first, then the rest, and a job runs."""
+    code = (f"import {first}\n"
+            "import numpy as np\n"
+            "import repro_torch.core as core\n"
+            "from repro_torch.data import SegmentFeed\n"
+            "cfg = core.JobConfig(core.WordCount(50), task_size=8, n_procs=2)\n"
+            "t = np.arange(200, dtype=np.int32) % 50\n"
+            "r = core.submit(cfg, t, device='cpu').result()\n"
+            "assert r.records == core.wordcount_oracle(t, 50)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(PORT.parent), REPO]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
 def test_smoke_main_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
@@ -96,8 +116,9 @@ def test_smoke_phases_rehearse_on_cpu():
 
 
 def test_smoke_compare_and_snapshot_phases_rehearse_on_cpu():
-    """Phases 3b and 3c at a tiny width on the CPU: both engines under
-    each grid against the oracle (checked inside), the oneshot runs and
+    """Phases 3b and 3c at a tiny width on the CPU: the three engines
+    under each grid against the oracle (checked inside), the stealing
+    job's passes and steals equal to the replay's, the oneshot runs and
     the Fig 6 buffers, the snapshots in turns, the restore of the older
     kept snapshot and the halfway re-plan."""
     _, data, _, _, _ = chip_smoke._port()
@@ -106,12 +127,22 @@ def test_smoke_compare_and_snapshot_phases_rehearse_on_cpu():
     corpus = data.read_all(chip_smoke.job_input(1 << 15, w)[0])
     c = chip_smoke.phase_compare(cpu, corpus, w)
     assert c["steps"] == 128
+    assert chip_smoke.ENGINES == ("2s", "1s", "1s+steal")
     for grid in chip_smoke.GRIDS:
         row = c[grid]
         assert row["1s"]["launches"] == row["2s"]["launches"] == 0
+        assert row["1s+steal"]["launches"] == 0
         assert row["1s"]["segments"] == row["2s"]["segments"] == 16
         assert row["hot_rank_repeats"] >= row["mean_rank_repeats"]
         assert row["wall_2s_over_1s"] > 0
+        assert row["wall_2s_over_1s_steal"] > 0
+        st, replay = row["1s+steal"]["steal"], row["1s+steal"]["replay"]
+        assert st["segments"] == 16 and st["schedule_s"] > 0
+        assert st["passes"] == replay["passes"] <= row["lockstep_passes"]
+        assert row["1s+steal"]["n_steals"] == replay["steals"]
+        assert (replay["steals"] == 0) == (grid == "balanced")
+    assert c["unbalanced"]["1s+steal"]["steal"]["passes"] < \
+        c["unbalanced"]["lockstep_passes"]
     assert c["unbalanced"]["hot_rank_repeats"] == 8 * 128
     assert c["balanced"]["lockstep_passes"] == 128
     assert c["oneshot"]["2s"]["segments"] == 1
@@ -130,6 +161,37 @@ def test_smoke_compare_and_snapshot_phases_rehearse_on_cpu():
     assert s["replan"]["tasks_after"] == 4 * 64
     assert s["replan"]["hot_rank_tasks_after"] < 256 // 8
     chip_smoke.print_snapshots({**s, "seconds": 0.0})
+
+
+def test_smoke_keyskew_phase_rehearses_on_cpu():
+    """Phase 3d at a tiny width on the CPU: every partitioner with and
+    without stealing and the 2S job at the largest skew against the
+    oracle (checked inside); the pre-pass on the sampled jobs only, split
+    keys under split (checked inside) and only there, the model's and the
+    windows' max/mean."""
+    cpu = torch.device("cpu")
+    w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    c = chip_smoke.phase_keyskew(cpu, w, n=1 << 14, skews=(1.3, 1.8))
+    assert set(c) == {"n", "1.3", "1.8"}
+    for a, jobs in (("1.3", 6), ("1.8", 7)):
+        rows = c[a]
+        assert len(rows) == jobs + 1 and rows["records"] > 0
+        for job, r in rows.items():
+            if job == "records":
+                continue
+            part, backend = job.split(" ")
+            assert r["launches"] == 0
+            assert ("prepass_s" in r) == (part != "hash")
+            assert r["sample_tasks_read"] == (0 if part == "hash" else 16)
+            assert (r["n_split_keys"] > 0) == (part == "sampled+split")
+            assert (r["n_steals"] > 0) == (backend == "1s+steal")
+            assert r["model_imbalance"] >= 1.0
+            assert r["window_imbalance"] >= 1.0
+            assert len(r["window_records"]) == 4
+        assert rows["sampled 1s"]["model_imbalance"] < \
+            rows["hash 1s"]["model_imbalance"]
+    assert "sampled+split 2s" in c["1.8"]
+    chip_smoke.print_keyskew({**c, "seconds": 0.0}, w)
 
 
 def test_smoke_flash_and_serve_phases_rehearse_on_cpu():

@@ -6,7 +6,8 @@ repeats, fused on and off; records, JobResult stats and per-rank
 windows equal to the JAX package's (P = 1 in this process, P = 8 in one
 8-device subprocess for the module); a JAX carry loaded through
 ``carry_from_numpy`` finishes with JAX's records; every option outside
-the port so far raises NotImplementedError. MR-2S and checkpoint,
+the port so far raises NotImplementedError, and those ported since
+(stealing, the sampled partitioners) run. MR-2S and checkpoint,
 restore and re-planning have their own files (``test_torch_twosided``,
 ``test_torch_ckpt``).
 """
@@ -162,7 +163,7 @@ def test_jax_carry_loaded_through_carry_from_numpy_finishes_exactly(
                        _reps(8), segment=4, device="cpu", prefetch=False)
     feed.next_segment()                       # the segment JAX already ran
     while (seg := feed.next_segment()) is not None:
-        carry = seg_fn(carry, *seg)
+        carry = seg_fn(carry, seg)
     keys, vals, overflow = fin_fn(carry)
     keys, vals = keys[0].numpy(), vals[0].numpy()
     live = keys != KEY_SENTINEL
@@ -217,19 +218,14 @@ def test_cpu_feed_segments(data, prefetch):
 _CFG = dict(usecase=core.WordCount(64), task_size=8, n_procs=1, segment=2)
 
 
-@pytest.mark.parametrize("option", [
-    "stealing", "code_rate", "sampled", "sampled+split", "feed_budget",
-    "elastic_load"])
+@pytest.mark.parametrize("option", ["code_rate", "feed_budget",
+                                    "elastic_load"])
 def test_options_outside_the_port_raise_not_implemented(option):
     tokens = np.zeros((64,), np.int32)
     cfg = dict(_CFG)
     kw = {}
-    if option == "stealing":
-        cfg["stealing"] = True
-    elif option == "code_rate":
+    if option == "code_rate":
         cfg["code_rate"] = 2
-    elif option in ("sampled", "sampled+split"):
-        cfg["partitioner"] = option
     elif option == "feed_budget":
         kw["feed_budget"] = object()
     if option == "elastic_load":
@@ -240,6 +236,25 @@ def test_options_outside_the_port_raise_not_implemented(option):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         core.submit(core.JobConfig(**cfg), tokens, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("option", ["stealing", "sampled", "sampled+split"])
+@pytest.mark.parametrize("P", [1, 4])
+def test_options_ported_since_run(option, P):
+    """Work stealing and the sampled partitioners, which raised before
+    they were ported, run through ``submit`` to the oracle's records."""
+    tokens = np.random.default_rng(P).integers(0, 64, 640).astype(np.int32)
+    cfg = dict(_CFG, n_procs=P)
+    if option == "stealing":
+        cfg["stealing"] = True
+    else:
+        cfg["partitioner"] = option
+    h = core.submit(core.JobConfig(**cfg), tokens, device="cpu")
+    res = h.result()
+    assert res.records == core.wordcount_oracle(tokens, 64)
+    assert res.partitioner == ("hash" if option == "stealing" else option)
+    assert h.feed.stats.sample_tasks_read == (0 if option == "stealing"
+                                              else 16)
 
 
 def test_submit_without_a_card_raises(monkeypatch):

@@ -226,6 +226,31 @@ def test_dense_window_put_follows_reference_scatter():
     assert_equal(got, want)
 
 
+@pytest.mark.parametrize("capacity", [24, 9])
+def test_sorted_window_puts_equal_the_reference(capacity):
+    """Three sorted runs merged in turn into each rank's window (9 slots
+    overflow), against the reference's window on each row."""
+    rng = np.random.default_rng(capacity)
+    runs = []
+    for _ in range(3):
+        k = np.sort(rng.choice(30, (3, 8)), axis=1).astype(np.int32)
+        k[:, -2:] = SENT
+        runs.append((k, rng.integers(-9, 9, (3, 8)).astype(np.int32)))
+    win = windows.SortedWindow.alloc(capacity, lead=(3,))
+    assert win.keys.shape == (3, capacity) and win.keys.dtype == torch.int32
+    for k, v in runs:
+        win = win.put(to_torch(k), to_torch(v))
+    for r in range(3):
+        want = jwin.SortedWindow.alloc(capacity)
+        for k, v in runs:
+            want = want.put(jnp.asarray(k[r]), jnp.asarray(v[r]))
+        assert_equal(win.keys[r], want.keys)
+        assert_equal(win.values[r], want.values)
+    one = windows.SortedWindow.alloc(5, dtype=torch.int64)
+    assert one.keys.shape == (5,) and one.values.dtype == torch.int64
+    assert_equal(one.keys, jwin.SortedWindow.alloc(5).keys)
+
+
 @pytest.mark.parametrize("W", [32, 10, 3])
 def test_combine_records(W):
     V = 32

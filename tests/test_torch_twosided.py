@@ -24,6 +24,7 @@ from repro_torch.core import twosided, windows  # noqa: E402
 from repro_torch.core.kv import KEY_SENTINEL  # noqa: E402
 from repro_torch.core.planner import gather_segment  # noqa: E402
 from repro_torch.core.planner import plan_input, shard_task_ids  # noqa: E402
+from repro_torch.data.feed import Segment  # noqa: E402
 from repro_torch.data.source import ArraySource  # noqa: E402
 from torch_parity import (STATS, USECASES, assert_equal,  # noqa: E402
                           assert_same_result, usecase)
@@ -232,7 +233,8 @@ def test_map_block_size_does_not_change_the_carry(data, monkeypatch, block):
         init, seg, _ = twosided.make_segment_fns(spec, map_fn, "cpu")
         bufs = twosided._map_all(spec, map_fn, *args,
                                  *init()[-2:])
-        return windows.carry_to_numpy(seg(init(), *args)), bufs
+        return windows.carry_to_numpy(
+            seg(init(), Segment(*args[:3], ids, reps))), bufs
 
     want, want_bufs = run()
     monkeypatch.setattr(twosided, "MAP_BLOCK", block)

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""MR-1S against MR-2S, and their snapshots, on one CUDA card.
+"""MR-1S against MR-2S, their snapshots and key skew, on one CUDA card.
 
-    python tools/compare_turns.py [--phases compare,snapshots] [--out FILE]
+    python tools/compare_turns.py [--phases compare,snapshots,keyskew]
+                                  [--out FILE]
 
-Phases 3b and 3c of ``chip_smoke.py`` on their own (its
-``phase_compare`` and ``phase_snapshots``, at its full width on its
-2**27-token corpus read once into host memory), without the smoke's
-other phases: both engines under the three repeat grids and oneshot,
-then a checkpoint every 8th segment in turns, a restore and a re-plan.
-Every job's records are held to the oracle or the uninterrupted job's.
-``fused_map`` is built from this checkout at its first use.
+Phases 3b, 3c and 3d of ``chip_smoke.py`` on their own (its
+``phase_compare``, ``phase_snapshots`` and ``phase_keyskew``, at its full
+width; the first two on its 2**27-token corpus read once into host
+memory), without the smoke's other phases: 2S, 1S and 1S with stealing
+under the three repeat grids and oneshot; a checkpoint every 8th segment
+in turns, a restore and a re-plan; each partitioner with and without
+stealing at two key skews. Every job's records are held to the oracle
+or the uninterrupted job's. ``fused_map`` is built from this checkout at
+its first use.
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -39,15 +42,21 @@ def main(argv=None) -> int:
         print("compare_turns: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    phases = args.phases.split(",")
     _, data, _, _, _ = cs._port()
-    corpus = data.read_all(cs.job_input(cs.N_TOKENS)[0])
+    corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
+              if {"compare", "snapshots"} & set(phases) else None)
     out = {}
-    for phase in args.phases.split(","):
-        run, show = {"compare": (cs.phase_compare, cs.print_compare),
-                     "snapshots": (cs.phase_snapshots,
-                                   cs.print_snapshots)}[phase]
+    for phase in phases:
+        run, show = {
+            "compare": (lambda: cs.phase_compare(device, corpus),
+                        cs.print_compare),
+            "snapshots": (lambda: cs.phase_snapshots(device, corpus),
+                          cs.print_snapshots),
+            "keyskew": (lambda: cs.phase_keyskew(device),
+                        cs.print_keyskew)}[phase]
         t0 = time.perf_counter()
-        out[phase] = run(device, corpus)
+        out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
         show(out[phase])
     line = json.dumps(out)
