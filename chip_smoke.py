@@ -109,6 +109,32 @@ Phases, each of which asserts (nothing is caught):
                and max over mean of the owner loads modelled under the
                job's own maps and of the records each rank's window
                holds;
+  3e. fleet  — the reference's fig11_multitenant through the port's
+               ``JobScheduler``, one FeedBudget a fleet: (a) at its own
+               width (P 8, S 1024, cap 512, V 4096, segment 1, 3,145,728
+               tokens) unfused WordCount/Histogram/InvertedIndex jobs of
+               Zipf(2.0) sizes, biggest first, for K 1, 4 and 16, budget
+               8 segments; (b) the main path, 8 fused WordCount tenants
+               at phase 3's width over Zipf(2.0) slices of its 2**27
+               corpus, balanced grid, budget 4 segments (16,777,216 B);
+               fifo, fair and priority (``priority=k``): every job's
+               records equal to its solo run, 3 programs in (a) (K >= 3)
+               and 1 in (b), in (b) one fused_map graph replay a step and
+               one graph captured a tenant, fifo finishing in admission
+               order and priority in descending priority, and no pinned
+               byte left; makespan, mean and p95 latency, Jain's index
+               over solo_wall / latency, budget denials (the feeds' and
+               the budget's), graphs captured, the feeds' pinned bytes'
+               high-water; (b) also makespan over the solo walls' sum and
+               the device's busy share over one fair slice cycle;
+  3f. overlap — the reference's fig8_io_overlap, its real run: the
+               fused job at phase 3's width on the first 2**25 tokens of
+               its corpus (written once to a temporary file), unbalanced
+               grid, resident (the array, ``prefetch=False``) against
+               streamed (``MmapTokenSource``, ``prefetch=True``), in turns
+               twice each: records equal, one launch a step; each wall,
+               ``1 - streamed/resident``, prefetch hits of segments built,
+               the feed's host seconds a segment;
   4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
                at full width through ``ServeEngine.generate``: 16
                requests (h2o: one batch) in batches of 8, 2048-token
@@ -127,7 +153,8 @@ Phases, each of which asserts (nothing is caught):
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c
-and 3d, and each arch of 4) and read just after it.
+and 3d, each fleet of 3e, each run of 3f, and each arch of 4) and read
+just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -2515,6 +2542,332 @@ def print_snapshots(c: dict):
 
 
 # ---------------------------------------------------------------------------
+# 3e. the fleet (fig11_multitenant), 3f. io overlap (fig8_io_overlap)
+# ---------------------------------------------------------------------------
+
+# (a) the reference's fig11_multitenant at its own width: unfused jobs of
+# the three use-cases, 3,145,728 tokens in all, one task a segment
+FLEET_A = Width(vocab=4096, n_procs=8, task=1024, cap=512, segment=1)
+FLEET_A_TOKENS = 3_145_728
+FLEET_KS = (1, 4, 16)
+# (b) the main path: K fused WordCount tenants at phase 3's width over
+# slices of its 2**27-token corpus
+FLEET_K = 8
+FLEET_POLICIES = ("fifo", "fair", "priority")
+SIZE_ZIPF = 2.0                 # job sizes: one giant tenant, many small
+FLEET_BUDGET_SEGMENTS = {"a": 8, "b": 4}
+OVERLAP_N = 2**25
+
+
+def fleet_usecases(vocab: int) -> list:
+    """fig11's rotation: (label, use-case)."""
+    core, _, _, _, _ = _port()
+    return [("wordcount", core.WordCount(vocab=vocab)),
+            ("histogram", core.Histogram(vocab=vocab, n_bins=64)),
+            ("inverted-index", core.InvertedIndex(
+                queries=(3, 17, 42, 99), n_docs=8, tasks_per_doc=2))]
+
+
+def zipf_weights(K: int) -> np.ndarray:
+    w = np.arange(1, K + 1, dtype=np.float64) ** -SIZE_ZIPF
+    return w / w.sum()
+
+
+def fleet_a_sizes(K: int, total: int, w: Width) -> list[int]:
+    """fig11's job sizes: Zipf(2.0) shares of ``total``, biggest first,
+    at least P tasks each, in whole tasks."""
+    sizes = []
+    for share in zipf_weights(K):
+        n = max(int(round(total * share)), w.n_procs * w.task)
+        sizes.append(n - n % w.task)
+    return sizes
+
+
+def fleet_b_sizes(K: int, total: int, w: Width) -> list[int]:
+    """Zipf(2.0) shares of ``total`` tokens, biggest first, in whole
+    tasks that sum to ``total`` (largest remainders to the biggest)."""
+    tasks = total // w.task
+    n = np.floor(tasks * zipf_weights(K)).astype(np.int64)
+    n[: tasks - int(n.sum())] += 1
+    return (n * w.task).tolist()
+
+
+def fleet_pinned_bytes(sched) -> int:
+    """The pinned host bytes the fleet's feeds hold now (their staging
+    pairs: made at a feed's first build on the card, given back at its
+    close)."""
+    return sum(t.nbytes for j in sched.jobs
+               for t in (j.handle.feed._pinned or ()))
+
+
+def fleet_steps(jobs: list, w: Width) -> int:
+    return sum(-(-tasks_per_rank(j["n"], w) // w.segment) * w.segment
+               for j in jobs)
+
+
+def solo_runs(jobs: list, device):
+    """Each job alone through ``submit``: its records (the fleet's gate)
+    and its wall, synchronized."""
+    for j in jobs:
+        res, j["solo_wall"], _ = run_job(j["cfg"], j["data"], None, device)
+        j["solo"] = res.records
+
+
+def run_fleet(jobs: list, policy: str, device, budget_bytes: int,
+              programs: int) -> dict:
+    """One fleet through ``JobScheduler``: ``jobs`` submitted in order
+    (biggest first), job k in its own tenant at ``priority=k``, under one
+    FeedBudget of ``budget_bytes``, driven a slice at a time with the
+    counts zeroed just before. Asserts every job's records equal its solo
+    run, ``programs`` unique programs, and the finish order of ``fifo``
+    (admission) and ``priority`` (descending). Returns makespan, mean and
+    p95 latency, Jain's index over solo_wall / latency, the denials
+    (summed over the feeds and the budget's own), graphs captured,
+    fused_map launches and the pinned bytes' high-water."""
+    core, _, _, ops, _ = _port()
+    sched = core.JobScheduler(policy=policy, device=device,
+                              max_live_bytes=budget_bytes)
+    for k, j in enumerate(jobs):
+        sched.submit(j["cfg"], j["data"], tenant=f"tenant-{k}",
+                     name=j["name"], priority=k)
+    zero_counts()
+    captured = ops.fused_map.captured
+    pinned = 0
+    while any(j.state in ("queued", "live") for j in sched.jobs):
+        sched.run_until_complete(max_slices=1)
+        pinned = max(pinned, fleet_pinned_bytes(sched))
+    launches = ops.fused_map.launches
+    res = sched.results()
+    names = [j["name"] for j in jobs]
+    for j in jobs:
+        assert res[j["name"]].records == j["solo"], (policy, j["name"])
+    assert sched.n_unique_programs == programs, (policy,
+                                                 sched.n_unique_programs)
+    order = [j.name for j in sorted(sched.jobs,
+                                    key=lambda j: j.finished_at)]
+    if policy == "fifo":
+        assert order == names, order
+    if policy == "priority":
+        assert order == names[::-1], order
+    assert fleet_pinned_bytes(sched) == 0     # every finished feed freed
+    lat = np.array([sched.latency(n) for n in names])
+    x = np.array([j["solo_wall"] for j in jobs]) / lat
+    return dict(makespan_s=float(lat.max()), mean_latency_s=float(lat.mean()),
+                p95_latency_s=float(np.percentile(lat, 95)),
+                jain=float(x.sum() ** 2 / (len(x) * (x ** 2).sum())),
+                latencies_s=lat.tolist(), finish_order=order,
+                feed_denials=sum(j.handle.feed.stats.budget_denials
+                                 for j in sched.jobs),
+                budget_denials=sched.budget.denials,
+                graphs_captured=ops.fused_map.captured - captured,
+                launches=launches, pinned_high_water_bytes=pinned,
+                n_unique_programs=sched.n_unique_programs)
+
+
+def fair_cycle_profile(jobs: list, device, budget_bytes: int) -> dict:
+    """The device's busy share over one fair slice cycle (a slice of each
+    of the K jobs) of the fleet, after a warm cycle (every tenant's
+    graphs captured, every job still live): ``device_profile`` of
+    ``run_until_complete(max_slices=K)``, the fleet then closed
+    unfinished. The smallest tenants of (b) finish in that cycle."""
+    core, _, _, _, _ = _port()
+    sched = core.JobScheduler(policy="fair", device=device,
+                              max_live_bytes=budget_bytes)
+    for k, j in enumerate(jobs):
+        sched.submit(j["cfg"], j["data"], tenant=f"tenant-{k}",
+                     name=j["name"], priority=k)
+    K = len(jobs)
+    sched.run_until_complete(max_slices=K)
+    assert all(j.state == "live" for j in sched.jobs)
+    prof = device_profile(lambda: sched.run_until_complete(max_slices=K),
+                          keep=("fused_map",))
+    sched.close()
+    return prof
+
+
+def phase_fleet(device, corpus: np.ndarray, wa: Width = FLEET_A,
+                total_a: int = FLEET_A_TOKENS, ks=FLEET_KS,
+                wb: Width = FULL, k_full: int = FLEET_K) -> dict:
+    """The reference's fig11_multitenant through the port's
+    ``JobScheduler``: (a) at its own width ``wa``, for each K in ``ks`` a
+    rotation of WordCount, Histogram and InvertedIndex unfused jobs of
+    ``ZipfSource(n_k, V, seed=1000 + k)`` (``fleet_a_sizes``); (b) the
+    main path, ``k_full`` fused WordCount tenants at ``wb`` over slices
+    of ``corpus`` (``fleet_b_sizes``, the balanced grid), where each step
+    must be one fused_map graph replay. Each job is run solo first; then
+    each policy's fleet (``run_fleet``) under one FeedBudget of
+    ``FLEET_BUDGET_SEGMENTS`` segments' bytes. For (b) also the solo
+    walls' sum and the device's busy share over one fair slice cycle."""
+    core, data, _, _, _ = _port()
+    cuda = device.type == "cuda"
+    out = {"a": {}, "b": {}}
+    usecases = fleet_usecases(wa.vocab)
+    for _, uc in usecases:                       # warm each program
+        cfg = core.JobConfig(usecase=uc, task_size=wa.task,
+                             push_cap=wa.cap, n_procs=wa.n_procs,
+                             segment=wa.segment)
+        run_job(cfg, data.ZipfSource(2 * wa.n_procs * wa.task, wa.vocab,
+                                     seed=7), None, device)
+    budget_a = FLEET_BUDGET_SEGMENTS["a"] * wa.n_procs * wa.segment \
+        * wa.task * 4
+    for K in ks:
+        jobs = []
+        for k, n in enumerate(fleet_a_sizes(K, total_a, wa)):
+            label, uc = usecases[k % len(usecases)]
+            jobs.append(dict(
+                name=f"job-{k}", label=label, n=n,
+                cfg=core.JobConfig(usecase=uc, task_size=wa.task,
+                                   push_cap=wa.cap, n_procs=wa.n_procs,
+                                   segment=wa.segment),
+                data=data.ZipfSource(n, wa.vocab, seed=1000 + k)))
+        solo_runs(jobs, device)
+        row = out["a"][str(K)] = {
+            "jobs": [dict(k=k, usecase=j["label"], n_tokens=j["n"],
+                          solo_wall_s=j["solo_wall"])
+                     for k, j in enumerate(jobs)],
+            "steps": fleet_steps(jobs, wa)}
+        for policy in FLEET_POLICIES:
+            row[policy] = run_fleet(jobs, policy, device, budget_a,
+                                    programs=min(K, len(usecases)))
+            assert row[policy]["launches"] == 0      # unfused
+    run_job(job_config(True, wb), corpus[: 2 * wb.segment * wb.task
+                                         * wb.n_procs], None, device)
+    jobs, lo = [], 0                             # warm, fused_map built
+    for k, n in enumerate(fleet_b_sizes(k_full, len(corpus), wb)):
+        jobs.append(dict(name=f"job-{k}", n=n, cfg=job_config(True, wb),
+                         data=corpus[lo:lo + n]))
+        lo += n
+    assert lo == len(corpus)
+    solo_runs(jobs, device)
+    budget_b = FLEET_BUDGET_SEGMENTS["b"] * wb.n_procs * wb.segment \
+        * wb.task * 4
+    steps = fleet_steps(jobs, wb)
+    b = out["b"] = {"jobs": [dict(k=k, n_tokens=j["n"],
+                                  solo_wall_s=j["solo_wall"])
+                             for k, j in enumerate(jobs)],
+                    "solo_sum_s": sum(j["solo_wall"] for j in jobs),
+                    "steps": steps, "budget_bytes": budget_b}
+    for policy in FLEET_POLICIES:
+        r = b[policy] = run_fleet(jobs, policy, device, budget_b, programs=1)
+        r["makespan_over_solo_sum"] = r["makespan_s"] / b["solo_sum_s"]
+        if cuda:
+            assert r["launches"] == steps, (policy, r["launches"], steps)
+            assert r["graphs_captured"] == len(jobs), r["graphs_captured"]
+    if cuda:
+        b["fair_cycle"] = fair_cycle_profile(jobs, device, budget_b)
+    return out
+
+
+def print_fleet(c: dict, wa: Width = FLEET_A, wb: Width = FULL):
+    def line(tag, r):
+        print(f"fleet: {tag}: makespan {r['makespan_s']:.3f} s, latency "
+              f"mean {r['mean_latency_s']:.3f} s p95 "
+              f"{r['p95_latency_s']:.3f} s, Jain {r['jain']:.4f}; budget "
+              f"denials {r['feed_denials']} over the feeds, "
+              f"{r['budget_denials']} by the FeedBudget; graphs captured "
+              f"{r['graphs_captured']}, fused_map launches "
+              f"{r['launches']}; pinned high-water "
+              f"{r['pinned_high_water_bytes']} B; "
+              f"{r['n_unique_programs']} programs")
+
+    print(f"fleet: (a) fig11 at its width: unfused WordCount/Histogram/"
+          f"InvertedIndex, P={wa.n_procs} S={wa.task} cap={wa.cap} "
+          f"V={wa.vocab} segment={wa.segment}, Zipf({SIZE_ZIPF}) sizes "
+          f"biggest first, FeedBudget of {FLEET_BUDGET_SEGMENTS['a']} "
+          f"segments; every job's records == its solo run")
+    for K, row in c["a"].items():
+        solo = sum(j["solo_wall_s"] for j in row["jobs"])
+        print(f"fleet: (a) K={K}: {row['steps']} steps, solo walls sum "
+              f"{solo:.3f} s")
+        for policy in FLEET_POLICIES:
+            line(f"(a) K={K} {policy}", row[policy])
+    b = c["b"]
+    print(f"fleet: (b) K={len(b['jobs'])} fused WordCount tenants at "
+          f"P={wb.n_procs} S={wb.task} cap={wb.cap} V={wb.vocab} "
+          f"segment={wb.segment} over slices of the corpus "
+          f"({[j['n_tokens'] for j in b['jobs']]} tokens), balanced grid, "
+          f"FeedBudget {b['budget_bytes']} B; {b['steps']} steps; every "
+          f"job's records == its solo run; solo walls sum "
+          f"{b['solo_sum_s']:.3f} s")
+    for policy in FLEET_POLICIES:
+        r = b[policy]
+        line(f"(b) {policy}", r)
+        print(f"fleet: (b) {policy}: makespan / solo sum "
+              f"{r['makespan_over_solo_sum']:.4f}; finish order "
+              f"{r['finish_order']}")
+    if "fair_cycle" in b:
+        print_profile("fleet (b) one fair slice cycle", b["fair_cycle"])
+    print(f"fleet: {c['seconds']:.1f} s")
+
+
+def phase_overlap(device, corpus: np.ndarray, w: Width = FULL,
+                  n: int = OVERLAP_N) -> dict:
+    """The reference's fig8_io_overlap, its real run: the first ``n``
+    tokens of ``corpus`` (phase 3's 2**25-token corpus) written once to a
+    temporary file; the fused job at ``w`` on phase 3's unbalanced grid,
+    resident (the array, ``prefetch=False``) against streamed
+    (``MmapTokenSource``, ``prefetch=True``), in turns (resident,
+    streamed, streamed, resident), each timed from its engine's creation
+    to its records, synchronized: every run's records equal. Returns each
+    wall, ``1 - streamed/resident`` of the means, prefetch hits, segments
+    built and the feed's host seconds a segment."""
+    import tempfile
+    core, data, _, ops, _ = _port()
+    tokens = corpus[:n]
+    oracle = core.wordcount_oracle(tokens, w.vocab)
+    T = tasks_per_rank(n, w)
+    reps = grid_repeats("unbalanced", T, w)
+    steps = -(-T // w.segment) * w.segment
+    out = {"n": n, "steps": steps, "resident": [], "streamed": []}
+    run_job(job_config(True, w), tokens[: 2 * w.segment * w.task
+                                        * w.n_procs], None, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.bin")
+        tokens.tofile(path)
+        for mode in ("resident", "streamed", "streamed", "resident"):
+            src = tokens if mode == "resident" else data.MmapTokenSource(
+                path)
+            h = core.submit(job_config(True, w), src, device=device,
+                            repeats=reps, prefetch=mode == "streamed")
+            h.engine                               # the carry, untimed
+            zero_counts()
+            t0 = time.perf_counter()
+            res = h.result()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert res.records == oracle, mode
+            if device.type == "cuda":
+                assert ops.fused_map.launches == steps, mode
+            st = h.feed.stats
+            out[mode].append(dict(
+                wall_s=wall, launches=ops.fused_map.launches,
+                prefetch_hits=st.prefetch_hits,
+                segments=st.segments_built,
+                feed_s_per_segment=st.build_seconds / st.segments_built))
+    mean = {m: float(np.mean([r["wall_s"] for r in out[m]]))
+            for m in ("resident", "streamed")}
+    out["overlap_win"] = 1 - mean["streamed"] / mean["resident"]
+    return out
+
+
+def print_overlap(c: dict, w: Width = FULL):
+    print(f"overlap: fig8 real run, fused WordCount N={c['n']} at "
+          f"P={w.n_procs} S={w.task} cap={w.cap} V={w.vocab} "
+          f"segment={w.segment}, unbalanced grid, in turns; every run's "
+          f"records == oracle")
+    for mode in ("resident", "streamed"):
+        for r in c[mode]:
+            print(f"overlap: {mode}: {r['wall_s']:.3f} s, fused_map "
+                  f"launches {r['launches']} of {c['steps']} steps, "
+                  f"{r['prefetch_hits']} prefetch hits of {r['segments']} "
+                  f"segments, {r['feed_s_per_segment']:.4f} s a segment on "
+                  f"the host")
+    print(f"overlap: 1 - streamed/resident {c['overlap_win']:.4f}")
+    print(f"overlap: {c['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # 4. serving olmo-1b, mamba2-780m and h2o-danube-1.8b at full width
 # ---------------------------------------------------------------------------
 
@@ -2956,11 +3309,19 @@ def main(argv=()) -> int:
     snaps = phase_snapshots(device, corpus)
     snaps["seconds"] = time.perf_counter() - t0
     print_snapshots(snaps)
-    del corpus
     t0 = time.perf_counter()
     keyskew = phase_keyskew(device)
     keyskew["seconds"] = time.perf_counter() - t0
     print_keyskew(keyskew)
+    t0 = time.perf_counter()
+    fleet = phase_fleet(device, corpus)
+    fleet["seconds"] = time.perf_counter() - t0
+    print_fleet(fleet)
+    t0 = time.perf_counter()
+    overlap = phase_overlap(device, corpus)
+    overlap["seconds"] = time.perf_counter() - t0
+    print_overlap(overlap)
+    del corpus
 
     get_config, _, _ = _serve()
     serves = {}
@@ -3006,6 +3367,7 @@ def main(argv=()) -> int:
             print_profile(f"serve {arch} {what}", p)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
+                      "fleet": fleet, "overlap": overlap,
                       "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
@@ -3032,7 +3394,9 @@ def main(argv=()) -> int:
                          for g in GRIDS},
             "keyskew": {f"{a} {k}": r["launches"]
                         for a in map(str, KEYSKEW_A)
-                        for k, r in keyskew[a].items() if k != "records"}},
+                        for k, r in keyskew[a].items() if k != "records"},
+            "fleet": {p: fleet["b"][p]["launches"]
+                      for p in FLEET_POLICIES}},
         "max_abs_err": err,
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],

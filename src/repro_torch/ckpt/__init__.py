@@ -1,1 +1,2 @@
-from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.ckpt.checkpoint import (CheckpointManager, FleetCheckpoint,
+                                         FleetStateError)

@@ -16,6 +16,10 @@ before it returns: leaves on a CUDA device into pinned host buffers on
 the current stream, with an event the worker waits on, leaves on the
 CPU by a clone. A later segment then cannot tear the snapshot, and the
 device-to-host transfer and the write still overlap it.
+
+A fleet snapshot (:class:`FleetCheckpoint`) is one such manager a job
+plus the scheduler's queue state in ``fleet.json``, in the reference's
+layout, so fleet snapshots too cross between the packages both ways.
 """
 from __future__ import annotations
 
@@ -225,3 +229,116 @@ class CheckpointManager:
         futures, self._futures = self._futures, []
         for fut in futures:
             fut.result()
+
+
+class FleetStateError(RuntimeError):
+    """The fleet manifest (``fleet.json``) is missing or unreadable.
+
+    Raised by :meth:`FleetCheckpoint.load_state` with the directory and
+    the surviving per-job snapshot names in the message: after a crash
+    the per-job snapshots usually survive even when the queue-state
+    commit did not, and each job can still be resumed on its own through
+    ``FleetCheckpoint.manager(name)``."""
+
+
+class FleetCheckpoint:
+    """Scheduler-level checkpoint root: one :class:`CheckpointManager` a
+    job (``<dir>/job-<name>/``) plus a queue-state manifest
+    (``fleet.json``, committed by an atomic rename).
+
+    A fleet snapshot is the set of per-job snapshots plus the
+    scheduler's queue state (admission order, tenants, priorities,
+    accounting); ``repro_torch.core.scheduler.JobScheduler.checkpoint``
+    and ``restore`` are the front door. Finished jobs' results are not
+    persisted: on restore they resume from their latest per-job snapshot
+    (or from scratch if none was taken), which re-runs only the work
+    after that snapshot.
+    """
+
+    STATE = "fleet.json"
+
+    def __init__(self, directory: str, keep: int = 2):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._managers: dict[str, CheckpointManager] = {}
+
+    @staticmethod
+    def _safe(name: str) -> str:
+        safe = "".join(c if c.isalnum() or c in "-_." else "_"
+                       for c in name)
+        if safe == name:
+            return safe
+        # the sanitizing is lossy ("job/1" and "job_1" both give "job_1"):
+        # a digest of the raw name keeps two jobs from sharing a snapshot
+        # directory, and restore, which derives the path from the same
+        # name, still finds it
+        digest = hashlib.sha1(name.encode()).hexdigest()[:8]
+        return f"{safe}-{digest}"
+
+    def _job_dir(self, name: str) -> str:
+        return os.path.join(self.dir, f"job-{self._safe(name)}")
+
+    def manager(self, name: str) -> CheckpointManager:
+        """The job's CheckpointManager (made at first use)."""
+        if name not in self._managers:
+            self._managers[name] = CheckpointManager(self._job_dir(name),
+                                                     keep=self.keep)
+        return self._managers[name]
+
+    def has_snapshot(self, name: str) -> bool:
+        return (os.path.isdir(self._job_dir(name))
+                and self.manager(name).latest_step() is not None)
+
+    def save_state(self, state: dict) -> str:
+        tmp = os.path.join(self.dir, ".fleet.tmp")
+        final = os.path.join(self.dir, self.STATE)
+        with open(tmp, "w") as f:
+            json.dump(state, f, indent=1)
+            # the rename is atomic only for bytes that reached the disk:
+            # without the fsync a crash can commit a truncated manifest
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)               # atomic commit
+        return final
+
+    def has_state(self) -> bool:
+        """True when a committed fleet manifest exists (it may still be
+        unreadable: ``load_state`` then raises :class:`FleetStateError`)."""
+        return os.path.isfile(os.path.join(self.dir, self.STATE))
+
+    def _snapshot_names(self) -> list[str]:
+        try:
+            return sorted(n for n in os.listdir(self.dir)
+                          if n.startswith("job-")
+                          and os.path.isdir(os.path.join(self.dir, n)))
+        except OSError:
+            return []
+
+    def load_state(self) -> dict:
+        path = os.path.join(self.dir, self.STATE)
+        snaps = self._snapshot_names()
+        surviving = (", ".join(snaps) if snaps
+                     else "none — nothing was ever checkpointed here")
+        if not os.path.isfile(path):
+            raise FleetStateError(
+                f"no fleet manifest ({self.STATE}) in {self.dir!r}; "
+                f"surviving per-job snapshot dirs: {surviving}. Jobs can "
+                "still be resumed one at a time via "
+                "FleetCheckpoint.manager(<name>), but queue state "
+                "(policy, tenants, accounting) is gone")
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except ValueError as e:
+            raise FleetStateError(
+                f"fleet manifest {path!r} is unreadable ({e}); surviving "
+                f"per-job snapshot dirs: {surviving}. The manifest commit "
+                "is fsync+rename-atomic, so this file was likely "
+                "corrupted after the fact") from e
+
+    def wait(self):
+        """Flush every job's async save: call before committing the fleet
+        manifest, so that it never names a torn snapshot."""
+        for m in self._managers.values():
+            m.wait()

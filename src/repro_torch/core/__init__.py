@@ -9,6 +9,11 @@ from repro_torch.core.partition import (HashPartitioner, Partitioner,
 from repro_torch.core.registry import (Backend, JobSpec, UnknownBackendError,
                                        available_backends, get_backend,
                                        register_backend)
+from repro_torch.core.scheduler import (AdmissionQueueFull, FairSharePolicy,
+                                        FifoPolicy, JobScheduler,
+                                        PriorityPolicy, SchedulePolicy,
+                                        TenantStats, available_policies,
+                                        resolve_policy)
 from repro_torch.core.usecase import UseCase, as_map_fn
 from repro_torch.core.usecases import (Histogram, InvertedIndex, WordCount,
                                        histogram_oracle,

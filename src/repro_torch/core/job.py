@@ -27,6 +27,12 @@ the not-yet-read tasks through the same feed. ``restore`` and ``load``
 copy the snapshot into the carry's own buffers, which the fused step's
 CUDA graphs replay into.
 
+Many handles time-slice one device at segment granularity through
+``repro_torch.core.scheduler.JobScheduler``: ``step()`` yields after a
+segment, ``ready()`` says whether the next one's input has landed, and
+``submit(..., feed_budget=)`` shares one prefetch budget among the
+fleet's feeds.
+
 ``stealing=True`` rebalances work inside each 1S segment
 (``core/steal.py``); ``partitioner="sampled"`` or ``"sampled+split"``
 builds the owner map from a pre-pass over a few sampled tasks, at the
@@ -129,7 +135,9 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
 
     ``repeats`` is the optional (n_procs, tasks_per_proc) compute-repeat
     grid (the paper's footnote-5 imbalance model). ``prefetch=False``
-    disables the background read."""
+    disables the background read; ``feed_budget`` is a shared
+    :class:`~repro_torch.data.feed.FeedBudget` that the feed reserves
+    each background read from (``JobScheduler`` passes its own)."""
     backend = get_backend(config.backend)      # fail fast on bad names
     if config.stealing and not getattr(backend, "supports_stealing", False):
         raise ValueError(
@@ -139,9 +147,6 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
     if config.code_rate > 1:
         raise NotImplementedError("code_rate > 1: the coded shuffle is "
                                   "ROADMAP Queue 1 item 9")
-    if feed_budget is not None:
-        raise NotImplementedError("feed_budget: the shared FeedBudget is "
-                                  "ROADMAP Queue 1 item 8")
     if config.fused_map and not getattr(backend, "supports_fused_map",
                                         False):
         raise ValueError(
@@ -165,7 +170,7 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
     repeats = np.asarray(repeats, np.int32).reshape(config.n_procs, T)
     seg_tasks = config.segment if config.segment > 0 else max(T, 1)
     feed = SegmentFeed(source, plan, task_ids, repeats, segment=seg_tasks,
-                       device=device, prefetch=prefetch)
+                       device=device, prefetch=prefetch, budget=feed_budget)
     return JobHandle(config, backend, spec, device, plan, feed, partitioner)
 
 
@@ -213,6 +218,15 @@ class JobHandle:
     @property
     def done(self) -> bool:
         return self._result is not None
+
+    def ready(self) -> bool:
+        """True when the next ``step()`` would not block on input I/O: the
+        feed's background read of the upcoming segment has landed (or the
+        stream is exhausted, or the job is done). With ``step()``, which
+        yields at segment boundaries, the cooperative half of the
+        scheduler's contract: it polls many jobs' feeds without blocking
+        on any of them."""
+        return self._result is not None or self.feed.ready()
 
     @property
     def carry(self):

@@ -12,7 +12,7 @@ Counterpart of ``repro/core/usecase.py``. A use-case provides
 
 :func:`as_map_fn` adapts one into the engines'
 ``map_fn(tokens, task_id, repeat, max_rep)``, attaching the paper's
-footnote-5 imbalance model uniformly.
+footnote-5 imbalance model uniformly, one ``map_fn`` a use-case.
 """
 from __future__ import annotations
 
@@ -47,9 +47,7 @@ def work_dependency(tokens: torch.Tensor, repeat: torch.Tensor,
     return (acc & 0).sum(dim=-1).to(torch.int32)
 
 
-def as_map_fn(usecase: UseCase):
-    """Adapt a UseCase into the engines'
-    ``map_fn(tokens, task_id, repeat, max_rep) -> (keys, values)``."""
+def _build_map_fn(usecase: UseCase):
     combiner = getattr(usecase, "local_reduce", None)
 
     def map_fn(tokens, task_id, repeat, max_rep: int):
@@ -60,6 +58,25 @@ def as_map_fn(usecase: UseCase):
         return keys, vals
 
     return map_fn
+
+
+_MAP_FN_CACHE: dict = {}
+
+
+def as_map_fn(usecase: UseCase):
+    """Adapt a UseCase into the engines'
+    ``map_fn(tokens, task_id, repeat, max_rep) -> (keys, values)``.
+
+    Memoized per (hashable) use-case, as the reference's is: the handles
+    of one use-case share one ``map_fn``, which is what the scheduler's
+    program key ``(backend, spec, id(map_fn))`` counts."""
+    try:
+        fn = _MAP_FN_CACHE.get(usecase)
+        if fn is None:
+            _MAP_FN_CACHE[usecase] = fn = _build_map_fn(usecase)
+        return fn
+    except TypeError:                     # unhashable custom use-case
+        return _build_map_fn(usecase)
 
 
 def finalize(usecase, records: dict):

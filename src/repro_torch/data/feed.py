@@ -14,7 +14,10 @@ cannot hand the memory out again while the consumer's stream still reads
 it. A pinned buffer is refilled only after the event of its previous
 copy has completed — a copy still in flight would otherwise read the
 next segment's bytes. On ``device="cpu"`` there is no pinning and no
-stream: segments are host tensors.
+stream: segments are host tensors. The pinned pair and the side stream
+are made at the feed's first build on the card and given back at
+``close``, so a feed that never builds (a job the scheduler keeps
+queued) pins nothing, and a finished job's feed holds nothing.
 
 Segments are padded to the fixed ``segment`` column width with no-op
 tasks (id -1, all-sentinel tokens, repeat 1). The feed owns the job's
@@ -25,6 +28,14 @@ prefetch is tagged with the generation of the plan it read; a seek or
 replan starts a new generation, so a prefetch of the old plan, even one
 still in flight on the feed's thread and stream, is dropped. Peak host
 residency is O(segment).
+
+With many jobs live at once (``repro_torch.core.scheduler.JobScheduler``)
+many feeds prefetch concurrently; a shared :class:`FeedBudget` bounds
+their combined in-flight bytes, as the reference's does. A denied
+reservation only skips the background read: the segment is built
+synchronously when it is consumed, so the budget serializes a job's I/O
+and never stalls it. The budget counts the segment's token bytes, not
+the pinned pair.
 """
 from __future__ import annotations
 
@@ -51,6 +62,9 @@ class FeedStats:
     sample_tasks_read: int = 0   # tasks read by a partitioner pre-pass
                                  #   (core/partition.py); their bytes are
                                  #   included in bytes_read
+    budget_denials: int = 0      # prefetches skipped because the shared
+                                 #   FeedBudget was exhausted (the segment
+                                 #   was built synchronously instead)
     _live: dict = field(default_factory=dict, repr=False)
 
     def _track(self, key, nbytes: int):
@@ -60,6 +74,50 @@ class FeedStats:
 
     def _release(self, key):
         self._live.pop(key, None)
+
+
+class FeedBudget:
+    """Shared in-flight-bytes arbiter across many live SegmentFeeds.
+
+    One scheduler-owned instance is passed to every feed it creates
+    (``submit(..., feed_budget=...)``); a feed reserves the estimated
+    segment bytes before it schedules a *background* read. When the
+    combined reservations would pass ``max_live_bytes`` the prefetch is
+    denied (counted here and in the feed's ``stats.budget_denials``) and
+    the segment is built synchronously when it is consumed.
+
+    One reservation is always granted when nothing is held, so a single
+    oversized segment degrades to serialized prefetch instead of
+    disabling prefetch fleet-wide.
+    """
+
+    def __init__(self, max_live_bytes: int):
+        if max_live_bytes <= 0:
+            raise ValueError(f"budget must be positive bytes, got "
+                             f"{max_live_bytes}")
+        self.max_live_bytes = int(max_live_bytes)
+        self._held: dict = {}
+        self._lock = threading.Lock()
+        self.denials = 0             # fleet-wide (per-feed copies in stats)
+
+    @property
+    def live_bytes(self) -> int:
+        with self._lock:
+            return sum(self._held.values())
+
+    def try_reserve(self, key, nbytes: int) -> bool:
+        with self._lock:
+            if (self._held
+                    and sum(self._held.values()) + nbytes
+                    > self.max_live_bytes):
+                self.denials += 1
+                return False
+            self._held[key] = int(nbytes)
+            return True
+
+    def release(self, key):
+        with self._lock:
+            self._held.pop(key, None)
 
 
 class Segment(NamedTuple):
@@ -104,7 +162,7 @@ class SegmentFeed:
 
     def __init__(self, source, plan, task_ids: np.ndarray,
                  repeats: np.ndarray, segment: int, *, device,
-                 prefetch: bool = True):
+                 prefetch: bool = True, budget: FeedBudget | None = None):
         self.source = source
         self.plan = plan
         self.segment = int(segment)
@@ -114,6 +172,8 @@ class SegmentFeed:
         self._reps = np.array(repeats, np.int32)       # (P, T)
         self._cursor = 0                               # columns consumed
         self._prefetch = prefetch
+        self._budget = budget
+        self._budget_key = None                        # held reservation
         self._gen = 0                                  # seek/replan epoch
         # (start column, its read, the generation it read)
         self._pending: tuple[int, Future, int] | None = None
@@ -123,15 +183,12 @@ class SegmentFeed:
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.stats = FeedStats()
-        if self.device.type == "cuda":
-            P = self._ids.shape[0]
-            n = P * self.segment * (plan.task_size + 2)
-            self._pinned = [torch.empty((n,), dtype=torch.int32,
-                                        pin_memory=True) for _ in range(2)]
-            self._copied: list[torch.cuda.Event | None] = [None, None]
-            self._next_buf = 0
-            self._stage_lock = threading.Lock()
-            self._stream = torch.cuda.Stream(self.device)
+        # the card's staging: made at the first build, given back at close
+        self._stage_lock = threading.Lock()
+        self._pinned: list[torch.Tensor] | None = None
+        self._copied: list[torch.cuda.Event | None] = [None, None]
+        self._next_buf = 0
+        self._stream: torch.cuda.Stream | None = None
 
     # -- assignment state ---------------------------------------------------
 
@@ -188,6 +245,26 @@ class SegmentFeed:
 
     # -- segment construction ----------------------------------------------
 
+    def _stage_buffers(self):
+        """Pin the double buffer and make the side stream (under
+        ``_stage_lock``, at the first build on the card)."""
+        n = self._ids.shape[0] * self.segment * (self.plan.task_size + 2)
+        self._pinned = [torch.empty((n,), dtype=torch.int32,
+                                    pin_memory=True) for _ in range(2)]
+        self._copied = [None, None]
+        self._next_buf = 0
+        self._stream = torch.cuda.Stream(self.device)
+
+    def _free_buffers(self):
+        """Give the pinned pair and the stream back, once the copies out
+        of the pair have landed."""
+        with self._stage_lock:
+            for event in self._copied:
+                if event is not None:
+                    event.synchronize()
+            self._pinned, self._stream = None, None
+            self._copied = [None, None]
+
     def _grids(self, start: int):
         end = min(start + self.segment, self.total_columns)
         P = self._ids.shape[0]
@@ -211,6 +288,8 @@ class SegmentFeed:
             staged = _Staged(flat, None, ids, reps)
         else:
             with self._stage_lock:
+                if self._pinned is None:
+                    self._stage_buffers()
                 b = self._next_buf
                 self._next_buf ^= 1
                 if self._copied[b] is not None:
@@ -241,9 +320,27 @@ class SegmentFeed:
                 or start >= self.total_columns):
             self._pending = None
             return
-        self._pending = (start,
-                         self._pool.submit(self._build, start, self._gen),
-                         self._gen)
+        gen = self._gen
+        if self._budget is not None:
+            # reserve the estimated segment bytes before the background
+            # read; a denial is not an error: next_segment builds the
+            # segment synchronously when it gets there
+            est = (self._ids.shape[0] * self.segment
+                   * self.plan.task_size * 4)
+            key = (id(self), gen, start)
+            if not self._budget.try_reserve(key, est):
+                with self._stats_lock:
+                    self.stats.budget_denials += 1
+                self._pending = None
+                return
+            self._budget_key = key
+        self._pending = (start, self._pool.submit(self._build, start, gen),
+                         gen)
+
+    def _drop_budget(self):
+        if self._budget is not None and self._budget_key is not None:
+            self._budget.release(self._budget_key)
+            self._budget_key = None
 
     def _segment(self, staged: _Staged) -> Segment:
         flat = staged.flat
@@ -277,6 +374,7 @@ class SegmentFeed:
                 self.stats.prefetch_misses += 1
             with self._stats_lock:
                 self.stats._release((gen, start))
+            self._drop_budget()
             self._cursor = min(start + self.segment, self.total_columns)
             self._schedule(self._cursor)
             return self._segment(staged)
@@ -293,7 +391,9 @@ class SegmentFeed:
 
     def prime(self):
         """Start the background read of the segment at the cursor without
-        consuming anything. Idempotent."""
+        consuming anything, so a freshly admitted job's first segment is
+        read while other jobs run their slices. Idempotent; a no-op when a
+        prefetch is pending or the shared budget denies the reservation."""
         with self._lock:
             if self._pending is None:
                 self._schedule(self._cursor)
@@ -350,14 +450,18 @@ class SegmentFeed:
         if self._pending is not None:
             self._pending[1].cancel()
             self._pending = None
+        self._drop_budget()
         self._schedule(self._cursor)
 
     def close(self):
         """Stop the prefetch thread, waiting for a read in progress so no
-        copy outlives the feed. Idempotent; a closed feed can still be
+        copy outlives the feed, return the budget's reservation and give
+        the pinned pair back. Idempotent; a closed feed can still be
         consumed (reads then run in the caller's thread)."""
         with self._lock:
             if not self._closed:
                 self._closed = True
                 self._pending = None
+                self._drop_budget()
                 self._pool.shutdown(wait=True)
+                self._free_buffers()

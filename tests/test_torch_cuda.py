@@ -5,6 +5,7 @@ GPU host can run them on their own:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -401,6 +402,152 @@ def test_fused_job_raises_when_its_graph_cannot_be_captured(cuda_device,
     proc = subprocess.run([sys.executable, str(script)], env=env,
                           capture_output=True, text=True, timeout=300)
     assert "RAISED 0 " in proc.stdout, (proc.stdout, proc.stderr[-2000:])
+
+
+# ---------------------------------------------------------------------------
+# the multi-tenant scheduler on the card
+# ---------------------------------------------------------------------------
+
+class _RoundRobin:
+    """A scheduler policy that slices the live jobs in turn."""
+    name = "round-robin"
+
+    def __init__(self):
+        self.turn = 0
+
+    def pick(self, candidates, tenants):
+        self.turn += 1
+        return candidates[(self.turn - 1) % len(candidates)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Boom:
+    """A use-case whose map raises: the poisoned tenant."""
+    vocab: int
+
+    @property
+    def window(self):
+        return self.vocab
+
+    def map_emit(self, tokens, task_id):
+        raise ValueError("boom in the map")
+
+
+def _fleet_jobs(n_jobs, seed=20):
+    """(config, data, repeats, solo records on the card) of fused
+    WordCount jobs of one spec over different data and grids."""
+    cfg = JobConfig(WordCount(vocab=700), task_size=128, push_cap=16,
+                    n_procs=8, segment=4, fused_map=True)
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for k in range(n_jobs):
+        data = rng.integers(0, 700, 128 * 8 * (12 + 4 * k)).astype(np.int32)
+        reps = rng.integers(1, 4, (8, 12 + 4 * k)).astype(np.int32)
+        jobs.append((cfg, data, reps))
+    return jobs
+
+
+def _solo(cfg, data, reps, device):
+    res = submit(cfg, data, device=device, repeats=reps).result()
+    assert res.records == wordcount_oracle(data, 700)
+    return res.records
+
+
+@pytest.mark.cuda
+def test_two_fused_jobs_of_one_spec_interleave_exactly(cuda_device):
+    """Two fused jobs of one spec sliced in turn, one segment at a time:
+    one program, but each handle replays its own graphs into its own
+    carry, and each job's records equal its solo run."""
+    from repro_torch.core import JobScheduler
+    jobs = _fleet_jobs(2)
+    solo = [_solo(*j, cuda_device) for j in jobs]
+    sched = JobScheduler(policy=_RoundRobin(), device=cuda_device)
+    handles = [sched.submit(cfg, data, repeats=reps, name=f"j{k}")
+               for k, (cfg, data, reps) in enumerate(jobs)]
+    sched.run_until_complete(max_slices=4)
+    g0, g1 = (h.engine.graphs for h in handles)
+    assert g0 is not g1 and g0.replays == g1.replays == 8
+    for h, g in zip(handles, (g0, g1)):
+        assert [t.data_ptr() for t in g.carry] == \
+            [t.data_ptr() for t in h.carry]
+    res = sched.run_until_complete()
+    assert sched.n_unique_programs == 1
+    assert handles[0]._map_fn is handles[1]._map_fn
+    for k in range(2):
+        assert res[f"j{k}"].records == solo[k]
+
+
+@pytest.mark.cuda
+def test_fused_jobs_admitted_mid_fleet_capture_while_feeds_copy(
+        cuda_device):
+    """Four fused jobs under ``max_active=2``: the two admitted later
+    capture their graphs while the live jobs' feeds stage copies on their
+    side streams; every job equals its solo run, and each step is one
+    graph replay (fused_map launches == the fleet's steps)."""
+    from repro_torch.core import JobScheduler
+    jobs = _fleet_jobs(4, seed=21)
+    solo = [_solo(*j, cuda_device) for j in jobs]
+    sched = JobScheduler(policy="fair", device=cuda_device, max_active=2)
+    for k, (cfg, data, reps) in enumerate(jobs):
+        sched.submit(cfg, data, repeats=reps, name=f"j{k}", tenant=f"t{k}")
+    before = ops.fused_map.launches
+    sched.run_until_complete(max_slices=2)
+    assert [j.state for j in sched.jobs] == ["live", "live", "queued",
+                                             "queued"]
+    res = sched.run_until_complete()
+    torch.cuda.synchronize()
+    steps = sum(-(-reps.shape[1] // 4) * 4 for _, _, reps in jobs)
+    assert ops.fused_map.launches - before == steps
+    for k in range(4):
+        assert res[f"j{k}"].records == solo[k]
+
+
+@pytest.mark.cuda
+def test_a_poisoned_fused_tenant_fails_alone(cuda_device):
+    """A fused tenant whose map raises (in the step graph's warm-up,
+    before any capture) fails alone: no capture left open, the current
+    stream restored, its feed closed with its pinned pair given back,
+    and both siblings equal their solo runs."""
+    from repro_torch.core import JobScheduler
+    from repro_torch.core.scheduler import FAILED
+    jobs = _fleet_jobs(2, seed=22)
+    solo = [_solo(*j, cuda_device) for j in jobs]
+    stream = torch.cuda.current_stream(cuda_device)
+    sched = JobScheduler(policy="fair", device=cuda_device)
+    bad_cfg = JobConfig(_Boom(700), task_size=128, push_cap=16, n_procs=8,
+                        segment=4, fused_map=True)
+    hb = sched.submit(bad_cfg, jobs[0][1], name="bad", tenant="evil")
+    for k, (cfg, data, reps) in enumerate(jobs):
+        sched.submit(cfg, data, repeats=reps, name=f"j{k}", tenant=f"t{k}")
+    res = sched.run_until_complete()
+    assert sched["bad"].state == FAILED
+    assert isinstance(sched["bad"].error, ValueError)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(cuda_device) == stream
+    assert hb.feed._closed and hb.feed._pinned is None
+    assert set(res) == {"j0", "j1"}
+    for k in range(2):
+        assert res[f"j{k}"].records == solo[k]
+
+
+@pytest.mark.cuda
+def test_finished_and_queued_feeds_hold_no_pinned_pair(cuda_device):
+    """Under ``max_active=1`` only the live job's feed holds its pinned
+    pair (made at its first build); the queued jobs' hold none, and every
+    feed has given its pair back once its job finished."""
+    from repro_torch.core import JobScheduler
+    jobs = _fleet_jobs(3, seed=23)
+    sched = JobScheduler(policy="fifo", device=cuda_device, max_active=1)
+    for k, (cfg, data, reps) in enumerate(jobs):
+        sched.submit(cfg, data, repeats=reps, name=f"j{k}")
+    sched.run_until_complete(max_slices=1)
+    feeds = [j.handle.feed for j in sched.jobs]
+    assert [f._pinned is None for f in feeds] == [False, True, True]
+    n = 8 * 4 * (128 + 2) * 4
+    assert [t.nbytes for t in feeds[0]._pinned] == [n, n]
+    sched.run_until_complete()
+    assert all(f._pinned is None and f._stream is None for f in feeds)
+    assert all(j.state == "done" for j in sched.jobs)
 
 
 @pytest.mark.cuda

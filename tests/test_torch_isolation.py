@@ -41,6 +41,14 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
 
 
+def test_the_scans_cover_the_scheduler_modules():
+    """The two checks above reach the scheduler, the budget and the fleet
+    checkpoint (the scan globs every module; this pins that it does)."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"core/scheduler.py", "data/feed.py",
+            "ckpt/checkpoint.py"} <= names
+
+
 def test_importing_everything_loads_no_jax():
     mods = [".".join(p.relative_to(PORT.parent).with_suffix("").parts)
             for p in sorted(PORT.rglob("*.py"))]
@@ -192,6 +200,75 @@ def test_smoke_keyskew_phase_rehearses_on_cpu():
             rows["hash 1s"]["model_imbalance"]
     assert "sampled+split 2s" in c["1.8"]
     chip_smoke.print_keyskew({**c, "seconds": 0.0}, w)
+
+
+def test_smoke_fleet_phase_rehearses_on_cpu():
+    """Phase 3e at a tiny width on the CPU: (a) the three use-cases'
+    unfused fleets for each K and policy, (b) the fused WordCount fleet
+    over slices of the corpus; every job equal to its solo run, the
+    program count and the fifo and priority finish orders (all checked
+    inside); no launch, no graph and no pinned byte on the CPU. The
+    sizes' rules at full width: (a) fig11's, (b) summing to 2**27 in
+    whole tasks, biggest first."""
+    _, data, _, _, _ = chip_smoke._port()
+    cpu = torch.device("cpu")
+    wa = chip_smoke.Width(vocab=512, n_procs=4, task=64, cap=32, segment=1)
+    wb = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    corpus = data.read_all(chip_smoke.job_input(1 << 15, wb)[0])
+    c = chip_smoke.phase_fleet(cpu, corpus, wa, total_a=1 << 14,
+                               ks=(1, 4), wb=wb, k_full=4)
+    assert set(c["a"]) == {"1", "4"}
+    for K, programs in (("1", 1), ("4", 3)):
+        row = c["a"][K]
+        assert len(row["jobs"]) == int(K)
+        for policy in chip_smoke.FLEET_POLICIES:
+            r = row[policy]
+            assert r["n_unique_programs"] == programs
+            assert r["launches"] == r["graphs_captured"] == 0
+            assert r["pinned_high_water_bytes"] == 0
+            assert r["feed_denials"] == r["budget_denials"]
+            assert 0 < r["jain"] <= 1.0 + 1e-12
+            assert r["makespan_s"] >= r["p95_latency_s"] > 0
+    assert c["a"]["4"]["priority"]["finish_order"] == [
+        "job-3", "job-2", "job-1", "job-0"]
+    b = c["b"]
+    sizes = [j["n_tokens"] for j in b["jobs"]]
+    assert sum(sizes) == len(corpus) and sizes == sorted(sizes)[::-1]
+    assert all(n % 64 == 0 for n in sizes)
+    assert b["steps"] == sum(-(-(-(-n // 64) // 4) // 8) * 8 for n in sizes)
+    for policy in chip_smoke.FLEET_POLICIES:
+        assert b[policy]["n_unique_programs"] == 1
+        assert b[policy]["launches"] == 0
+        assert b[policy]["makespan_over_solo_sum"] > 0
+    assert b["fifo"]["finish_order"] == [f"job-{k}" for k in range(4)]
+    assert "fair_cycle" not in b                  # a card's profile
+    full = chip_smoke.fleet_b_sizes(8, chip_smoke.N_TOKENS, chip_smoke.FULL)
+    assert sum(full) == 2**27 and all(n % chip_smoke.TASK == 0 for n in full)
+    assert full == sorted(full)[::-1] and full[0] > 2**26
+    a16 = chip_smoke.fleet_a_sizes(16, chip_smoke.FLEET_A_TOKENS,
+                                   chip_smoke.FLEET_A)
+    assert len(a16) == 16 and min(a16) == 8 * 1024
+    assert 8 * 8 * 1 * 1024 * 4 == 262_144              # (a)'s budget
+    assert 4 * 8 * 512 * 256 * 4 == 16_777_216          # (b)'s budget
+    chip_smoke.print_fleet({**c, "seconds": 0.0}, wa, wb)
+
+
+def test_smoke_overlap_phase_rehearses_on_cpu():
+    """Phase 3f at a tiny width on the CPU: resident and streamed in
+    turns, every run's records equal to the oracle (checked inside), the
+    streamed runs served by their prefetch, the resident runs by none."""
+    _, data, _, _, _ = chip_smoke._port()
+    cpu = torch.device("cpu")
+    w = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    corpus = data.read_all(chip_smoke.job_input(1 << 15, w)[0])
+    c = chip_smoke.phase_overlap(cpu, corpus, w, n=1 << 14)
+    assert len(c["resident"]) == len(c["streamed"]) == 2
+    for r in c["resident"]:
+        assert r["prefetch_hits"] == 0 and r["segments"] == 8
+    for r in c["streamed"]:
+        assert r["prefetch_hits"] >= r["segments"] - 1 == 7
+    assert c["overlap_win"] < 1.0
+    chip_smoke.print_overlap({**c, "seconds": 0.0}, w)
 
 
 def test_smoke_flash_and_serve_phases_rehearse_on_cpu():

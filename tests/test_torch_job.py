@@ -7,7 +7,7 @@ windows equal to the JAX package's (P = 1 in this process, P = 8 in one
 8-device subprocess for the module); a JAX carry loaded through
 ``carry_from_numpy`` finishes with JAX's records; every option outside
 the port so far raises NotImplementedError, and those ported since
-(stealing, the sampled partitioners) run. MR-2S and checkpoint,
+(stealing, the sampled partitioners, a feed budget) run. MR-2S and checkpoint,
 restore and re-planning have their own files (``test_torch_twosided``,
 ``test_torch_ckpt``).
 """
@@ -218,7 +218,7 @@ def test_cpu_feed_segments(data, prefetch):
 _CFG = dict(usecase=core.WordCount(64), task_size=8, n_procs=1, segment=2)
 
 
-@pytest.mark.parametrize("option", ["code_rate", "feed_budget",
+@pytest.mark.parametrize("option", ["code_rate", "coschedule",
                                     "elastic_load"])
 def test_options_outside_the_port_raise_not_implemented(option):
     tokens = np.zeros((64,), np.int32)
@@ -226,8 +226,10 @@ def test_options_outside_the_port_raise_not_implemented(option):
     kw = {}
     if option == "code_rate":
         cfg["code_rate"] = 2
-    elif option == "feed_budget":
-        kw["feed_budget"] = object()
+    elif option == "coschedule":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            core.JobScheduler(device="cpu", coschedule=True)
+        return
     if option == "elastic_load":
         h = core.submit(core.JobConfig(**cfg), tokens, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -238,23 +240,35 @@ def test_options_outside_the_port_raise_not_implemented(option):
         core.submit(core.JobConfig(**cfg), tokens, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("option", ["stealing", "sampled", "sampled+split"])
+@pytest.mark.parametrize("option", ["stealing", "sampled", "sampled+split",
+                                    "feed_budget"])
 @pytest.mark.parametrize("P", [1, 4])
 def test_options_ported_since_run(option, P):
-    """Work stealing and the sampled partitioners, which raised before
-    they were ported, run through ``submit`` to the oracle's records."""
+    """Work stealing, the sampled partitioners and a shared feed budget,
+    which raised before they were ported, run through ``submit`` to the
+    oracle's records (a one-byte budget grants a lone feed every
+    prefetch, since nothing else is held, and gets each back)."""
+    from repro_torch.data import FeedBudget
     tokens = np.random.default_rng(P).integers(0, 64, 640).astype(np.int32)
     cfg = dict(_CFG, n_procs=P)
+    kw = {}
     if option == "stealing":
         cfg["stealing"] = True
+    elif option == "feed_budget":
+        kw["feed_budget"] = budget = FeedBudget(1)
     else:
         cfg["partitioner"] = option
-    h = core.submit(core.JobConfig(**cfg), tokens, device="cpu")
+    h = core.submit(core.JobConfig(**cfg), tokens, device="cpu", **kw)
     res = h.result()
     assert res.records == core.wordcount_oracle(tokens, 64)
-    assert res.partitioner == ("hash" if option == "stealing" else option)
-    assert h.feed.stats.sample_tasks_read == (0 if option == "stealing"
-                                              else 16)
+    assert res.partitioner == (option if option.startswith("sampled")
+                               else "hash")
+    assert h.feed.stats.sample_tasks_read == (
+        16 if option.startswith("sampled") else 0)
+    if option == "feed_budget":
+        assert budget.live_bytes == 0
+        assert budget.denials == h.feed.stats.budget_denials == 0
+        assert h.feed.stats.prefetch_hits > 0
 
 
 def test_submit_without_a_card_raises(monkeypatch):

@@ -67,3 +67,76 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU host)")
     return torch.device("cuda", 0)
+
+
+# ---------------------------------------------------------------------------
+# the seeded fleet that both packages' JobSchedulers run
+# ---------------------------------------------------------------------------
+
+class RecordingPolicy:
+    """A scheduler policy that records the name of every job it picks."""
+
+    def __init__(self, inner):
+        self.inner, self.name, self.order = inner, inner.name, []
+
+    def pick(self, candidates, tenants):
+        job = self.inner.pick(candidates, tenants)
+        self.order.append(job.name)
+        return job
+
+
+def fleet_jobs(core, data, P, task):
+    """``[(name, tenant, priority, config, dataset, repeats)]``: a
+    WordCount, Histogram, InvertedIndex and WordCount job of 1, 1/2, 1/4
+    and 3/4 of ``data`` built from ``core``'s classes, two of them in one
+    tenant, the last with repeats 1-3 over its grid."""
+    jobs = []
+    for k, (uc, frac, tenant) in enumerate((
+            ("wordcount", 1.0, "batch"), ("histogram", 0.5, "batch"),
+            ("inverted", 0.25, "interactive"), ("wordcount", 0.75, "bulk"))):
+        part = data[: int(len(data) * frac)]
+        cfg = core.JobConfig(usecase(core, uc), backend="1s",
+                             task_size=task, push_cap=8 if P > 1 else 256,
+                             n_procs=P, segment=2 if P == 1 else 4)
+        T = -(-(-(-len(part) // task)) // P)
+        reps = (1 + np.arange(P * T) % 3).reshape(P, T) if k == 3 else None
+        jobs.append((f"{uc}-{k}", tenant, k % 3, cfg, part, reps))
+    return jobs
+
+
+def run_fleet(core, policy, data, P, task, **device):
+    """Run :func:`fleet_jobs` under ``policy`` with ``max_active=3`` and
+    a FeedBudget of two segments' bytes; what the parity tests compare:
+    the slice order, each job's result summary, the tenants and stats()
+    without their host seconds, and each feed's and the budget's
+    denials."""
+    rec = RecordingPolicy(core.resolve_policy(policy))
+    seg = 2 if P == 1 else 4
+    sched = core.JobScheduler(policy=rec, max_active=3,
+                              max_live_bytes=2 * P * seg * task * 4,
+                              **device)
+    for name, tenant, prio, cfg, part, reps in fleet_jobs(core, data, P,
+                                                          task):
+        sched.submit(cfg, part, tenant=tenant, priority=prio, name=name,
+                     repeats=reps)
+    res = sched.run_until_complete()
+    st = sched.stats()
+    for row in [*st["tenants"].values(), *st["jobs"]]:
+        row.pop("wall")
+    return {"order": rec.order,
+            "results": {n: result_summary(r) for n, r in res.items()},
+            "stats": st,
+            "denials": {j.name: j.handle.feed.stats.budget_denials
+                        for j in sched.jobs},
+            "budget_denials": sched.budget.denials,
+            "n_unique_programs": sched.n_unique_programs}
+
+
+def result_summary(res) -> dict:
+    """A JobResult as JSON-able data: what :func:`assert_same_result`
+    compares."""
+    return {"records": sorted(res.records.items()), "backend": res.backend,
+            "imbalance": res.imbalance, "n_steals": res.n_steals,
+            **{f: np.asarray(getattr(res, f)).tolist()
+               if not isinstance(getattr(res, f), str)
+               else getattr(res, f) for f in STATS}}

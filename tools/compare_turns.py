@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""MR-1S against MR-2S, their snapshots and key skew, on one CUDA card.
+"""MR-1S against MR-2S, snapshots, key skew, fleets and I/O overlap.
 
-    python tools/compare_turns.py [--phases compare,snapshots,keyskew]
-                                  [--out FILE]
+    python tools/compare_turns.py
+        [--phases compare,snapshots,keyskew,fleet,overlap] [--out FILE]
 
-Phases 3b, 3c and 3d of ``chip_smoke.py`` on their own (its
-``phase_compare``, ``phase_snapshots`` and ``phase_keyskew``, at its full
-width; the first two on its 2**27-token corpus read once into host
-memory), without the smoke's other phases: 2S, 1S and 1S with stealing
-under the three repeat grids and oneshot; a checkpoint every 8th segment
-in turns, a restore and a re-plan; each partitioner with and without
-stealing at two key skews. Every job's records are held to the oracle
-or the uninterrupted job's. ``fused_map`` is built from this checkout at
-its first use.
+Phases 3b-3f of ``chip_smoke.py`` on their own, on one CUDA card (its
+``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
+``phase_fleet`` and ``phase_overlap``, at its full width; all but 3d on
+its 2**27-token corpus read once into host memory), without the smoke's
+other phases: 2S, 1S and 1S with stealing under the three repeat grids
+and oneshot; a checkpoint every 8th segment in turns, a restore and a
+re-plan; each partitioner with and without stealing at two key skews;
+the multi-tenant fleets under each policy; resident against streamed
+input in turns. Every job's records are held to the oracle or to the
+uninterrupted or solo job's. ``fused_map`` is built from this checkout
+at its first use.
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -45,7 +47,7 @@ def main(argv=None) -> int:
     phases = args.phases.split(",")
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
-              if {"compare", "snapshots"} & set(phases) else None)
+              if set(phases) - {"keyskew"} else None)
     out = {}
     for phase in phases:
         run, show = {
@@ -54,7 +56,11 @@ def main(argv=None) -> int:
             "snapshots": (lambda: cs.phase_snapshots(device, corpus),
                           cs.print_snapshots),
             "keyskew": (lambda: cs.phase_keyskew(device),
-                        cs.print_keyskew)}[phase]
+                        cs.print_keyskew),
+            "fleet": (lambda: cs.phase_fleet(device, corpus),
+                      cs.print_fleet),
+            "overlap": (lambda: cs.phase_overlap(device, corpus),
+                        cs.print_overlap)}[phase]
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
