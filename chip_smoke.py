@@ -135,6 +135,34 @@ Phases, each of which asserts (nothing is caught):
                twice each: records equal, one launch a step; each wall,
                ``1 - streamed/resident``, prefetch hits of segments built,
                the feed's host seconds a segment;
+  3g. coded  — the reference's fig15_coded real run at its full width:
+               WordCount on ``synth_corpus(786,432, 65,536, seed=0)`` in
+               host memory, P 6, S 4096, cap 1024, oneshot (32 steps),
+               repeats ``zipf_skew_repeats(6, 32, s, mean_rep=4, seed=1)``
+               for s 0.0, 0.6, 1.1 and 1.6; arms r1, r2, r3 and r2+steal
+               (unfused, as the reference's coded jobs must be) and
+               r1-fused, the main path's kernel job in tasks of 1,024 (the
+               kernel's largest), each task with the repeat of the
+               4,096-token task that holds it; a warm-up of each arm, then
+               two timed runs in turns: every run's records equal to the
+               oracle, fused_map launches 0 on every coded arm and one a
+               step on r1-fused, r2+steal's steals, passes and work row
+               equal to the group host replay's and a group's members
+               equal; each arm's wall, tokens/s, ms a step, steals, feed
+               bytes, the modelled shuffle bytes and their ratio to r1's
+               (0.60 at r 2, 0.40 at r 3), and at s 1.6 the device's busy
+               share over one segment of 8 steps of each arm, traced;
+  3h. crossjob — the reference's fig14_crossjob real run at its full
+               width: P 8, S 1024, cap 512, V 4096, segment 1, stealing;
+               for K 4 and 16 jobs of Zipf(2.0) sizes of 786,432 tokens
+               over ``ZipfSource(n, 4096, seed=2000 + k)``, job k's hot
+               rank rolled to k, ``priority=k``; each job solo, then
+               ``fair`` against ``fair`` + ``coschedule=True, copack=4``:
+               every job's records equal to its solo run, no fused_map
+               launch, one domain, cross-rank steals in it and its
+               ``job_work`` equal to the members' repeats; makespan, mean
+               and p95 latency, Jain's index over solo_wall / latency,
+               steals and ``job_work``;
   4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
                at full width through ``ServeEngine.generate``: 16
                requests (h2o: one batch) in batches of 8, 2048-token
@@ -152,9 +180,9 @@ Phases, each of which asserts (nothing is caught):
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
-of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c
-and 3d, each fleet of 3e, each run of 3f, and each arch of 4) and read
-just after it.
+of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
+3d and 3g, each fleet of 3e and 3h, each run of 3f, and each arch of 4)
+and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -797,8 +825,10 @@ def time_ssd(device) -> dict:
     chunk = SSD_SERVED[6]
     run = lambda: ssd_ops.ssd(*args, chunk=chunk)   # noqa: E731
     ms = _event_ms(run, 20)
-    device_ms, kernels, per_call = _device_ms(run, 20)
-    assert round(per_call) == ssd_ops.DEVICE_KERNELS[torch.bfloat16], kernels
+    expect = ssd_ops.DEVICE_KERNELS[torch.bfloat16]
+    device_ms, kernels, per_call = _device_ms(run, 20, tries=5,
+                                              per_call=expect)
+    assert round(per_call) == expect, (per_call, kernels)
     args32 = ssd_inputs((*SSD_SERVED[:7], "float32", "float32", None),
                         device)
     fp32_ms = _event_ms(lambda: ssd_ops.ssd(*args32, chunk=chunk), 5)
@@ -1331,7 +1361,8 @@ def _cold_ms(fn, iters: int) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / iters
 
 
-def _device_ms(fn, iters: int, tries: int = 3) -> tuple[float, list, float]:
+def _device_ms(fn, iters: int, tries: int = 3,
+               per_call: int | None = None) -> tuple[float, list, float]:
     """Device time per call of ``fn`` run back to back: the summed time of
     the device's own activities in a ``torch.profiler`` trace of ``iters``
     calls, over ``iters``; their names; and their number over ``iters``
@@ -1339,9 +1370,13 @@ def _device_ms(fn, iters: int, tries: int = 3) -> tuple[float, list, float]:
     host's cost per call is the event time less this. Every call timed
     here launches at least one activity, so a trace that holds fewer
     than ``iters`` has dropped some: it is taken again, up to ``tries``
-    times."""
+    times. Where the caller knows that a call launches ``per_call``
+    activities, a trace that holds any other number than ``per_call *
+    iters`` is taken again in the same way, and the last one is returned
+    for the caller to check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    want = None if per_call is None else per_call * iters
     for _ in range(tries):
         fn()
         torch.cuda.synchronize()
@@ -1351,7 +1386,7 @@ def _device_ms(fn, iters: int, tries: int = 3) -> tuple[float, list, float]:
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if len(events) >= iters:
+        if (len(events) == want) if want else (len(events) >= iters):
             break
     total_us = sum(e.time_range.elapsed_us() for e in events)
     return (total_us / 1e3 / iters, sorted({e.name[:80] for e in events}),
@@ -2868,6 +2903,343 @@ def print_overlap(c: dict, w: Width = FULL):
 
 
 # ---------------------------------------------------------------------------
+# 3g. the coded shuffle; 3h. cross-job co-scheduling
+# ---------------------------------------------------------------------------
+
+# 3g: the reference's fig15_coded real run at its full width (oneshot)
+CODED_W = Width(vocab=65536, n_procs=6, task=4096, cap=1024, segment=0)
+CODED_N = 786_432
+CODED_SKEWS = (0.0, 0.6, 1.1, 1.6)
+CODED_MEAN_REP = 4
+CODED_ARMS = ("r1", "r2", "r3", "r2+steal", "r1-fused")
+CODED_RUNS = 2
+CODED_PROFILE_STEPS = 8         # the busy share's segment, in steps
+# the fused_map kernel takes tasks of up to 1,024 tokens: the r1-fused arm
+# reads the same corpus in tasks of 1,024, each with the repeat of the
+# 4,096-token task that holds it (``coded_fused_repeats``)
+CODED_FUSED_TASK = 1024
+# 3h: the reference's fig14_crossjob real run at its full width
+CROSS_W = Width(vocab=4096, n_procs=8, task=1024, cap=512, segment=1)
+CROSS_TOTAL = 786_432
+CROSS_KS = (4, 16)
+CROSS_PACK = 4
+CROSS_TAIL_SKEW, CROSS_MEAN_REP = 1.6, 3
+
+
+def coded_arm(arm: str, w: Width = CODED_W):
+    """A 3g arm's JobConfig: ``r<k>`` the unfused job at code rate k,
+    ``+steal`` with work stealing, ``r1-fused`` the fused job (the main
+    path) in tasks of ``CODED_FUSED_TASK``."""
+    core, _, _, _, _ = _port()
+    fused = arm == "r1-fused"
+    return core.JobConfig(
+        core.WordCount(vocab=w.vocab), backend="1s",
+        task_size=min(w.task, CODED_FUSED_TASK) if fused else w.task,
+        push_cap=w.cap, n_procs=w.n_procs, segment=w.segment,
+        fused_map=fused, stealing=arm.endswith("+steal"),
+        code_rate=int(arm[1]))
+
+
+def coded_fused_repeats(reps: np.ndarray, n: int, w: Width,
+                        task: int) -> np.ndarray:
+    """The (P, T') repeat grid of ``n`` tokens in tasks of ``task``: each
+    task takes the repeat of the ``w.task``-token task holding its
+    tokens (task t sits at rank t % P, column t // P)."""
+    P, k = w.n_procs, w.task // task
+    assert w.task % task == 0
+    n_small = -(-n // task)
+    u = np.arange(P * -(-n_small // P)).reshape(-1, P).T   # global ids
+    big = u // k
+    out = reps[big % P, np.minimum(big // P, reps.shape[1] - 1)]
+    return np.where(u < n_small, out, 1).astype(np.int32)
+
+
+def run_coded(cfg, corpus, reps, device) -> dict:
+    """One 3g job through ``submit``, its launch counts zeroed just
+    before, synchronized: its result, wall, fused_map launches, the
+    feed's bytes and, stealing, its engine's ``StealStats``."""
+    core, _, _, ops, _ = _port()
+    zero_counts()
+    t0 = time.perf_counter()
+    h = core.submit(cfg, corpus, device=device, repeats=reps)
+    res = h.result()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(result=res, wall_s=wall, launches=ops.fused_map.launches,
+               feed_bytes_read=h.feed.stats.bytes_read)
+    if cfg.stealing:
+        out["steal"] = dataclasses.asdict(h.engine.steal)
+    return out
+
+
+def coded_replay(n: int, reps: np.ndarray, r: int, w: Width) -> dict:
+    """The group host replay of a oneshot coded stealing job (one segment
+    of the r-replicated grid): steals, passes and the work row."""
+    _port()
+    from repro_torch.core import coded, planner, steal
+    ids = planner.shard_task_ids(planner.plan_input(n, w.task, w.n_procs))
+    s = steal.coded_steal_schedule(*coded.replicate_grids(ids, reps, r), r)
+    return {"steals": s.n_stolen, "passes": s.passes,
+            "work": s.work.tolist()}
+
+
+def phase_coded(device, corpus: np.ndarray | None = None,
+                w: Width = CODED_W, skews=CODED_SKEWS,
+                runs: int = CODED_RUNS) -> dict:
+    """The reference's fig15_coded real run: WordCount over
+    ``synth_corpus(N, V, seed=0)`` (host memory) at ``w``, under
+    ``zipf_skew_repeats(P, T, s, mean_rep=4, seed=1)`` for each skew, the
+    arms r1, r2, r3 and r2+steal unfused and r1-fused; a warm-up of each
+    arm, then ``runs`` timed runs of each in turns (arms forward, then
+    backward). Every run's records equal the oracle's (and so r1's);
+    fused_map launches 0 on every coded arm and one a step on r1-fused
+    (on the card); r2+steal's steals, passes and work row equal the group
+    replay's, a group's members equal. Also the modelled shuffle bytes,
+    and at the top skew each arm's device busy share over one segment of
+    ``CODED_PROFILE_STEPS`` steps (``segment_profile``)."""
+    core, data, _, _, _ = _port()
+    from repro_torch.core import coded
+    cuda = device.type == "cuda"
+    if corpus is None:
+        corpus = data.synth_corpus(CODED_N, w.vocab, seed=0)
+    n = len(corpus)
+    oracle = core.wordcount_oracle(corpus, w.vocab)
+    T = tasks_per_rank(n, w)
+    ftask = min(w.task, CODED_FUSED_TASK)
+    fT = tasks_per_rank(n, dataclasses.replace(w, task=ftask))
+
+    def grid(arm, reps):
+        return (coded_fused_repeats(reps, n, w, ftask)
+                if arm == "r1-fused" else reps)
+
+    t0 = time.perf_counter()
+    warm = data.zipf_skew_repeats(w.n_procs, T, skews[0],
+                                  mean_rep=CODED_MEAN_REP, seed=1)
+    for arm in CODED_ARMS:
+        run_coded(coded_arm(arm, w), corpus, grid(arm, warm), device)
+    out = {"n": n, "tasks_per_rank": T, "fused_tasks_per_rank": fT,
+           "fused_task": ftask, "skews": {},
+           "warm_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for s in skews:
+        reps = data.zipf_skew_repeats(w.n_procs, T, s,
+                                      mean_rep=CODED_MEAN_REP, seed=1)
+        row = {arm: {"walls_s": []} for arm in CODED_ARMS}
+        for turn in range(runs):
+            for arm in (CODED_ARMS if turn % 2 == 0 else CODED_ARMS[::-1]):
+                cfg = coded_arm(arm, w)
+                run = run_coded(cfg, corpus, grid(arm, reps), device)
+                res = run["result"]
+                assert res.records == oracle, (s, arm)
+                steps = fT if arm == "r1-fused" else T
+                if arm != "r1-fused" or not cuda:
+                    assert run["launches"] == 0, (s, arm, run["launches"])
+                else:
+                    assert run["launches"] == steps, (s, run["launches"])
+                r = cfg.code_rate
+                e = row[arm]
+                e["walls_s"].append(run["wall_s"])
+                e.update(r=r, steps=steps, launches=run["launches"],
+                         n_steals=res.n_steals,
+                         feed_bytes_read=run["feed_bytes_read"],
+                         work_per_rank=res.work_per_rank.tolist(),
+                         shuffle_bytes=coded.shuffle_bytes(
+                             w.n_procs, steps, w.cap, r))
+                if cfg.stealing:
+                    rep = coded_replay(n, reps, r, w)
+                    assert res.n_steals == rep["steals"], (s, res.n_steals,
+                                                           rep)
+                    assert res.work_per_rank.tolist() == rep["work"], s
+                    assert run["steal"]["passes"] == rep["passes"], s
+                    wk = res.work_per_rank.reshape(-1, r)
+                    assert (wk == wk[:, :1]).all(), wk
+                    e.update(passes=rep["passes"],
+                             schedule_s=run["steal"]["schedule_s"])
+        for arm, e in row.items():
+            e["wall_s"] = float(np.mean(e["walls_s"]))
+            e["tokens_per_s"] = n / e["wall_s"]
+            e["ms_per_step"] = e["wall_s"] / e["steps"] * 1e3
+            e["shuffle_ratio_to_r1"] = (e["shuffle_bytes"]
+                                        / row["r1"]["shuffle_bytes"])
+            e["wall_over_r1"] = e["wall_s"] / row["r1"]["wall_s"]
+        out["skews"][str(s)] = row
+    out["runs_s"] = time.perf_counter() - t0
+    if cuda:
+        t0 = time.perf_counter()
+        reps = data.zipf_skew_repeats(w.n_procs, T, skews[-1],
+                                      mean_rep=CODED_MEAN_REP, seed=1)
+        out["profiles"] = {arm: segment_profile(
+            dataclasses.replace(coded_arm(arm, w),
+                                segment=CODED_PROFILE_STEPS),
+            corpus, grid(arm, reps), device) for arm in CODED_ARMS}
+        out["profile_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_coded(c: dict, w: Width = CODED_W):
+    print(f"coded: fig15 real run, WordCount N={c['n']} at P={w.n_procs} "
+          f"S={w.task} cap={w.cap} V={w.vocab}, oneshot, "
+          f"{c['tasks_per_rank']} steps; r1-fused in tasks of "
+          f"{c['fused_task']} ({c['fused_tasks_per_rank']} steps; the "
+          f"kernel takes S <= {CODED_FUSED_TASK}); every run's records == "
+          f"oracle; fused_map launches 0 on every coded arm")
+    print("coded: on one card the exchange is a transpose in device memory "
+          "and no byte crosses a wire: the shuffle bytes are the model's "
+          "(core/coded.shuffle_bytes); what is measured is the r x map work")
+    for s, row in c["skews"].items():
+        for arm, e in row.items():
+            steal = (f", passes {e['passes']} == replay, schedule "
+                     f"{e['schedule_s']:.4f} s" if "passes" in e else "")
+            print(f"coded: s={s} {arm}: {e['wall_s']:.3f} s "
+                  f"({[round(x, 4) for x in e['walls_s']]}), "
+                  f"{e['tokens_per_s']:.0f} tokens/s, {e['ms_per_step']:.3f} "
+                  f"ms a step, wall/r1 {e['wall_over_r1']:.3f}; steals "
+                  f"{e['n_steals']}{steal}; feed bytes "
+                  f"{e['feed_bytes_read']}; shuffle bytes (model) "
+                  f"{e['shuffle_bytes']}, {e['shuffle_ratio_to_r1']:.2f} of "
+                  f"r1's; fused_map launches {e['launches']}; work "
+                  f"{e['work_per_rank']}")
+    for arm, p in c.get("profiles", {}).items():
+        print_profile(f"coded {arm} at s={list(c['skews'])[-1]}, one "
+                      f"segment of {CODED_PROFILE_STEPS} steps", p)
+    print(f"coded: {c['seconds']:.1f} s (warm-up {c['warm_s']:.1f} s, "
+          f"timed runs {c['runs_s']:.1f} s, profiles "
+          f"{c.get('profile_s', 0.0):.1f} s)")
+
+
+def cross_jobs(K: int, total: int, w: Width) -> list:
+    """fig14's jobs: Zipf(2.0) sizes of ``total`` (``fleet_a_sizes``),
+    job k over ``ZipfSource(n, V, seed=2000 + k)`` with its hot rank
+    rolled to k (``np.roll(zipf_skew_repeats(P, T, 1.6, mean_rep=3,
+    seed=k), k, axis=0)``), stealing, segment 1."""
+    core, data, _, _, _ = _port()
+    jobs = []
+    for k, n in enumerate(fleet_a_sizes(K, total, w)):
+        T = tasks_per_rank(n, w)
+        reps = np.roll(data.zipf_skew_repeats(
+            w.n_procs, T, CROSS_TAIL_SKEW, mean_rep=CROSS_MEAN_REP, seed=k),
+            k, axis=0)
+        jobs.append(dict(
+            k=k, name=f"job-{k}", n=n, reps=reps,
+            work=int(reps[planner_ids(n, w) >= 0].sum()),
+            cfg=core.JobConfig(core.WordCount(vocab=w.vocab),
+                               task_size=w.task, push_cap=w.cap,
+                               n_procs=w.n_procs, segment=w.segment,
+                               stealing=True),
+            data=data.ZipfSource(n, w.vocab, seed=2000 + k)))
+    return jobs
+
+
+def planner_ids(n: int, w: Width) -> np.ndarray:
+    _port()
+    from repro_torch.core import planner
+    return planner.shard_task_ids(planner.plan_input(n, w.task, w.n_procs))
+
+
+def run_cross_fleet(jobs: list, cosched: bool, device,
+                    pack: int = CROSS_PACK) -> dict:
+    """One fig14 fleet under fair share (``coschedule`` and ``copack``
+    when ``cosched``), job k at ``priority=k`` in its own tenant, launch
+    counts zeroed just before: every job's records equal its solo run's,
+    no fused_map launch; co-scheduled, one domain, cross-rank steals in
+    it and its ``job_work`` summing to the members' repeats. Returns
+    makespan, mean and p95 latency, Jain's index over solo_wall /
+    latency, the steals and ``job_work``."""
+    core, _, _, ops, _ = _port()
+    sched = core.JobScheduler(policy="fair", device=device,
+                              coschedule=cosched,
+                              copack=pack if cosched else None)
+    for j in jobs:
+        sched.submit(j["cfg"], j["data"], tenant=f"tenant-{j['k']}",
+                     name=j["name"], repeats=j["reps"], priority=j["k"])
+    zero_counts()
+    res = sched.run_until_complete()
+    for j in jobs:
+        assert res[j["name"]].records == j["solo"], (cosched, j["name"])
+    assert ops.fused_map.launches == 0
+    lat = np.array([sched.latency(j["name"]) for j in jobs])
+    x = np.array([j["solo_wall"] for j in jobs]) / lat
+    out = dict(makespan_s=float(lat.max()), mean_latency_s=float(lat.mean()),
+               p95_latency_s=float(np.percentile(lat, 95)),
+               jain=float(x.sum() ** 2 / (len(x) * (x ** 2).sum())),
+               latencies_s=lat.tolist(),
+               steals=int(sum(res[j["name"]].n_steals for j in jobs)),
+               n_unique_programs=sched.n_unique_programs)
+    if cosched:
+        assert len(sched._domains) == 1, len(sched._domains)
+        d = sched._domains[0]
+        jw = d.job_work()
+        out.update(n_domains=1, job_work=jw.tolist(),
+                   steals=int(d.handle._carry.stolen[0].sum()),
+                   domain_steps=int(d.handle.feed.total_columns))
+        assert out["steals"] > 0, "no cross-rank steal in the domain"
+        assert int(jw.sum()) == sum(j["work"] for j in jobs), jw
+        assert jw.tolist() == [j["work"] for j in jobs], jw
+    return out
+
+
+def phase_crossjob(device, w: Width = CROSS_W, total: int = CROSS_TOTAL,
+                   ks=CROSS_KS) -> dict:
+    """The reference's fig14_crossjob real run: for each K, ``cross_jobs``
+    each run solo (its records, the gate, and its wall), then warm, then
+    ``fair`` against ``fair`` + ``coschedule=True, copack=4``
+    (``run_cross_fleet``)."""
+    core, _, _, _, _ = _port()
+    out = {}
+    for K in ks:
+        jobs = cross_jobs(K, total, w)
+        for j in jobs:
+            t0 = time.perf_counter()
+            res = core.submit(j["cfg"], j["data"], device=device,
+                              repeats=j["reps"]).result()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            j["solo_wall"] = time.perf_counter() - t0
+            j["solo"] = res.records
+        row = out[str(K)] = {
+            "jobs": [dict(k=j["k"], n_tokens=j["n"],
+                          solo_wall_s=j["solo_wall"], work=j["work"])
+                     for j in jobs],
+            "solo_sum_s": sum(j["solo_wall"] for j in jobs),
+            "steps": sum(tasks_per_rank(j["n"], w) for j in jobs)}
+        for label, cos in (("fair", False), ("fair+cosched", True)):
+            if K == ks[0]:
+                run_cross_fleet(jobs, cos, device)        # warm
+            row[label] = run_cross_fleet(jobs, cos, device)
+        row["cosched_over_fair_makespan"] = (
+            row["fair+cosched"]["makespan_s"] / row["fair"]["makespan_s"])
+    return out
+
+
+def print_crossjob(c: dict, w: Width = CROSS_W):
+    print(f"crossjob: fig14 real run, WordCount at P={w.n_procs} "
+          f"S={w.task} cap={w.cap} V={w.vocab} segment={w.segment}, "
+          f"stealing, Zipf({SIZE_ZIPF}) sizes of {CROSS_TOTAL} tokens, "
+          f"job k's hot rank k (skew {CROSS_TAIL_SKEW}, mean repeat "
+          f"{CROSS_MEAN_REP}), priority=k; fair against fair + coschedule "
+          f"(copack {CROSS_PACK}); every job's records == its solo run, no "
+          f"fused_map launch")
+    for K, row in c.items():
+        if K == "seconds":
+            continue
+        print(f"crossjob: K={K}: {row['steps']} solo steps, solo walls sum "
+              f"{row['solo_sum_s']:.3f} s")
+        for label in ("fair", "fair+cosched"):
+            r = row[label]
+            dom = (f"; 1 domain of {r['domain_steps']} columns, job_work "
+                   f"{r['job_work']} == the members' repeats"
+                   if "job_work" in r else "")
+            print(f"crossjob: K={K} {label}: makespan {r['makespan_s']:.3f} "
+                  f"s, latency mean {r['mean_latency_s']:.3f} s p95 "
+                  f"{r['p95_latency_s']:.3f} s, Jain {r['jain']:.4f}, steals "
+                  f"{r['steals']}{dom}")
+        print(f"crossjob: K={K}: cosched/fair makespan "
+              f"{row['cosched_over_fair_makespan']:.4f}")
+    print(f"crossjob: {c['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # 4. serving olmo-1b, mamba2-780m and h2o-danube-1.8b at full width
 # ---------------------------------------------------------------------------
 
@@ -3322,6 +3694,14 @@ def main(argv=()) -> int:
     overlap["seconds"] = time.perf_counter() - t0
     print_overlap(overlap)
     del corpus
+    t0 = time.perf_counter()
+    coded = phase_coded(device)
+    coded["seconds"] = time.perf_counter() - t0
+    print_coded(coded)
+    t0 = time.perf_counter()
+    crossjob = phase_crossjob(device)
+    crossjob["seconds"] = time.perf_counter() - t0
+    print_crossjob(crossjob)
 
     get_config, _, _ = _serve()
     serves = {}
@@ -3368,6 +3748,7 @@ def main(argv=()) -> int:
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
+                      "coded": coded, "crossjob": crossjob,
                       "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
@@ -3396,7 +3777,9 @@ def main(argv=()) -> int:
                         for a in map(str, KEYSKEW_A)
                         for k, r in keyskew[a].items() if k != "records"},
             "fleet": {p: fleet["b"][p]["launches"]
-                      for p in FLEET_POLICIES}},
+                      for p in FLEET_POLICIES},
+            "coded r1-fused": {s: row["r1-fused"]["launches"]
+                               for s, row in coded["skews"].items()}},
         "max_abs_err": err,
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],

@@ -36,7 +36,12 @@ fleet's feeds.
 ``stealing=True`` rebalances work inside each 1S segment
 (``core/steal.py``); ``partitioner="sampled"`` or ``"sampled+split"``
 builds the owner map from a pre-pass over a few sampled tasks, at the
-first step or checkpoint, into the same carry buffers.
+first step or checkpoint, into the same carry buffers. ``code_rate=r``
+runs each task on the r ranks of its code group and pushes through the
+XOR-coded exchange (``core/coded.py``); the feed then hands out r-wide
+column blocks. ``JobScheduler(coschedule=True)`` merges compatible
+handles into a ``core/workdomain.WorkDomain``, whose results its members
+adopt (``adopt_result``).
 
 Options of the reference that are not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -50,7 +55,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import planner
+from repro_torch.core import coded, planner
 from repro_torch.core.kv import KEY_SENTINEL
 from repro_torch.core.partition import (Partitioner, resolve_partitioner,
                                         sample_key_histogram)
@@ -80,7 +85,11 @@ class JobConfig:
                               #   Partitioner (core/partition.py)
     fused_map: bool = False   # per-step hot path as the fused_map CUDA
                               #   kernel — identical results
-    code_rate: int = 1        # not ported beyond 1 (ROADMAP Queue 1 item 9)
+    code_rate: int = 1        # coded shuffle (core/coded.py): every map
+                              #   task runs on r consecutive ranks and
+                              #   the intra-group push is one XOR-coded
+                              #   block; n_procs divisible by r, "1s"
+                              #   unfused only
 
 
 @dataclass(frozen=True)
@@ -144,14 +153,17 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
             f"backend {config.backend!r} does not implement work stealing "
             "(no supports_stealing attribute) — drop stealing=True or use "
             "backend '1s'")
-    if config.code_rate > 1:
-        raise NotImplementedError("code_rate > 1: the coded shuffle is "
-                                  "ROADMAP Queue 1 item 9")
     if config.fused_map and not getattr(backend, "supports_fused_map",
                                         False):
         raise ValueError(
             f"backend {config.backend!r} does not implement the fused "
             "map hot path — drop fused_map=True or use backend '1s'")
+    if config.code_rate > 1 and not getattr(backend, "supports_coded",
+                                            False):
+        raise ValueError(
+            f"backend {config.backend!r} does not implement the coded "
+            "exchange (no supports_coded attribute) — drop code_rate or "
+            "use backend '1s'")
     partitioner = resolve_partitioner(config.partitioner)
     device = resolve_device(device)
     window = config.window or config.usecase.window
@@ -159,7 +171,8 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
                    push_cap=config.push_cap, n_procs=config.n_procs,
                    combine_capacity=config.combine_capacity,
                    segment=config.segment, stealing=config.stealing,
-                   fused_map=config.fused_map, partitioner=partitioner.name)
+                   fused_map=config.fused_map, code_rate=config.code_rate,
+                   partitioner=partitioner.name)
     source = as_source(dataset)
     plan = planner.plan_input(source.len_elements(), config.task_size,
                               config.n_procs)
@@ -169,6 +182,12 @@ def submit(config: JobConfig, dataset, *, device=None, repeats=None,
         repeats = np.ones((config.n_procs, T), np.int32)
     repeats = np.asarray(repeats, np.int32).reshape(config.n_procs, T)
     seg_tasks = config.segment if config.segment > 0 else max(T, 1)
+    if config.code_rate > 1:
+        # every member of a code group carries the group's tasks as
+        # r-wide column blocks; a segment of N blocks is N*r columns
+        task_ids, repeats = coded.replicate_grids(task_ids, repeats,
+                                                  config.code_rate)
+        seg_tasks *= config.code_rate
     feed = SegmentFeed(source, plan, task_ids, repeats, segment=seg_tasks,
                        device=device, prefetch=prefetch, budget=feed_budget)
     return JobHandle(config, backend, spec, device, plan, feed, partitioner)
@@ -337,6 +356,12 @@ class JobHandle:
         (from ``repro_torch.ft.straggler``); each task keeps its
         compute-repeat factor, so results stay exact by construction."""
         self._ensure_segmented()
+        if self.spec.code_rate > 1:
+            raise ValueError(
+                "replan() does not support coded jobs (code_rate > 1): "
+                "the r-replicated grid intentionally repeats every task "
+                "r times, which the feed's exactly-once coverage "
+                "contract rejects; resubmit the job instead")
         grid = np.asarray(task_id_grid, np.int32)
         by_task = {int(t): int(r) for t, r in
                    zip(self.feed.task_ids_grid.ravel(),
@@ -366,11 +391,13 @@ class JobHandle:
                    "cursor": self.cursor,
                    "backend": self.backend.name,
                    "stealing": self.config.stealing,
-                   "coslots": 1,
+                   "coslots": self.spec.coslots,
                    # provenance only: the fused and unfused paths give
                    # the same carries, so snapshots cross the flag
                    "fused_map": self.spec.fused_map,
-                   "code_rate": self.config.code_rate,
+                   # the grids are r-replicated column blocks for a
+                   #   coded job: meaningless under another r
+                   "code_rate": self.spec.code_rate,
                    "partitioner": self.spec.partitioner,
                    # lists in the manifest, made in the manager's worker
                    "task_ids": self.feed.task_ids_grid.copy(),
@@ -388,8 +415,9 @@ class JobHandle:
         self._ensure_segmented()
         found, extra = manager.peek(step)
         mine = {"backend": self.backend.name,
-                "stealing": self.config.stealing, "coslots": 1,
-                "code_rate": self.config.code_rate,
+                "stealing": self.config.stealing,
+                "coslots": self.spec.coslots,
+                "code_rate": self.spec.code_rate,
                 "partitioner": self.spec.partitioner}
         for key, want in mine.items():
             saved = extra.get(key)
@@ -421,6 +449,17 @@ class JobHandle:
                                   "(elastic fleet)")
 
     # -- completion ---------------------------------------------------------
+
+    def adopt_result(self, result: JobResult) -> JobHandle:
+        """Install a result computed for this job by a
+        :class:`~repro_torch.core.workdomain.WorkDomain`: the member never
+        built an engine, its tasks ran in the domain's composite run, and
+        the records are its solo run's. The feed stops; ``result()``
+        serves the adopted outcome, overflow check included."""
+        assert self._result is None, "job already has a result"
+        self._result = result
+        self.feed.close()
+        return self
 
     def result(self) -> JobResult:
         """Run to completion and return the JobResult. Raises

@@ -29,6 +29,17 @@ work row, and each step's column is gathered from the schedule: step k
 runs on executor e the task that e claimed at step k, wherever its input
 lies. Steps then run as above, so the stealing job replays the same
 graphs, one a step.
+
+With ``JobSpec.code_rate`` r > 1 (``core/coded.py``) a step consumes
+one r-wide column block (:func:`_coded_step`): every member of a code
+group maps the same r tasks, and the bucket push becomes the XOR-coded
+exchange (``collectives.coded_exchange``). Under stealing, groups claim
+whole blocks (``steal.coded_steal_schedule``). With ``JobSpec.coslots``
+> 1 the step runs a WorkDomain's composite task space
+(``core/workdomain.py``): each task's keys are offset into its member
+job's window slice, and ``carry.job_work`` counts each member's executed
+repeats. Neither runs the fused step: the reference refuses both with
+``fused_map``, so they run the eager loop.
 """
 from __future__ import annotations
 
@@ -41,14 +52,16 @@ import torch
 
 from repro_torch.core import steal
 from repro_torch.core.combine import tree_combine
-from repro_torch.core.kv import KEY_SENTINEL, bucketize, local_reduce_repeated
+from repro_torch.core.kv import (KEY_SENTINEL, bucketize, local_reduce,
+                                 local_reduce_repeated)
 from repro_torch.core.partition import lookup_owner
 from repro_torch.core.registry import JobSpec, register_backend
 from repro_torch.core.windows import (STATUS_REDUCE, DenseWindow,
                                       EngineCarry, combine_records,
                                       init_carry)
 from repro_torch.data.feed import Segment
-from repro_torch.distributed.collectives import all_to_all_blocks
+from repro_torch.distributed.collectives import (all_to_all_blocks,
+                                                coded_exchange)
 from repro_torch.kernels.fused_map import ops as fused_ops
 from repro_torch.kernels.fused_map.ops import fused_map
 
@@ -58,8 +71,12 @@ def _step(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     """One engine step for all ranks: ``task (P, S)``, ``task_id`` and
     ``rep`` (P,), ``max_rep`` the host-known max of ``rep``."""
     P, cap = spec.n_procs, spec.push_cap
-    # Phase I: Map (+ simulated imbalance via the repeat factor)
-    keys, vals = map_fn(task, task_id, rep, max_rep)
+    if spec.coslots > 1:
+        keys, vals = _composite_map(spec, map_fn, carry, task, task_id,
+                                    rep, max_rep)
+    else:
+        # Phase I: Map (+ simulated imbalance via the repeat factor)
+        keys, vals = map_fn(task, task_id, rep, max_rep)
     if spec.fused_map:
         # Phases II+III in one kernel; the window is folded in place
         table, bk, bv, _ = fused_map(
@@ -81,6 +98,78 @@ def _step(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     return carry._replace(pending_k=all_to_all_blocks(bk),
                           pending_v=all_to_all_blocks(bv),
                           cursor=carry.cursor + 1)
+
+
+def _composite_map(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+                   task, task_id, rep, max_rep: int):
+    """Phase I of a WorkDomain's step: the composite id ``slot * costride
+    + local`` gives ``map_fn`` the member's local id, every live key is
+    offset into the member's window slice (``slot * (vocab //
+    coslots)``), and each live task's repeats land in its slot of the
+    replicated ``carry.job_work`` row, as the reference's psum does."""
+    base = spec.vocab // spec.coslots
+    live = task_id >= 0
+    slot = torch.where(live, task_id // spec.costride, 0)
+    local_id = torch.where(live, task_id - slot * spec.costride, task_id)
+    keys, vals = map_fn(task, local_id, rep, max_rep)
+    keys = torch.where(keys == KEY_SENTINEL, keys,
+                       keys + (slot * base).unsqueeze(-1))
+    ran = torch.zeros(spec.coslots, dtype=carry.job_work.dtype,
+                      device=task.device)
+    ran.index_add_(0, slot.long(), torch.where(live, rep, 0))
+    carry.job_work.add_(ran)
+    return keys, vals
+
+
+def _coded_step(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+                task, task_id, rep, max_rep: int):
+    """One step of the coded engine (``code_rate`` r > 1) for all ranks:
+    ``task (P, r, S)``, ``task_id``/``rep (P, r)`` one r-wide column
+    block, ``max_rep`` the host-known max of its repeats. Every member of
+    a code group holds the same block, maps its r tasks (as P·r rows of
+    one ``map_fn`` call), reduces each under its repeats and the union
+    at ``r * task_size``, and pushes through the XOR-coded exchange; one
+    member of each group, rotating with the step, keeps the union's
+    bucket overflow."""
+    P, cap, r = spec.n_procs, spec.push_cap, spec.code_rate
+    rows = rep.reshape(-1)
+    keys, vals = map_fn(task.reshape(P * r, -1), task_id.reshape(-1),
+                        rows, max_rep)
+    uk, uv = local_reduce_repeated(keys, vals, keys.shape[-1], rows,
+                                   max_rep)
+    uk, uv, _ = local_reduce(uk.reshape(P, -1), uv.reshape(P, -1),
+                             r * spec.task_size)
+    # the block's first id picks split replicas for the whole union
+    owners = lookup_owner(carry.owner_map, carry.owner_split, uk,
+                          task_id[:, 0], P)
+    bk, bv, _, (ofk, ofv) = bucketize(uk, uv, P, cap, owners=owners)
+    rk, rv = coded_exchange(bk, bv, r)
+    win = DenseWindow(carry.table)
+    win.put(carry.pending_k.reshape(P, -1), carry.pending_v.reshape(P, -1))
+    keep = ((carry.cursor % r) == (torch.arange(P, device=uk.device) % r)
+            ).unsqueeze(-1)
+    win.put(torch.where(keep, ofk, KEY_SENTINEL), torch.where(keep, ofv, 0))
+    return carry._replace(pending_k=rk, pending_v=rv,
+                          cursor=carry.cursor + 1)
+
+
+def _coded_segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
+                   seg: Segment) -> EngineCarry:
+    """Advance one coded segment: ``seg`` of width nb·r, block b the
+    columns ``[b·r, (b+1)·r)`` and step b."""
+    P, n, S = seg.tokens.shape
+    r = spec.code_rate
+    assert n % r == 0, (n, r)
+    nb = n // r
+
+    def blocks(x):
+        return x.reshape(P, nb, r, -1).transpose(0, 1)
+
+    max_rep = seg.reps.reshape(P, nb, r).max(axis=(0, 2))
+    return _run_steps(spec, map_fn, carry, blocks(seg.tokens),
+                      blocks(seg.task_ids).squeeze(-1),
+                      blocks(seg.repeats).squeeze(-1), max_rep, None,
+                      step=_coded_step)
 
 
 def _fused_step_into(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
@@ -150,12 +239,14 @@ class StepGraphs:
 def _run_steps(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
                tokens, task_ids, repeats, max_rep,
                graphs: StepGraphs | None,
-               stats: StealStats | None = None) -> EngineCarry:
+               stats: StealStats | None = None,
+               step: Callable | None = None) -> EngineCarry:
     """Run a segment's steps in order: ``tokens (n, P, S)`` and
     ``task_ids``/``repeats (n, P)`` step-major on the device, ``max_rep``
     (n,) on the host. With ``graphs`` each step replays a graph; without,
-    the eager loop runs. ``stats`` counts the repeat passes the steps
-    were given."""
+    the eager loop runs ``step`` (``_step``; ``_coded_step`` takes
+    ``(n, P, r, S)`` and ``(n, P, r)`` blocks). ``stats`` counts the
+    repeat passes the steps were given."""
     n = tokens.shape[0]
     max_rep = np.asarray(max_rep).tolist()
     if stats is not None:
@@ -168,9 +259,10 @@ def _run_steps(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     tokens = tokens.contiguous()
     task_ids = task_ids.contiguous()
     repeats = repeats.contiguous()
+    step = step or _step
     for c, m in enumerate(max_rep):
-        carry = _step(spec, map_fn, carry, tokens[c], task_ids[c],
-                      repeats[c], m)
+        carry = step(spec, map_fn, carry, tokens[c], task_ids[c],
+                     repeats[c], m)
     return carry
 
 
@@ -247,6 +339,50 @@ def _steal_segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     return carry, sched.work
 
 
+def _coded_steal_segment(spec: JobSpec, map_fn: Callable,
+                         carry: EngineCarry, seg: Segment,
+                         work0: np.ndarray, stats: StealStats):
+    """Advance one coded segment under work stealing: the groups' claims
+    over r-wide blocks computed on the host
+    (``steal.coded_steal_schedule``), then member m of each executor
+    group gathers the whole claimed block from member m of the source
+    group (sentinel tokens, ids -1 and repeats 0 when its group idles).
+    ``work`` advances by each block's live repeats on every member and
+    ``stolen`` by one for a block of another group; steps run with
+    ``max(rep, 1)``. Returns the carry and the schedule's work row."""
+    P, n, S = seg.tokens.shape
+    r = spec.code_rate
+    nb = n // r
+    device = seg.tokens.device
+    t0 = time.perf_counter()
+    sched = steal.coded_steal_schedule(seg.ids, seg.reps, r, work0=work0)
+    grp = np.repeat(sched.src_group, r, axis=0)             # (P, nb)
+    blk = np.repeat(sched.src_block, r, axis=0)
+    m = (np.arange(P) % r)[:, None]
+    src = np.where(grp >= 0, (grp * r + m) * nb + blk, -1)
+    src = _to_device(src.T.astype(np.int32), device)        # (nb, P)
+    stats.schedule_s += time.perf_counter() - t0
+    got = src >= 0
+    at = src.clamp(min=0).view(-1)
+
+    def gather(x, fill):
+        rows = x.reshape(P * nb, -1).index_select(0, at)
+        return torch.where(got.view(-1, 1), rows, fill).view(nb, P, r, -1)
+
+    tokens = gather(seg.tokens, KEY_SENTINEL)
+    ids = gather(seg.task_ids, -1).squeeze(-1)
+    reps = gather(seg.repeats, 0).squeeze(-1)
+    my_group = torch.arange(P, device=device) // r
+    carry.work.add_(torch.where(ids >= 0, reps, 0).sum(dim=(0, 2),
+                                                       dtype=torch.int32))
+    carry.stolen.add_((got & (src // (nb * r) != my_group)).sum(
+        dim=0, dtype=torch.int32))
+    carry = _run_steps(spec, map_fn, carry, tokens, ids, reps.clamp(min=1),
+                       sched.step_reps, None, stats, step=_coded_step)
+    stats.segments += 1
+    return carry, sched.work
+
+
 class SegmentFns:
     """One job's engine, unpacked as ``(init_fn, segment_fn, finish_fn)``:
     ``init`` makes the carry and, for the fused step on a CUDA device, the
@@ -278,13 +414,21 @@ class SegmentFns:
         return carry
 
     def segment(self, carry, seg: Segment):
+        coded = self.spec.code_rate > 1
         if not self.spec.stealing:
+            if coded:
+                return _coded_segment(self.spec, self.map_fn, carry, seg)
             return _segment(self.spec, self.map_fn, carry, seg, self.graphs)
         if self.host_work is None:
             self.host_work = carry.work[0].cpu().numpy()
-        carry, self.host_work = _steal_segment(
-            self.spec, self.map_fn, carry, seg, self.host_work, self.graphs,
-            self.steal)
+        if coded:
+            carry, self.host_work = _coded_steal_segment(
+                self.spec, self.map_fn, carry, seg, self.host_work,
+                self.steal)
+        else:
+            carry, self.host_work = _steal_segment(
+                self.spec, self.map_fn, carry, seg, self.host_work,
+                self.graphs, self.steal)
         return carry
 
     def finish(self, carry):
@@ -320,6 +464,11 @@ class OneSidedBackend:
     supports_stealing = True
     # ... and JobSpec.fused_map (the per-step hot path as one CUDA kernel)
     supports_fused_map = True
+    # ... and JobSpec.coslots > 1 (a WorkDomain's composite engine run,
+    # core/workdomain.py); the scheduler forms domains over these only
+    supports_coschedule = True
+    # ... and JobSpec.code_rate > 1 (the coded shuffle, core/coded.py)
+    supports_coded = True
 
     def run_job(self, spec: JobSpec, map_fn: Callable, device, tokens,
                 task_ids, repeats):

@@ -79,13 +79,33 @@ def read_tasks(source, plan: TaskPlan, task_ids: np.ndarray,
         if lo == hi:
             continue
         n = hi - lo
-        chunk = source.read(plan.file_offset(int(sid[lo])), n * S)
-        if len(chunk) < n * S:                     # short read at EOF
-            chunk = np.concatenate(
-                [chunk, np.full((n * S - len(chunk),), KEY_SENTINEL,
-                                np.int32)])
+        base = plan.file_offset(int(sid[lo]))
+        chunk = source.read(base, n * S)
+        if len(chunk) < n * S:
+            chunk = _read_short(source, base, n * S, S, chunk)
         flat_out[order[lo:hi]] = chunk.reshape(n, S)
     return out
+
+
+def _read_short(source, base: int, size: int, S: int,
+                head: np.ndarray) -> np.ndarray:
+    """A run's ``size`` elements from ``base`` after ``source.read``
+    returned only ``head``: each task sentinel-padded after its own short
+    read, as a read a task gives. A read stops short at the end of the
+    stream and, for ``FleetSource``, at the end of a member's elements:
+    reading goes on from there, and an empty read skips to the next
+    task."""
+    buf = np.full((size,), KEY_SENTINEL, np.int32)
+    buf[: len(head)] = head
+    pos = len(head)
+    while pos < size:
+        chunk = source.read(base + pos, size - pos)
+        if not len(chunk):
+            pos = (pos // S + 1) * S               # the next task
+            continue
+        buf[pos: pos + len(chunk)] = chunk
+        pos += len(chunk)
+    return buf
 
 
 def gather_segment(source, plan: TaskPlan, task_id_grid: np.ndarray,

@@ -31,11 +31,51 @@ class JobSpec:
                                  #   (core/steal.py)
     fused_map: bool = False      # per-step hot path as the fused_map
                                  #   kernel; identical results
+    code_rate: int = 1           # r-replicated coded shuffle
+                                 #   (core/coded.py, collectives.
+                                 #   coded_exchange); a comparing field, so
+                                 #   coded and uncoded jobs never share a
+                                 #   program
+    # cross-job co-scheduling (core/workdomain.py): ``coslots`` member
+    # jobs in one engine run (1: a solo job), composite task id
+    # ``slot * costride + local_id``, composite key ``slot * (vocab //
+    # coslots) + key``
+    coslots: int = 1
+    costride: int = 0
     partitioner: str = field(default="hash", compare=False)
 
     def __post_init__(self):
         if not self.combine_capacity:
             object.__setattr__(self, "combine_capacity", self.vocab)
+        if self.code_rate < 1:
+            raise ValueError(f"code_rate must be >= 1, got {self.code_rate}")
+        if self.code_rate > 1:
+            if self.n_procs % self.code_rate:
+                raise ValueError(
+                    f"code_rate={self.code_rate} needs n_procs divisible "
+                    f"into r-rank code groups (got n_procs={self.n_procs})")
+            if self.fused_map:
+                raise ValueError(
+                    "fused_map does not compose with the coded exchange "
+                    "(code_rate > 1) — the fused kernel pushes per-task "
+                    "unicast buckets; run coded jobs unfused")
+            if self.coslots > 1:
+                raise ValueError(
+                    "co-scheduling (coslots > 1) does not compose with "
+                    "code_rate > 1 — the fleet cursor claims single task "
+                    "slots, which would break the r-group decode")
+        if self.coslots > 1:
+            if self.fused_map:
+                raise ValueError(
+                    "fused_map does not compose with co-scheduling "
+                    "(coslots > 1) — the WorkDomain falls back to solo "
+                    "slicing for fused jobs instead")
+            if self.costride <= 0:
+                raise ValueError("coslots > 1 needs a positive costride")
+            if self.vocab % self.coslots:
+                raise ValueError(
+                    f"co-scheduled vocab {self.vocab} must be "
+                    f"coslots={self.coslots} equal per-job windows")
 
 
 # map_fn(tokens (P, S), task_id (P,), repeat (P,), max_rep) -> (keys, values)

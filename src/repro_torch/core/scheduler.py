@@ -54,8 +54,16 @@ per-job snapshots plus the queue state
 (:class:`~repro_torch.ckpt.checkpoint.FleetCheckpoint`, the reference's
 layout); restore seeks every live job's feed, and
 ``repro_torch.ft.straggler.rebalance_hook`` plugs the coarse re-planning
-loop in as a per-job ``on_slice`` hook. Cross-job co-scheduling
-(``coschedule=True``) is ROADMAP Queue 1 item 10 and raises.
+loop in as a per-job ``on_slice`` hook.
+
+Cross-job co-scheduling (``coschedule=True``): jobs of one program that
+are activated together merge into a
+:class:`~repro_torch.core.workdomain.WorkDomain`, one engine run whose
+steps run several tenants' tasks; a slice of any member advances the
+domain, each tenant is charged the work its jobs executed
+(``carry.job_work``), and a member finishes as soon as its columns are
+read. Domains run the unfused step, so they hold no step graphs. The
+fleet manifest lists the domains, and ``restore`` re-forms them.
 """
 from __future__ import annotations
 
@@ -118,11 +126,13 @@ class ScheduledJob:
     submitted_at: float = 0.0    # perf_counter stamps
     finished_at: float | None = None
     error: BaseException | None = None
-    domain: object | None = None     # a co-scheduling domain: always None
-                                     #   here (ROADMAP Queue 1 item 10)
+    domain: object | None = None     # the WorkDomain this job runs in
+                                     #   (core/workdomain.py), if any
 
     @property
     def ready(self) -> bool:
+        if self.domain is not None:
+            return self.domain.ready()
         return self.handle.ready()
 
 
@@ -208,8 +218,12 @@ class JobScheduler:
                     over every feed's in-flight prefetch bytes (``None``:
                     unbounded).
     slice_segments: segments a time slice (1 = finest interleaving).
-    coschedule, copack: cross-job co-scheduling, ROADMAP Queue 1 item 10;
-                    raise ``NotImplementedError``.
+    coschedule:     merge program-compatible jobs activated together into
+                    :class:`~repro_torch.core.workdomain.WorkDomain` runs;
+                    the others (fused, coded, sampled, ``"2s"``, a job
+                    alone) slice solo.
+    copack:         member segments a domain segment (default: the
+                    domain's size K).
     """
 
     def __init__(self, *, policy: str | SchedulePolicy = "fair",
@@ -219,15 +233,13 @@ class JobScheduler:
                  slice_segments: int = 1,
                  coschedule: bool = False,
                  copack: int | None = None):
-        if coschedule or copack is not None:
-            raise NotImplementedError(
-                "coschedule/copack: cross-job co-scheduling (WorkDomain, "
-                "the composite engine) is ROADMAP Queue 1 item 10")
         self.policy = resolve_policy(policy)
         self.device = resolve_device(device)
         self.max_pending = max_pending
         self.max_active = max_active
         self.slice_segments = int(slice_segments)
+        self.coschedule = bool(coschedule)
+        self.copack = copack
         self.budget = (FeedBudget(max_live_bytes)
                        if max_live_bytes else None)
         self.jobs: list[ScheduledJob] = []
@@ -235,6 +247,7 @@ class JobScheduler:
         self.run_started_at: float | None = None
         self._by_name: dict[str, ScheduledJob] = {}
         self._programs: dict = {}        # (backend, spec, id(map_fn)) -> map_fn
+        self._domains: list = []         # WorkDomains, in order formed
         self._n_procs: int | None = None
 
     # -- admission -----------------------------------------------------------
@@ -288,6 +301,11 @@ class JobScheduler:
         job = self._by_name.get(name)
         if job is None:
             raise KeyError(f"no job named {name!r} to evict")
+        if job.domain is not None and not job.domain.done:
+            raise RuntimeError(
+                f"job {name!r} is co-scheduled in a live WorkDomain — "
+                "members share one engine run and cannot be evicted "
+                "individually (fail/finish the domain first)")
         del self._by_name[name]
         self.jobs.remove(job)
         job.handle.close()
@@ -298,6 +316,8 @@ class JobScheduler:
         stay readable on their handles."""
         for j in self.jobs:
             j.handle.close()
+        for d in self._domains:
+            d.close()
 
     # -- introspection -------------------------------------------------------
 
@@ -340,16 +360,21 @@ class JobScheduler:
 
     # -- the scheduling loop -------------------------------------------------
 
-    def _mark_live(self, job: ScheduledJob):
-        """Activate: make the job's own engine and carry, register its
-        program, assert what the tenants share, start the feed's first
-        prefetch."""
-        h = job.handle
+    def _register(self, h: JobHandle):
+        """Make the handle's own engine and carry and register its
+        program, asserting that the key's ``map_fn`` is the handle's."""
         h._ensure_engine()
         key = (h.backend.name, h.spec, id(h._map_fn))
         shared = self._programs.setdefault(key, h._map_fn)
         assert shared is h._map_fn, (
             f"program {key[:2]} registered another map_fn under its id")
+
+    def _mark_live(self, job: ScheduledJob):
+        """Activate: make the job's own engine and carry, register its
+        program, assert what the tenants share, start the feed's first
+        prefetch."""
+        h = job.handle
+        self._register(h)
         graphs = getattr(h._seg_fns, "graphs", None)
         if graphs is not None:
             # the graphs replay into the carry they were captured on: it
@@ -361,15 +386,53 @@ class JobScheduler:
         h.feed.prime()
         job.state = LIVE
 
+    def _form_domain(self, group: list[ScheduledJob], *, pack=None,
+                     stride=None):
+        """Merge a program-compatible group into one WorkDomain and mark
+        every member live. The domain's program (its spec differs by
+        ``coslots``/``costride``) registers like a solo one; it runs the
+        unfused step, so it holds no step graphs."""
+        from repro_torch.core.workdomain import WorkDomain
+        domain = WorkDomain(
+            [j.handle for j in group], names=[j.name for j in group],
+            priorities=[j.priority for j in group], device=self.device,
+            pack=pack if pack is not None else self.copack,
+            stride=stride, feed_budget=self.budget)
+        h = domain.handle
+        self._register(h)
+        assert getattr(h._seg_fns, "graphs", None) is None
+        h.feed.prime()
+        for j in group:
+            j.domain = domain
+            j.state = LIVE
+        self._domains.append(domain)
+        return domain
+
     def _activate(self):
         n_live = sum(j.state == LIVE for j in self.jobs)
+        batch: list[ScheduledJob] = []
         for job in self.jobs:
             if job.state != QUEUED:
                 continue
             if self.max_active is not None and n_live >= self.max_active:
                 break
-            self._mark_live(job)
+            batch.append(job)
             n_live += 1
+        if self.coschedule:
+            # program-compatible eligible jobs activated together merge
+            # into one WorkDomain; the others slice solo
+            from repro_torch.core.workdomain import (can_coschedule,
+                                                     coschedule_key)
+            groups: dict = defaultdict(list)
+            for job in batch:
+                if can_coschedule(job.handle):
+                    groups[coschedule_key(job.handle)].append(job)
+            for group in groups.values():
+                if len(group) >= 2:
+                    self._form_domain(group)
+        for job in batch:
+            if job.state == QUEUED:
+                self._mark_live(job)
 
     def _charge(self, job: ScheduledJob, st: SliceStats):
         """Fold one slice's executed service into the job's and its
@@ -383,6 +446,9 @@ class JobScheduler:
         ts.wall += st.seconds
 
     def _slice(self, job: ScheduledJob, raise_on_error: bool):
+        if job.domain is not None:
+            self._slice_domain(job, job.domain, raise_on_error)
+            return
         h = job.handle
         c0 = h.cursor
         t0 = time.perf_counter()
@@ -419,6 +485,54 @@ class JobScheduler:
         elif job.on_slice is not None:
             job.on_slice(h, st)
 
+    def _slice_domain(self, picked: ScheduledJob, domain,
+                      raise_on_error: bool):
+        """Advance a WorkDomain one slice: its segments run a mix of the
+        members' tasks; each member is charged the work its slot executed
+        (``job_work`` deltas, read back from the device), and members
+        whose columns are all read finish. A failing domain fails every
+        member: they share one engine run."""
+        members = [self._by_name[n] for n in domain.names]
+        jw0 = domain.job_work()
+        c0 = domain.handle.cursor
+        t0 = time.perf_counter()
+        try:
+            domain.step(self.slice_segments)
+            finished = domain.collect_finished()
+        except Exception as e:       # noqa: BLE001 — isolate the domain
+            domain.close()
+            now = time.perf_counter()
+            for j in members:
+                if j.state == LIVE:
+                    j.state = FAILED
+                    j.error = e
+                    j.finished_at = now
+                    self.tenants[j.tenant].jobs_failed += 1
+            if raise_on_error:
+                raise
+            return
+        dt = time.perf_counter() - t0
+        dw = domain.job_work() - jw0
+        seg_w = domain.handle.feed.segment
+        segs = (domain.handle.cursor - c0 + seg_w - 1) // seg_w
+        total = max(int(dw.sum()), 1)
+        for slot, j in enumerate(members):
+            if int(dw[slot]) == 0 and j is not picked:
+                continue
+            self._charge(j, SliceStats(
+                seconds=dt * (int(dw[slot]) / total),
+                # the picked member funded the slice; the service charged
+                # is the work above
+                segments=segs if j is picked else 0,
+                work_per_rank=np.zeros((self._n_procs or 0,), np.int64),
+                work_executed=int(dw[slot])))
+        now = time.perf_counter()
+        for name in finished:
+            j = self._by_name[name]
+            j.state = DONE
+            j.finished_at = now
+            self.tenants[j.tenant].jobs_done += 1
+
     def run_until_complete(self, *, max_slices: int | None = None,
                            raise_on_error: bool = False
                            ) -> dict[str, JobResult]:
@@ -453,8 +567,14 @@ class JobScheduler:
         if isinstance(fleet, str):
             fleet = FleetCheckpoint(fleet)
         for j in self.jobs:
-            if j.state == LIVE:
+            if j.state == LIVE and j.domain is None:
                 j.handle.checkpoint(fleet.manager(j.name))
+        # a WorkDomain snapshots once: the composite carry, the shared
+        # cursor and the merged grids; restore re-forms it from the
+        # manifest before it seeks
+        for d in self._domains:
+            if not d.done:
+                d.checkpoint(fleet.manager(self._domain_name(d)))
         fleet.wait()          # the manifest must never name a torn snapshot
         fleet.save_state({
             "policy": self.policy.name,
@@ -464,9 +584,17 @@ class JobScheduler:
                       "work_done": j.work_done, "wall": j.wall}
                      for j in self.jobs],
             "tenants": {t: asdict(s) for t, s in self.tenants.items()},
-            "domains": [],    # co-scheduling domains: item 10
+            "domains": [{"name": self._domain_name(d),
+                         "members": list(d.names),
+                         "stride": d.stride, "pack": d.pack}
+                        for d in self._domains],
         })
         return fleet
+
+    def _domain_name(self, domain) -> str:
+        """A domain's snapshot name, from its first member's admission
+        seq: the same after the resubmission that restore needs."""
+        return f"codomain-{self._by_name[domain.names[0]].seq}"
 
     def restore(self, fleet) -> JobScheduler:
         """Resume a fleet snapshot (this package's or the reference's)
@@ -479,11 +607,13 @@ class JobScheduler:
         if isinstance(fleet, str):
             fleet = FleetCheckpoint(fleet)
         state = fleet.load_state()
-        if state.get("domains"):
-            raise NotImplementedError(
-                "the fleet snapshot holds co-scheduling domains "
-                f"({[d['name'] for d in state['domains']]}): cross-job "
-                "co-scheduling is ROADMAP Queue 1 item 10")
+        for rec in state.get("domains", []):
+            missing = [n for n in rec["members"] if n not in self._by_name]
+            if missing:
+                raise ValueError(
+                    f"fleet snapshot domain {rec['name']!r} has members "
+                    f"{missing} which were not resubmitted — restore() "
+                    "re-forms domains over resubmitted jobs only")
         for rec in state["jobs"]:
             job = self._by_name.get(rec["name"])
             if job is None:
@@ -498,6 +628,20 @@ class JobScheduler:
             job.segments_run = rec["segments_run"]
             job.work_done = rec["work_done"]
             job.wall = rec["wall"]
+        # re-form each domain over its resubmitted members and seek it to
+        # its snapshot (members have none of their own); members the
+        # saved cursor had drained finish again here, and the tenants'
+        # counters come back whole below
+        for rec in state.get("domains", []):
+            group = [self._by_name[n] for n in rec["members"]]
+            domain = self._form_domain(group, pack=rec["pack"],
+                                       stride=rec["stride"])
+            if fleet.has_snapshot(rec["name"]):
+                domain.restore(fleet.manager(rec["name"]))
+            for name in domain.collect_finished():
+                j = self._by_name[name]
+                j.state = DONE
+                j.finished_at = time.perf_counter()
         for t, s in state.get("tenants", {}).items():
             self.tenants[t] = TenantStats(**s)
         return self

@@ -144,6 +144,12 @@ class TwoSidedBackend:
         """``(init_fn, segment_fn, finish_fn)`` over the shared
         EngineCarry: each segment runs bulk-synchronously (map-all, bulk
         shuffle, reduce spike) and folds into the carried window."""
+        if spec.coslots > 1:
+            # the bulk path never learned to route composite keys
+            raise ValueError(
+                "backend '2s' does not support cross-job co-scheduling "
+                "(coslots > 1) — WorkDomains form over '1s' only")
+
         def init():
             return init_carry(spec, device)
 

@@ -6,7 +6,8 @@ leading shard dim), so a reference carry converts one to one
 (:func:`carry_from_numpy` / :func:`carry_to_numpy`):
 
   ``table (P, V)``, ``pending_k/v (P, P, cap)``, ``status/cursor (P,)``,
-  ``work/stolen (P, P)``, ``job_work (P, 1)`` (a solo job's slot),
+  ``work/stolen (P, P)``, ``job_work (P, coslots)`` (one slot a member
+  job of a WorkDomain; one for a solo job),
   ``owner_map/owner_split (P, V)``.
 
 The dense window folds in place: the engine never keeps an old carry, so
@@ -88,7 +89,7 @@ class EngineCarry(NamedTuple):
     cursor: torch.Tensor      # (P,) tasks completed
     work: torch.Tensor        # (P, P) work-stealing progress rows
     stolen: torch.Tensor      # (P, P) steal counters
-    job_work: torch.Tensor    # (P, 1) executed work per job slot
+    job_work: torch.Tensor    # (P, coslots) executed work per job slot
     owner_map: torch.Tensor   # (P, vocab) key -> base owner rank
     owner_split: torch.Tensor  # (P, vocab) replicas per key (>= 1)
 
@@ -111,7 +112,7 @@ def init_carry(spec, device) -> EngineCarry:
         cursor=zeros(P),
         work=zeros(P, P),
         stolen=zeros(P, P),
-        job_work=zeros(P, 1),      # a solo job's single work slot
+        job_work=zeros(P, spec.coslots),
         owner_map=omap.repeat(P, 1),
         owner_split=torch.ones((P, V), dtype=torch.int32, device=device),
     )

@@ -10,7 +10,9 @@ feed read ahead of the engine.
   * :class:`MmapTokenSource` — memory-mapped token file;
   * :class:`ZipfSource`      — lazy synthetic PUMA-like corpus, generated
                                per fixed-size block on read;
-  * :class:`ConcatSource`    — concatenation of sources.
+  * :class:`ConcatSource`    — concatenation of sources;
+  * :class:`FleetSource`     — member sources at a fixed element stride
+                               (a WorkDomain's composite address space).
 """
 from __future__ import annotations
 
@@ -150,3 +152,36 @@ class ConcatSource:
             offset += take
             i += 1
         return np.concatenate(parts) if len(parts) > 1 else parts[0]
+
+
+class FleetSource:
+    """K member sources at a fixed element stride.
+
+    Member j occupies ``[j * stride, (j + 1) * stride)``: its own
+    elements first, then an empty pad region (reads there return
+    nothing, so the planner's sentinel padding matches a solo run). With
+    ``stride = costride * task_size`` the composite task id ``slot *
+    costride + local`` of a :class:`~repro_torch.core.workdomain.
+    WorkDomain` lands on the bytes the member's solo plan reads, so
+    ``plan.file_offset`` serves any member's task unchanged. A read stops
+    at the end of its member's window."""
+
+    def __init__(self, sources: Sequence[DataSource], stride: int):
+        self._sources = [as_source(s) for s in sources]
+        self.stride = int(stride)
+        for j, s in enumerate(self._sources):
+            if s.len_elements() > self.stride:
+                raise ValueError(
+                    f"member {j} holds {s.len_elements()} elements — more "
+                    f"than the fleet stride {self.stride}")
+
+    def len_elements(self) -> int:
+        return self.stride * len(self._sources)
+
+    def read(self, offset: int, size: int) -> np.ndarray:
+        j = offset // self.stride
+        if not 0 <= j < len(self._sources):
+            return np.empty((0,), np.int32)
+        local = offset - j * self.stride
+        take = min(size, self.stride - local)    # stop at the boundary
+        return self._sources[j].read(local, take)

@@ -46,3 +46,59 @@ def tree_gather_permute(x: torch.Tensor, level: int) -> torch.Tensor:
     got = x[src.clamp(max=P - 1)]
     mask = receiver.view((P,) + (1,) * (x.dim() - 1))
     return torch.where(mask, got, torch.zeros_like(got))
+
+
+def coded_exchange(bk: torch.Tensor, bv: torch.Tensor, code_rate: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One XOR-coded multicast step of the bucket shuffle (Coded
+    MapReduce, arXiv 1512.01625; host half in ``repro_torch.core.coded``).
+
+    ``bk``/``bv`` are ``(P, P, cap)``: rank i's bucket for destination q
+    at ``[i, q]``, equal on every member of an r-rank code group (the
+    group maps the same task block). Each rank ships one coded block to
+    its group peers, the XOR of the buckets addressed to them, and the
+    buckets of the other groups' destinations it speaks for (member
+    ``q % r`` of every group speaks for destination q). Each rank decodes
+    its own bucket from its designated peer ``g·r + (m+1) % r`` by
+    XOR-ing back the buckets of the rest of its group, which it mapped
+    itself. Returns the ``(P, P, cap)`` rows to fold: the decoded bucket
+    on the designated peer's row, the speakers' buckets as received, and
+    sentinel and 0 on every other row. Keys and values are int32, which
+    XOR exactly (``KEY_SENTINEL`` included)."""
+    from repro_torch.core.kv import KEY_SENTINEL
+    r = int(code_rate)
+    P = bk.shape[0]
+    assert r > 1 and P % r == 0 and bk.shape[1] == P, (bk.shape, r)
+    me = torch.arange(P, device=bk.device)
+    g, m = me // r, me % r
+    q = me.view(1, P)
+    in_group = (q // r) == g.view(P, 1)                 # (rank, q)
+    peer = in_group & (q != me.view(P, 1))
+    d = g * r + (m + 1) % r                              # designated peer
+    side = peer & (q != d.view(P, 1))
+    speak = ~in_group & ((q % r) == m.view(P, 1))
+
+    def group_xor(x, mask):
+        # XOR of each rank's r group rows under ``mask``: the rows
+        # outside the group are never in a mask, so r - 1 XORs do
+        rows = x.reshape(P, P // r, r, -1)[me, g]           # (P, r, cap)
+        on = mask.view(P, P // r, r)[me, g].unsqueeze(-1)
+        acc = torch.where(on[:, 0], rows[:, 0], 0)
+        for j in range(1, r):
+            acc = acc ^ torch.where(on[:, j], rows[:, j], 0)
+        return acc
+
+    peer3, speak3 = peer.unsqueeze(-1), speak.unsqueeze(-1)
+    sk = torch.where(peer3, group_xor(bk, peer).unsqueeze(1),
+                     torch.where(speak3, bk, KEY_SENTINEL))
+    sv = torch.where(peer3, group_xor(bv, peer).unsqueeze(1),
+                     torch.where(speak3, bv, 0))
+    gk, gv = all_to_all_blocks(sk), all_to_all_blocks(sv)
+    dk = gk[me, d] ^ group_xor(bk, side)
+    dv = gv[me, d] ^ group_xor(bv, side)
+    mine = (q == d.view(P, 1)).unsqueeze(-1)
+    ing = in_group.unsqueeze(-1)
+    rk = torch.where(ing, torch.where(mine, dk.unsqueeze(1), KEY_SENTINEL),
+                     gk)
+    rv = torch.where(ing, torch.where(mine, dv.unsqueeze(1), 0), gv)
+    return rk, rv

@@ -1031,3 +1031,91 @@ def test_mutant_wrappers_never_take_plain_on_the_card(cuda_device,
         out = chip_smoke.mutant_call(name, cuda_device)["run"]()
         assert out.is_cuda
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the coded shuffle and cross-job co-scheduling on the card
+# ---------------------------------------------------------------------------
+
+def _coded_cfg(r, stealing=False, segment=0):
+    return JobConfig(WordCount(vocab=600), backend="1s", task_size=512,
+                     push_cap=512, n_procs=6, code_rate=r,
+                     stealing=stealing, segment=segment)
+
+
+def _coded_input():
+    from repro_torch.data.corpus import synth_corpus, zipf_skew_repeats
+    return (synth_corpus(24576, 600, seed=0),
+            zipf_skew_repeats(6, 8, 1.4, mean_rep=3, seed=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,stealing,segment", [(2, False, 0), (3, False, 3),
+                                                (2, True, 0), (3, True, 2)])
+def test_coded_job_on_the_card_equals_its_cpu_run(cuda_device, r, stealing,
+                                                  segment):
+    """An r 2 / r 3 coded job, with and without stealing, on the card:
+    records, work and steals equal to the same job on the CPU, no
+    fused_map launch, the engine's passes equal."""
+    tokens, reps = _coded_input()
+    cfg = _coded_cfg(r, stealing, segment)
+    ops.fused_map.launches = 0
+    h = submit(cfg, tokens, device=cuda_device, repeats=reps)
+    got = h.result()
+    assert ops.fused_map.launches == 0
+    cpu = submit(cfg, tokens, device="cpu", repeats=reps)
+    want = cpu.result()
+    assert got.records == want.records == wordcount_oracle(tokens, 600)
+    assert_equal(got.work_per_rank, want.work_per_rank)
+    assert_equal(got.steals_per_rank, want.steals_per_rank)
+    assert h.engine.steal.passes == cpu.engine.steal.passes
+    if stealing:
+        assert got.n_steals > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3])
+def test_coded_exchange_on_the_card_equals_the_cpu(cuda_device, r):
+    from repro_torch.distributed.collectives import coded_exchange
+    rng = np.random.default_rng(r)
+    bk = rng.integers(-2**31, 2**31 - 1, (6, 6, 1024), dtype=np.int64)
+    bk = np.where(rng.random(bk.shape) < 0.3, 2**31 - 1, bk).astype(np.int32)
+    bv = rng.integers(-9, 9, (6, 6, 1024)).astype(np.int32)
+    want = coded_exchange(to_torch(bk), to_torch(bv), r)
+    got = coded_exchange(to_torch(bk).to(cuda_device),
+                         to_torch(bv).to(cuda_device), r)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        assert_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_two_member_domain_on_the_card_equals_its_cpu_run(cuda_device):
+    """Two stealing WordCount jobs co-scheduled at P 4 on the card: each
+    member's records equal to its solo run, the domain's carry rows equal
+    to the same domain's on the CPU, no fused_map launch."""
+    from repro_torch.core import JobScheduler
+    rng = np.random.default_rng(0)
+    data = [rng.integers(0, 512, size=n * 64).astype(np.int32)
+            for n in (13, 7)]
+    reps = [np.where(rng.random((4, -(-n // 4))) < 0.3, 5, 1)
+            .astype(np.int32) for n in (13, 7)]
+    cfg = JobConfig(WordCount(vocab=512), backend="1s", task_size=64,
+                    push_cap=128, n_procs=4, segment=1, stealing=True)
+    rows = []
+    for device in (cuda_device, "cpu"):
+        sched = JobScheduler(device=device, coschedule=True, copack=2)
+        for k, (d, r) in enumerate(zip(data, reps)):
+            sched.submit(cfg, d, name=f"j{k}", repeats=r, priority=k)
+        ops.fused_map.launches = 0
+        res = sched.run_until_complete()
+        assert ops.fused_map.launches == 0
+        assert len(sched._domains) == 1
+        carry = sched._domains[0].handle._carry
+        rows.append(([res[f"j{k}"].records for k in range(2)],
+                     [t.cpu().numpy().tolist() for t in
+                      (carry.work, carry.stolen, carry.job_work)]))
+    assert rows[0] == rows[1]
+    for k, (d, r) in enumerate(zip(data, reps)):
+        assert rows[0][0][k] == submit(cfg, d, device="cpu",
+                                       repeats=r).result().records

@@ -122,7 +122,10 @@ def test_restore_refuses_a_manifest_with_domains(tmp_path, tokens):
                       "domains": [{"name": "codomain-0",
                                    "members": ["a", "b"], "stride": 1,
                                    "pack": 2}]})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # domains are ported: a manifest whose domain members were not
+    # resubmitted is refused, naming them
+    with pytest.raises(ValueError, match="codomain-0.*'a', 'b'.*not "
+                                         "resubmitted"):
         JobScheduler(device="cpu").restore(fleet)
 
 

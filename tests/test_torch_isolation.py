@@ -46,7 +46,8 @@ def test_the_scans_cover_the_scheduler_modules():
     checkpoint (the scan globs every module; this pins that it does)."""
     names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"core/scheduler.py", "data/feed.py",
-            "ckpt/checkpoint.py"} <= names
+            "ckpt/checkpoint.py", "core/coded.py",
+            "core/workdomain.py"} <= names
 
 
 def test_importing_everything_loads_no_jax():
@@ -269,6 +270,72 @@ def test_smoke_overlap_phase_rehearses_on_cpu():
         assert r["prefetch_hits"] >= r["segments"] - 1 == 7
     assert c["overlap_win"] < 1.0
     chip_smoke.print_overlap({**c, "seconds": 0.0}, w)
+
+
+def test_smoke_coded_phase_rehearses_on_cpu():
+    """Phase 3g at a tiny width on the CPU: every arm's records equal to
+    the oracle, no launch, r2+steal equal to the group replay, a group's
+    members equal (all checked inside); the modelled bytes' ratios are
+    fig15's; no profile off the card."""
+    _, data, _, _, _ = chip_smoke._port()
+    w = chip_smoke.Width(vocab=300, n_procs=6, task=64, cap=64, segment=0)
+    corpus = data.synth_corpus(3072, 300, seed=0)
+    c = chip_smoke.phase_coded(torch.device("cpu"), corpus, w,
+                               skews=(0.0, 1.6))
+    assert c["tasks_per_rank"] == c["fused_tasks_per_rank"] == 8
+    for row in c["skews"].values():
+        assert set(row) == set(chip_smoke.CODED_ARMS)
+        for arm, e in row.items():
+            assert len(e["walls_s"]) == chip_smoke.CODED_RUNS
+            assert e["launches"] == 0 and e["steps"] == 8
+            assert e["feed_bytes_read"] == 3072 * 4 * e["r"]
+        assert row["r2"]["shuffle_ratio_to_r1"] == pytest.approx(0.6)
+        assert row["r3"]["shuffle_ratio_to_r1"] == pytest.approx(0.4)
+        assert row["r2+steal"]["passes"] > 0
+    assert c["skews"]["1.6"]["r2+steal"]["n_steals"] > 0
+    assert "profiles" not in c
+    chip_smoke.print_coded({**c, "seconds": 0.0}, w)
+
+
+def test_smoke_coded_fused_grid_carries_each_tokens_repeat():
+    """The r1-fused arm's grid at full width: each 1,024-token task has
+    the repeat of the 4,096-token task holding it, so both grids weigh
+    every token alike."""
+    _, data, _, _, _ = chip_smoke._port()
+    w, n = chip_smoke.CODED_W, chip_smoke.CODED_N
+    T = chip_smoke.tasks_per_rank(n, w)
+    assert T == 32
+    reps = data.zipf_skew_repeats(6, T, 1.6, mean_rep=4, seed=1)
+    small = chip_smoke.coded_fused_repeats(reps, n, w, 1024)
+    assert small.shape == (6, 128)
+    for u in range(n // 1024):
+        assert small[u % 6, u // 6] == reps[(u // 4) % 6, (u // 4) // 6]
+    assert int(small.sum()) * 1024 == int(reps.sum()) * 4096
+
+
+def test_smoke_crossjob_phase_rehearses_on_cpu():
+    """Phase 3h at a tiny width on the CPU: both fleets, every job equal
+    to its solo run, one domain with cross-rank steals and its job_work
+    the members' repeats (checked inside)."""
+    w = chip_smoke.Width(vocab=512, n_procs=4, task=64, cap=32, segment=1)
+    c = chip_smoke.phase_crossjob(torch.device("cpu"), w, total=1 << 14,
+                                  ks=(4,))
+    row = c["4"]
+    assert len(row["jobs"]) == 4
+    assert [j["n_tokens"] for j in row["jobs"]] == \
+        chip_smoke.fleet_a_sizes(4, 1 << 14, w)
+    for label in ("fair", "fair+cosched"):
+        r = row[label]
+        assert r["makespan_s"] >= r["p95_latency_s"] > 0
+        assert 0 < r["jain"] <= 1.0 + 1e-12
+    assert row["fair+cosched"]["n_domains"] == 1
+    assert row["fair+cosched"]["job_work"] == [j["work"]
+                                               for j in row["jobs"]]
+    assert "n_domains" not in row["fair"]
+    full = chip_smoke.fleet_a_sizes(16, chip_smoke.CROSS_TOTAL,
+                                    chip_smoke.CROSS_W)
+    assert len(full) == 16 and min(full) == 8 * 1024
+    chip_smoke.print_crossjob({**c, "seconds": 0.0}, w)
 
 
 def test_smoke_flash_and_serve_phases_rehearse_on_cpu():

@@ -6,7 +6,8 @@ repeats, fused on and off; records, JobResult stats and per-rank
 windows equal to the JAX package's (P = 1 in this process, P = 8 in one
 8-device subprocess for the module); a JAX carry loaded through
 ``carry_from_numpy`` finishes with JAX's records; every option outside
-the port so far raises NotImplementedError, and those ported since
+the port so far raises NotImplementedError (the coded shuffle and
+co-scheduling, ported since, no longer do), and those ported since
 (stealing, the sampled partitioners, a feed budget) run. MR-2S and checkpoint,
 restore and re-planning have their own files (``test_torch_twosided``,
 ``test_torch_ckpt``).
@@ -223,12 +224,21 @@ _CFG = dict(usecase=core.WordCount(64), task_size=8, n_procs=1, segment=2)
 def test_options_outside_the_port_raise_not_implemented(option):
     tokens = np.zeros((64,), np.int32)
     cfg = dict(_CFG)
-    kw = {}
     if option == "code_rate":
-        cfg["code_rate"] = 2
-    elif option == "coschedule":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            core.JobScheduler(device="cpu", coschedule=True)
+        # ported: r 2 needs ranks in groups of 2, and runs to the oracle
+        cfg.update(code_rate=2, n_procs=2)
+        res = core.submit(core.JobConfig(**cfg), tokens,
+                          device="cpu").result()
+        assert res.records == core.wordcount_oracle(tokens, 64)
+        return
+    if option == "coschedule":
+        # ported: the scheduler takes the options and forms no domain for
+        # a lone job
+        sched = core.JobScheduler(device="cpu", coschedule=True, copack=2)
+        sched.submit(core.JobConfig(**cfg), tokens, name="a")
+        assert sched.run_until_complete()["a"].records == \
+            core.wordcount_oracle(tokens, 64)
+        assert sched._domains == []
         return
     if option == "elastic_load":
         h = core.submit(core.JobConfig(**cfg), tokens, device="cpu")
@@ -236,8 +246,6 @@ def test_options_outside_the_port_raise_not_implemented(option):
             h.elastic_load(None, None, None, None, None)
         h.close()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.submit(core.JobConfig(**cfg), tokens, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("option", ["stealing", "sampled", "sampled+split",

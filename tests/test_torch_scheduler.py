@@ -115,9 +115,18 @@ def test_admission_backpressure(tokens):
 
 
 @pytest.mark.parametrize("kw", [{"coschedule": True}, {"copack": 4}])
-def test_coschedule_raises_naming_item_10(kw):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cpu_sched(**kw)
+def test_coschedule_raises_naming_item_10(kw, tokens):
+    """Item 10 is ported: the options no longer raise; ``coschedule``
+    merges two WordCount jobs into one domain, and ``copack`` alone forms
+    none (tests/test_torch_workdomain.py holds the domains)."""
+    sched = cpu_sched(**kw)
+    assert sched.coschedule == kw.get("coschedule", False)
+    assert sched.copack == kw.get("copack")
+    sched.submit(wc_cfg(), tokens, name="a")
+    sched.submit(wc_cfg(), tokens[: N // 2], name="b")
+    res = sched.run_until_complete()
+    assert len(sched._domains) == int(sched.coschedule)
+    assert res["a"].records == wordcount_oracle(tokens, VOCAB)
 
 
 # ---------------------------------------------------------------------------

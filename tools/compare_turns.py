@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""MR-1S against MR-2S, snapshots, key skew, fleets and I/O overlap.
+"""MR-1S against MR-2S, snapshots, key skew, fleets, I/O overlap, the
+coded shuffle and cross-job co-scheduling.
 
     python tools/compare_turns.py
-        [--phases compare,snapshots,keyskew,fleet,overlap] [--out FILE]
+        [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob]
+        [--out FILE]
 
-Phases 3b-3f of ``chip_smoke.py`` on their own, on one CUDA card (its
+Phases 3b-3h of ``chip_smoke.py`` on their own, on one CUDA card (its
 ``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
-``phase_fleet`` and ``phase_overlap``, at its full width; all but 3d on
-its 2**27-token corpus read once into host memory), without the smoke's
+``phase_fleet``, ``phase_overlap``, ``phase_coded`` and
+``phase_crossjob``, at its full width; 3b, 3c, 3e and 3f on its
+2**27-token corpus read once into host memory), without the smoke's
 other phases: 2S, 1S and 1S with stealing under the three repeat grids
 and oneshot; a checkpoint every 8th segment in turns, a restore and a
 re-plan; each partitioner with and without stealing at two key skews;
 the multi-tenant fleets under each policy; resident against streamed
-input in turns. Every job's records are held to the oracle or to the
-uninterrupted or solo job's. ``fused_map`` is built from this checkout
-at its first use.
+input in turns; fig15's coded arms in turns; fig14's fleets with and
+without co-scheduling. Every job's records are held to the oracle or to
+the uninterrupted or solo job's. ``fused_map`` is built from this
+checkout at its first use.
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -47,7 +51,7 @@ def main(argv=None) -> int:
     phases = args.phases.split(",")
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
-              if set(phases) - {"keyskew"} else None)
+              if set(phases) - {"keyskew", "coded", "crossjob"} else None)
     out = {}
     for phase in phases:
         run, show = {
@@ -60,7 +64,10 @@ def main(argv=None) -> int:
             "fleet": (lambda: cs.phase_fleet(device, corpus),
                       cs.print_fleet),
             "overlap": (lambda: cs.phase_overlap(device, corpus),
-                        cs.print_overlap)}[phase]
+                        cs.print_overlap),
+            "coded": (lambda: cs.phase_coded(device), cs.print_coded),
+            "crossjob": (lambda: cs.phase_crossjob(device),
+                         cs.print_crossjob)}[phase]
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
