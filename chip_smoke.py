@@ -163,6 +163,32 @@ Phases, each of which asserts (nothing is caught):
                ``job_work`` equal to the members' repeats; makespan, mean
                and p95 latency, Jain's index over solo_wall / latency,
                steals and ``job_work``;
+  3i. elastic — (a) the reference's fig13_elastic real run at its own
+               width, uncut: K 4 unfused jobs (WordCount and
+               ``Histogram(n_bins=64)`` in turn) of 49,152 uniform tokens
+               from ``default_rng(13)``, V 512, P 8 -> 6, S 64, cap 256,
+               segment 4, ``ckpt_every=2``, 4 slices a tick, under the
+               ``FleetSupervisor``; solo runs at P 8 and 6, a killed
+               mini-fleet (warm-up), then the campaigns clean, recover
+               (ranks 0 and 1 killed at 2/3 of clean's ticks) and restart
+               (``restore_on_remesh=False``): every job in every campaign
+               equal to its solo run, both killed arms ending at P 6,
+               recover restoring every live job and restarting none, no
+               fused_map launch; each arm's wall and ticks, MTTR,
+               recover/clean, restart/clean, restart - recover; (b) the
+               main path: the fused job at phase 3's width on the first
+               2**25 tokens of its corpus, unbalanced grid, snapshotted at
+               half its segments and finished (the uninterrupted job,
+               records equal to the oracle), the snapshot
+               ``elastic_restore``d into a fresh fused handle at P 6,
+               snapshotted at half its segments and finished, that
+               snapshot restored at P 8 and finished: every arm's records
+               equal to the uninterrupted job's, the fold's checksum equal
+               to the host twin's, one fused_map launch a step on every
+               side, each restored handle capturing its own graphs; the
+               host twin's, the device fold's and ``rebucketize_tasks``'
+               seconds, each part's wall and steps, and the P 6 part's
+               wall over the P 8 job's second half;
   4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
                at full width through ``ServeEngine.generate``: 16
                requests (h2o: one batch) in batches of 8, 2048-token
@@ -181,8 +207,9 @@ Phases, each of which asserts (nothing is caught):
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
-3d and 3g, each fleet of 3e and 3h, each run of 3f, and each arch of 4)
-and read just after it.
+3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
+each rank count's part of 3i, and each arch of 4) and read just after
+it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -3240,6 +3267,353 @@ def print_crossjob(c: dict, w: Width = CROSS_W):
 
 
 # ---------------------------------------------------------------------------
+# 3i. the elastic fleet: fig13_elastic, and the main path re-meshed
+# ---------------------------------------------------------------------------
+
+# (a): the reference's fig13_elastic real run at its own width, uncut: K 4
+# unfused jobs of 49,152 uniform tokens from default_rng(13), P 8 -> 6
+ELASTIC_W = Width(vocab=512, n_procs=8, task=64, cap=256, segment=4)
+ELASTIC_P_NEW, ELASTIC_K, ELASTIC_TOKENS = 6, 4, 49_152
+ELASTIC_CKPT_EVERY, ELASTIC_SLICES = 2, 4
+# (b): the fused MR-1S at phase 3's width on the first 2**25 tokens of its
+# corpus, re-meshed 8 -> 6 at half its segments and 6 -> 8 at half of the
+# restored job's
+ELASTIC_N = 2**25
+
+
+def elastic_jobs(w: Width, n: int, K: int) -> dict:
+    """fig13's jobs: WordCount and ``Histogram(n_bins=64)`` in turn, each
+    over ``n`` uniform tokens drawn in order from ``default_rng(13)``."""
+    core, _, _, _, _ = _port()
+    rng = np.random.default_rng(13)
+    ucs = (core.WordCount(vocab=w.vocab),
+           core.Histogram(vocab=w.vocab, n_bins=64))
+    return {f"job-{k}": (ucs[k % len(ucs)],
+                         rng.integers(0, w.vocab, size=n).astype(np.int32))
+            for k in range(K)}
+
+
+def elastic_config(uc, P: int, w: Width):
+    core, _, _, _, _ = _port()
+    return core.JobConfig(usecase=uc, backend="1s", task_size=w.task,
+                          push_cap=w.cap, segment=w.segment, n_procs=P)
+
+
+def run_campaign(jobs: dict, solo: dict | None, device, w: Width,
+                 p_new: int, *, ckpt_every: int, slices: int,
+                 kill_tick: int | None = None, restore: bool = True,
+                 n: int | None = None) -> dict:
+    """One fig13 campaign: the jobs (cut to ``n`` tokens when given)
+    under a ``FleetSupervisor`` at ``w.n_procs`` ranks, ranks ``0 ..
+    P - p_new - 1`` killed at ``kill_tick``, launch counts zeroed just
+    before: no job failed, no fused_map launch, every job's records equal
+    to ``solo``'s. Returns the wall, ticks, final rank count and the
+    recoveries."""
+    import tempfile
+
+    from repro_torch.fleet import FaultEvent, FaultPlan, FleetSupervisor
+    _, _, _, ops, _ = _port()
+    kill = tuple(range(w.n_procs - p_new))
+    events = (() if kill_tick is None
+              else (FaultEvent(kill_tick, "kill", ranks=kill),))
+    with tempfile.TemporaryDirectory() as d:
+        sup = FleetSupervisor(n_procs=w.n_procs, ckpt_dir=d,
+                              plan=FaultPlan(events), ckpt_every=ckpt_every,
+                              slices_per_tick=slices,
+                              restore_on_remesh=restore, device=device)
+        for name, (uc, toks) in jobs.items():
+            sup.submit(elastic_config(uc, w.n_procs, w),
+                       toks if n is None else toks[:n], name=name)
+        zero_counts()
+        t0 = time.perf_counter()
+        res = sup.run(max_ticks=100_000)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        sup.close()
+    assert not sup.failed, sup.failed
+    assert ops.fused_map.launches == 0
+    assert set(res) == set(jobs)
+    for name in solo or ():
+        assert res[name].records == solo[name], (name, kill_tick, restore)
+    return dict(wall_s=wall, ticks=sup.ticks_run, final_p=sup.n_procs,
+                recoveries=[dataclasses.asdict(r) for r in sup.recoveries])
+
+
+def phase_elastic_fleet(device, w: Width = ELASTIC_W,
+                        n: int = ELASTIC_TOKENS, K: int = ELASTIC_K,
+                        p_new: int = ELASTIC_P_NEW) -> dict:
+    """fig13's real run: each job solo at P and at P_new (the baselines,
+    and the engines warm), a killed mini-fleet (the re-mesh path warm),
+    then the campaigns clean, recover (killed at 2/3 of clean's ticks,
+    every live job elastic-restored) and restart (the same kill, the
+    snapshots ignored): every job in every campaign equal to its solo
+    run, both killed arms ending at P_new, recover restoring every live
+    job and restarting none."""
+    core, _, _, _, _ = _port()
+    jobs = elastic_jobs(w, n, K)
+    solo, solo_s = {}, {}
+    for P in (w.n_procs, p_new):
+        for name, (uc, toks) in jobs.items():
+            t0 = time.perf_counter()
+            res = core.submit(elastic_config(uc, P, w), toks,
+                              device=device).result()
+            _sync(device)
+            solo_s[f"{name}@{P}"] = time.perf_counter() - t0
+            if P == w.n_procs:
+                solo[name] = res.records
+            assert res.records == solo[name], (name, P)
+    t0 = time.perf_counter()
+    warm = run_campaign(jobs, None, device, w, p_new, ckpt_every=1,
+                        slices=1, kill_tick=2,
+                        n=w.task * w.n_procs * w.segment * 4)
+    assert warm["recoveries"], "the warm-up fleet did not re-mesh"
+    warm_s = time.perf_counter() - t0
+    kw = dict(ckpt_every=ELASTIC_CKPT_EVERY, slices=ELASTIC_SLICES)
+    clean = run_campaign(jobs, solo, device, w, p_new, **kw)
+    assert clean["final_p"] == w.n_procs and not clean["recoveries"]
+    kill_tick = max(2, 2 * clean["ticks"] // 3)
+    recover = run_campaign(jobs, solo, device, w, p_new, kill_tick=kill_tick,
+                           **kw)
+    restart = run_campaign(jobs, solo, device, w, p_new, kill_tick=kill_tick,
+                           restore=False, **kw)
+    for arm in (recover, restart):
+        assert arm["final_p"] == p_new, arm["final_p"]
+        [r] = arm["recoveries"]
+        assert (r["kind"], r["p_old"], r["p_new"]) == ("kill", w.n_procs,
+                                                       p_new), r
+    rec, res_ = recover["recoveries"][0], restart["recoveries"][0]
+    assert rec["jobs_scratch"] == 0 and rec["jobs_restored"] > 0, rec
+    assert res_["jobs_restored"] == 0 and res_["jobs_scratch"] > 0, res_
+    return dict(n=n, K=K, p=w.n_procs, p_new=p_new, solo_s=solo_s,
+                warm_s=warm_s, kill_tick=kill_tick,
+                clean=clean, recover=recover, restart=restart,
+                mttr_s=rec["seconds"],
+                recover_over_clean=recover["wall_s"] / clean["wall_s"],
+                restart_over_clean=restart["wall_s"] / clean["wall_s"],
+                restart_minus_recover_s=restart["wall_s"]
+                - recover["wall_s"])
+
+
+def _run_part(h, device, n_segments: int | None = None) -> dict:
+    """Step ``h`` ``n_segments`` segments (all, when None), synchronised:
+    the part's wall and steps (columns run, padding included)."""
+    c0 = h.cursor
+    t0 = time.perf_counter()
+    if n_segments is None:
+        while h.step():
+            pass
+    else:
+        h.step(n_segments)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    seg = h.feed.segment
+    return dict(wall_s=wall, steps=-(-(h.cursor - c0) // seg) * seg,
+                columns=h.cursor - c0)
+
+
+def _restored(core, cfg, corpus, mgr, device) -> tuple:
+    """A fresh fused handle at ``cfg.n_procs`` elastic-restored from
+    ``mgr``: (handle, its step graphs, seconds of the restore). The
+    handle's graphs write its own carry and hold no capture yet."""
+    from repro_torch.fleet import elastic_restore
+    t0 = time.perf_counter()
+    h = elastic_restore(core.submit(cfg, corpus, device=device), mgr)
+    _sync(device)
+    s = time.perf_counter() - t0
+    graphs = h.engine.graphs
+    if device.type == "cuda":
+        assert graphs is not None and graphs.carry is h.carry
+        assert not graphs.graphs, "graphs captured before the first step"
+    return h, graphs, s
+
+
+def _fold_seconds(mgr, P_new: int, device) -> dict:
+    """The fold's parts on the snapshot in ``mgr``, each timed alone: the
+    host twin (``fold_windows`` and its wrapped sum), the device fold
+    (``fold_program``, inputs already on the device, its second call),
+    and ``rebucketize_tasks``; the checksum equal to the twin's."""
+    from repro_torch.fleet.remesh import (_wrap_i32_sum, _zeros_like_carry,
+                                          fold_inputs, fold_program)
+    from repro_torch.ft.elastic import fold_windows, rebucketize_tasks
+    _, carry, extra = mgr.restore(_zeros_like_carry())
+    tables, groups, om, osplit = fold_inputs(carry, P_new, "hash")
+    t0 = time.perf_counter()
+    twin = _wrap_i32_sum(fold_windows(tables, P_new))
+    host_s = time.perf_counter() - t0
+    fn = fold_program(tables.shape[0], P_new, tables.shape[1], device)
+    args = [torch.from_numpy(a).to(device) for a in (groups, om, osplit)]
+    fn(*args)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync(device)
+    device_s = time.perf_counter() - t0
+    assert int(out[3][0]) == twin, (int(out[3][0]), twin)
+    t0 = time.perf_counter()
+    ids, _ = rebucketize_tasks(np.asarray(extra["task_ids"], np.int32),
+                               np.asarray(extra["repeats"], np.int32),
+                               int(extra["cursor"]), P_new)
+    rebucket_s = time.perf_counter() - t0
+    return dict(host_twin_s=host_s, device_fold_s=device_s,
+                rebucketize_s=rebucket_s, checksum=twin,
+                windows=list(tables.shape), tasks_left=int((ids >= 0).sum()),
+                columns_left=int(ids.shape[1]))
+
+
+def phase_elastic_job(device, corpus: np.ndarray, w: Width = FULL,
+                      n: int = ELASTIC_N,
+                      p_new: int = ELASTIC_P_NEW) -> dict:
+    """The main path re-meshed: the fused MR-1S on the first ``n``
+    tokens of ``corpus`` at P on phase 3's unbalanced grid, snapshotted
+    at half its segments and run on (the uninterrupted job: records equal
+    to the oracle); the snapshot elastic-restored into a fresh fused
+    handle at ``p_new`` (8 -> 6), snapshotted again at half its segments
+    and finished; that snapshot restored into a fresh handle at P
+    (8 -> 6 -> 8) and finished. Every arm's records equal the
+    uninterrupted job's; on the card one fused_map launch a step on every
+    side (counts zeroed just before each), each restored handle capturing
+    its own graphs. The fold's parts timed alone (``_fold_seconds``)."""
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    core, _, _, ops, _ = _port()
+    corpus = corpus[:n]
+    oracle = core.wordcount_oracle(corpus, w.vocab)
+    T = tasks_per_rank(n, w)
+    reps = grid_repeats("unbalanced", T, w)
+    cfg8 = engine_config("1s", w)
+    cfg6 = engine_config("1s", dataclasses.replace(w, n_procs=p_new))
+    cuda = device.type == "cuda"
+    out = {}
+
+    def counted(part, graphs=None, captured0=0):
+        part["launches"] = ops.fused_map.launches
+        if cuda:
+            assert part["launches"] == part["steps"], part
+            assert graphs.replays == part["steps"], graphs.replays
+            part["graphs_captured"] = len(graphs.graphs)
+            assert ops.fused_map.captured - captured0 == len(graphs.graphs)
+        return part
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr8 = CheckpointManager(os.path.join(d, "p8"))
+        mgr6 = CheckpointManager(os.path.join(d, "p6"))
+        zero_counts()
+        cap0 = ops.fused_map.captured
+        h = core.submit(cfg8, corpus, device=device, repeats=reps)
+        graphs = h.engine.graphs          # released by result()
+        half = -(-T // w.segment) // 2
+        first = _run_part(h, device, half)
+        t0 = time.perf_counter()
+        h.checkpoint(mgr8).result()
+        snap_s = time.perf_counter() - t0
+        second = _run_part(h, device)
+        want = h.result().records
+        assert want == oracle, "the uninterrupted job"
+        steps8 = first["steps"] + second["steps"]
+        out["p8"] = counted(dict(first=first, second=second,
+                                 snapshot_s=snap_s, steps=steps8),
+                            graphs, cap0)
+        out["fold"] = _fold_seconds(mgr8, p_new, device)
+
+        zero_counts()
+        cap0 = ops.fused_map.captured
+        h6, graphs6, restore_s = _restored(core, cfg6, corpus, mgr8, device)
+        half6 = -(-h6.feed.total_columns // w.segment) // 2
+        a = _run_part(h6, device, half6)
+        t0 = time.perf_counter()
+        h6.checkpoint(mgr6).result()
+        snap6_s = time.perf_counter() - t0
+        b = _run_part(h6, device)
+        assert h6.result().records == want, "8 -> 6"
+        out["p6"] = counted(dict(restore_s=restore_s, first=a, second=b,
+                                 snapshot_s=snap6_s,
+                                 steps=a["steps"] + b["steps"],
+                                 wall_s=a["wall_s"] + b["wall_s"]),
+                            graphs6, cap0)
+
+        zero_counts()
+        cap0 = ops.fused_map.captured
+        h8, graphs8, restore8_s = _restored(core, cfg8, corpus, mgr6,
+                                            device)
+        c = _run_part(h8, device)
+        assert h8.result().records == want, "8 -> 6 -> 8"
+        out["p6p8"] = counted(dict(restore_s=restore8_s, **c), graphs8,
+                              cap0)
+    out["p6_over_p8_second_half"] = (out["p6"]["wall_s"]
+                                     / out["p8"]["second"]["wall_s"])
+    out.update(n=n, p=w.n_procs, p_new=p_new, n_records=len(want),
+               tasks=int((planner_ids(n, w) >= 0).sum()))
+    return out
+
+
+def phase_elastic(device, corpus: np.ndarray) -> dict:
+    """Phase 3i: (a) ``phase_elastic_fleet``, (b) ``phase_elastic_job``,
+    each part's seconds."""
+    t0 = time.perf_counter()
+    a = phase_elastic_fleet(device)
+    a["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = phase_elastic_job(device, corpus)
+    b["seconds"] = time.perf_counter() - t0
+    return {"a": a, "b": b}
+
+
+def print_elastic(c: dict, wa: Width = ELASTIC_W, wb: Width = FULL):
+    a, b = c["a"], c["b"]
+    print(f"elastic: (a) fig13 real run, K={a['K']} unfused jobs "
+          f"(WordCount, Histogram(n_bins=64)) of {a['n']} uniform "
+          f"tokens, V={wa.vocab} P={a['p']} -> {a['p_new']} "
+          f"S={wa.task} cap={wa.cap} segment={wa.segment}, ckpt_every "
+          f"{ELASTIC_CKPT_EVERY}, {ELASTIC_SLICES} slices a tick, kill at "
+          f"tick {a['kill_tick']}; every job in every campaign == its solo "
+          f"run, no fused_map launch; solo runs and warm-up "
+          f"{sum(a['solo_s'].values()) + a['warm_s']:.2f} s")
+    for arm in ("clean", "recover", "restart"):
+        r = a[arm]
+        rec = "".join(f"; {x['kind']} {x['p_old']} -> {x['p_new']} in "
+                      f"{x['seconds']:.4f} s, {x['jobs_restored']} restored, "
+                      f"{x['jobs_scratch']} from scratch"
+                      for x in r["recoveries"])
+        print(f"elastic: (a) {arm}: {r['wall_s']:.3f} s, {r['ticks']} ticks, "
+              f"ends at P={r['final_p']}{rec}")
+    print(f"elastic: (a) MTTR {a['mttr_s']:.4f} s; recover/clean "
+          f"{a['recover_over_clean']:.4f}, restart/clean "
+          f"{a['restart_over_clean']:.4f}, restart - recover "
+          f"{a['restart_minus_recover_s']:.3f} s")
+    f = b["fold"]
+    print(f"elastic: (b) the fused MR-1S, N={b['n']} V={wb.vocab} "
+          f"P={wb.n_procs} S={wb.task} cap={wb.cap} segment={wb.segment}, "
+          f"unbalanced grid, {b['tasks']} tasks: {b['p']} -> {b['p_new']} -> "
+          f"{b['p']}, "
+          f"every arm's {b['n_records']} records == the uninterrupted "
+          f"job's (== oracle), checksum {f['checksum']} == the host twin's")
+    print(f"elastic: (b) fold of {f['windows'][0]} x {f['windows'][1]} "
+          f"windows onto {b['p_new']}: host twin {f['host_twin_s']:.4f} "
+          f"s, device fold {f['device_fold_s']:.6f} s, rebucketize_tasks "
+          f"{f['rebucketize_s']:.4f} s ({f['tasks_left']} tasks left in "
+          f"{f['columns_left']} columns)")
+    p8, p6, p68 = b["p8"], b["p6"], b["p6p8"]
+    print(f"elastic: (b) P={b['p']}: first half {p8['first']['wall_s']:.3f} s "
+          f"({p8['first']['steps']} steps), snapshot "
+          f"{p8['snapshot_s']:.3f} s, second half "
+          f"{p8['second']['wall_s']:.3f} s ({p8['second']['steps']} steps); "
+          f"fused_map launches {p8['launches']}")
+    print(f"elastic: (b) {b['p']} -> {b['p_new']}: restore "
+          f"{p6['restore_s']:.3f}"
+          f" s, {p6['wall_s']:.3f} s for {p6['steps']} steps (snapshot at "
+          f"half {p6['snapshot_s']:.3f} s), launches {p6['launches']}, "
+          f"graphs captured {p6.get('graphs_captured', 0)}; over the "
+          f"P={b['p']} job's second half {b['p6_over_p8_second_half']:.4f}")
+    print(f"elastic: (b) {b['p_new']} -> {b['p']}: restore "
+          f"{p68['restore_s']:.3f} s, {p68['wall_s']:.3f} s for "
+          f"{p68['steps']} steps, launches {p68['launches']}, graphs "
+          f"captured {p68.get('graphs_captured', 0)}")
+    print(f"elastic: {c['seconds']:.1f} s ((a) {a['seconds']:.1f} s, (b) "
+          f"{b['seconds']:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
 # 4. serving olmo-1b, mamba2-780m and h2o-danube-1.8b at full width
 # ---------------------------------------------------------------------------
 
@@ -3589,7 +3963,7 @@ def main(argv=()) -> int:
               f"version's bits {b['kernel']}, p rounded to bf16 "
               f"{b['p_bf16']}")
     _, data, _, _, _ = _port()
-    corpus = data.read_all(job_input(N_TOKENS)[0])   # phases 2, 3b and 3c
+    corpus = data.read_all(job_input(N_TOKENS)[0])   # 2, 3b-3c, 3e-3f, 3i
     cases = entry_cases(device, corpus)
     entry = phase_entry(device, cases)
     print(f"entry: hist, bucket_slots and flash_decode at full width through "
@@ -3693,7 +4067,6 @@ def main(argv=()) -> int:
     overlap = phase_overlap(device, corpus)
     overlap["seconds"] = time.perf_counter() - t0
     print_overlap(overlap)
-    del corpus
     t0 = time.perf_counter()
     coded = phase_coded(device)
     coded["seconds"] = time.perf_counter() - t0
@@ -3702,6 +4075,11 @@ def main(argv=()) -> int:
     crossjob = phase_crossjob(device)
     crossjob["seconds"] = time.perf_counter() - t0
     print_crossjob(crossjob)
+    t0 = time.perf_counter()
+    elastic = phase_elastic(device, corpus)
+    elastic["seconds"] = time.perf_counter() - t0
+    print_elastic(elastic)
+    del corpus
 
     get_config, _, _ = _serve()
     serves = {}
@@ -3749,7 +4127,7 @@ def main(argv=()) -> int:
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
                       "coded": coded, "crossjob": crossjob,
-                      "fused_map": timing,
+                      "elastic": elastic, "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
                                    "bits_off": ssd_bits},
@@ -3779,7 +4157,9 @@ def main(argv=()) -> int:
             "fleet": {p: fleet["b"][p]["launches"]
                       for p in FLEET_POLICIES},
             "coded r1-fused": {s: row["r1-fused"]["launches"]
-                               for s, row in coded["skews"].items()}},
+                               for s, row in coded["skews"].items()},
+            "elastic": {arm: elastic["b"][arm]["launches"]
+                        for arm in ("p8", "p6", "p6p8")}},
         "max_abs_err": err,
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],

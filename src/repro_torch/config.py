@@ -3,9 +3,10 @@
 ``ModelConfig`` is a copy of the reference's dataclass with its derived
 properties, so a config of either package describes the same model. It
 spans every architecture family of the reference; the port runs the
-dense families (``configs/registry.py`` lists them). ``ShapeConfig``,
-``RunConfig`` and the mesh classes are not ported yet (ROADMAP Queue 1
-item 12).
+dense families (``configs/registry.py`` lists them). ``MeshConfig``
+is the reference's too: the elastic fleet's ``remesh_plan`` and
+``remesh_fleet`` return it. ``ShapeConfig`` and ``RunConfig`` are not
+ported yet (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -186,3 +187,34 @@ class ModelConfig:
             total += 3 * d * self.d_ff
         return total
 
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple[int, ...] = (16, 16)
+    axes: tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def dp_size(self) -> int:
+        n = 1
+        for s, a in zip(self.shape, self.axes):
+            if a in ("pod", "data"):
+                n *= s
+        return n
+
+    @property
+    def tp_size(self) -> int:
+        for s, a in zip(self.shape, self.axes):
+            if a == "model":
+                return s
+        return 1

@@ -41,10 +41,8 @@ runs each task on the r ranks of its code group and pushes through the
 XOR-coded exchange (``core/coded.py``); the feed then hands out r-wide
 column blocks. ``JobScheduler(coschedule=True)`` merges compatible
 handles into a ``core/workdomain.WorkDomain``, whose results its members
-adopt (``adopt_result``).
-
-Options of the reference that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+adopt (``adopt_result``). ``elastic_load`` resumes a snapshot taken at
+another rank count, folded by ``repro_torch.fleet.remesh``.
 """
 from __future__ import annotations
 
@@ -444,9 +442,53 @@ class JobHandle:
         return self
 
     def elastic_load(self, table, owner_map, owner_split, task_ids,
-                     repeats):
-        raise NotImplementedError("elastic_load: ROADMAP Queue 1 item 11 "
-                                  "(elastic fleet)")
+                     repeats) -> JobHandle:
+        """Resume a job that ran at a *different* rank count: install
+        windows and owner rows already folded onto this handle's ranks
+        (``repro_torch.fleet.remesh``), and the re-bucketized assignment
+        of the not-yet-executed tasks, then seek the feed to column 0 of
+        that grid.
+
+        The saved carry cannot be installed whole: every rank-shaped
+        leaf (``pending_*``, ``work``, ``stolen``, ``job_work``) has the
+        wrong P. They keep this carry's values: the caller folded the
+        pending chunks into ``table``, the steal progress row only seeds
+        future claims, and the cursor is bookkeeping. The three leaves
+        are copied into the live carry's buffers, which the fused step's
+        CUDA graphs replay into. Exactness rests on the Combine dup-sum:
+        the folded windows hold every executed record, wherever they now
+        live."""
+        self._ensure_segmented()
+        if self.spec.code_rate > 1:
+            raise ValueError(
+                "elastic_load() does not support coded jobs (code_rate > "
+                "1): the r-replicated grid repeats every task r times, "
+                "which a re-bucketized grid cannot hold; resubmit the job "
+                "instead")
+        P, vocab = self.spec.n_procs, self.spec.vocab
+        if tuple(table.shape) != (P, vocab):
+            raise ValueError(
+                f"elastic_load: folded windows have shape "
+                f"{tuple(table.shape)}, this handle runs (n_procs, window) "
+                f"= {(P, vocab)} — fold onto the NEW mesh before loading")
+
+        def rows(m):
+            m = torch.as_tensor(np.asarray(m, np.int32)
+                                if not isinstance(m, torch.Tensor) else m)
+            if m.dim() == 1:            # replicated row -> per-rank copies
+                m = m.expand(P, -1)
+            assert tuple(m.shape) == (P, vocab), tuple(m.shape)
+            return m
+
+        for dst, src in ((self._carry.table, table),
+                         (self._carry.owner_map, owner_map),
+                         (self._carry.owner_split, owner_split)):
+            dst.copy_(rows(src))
+        self._owner_ready = True        # the folded map IS the map
+        if self.spec.stealing:
+            self._seg_fns.host_work = None  # read the fresh work row back
+        self.feed.seek(0, task_ids=task_ids, repeats=repeats)
+        return self
 
     # -- completion ---------------------------------------------------------
 

@@ -1119,3 +1119,74 @@ def test_two_member_domain_on_the_card_equals_its_cpu_run(cuda_device):
     for k, (d, r) in enumerate(zip(data, reps)):
         assert rows[0][0][k] == submit(cfg, d, device="cpu",
                                        repeats=r).result().records
+
+
+# ---------------------------------------------------------------------------
+# the elastic fleet on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_old,n_new", [(8, 6), (8, 4), (6, 8)])
+def test_fold_program_on_the_card_equals_the_host_twin(cuda_device, n_old,
+                                                       n_new):
+    """The fold program on cuda tensors: the folded windows equal the
+    numpy twin ``fold_windows`` (near-INT32_MAX columns saturate), the
+    owner rows fold, and the int32-wrapped checksum equals the twin's."""
+    from repro_torch.fleet.remesh import _wrap_i32_sum, fold_program
+    from repro_torch.ft.elastic import I32_MAX, fold_windows
+    rng = np.random.default_rng(n_old * 10 + n_new)
+    vocab = 4099
+    tables = rng.integers(0, 1000, (n_old, vocab)).astype(np.int32)
+    tables[:, :64] = rng.integers(I32_MAX // 3, I32_MAX, (n_old, 64))
+    G = -(-n_old // n_new)
+    groups = np.zeros((n_new, G, vocab), np.int32)
+    for r in range(n_old):
+        groups[r % n_new, r // n_new] = tables[r]
+    row = (np.arange(vocab) % 13).astype(np.int32)
+    rows = np.broadcast_to(row, (n_new, vocab)).copy()
+    t, om, osp, cs = fold_program(n_old, n_new, vocab, cuda_device)(
+        *(to_torch(a).to(cuda_device) for a in (groups, rows, rows)))
+    assert t.is_cuda and cs.is_cuda
+    want = fold_windows(tables, n_new)
+    assert_equal(t, want)
+    assert_equal(om, rows % n_new)
+    assert_equal(osp, np.clip(rows, 1, n_new))
+    assert_equal(cs, np.full((n_new,), _wrap_i32_sum(want), np.int32))
+
+
+@pytest.mark.cuda
+def test_fused_job_elastic_restored_8_to_6_replays_its_own_graphs(
+        cuda_device, tmp_path):
+    """A fused job snapshotted at P 8 and elastic-restored into a fresh
+    fused handle at P 6 on the card: the restored handle captures its own
+    graphs on its own carry, launches fused_map once a step (a graph
+    replay each), and finishes with the uninterrupted job's records."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.fleet import elastic_restore
+    data = np.random.default_rng(8).integers(0, 700, 30_000).astype(
+        np.int32)
+    reps = np.random.default_rng(9).integers(1, 4, (8, 30)).astype(np.int32)
+
+    def cfg(P):
+        return JobConfig(WordCount(vocab=700), task_size=128, push_cap=16,
+                         n_procs=P, segment=5, fused_map=True)
+    want = submit(cfg(8), data, device=cuda_device,
+                  repeats=reps).result().records
+    a = submit(cfg(8), data, device=cuda_device, repeats=reps)
+    a.step(3)
+    mgr = CheckpointManager(str(tmp_path))
+    a.checkpoint(mgr).result(timeout=120)
+    a.close()
+    b = elastic_restore(submit(cfg(6), data, device=cuda_device), mgr)
+    graphs = b.engine.graphs
+    assert graphs is not None and graphs.carry is b.carry
+    assert graphs.graphs == {}                    # captured anew below
+    buffers = [t.data_ptr() for t in b.carry]
+    ops.fused_map.launches = 0
+    while b.step():
+        pass
+    torch.cuda.synchronize()
+    steps = -(-b.feed.total_columns // 5) * 5     # segments of 5 columns
+    assert graphs.replays == steps == ops.fused_map.launches > 0
+    assert [t.data_ptr() for t in b.carry] == buffers
+    assert b.result().records == want == wordcount_oracle(data, 700)

@@ -42,12 +42,14 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_the_scans_cover_the_scheduler_modules():
-    """The two checks above reach the scheduler, the budget and the fleet
-    checkpoint (the scan globs every module; this pins that it does)."""
+    """The two checks above reach the scheduler, the budget, the fleet
+    checkpoint and the elastic fleet (the scan globs every module; this
+    pins that it does)."""
     names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"core/scheduler.py", "data/feed.py",
             "ckpt/checkpoint.py", "core/coded.py",
-            "core/workdomain.py"} <= names
+            "core/workdomain.py", "ft/elastic.py", "fleet/remesh.py",
+            "fleet/supervisor.py"} <= names
 
 
 def test_importing_everything_loads_no_jax():
@@ -336,6 +338,45 @@ def test_smoke_crossjob_phase_rehearses_on_cpu():
                                     chip_smoke.CROSS_W)
     assert len(full) == 16 and min(full) == 8 * 1024
     chip_smoke.print_crossjob({**c, "seconds": 0.0}, w)
+
+
+def test_smoke_elastic_phase_rehearses_on_cpu():
+    """Phase 3i at a tiny width on the CPU: (a) fig13's campaigns, every
+    job equal to its solo run, both killed arms at P_new, recover
+    restoring and restart restarting (checked inside); (b) the fused job
+    re-meshed 4 -> 3 -> 4, every arm equal to the uninterrupted job's
+    records (== oracle) and the fold's checksum to the twin's (checked
+    inside); no launch and no graph on the CPU. fig13's width: each job
+    96 columns at P 8."""
+    _, data, _, _, _ = chip_smoke._port()
+    cpu = torch.device("cpu")
+    wa = chip_smoke.Width(vocab=64, n_procs=4, task=16, cap=32, segment=2)
+    wb = chip_smoke.Width(vocab=2048, n_procs=4, task=64, cap=16, segment=8)
+    corpus = data.read_all(chip_smoke.job_input(1 << 15, wb)[0])
+    a = chip_smoke.phase_elastic_fleet(cpu, wa, 2048, 4, 3)
+    assert (a["p"], a["p_new"], a["K"]) == (4, 3, 4)
+    assert a["clean"]["final_p"] == 4 and not a["clean"]["recoveries"]
+    for arm in ("recover", "restart"):
+        [r] = a[arm]["recoveries"]
+        assert r["tick"] == a["kill_tick"] > 0
+        assert r["jobs_restored"] + r["jobs_scratch"] > 0
+    assert a["mttr_s"] > 0 and a["recover_over_clean"] > 0
+    b = chip_smoke.phase_elastic_job(cpu, corpus, wb, 1 << 15, 3)
+    assert b["tasks"] == 512 and b["p8"]["steps"] == 128
+    assert b["p8"]["first"]["steps"] == b["p8"]["second"]["steps"] == 64
+    assert b["fold"]["windows"] == [4, 2048]
+    assert b["fold"]["tasks_left"] == 256
+    assert b["fold"]["columns_left"] == 86            # ceil(256 / 3)
+    assert b["p6"]["steps"] == 88                     # 11 segments of 8
+    assert b["p6p8"]["steps"] == 40
+    for arm in ("p8", "p6", "p6p8"):
+        assert b[arm]["launches"] == 0
+        assert "graphs_captured" not in b[arm]
+    a["seconds"] = b["seconds"] = 0.0
+    chip_smoke.print_elastic({"a": a, "b": b, "seconds": 0.0}, wa, wb)
+    T = chip_smoke.tasks_per_rank(chip_smoke.ELASTIC_TOKENS,
+                                  chip_smoke.ELASTIC_W)
+    assert T == 96
 
 
 def test_smoke_flash_and_serve_phases_rehearse_on_cpu():

@@ -6,11 +6,11 @@ repeats, fused on and off; records, JobResult stats and per-rank
 windows equal to the JAX package's (P = 1 in this process, P = 8 in one
 8-device subprocess for the module); a JAX carry loaded through
 ``carry_from_numpy`` finishes with JAX's records; every option outside
-the port so far raises NotImplementedError (the coded shuffle and
-co-scheduling, ported since, no longer do), and those ported since
-(stealing, the sampled partitioners, a feed budget) run. MR-2S and checkpoint,
-restore and re-planning have their own files (``test_torch_twosided``,
-``test_torch_ckpt``).
+the port so far raises NotImplementedError (the coded shuffle,
+co-scheduling and ``elastic_load``, ported since, no longer do), and
+those ported since (stealing, the sampled partitioners, a feed budget)
+run. MR-2S and checkpoint, restore and re-planning have their own files
+(``test_torch_twosided``, ``test_torch_ckpt``).
 """
 import numpy as np
 import pytest
@@ -241,10 +241,16 @@ def test_options_outside_the_port_raise_not_implemented(option):
         assert sched._domains == []
         return
     if option == "elastic_load":
+        # ported: empty windows and the whole grid re-bucketized onto the
+        # handle's ranks run to the oracle
+        from repro_torch.ft.elastic import rebucketize_tasks
         h = core.submit(core.JobConfig(**cfg), tokens, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            h.elastic_load(None, None, None, None, None)
-        h.close()
+        ids, reps = rebucketize_tasks(h.feed.task_ids_grid,
+                                      h.feed.repeats_grid, 0, 1)
+        h.elastic_load(np.zeros((1, 64), np.int32),
+                       np.zeros((64,), np.int32), np.ones((64,), np.int32),
+                       ids, reps)
+        assert h.result().records == core.wordcount_oracle(tokens, 64)
         return
 
 

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """MR-1S against MR-2S, snapshots, key skew, fleets, I/O overlap, the
-coded shuffle and cross-job co-scheduling.
+coded shuffle, cross-job co-scheduling and the elastic fleet.
 
     python tools/compare_turns.py
-        [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob]
+        [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
+                  elastic]
         [--out FILE]
 
-Phases 3b-3h of ``chip_smoke.py`` on their own, on one CUDA card (its
+Phases 3b-3i of ``chip_smoke.py`` on their own, on one CUDA card (its
 ``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
-``phase_fleet``, ``phase_overlap``, ``phase_coded`` and
-``phase_crossjob``, at its full width; 3b, 3c, 3e and 3f on its
+``phase_fleet``, ``phase_overlap``, ``phase_coded``, ``phase_crossjob``
+and ``phase_elastic``, at its full width; 3b, 3c, 3e, 3f and 3i on its
 2**27-token corpus read once into host memory), without the smoke's
 other phases: 2S, 1S and 1S with stealing under the three repeat grids
 and oneshot; a checkpoint every 8th segment in turns, a restore and a
 re-plan; each partitioner with and without stealing at two key skews;
 the multi-tenant fleets under each policy; resident against streamed
 input in turns; fig15's coded arms in turns; fig14's fleets with and
-without co-scheduling. Every job's records are held to the oracle or to
+without co-scheduling; fig13's supervised campaigns and the fused job
+re-meshed 8 -> 6 -> 8. Every job's records are held to the oracle or to
 the uninterrupted or solo job's. ``fused_map`` is built from this
 checkout at its first use.
 
@@ -67,7 +69,9 @@ def main(argv=None) -> int:
                         cs.print_overlap),
             "coded": (lambda: cs.phase_coded(device), cs.print_coded),
             "crossjob": (lambda: cs.phase_crossjob(device),
-                         cs.print_crossjob)}[phase]
+                         cs.print_crossjob),
+            "elastic": (lambda: cs.phase_elastic(device, corpus),
+                        cs.print_elastic)}[phase]
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
