@@ -202,14 +202,30 @@ Phases, each of which asserts (nothing is caught):
                fp32 reference path, and the bf16 kernel path no more than
                1.5 times as far from it as the bf16 reference path; the
                weights, a prefill's peak and what it leaves in memory;
-  5. report  — the ``kernels`` JSON line, the card's name and power
+  5. train  — olmo-1b at full width (16 layers, d_model 2048, bf16
+               parameters, fp32 AdamW moments) through
+               ``make_train_step``: 20 steps of 8 x 512 tokens of
+               ``lm_token_stream`` behind the ``DoubleBufferedLoader``, two
+               microbatches of 4 a step, full remat, ``save_async`` after
+               step 3. No kernel is launched: the reference's train step
+               reaches no Pallas kernel. The losses of the first and last
+               step, median ms a step split into fwd+bwd and optimizer by
+               CUDA events, tokens/s, the model-FLOPs share at 989 TFLOP/s,
+               peak memory and the busy share over two steps; (a) every
+               loss finite and the last 5 below the first 5 on average,
+               (b) on one batch from a fresh state one step at A = 2 and
+               one at A = 1 within 1e-2 (loss) and 2e-2 (grad norm)
+               relative, (c) the snapshot restored into a fresh state and
+               steps 3-5 rerun on ``lm_batches(skip=3)`` within 1e-3 of
+               the uninterrupted run's losses, (d) no parameter non-finite;
+  6. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
 3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
-each rank count's part of 3i, and each arch of 4) and read just after
-it.
+each rank count's part of 3i, each arch of 4, and the training run of
+5) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -3829,7 +3845,232 @@ def cache_bytes(raw) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 5. report
+# 5. training olmo-1b at full width
+# ---------------------------------------------------------------------------
+
+# the run: olmo-1b as published, bf16 parameters and fp32 AdamW moments
+# (``train_config_for``), batches of 8 x 512 tokens in two microbatches
+# of 4, full remat; 20 steps of the LM token stream, a snapshot after
+# step 3 and steps 3-5 again from it
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH = 512, 8, 4
+TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_TOKENS = 20, 3, 2_000_000
+TRAIN_LR = 3e-3
+# step A = 2 against A = 1 on one batch (bf16 on the card), and the
+# resumed losses against the uninterrupted run's
+TRAIN_ACCUM_RTOL = {"loss": 1e-2, "grad_norm": 2e-2}
+TRAIN_RESUME_RTOL = 1e-3
+
+
+def _train():
+    _port()
+    import repro_torch.config as config
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import corpus, pipeline
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import train_step as ts
+    return config, CheckpointManager, corpus, pipeline, specs, tf, ts
+
+
+def train_flops(cfg, seq: int, batch: int) -> int:
+    """Model FLOPs of a step: 6 N a token, plus the causal attention's
+    12 L S d a token halved (remat's recomputation is not counted)."""
+    tokens = seq * batch
+    return (6 * cfg.param_count() * tokens
+            + 12 * cfg.n_layers * seq * cfg.d_model * tokens // 2)
+
+
+def train_state(cfg, device, seq: int, batch: int, microbatch: int,
+                steps: int):
+    """(run, step function, a fresh state): ``make_run`` at (seq,
+    batch) with ``TrainConfig(lr=3e-3, warmup_steps=1,
+    total_steps=steps)`` and the model of seed 0."""
+    config, _, _, _, specs, tf, ts = _train()
+    run = specs.make_run(cfg, config.ShapeConfig("smoke", seq, batch,
+                                                 "train"),
+                         config.MeshConfig((1, 1)), microbatch=microbatch)
+    run = config.replace(run, train=config.TrainConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=steps))
+    state = ts.init_train_state(cfg, run.train,
+                                tf.init_model(cfg, 0, device=device))
+    return run, ts.make_train_step(cfg, run), state
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                microbatch: int = TRAIN_MICROBATCH, steps: int = TRAIN_STEPS,
+                resume_at: int = TRAIN_RESUME_AT,
+                n_tokens: int = TRAIN_TOKENS) -> dict:
+    """Train ``cfg`` for ``steps`` steps through ``make_train_step`` on
+    ``lm_batches`` behind the ``DoubleBufferedLoader`` (the main path:
+    counts zeroed just before, read just after; it reaches no kernel, as
+    the reference's train step reaches no Pallas kernel), each step's
+    two halves timed by CUDA events and ``save_async`` after step
+    ``resume_at``; then the checks (a)-(d) (module docstring)."""
+    import tempfile
+    _, Manager, corpus, pipeline, _, _, ts = _train()
+    cuda = device.type == "cuda"
+    stream = corpus.lm_token_stream(n_tokens, cfg.vocab_size, seed=0)
+    t_phase = time.perf_counter()
+    run, step_fn, state = train_state(cfg, device, seq, batch, microbatch,
+                                      steps)
+    loader = pipeline.DoubleBufferedLoader(
+        pipeline.lm_batches(stream, batch, seq), device)
+    tmp = tempfile.TemporaryDirectory(prefix="train-ckpt-")
+    mgr = Manager(tmp.name, keep=1)
+
+    def timed_step(b):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+            if cuda else []
+        t0 = time.perf_counter()
+        if cuda:
+            marks[0].record()
+        out = step_fn.grads(state, b)
+        if cuda:
+            marks[1].record()
+        new, metrics = step_fn.update(state, *out)
+        if cuda:
+            marks[2].record()
+        return new, metrics, marks, time.perf_counter() - t0
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    losses, marks, host_s, snap_peak = [], [], [], 0
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, m, mk, hs = timed_step(next(loader))
+        losses.append(m["loss"])
+        marks.append(mk)
+        host_s.append(hs)
+        if i == resume_at - 1:
+            mgr.save_async(i, ts.state_tree(cfg, state),
+                           extra={"next_step": resume_at})
+            if cuda:        # the snapshot's stacked copy, apart from steps
+                snap_peak = torch.cuda.max_memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers().items()}
+    assert not any(launches.values()), launches
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    losses = [float(x) for x in losses]
+    metrics = {k: float(v) for k, v in m.items()}
+    if cuda:
+        grads_ms = [a.elapsed_time(b) for a, b, _ in marks]
+        update_ms = [b.elapsed_time(c) for _, b, c in marks]
+    else:
+        grads_ms = update_ms = []
+    t0 = time.perf_counter()
+    mgr.wait()
+    save_wait_s = time.perf_counter() - t0
+
+    # (a) finite and falling; (d) every parameter finite
+    assert all(math.isfinite(x) for x in losses), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.params.parameters()), "a parameter is not finite"
+    profile = (device_profile(lambda: [step_fn(state, next(loader))
+                                       for _ in range(2)])
+               if cuda else None)
+    del state, loader, m
+
+    # (c) a fresh state from the snapshot, the batches from step resume_at
+    t0 = time.perf_counter()
+    _, step_fn, state = train_state(cfg, device, seq, batch, microbatch,
+                                    steps)
+    at, extra = ts.restore_state(mgr, cfg, state)
+    restore_s = time.perf_counter() - t0
+    assert (at, extra["next_step"]) == (resume_at - 1, resume_at), (at, extra)
+    loader = pipeline.DoubleBufferedLoader(
+        pipeline.lm_batches(stream, batch, seq, skip=resume_at), device)
+    resumed = [float(step_fn(state, next(loader))[1]["loss"])
+               for _ in range(resume_at, 2 * resume_at)]
+    want = losses[resume_at:2 * resume_at]
+    resume_diff = max(_rel(a, b) for a, b in zip(resumed, want))
+    assert resume_diff <= TRAIN_RESUME_RTOL, (resumed, want)
+    del state, loader
+    tmp.cleanup()
+
+    # (b) one step at A = 2 and one at A = 1 from fresh states, one batch
+    fixed = {k: torch.from_numpy(v).to(device) for k, v in
+             next(pipeline.lm_batches(stream, batch, seq, seed=1)).items()}
+    accum = {}
+    for mb in (microbatch, batch):
+        r, fn, st = train_state(cfg, device, seq, batch, mb, steps)
+        m = fn(st, fixed)[1]
+        accum[r.grad_accum_steps] = {k: float(m[k]) for k in
+                                     TRAIN_ACCUM_RTOL}
+        del st, fn
+    (a_many, many), (a_one, one) = sorted(accum.items(), reverse=True)
+    for k, tol in TRAIN_ACCUM_RTOL.items():
+        assert _rel(many[k], one[k]) <= tol, (k, accum)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    step_ms = ([g + u for g, u in zip(grads_ms, update_ms)] if cuda
+               else [s * 1e3 for s in host_s])
+    med = float(np.median(step_ms))
+    tokens = seq * batch
+    flops = train_flops(cfg, seq, batch)
+    return dict(
+        arch=cfg.name, seq=seq, batch=batch, microbatch=microbatch,
+        grad_accum=run.grad_accum_steps, remat=run.train.remat_policy,
+        steps=steps, params=cfg.param_count(), losses=losses,
+        last_metrics=metrics, launches=launches, wall_s=wall,
+        host_s=host_s, grads_ms=grads_ms, update_ms=update_ms,
+        median_step_ms=med,
+        median_grads_ms=float(np.median(grads_ms)) if cuda else None,
+        median_update_ms=float(np.median(update_ms)) if cuda else None,
+        tokens_per_s=tokens / (med / 1e3),
+        wall_tokens_per_s=steps * tokens / wall,
+        model_flops=flops,
+        mfu=flops / (med / 1e3) / BF16_FLOPS_PER_S if cuda else None,
+        peak_bytes=peak, snapshot_peak_bytes=snap_peak,
+        save_wait_s=save_wait_s, restore_s=restore_s,
+        resumed=resumed, resumed_want=want, resume_max_rel_diff=resume_diff,
+        resume_bitwise=resumed == want,
+        accum={str(k): v for k, v in accum.items()},
+        accum_rel={k: _rel(many[k], one[k]) for k in TRAIN_ACCUM_RTOL},
+        profile=profile, seconds=time.perf_counter() - t_phase)
+
+
+def print_train(t: dict):
+    print(f"train: {t['arch']} at full width ({t['params']:,} parameters), "
+          f"{t['steps']} steps of {t['batch']} x {t['seq']} tokens, "
+          f"A = {t['grad_accum']} (microbatch {t['microbatch']}), remat "
+          f"{t['remat']}: loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; "
+          f"kernel launches {t['launches']}")
+    print(f"train: median step {t['median_step_ms']:.2f} ms"
+          + (f" (fwd+bwd {t['median_grads_ms']:.2f} ms, optimizer "
+             f"{t['median_update_ms']:.2f} ms; CUDA events)"
+             if t["median_grads_ms"] is not None else " (host clock)")
+          + f", {t['tokens_per_s']:,.0f} tokens/s, model-FLOPs share "
+          f"{t['mfu']} at 989 TFLOP/s ({t['model_flops'] / 1e12:.2f} TFLOP "
+          f"a step); wall {t['wall_s']:.2f} s for the run "
+          f"({t['wall_tokens_per_s']:,.0f} tokens/s, the snapshot's staging "
+          f"included)")
+    print(f"train: peak device memory {t['peak_bytes'] / 2**30:.2f} GiB over "
+          f"the steps, {t['snapshot_peak_bytes'] / 2**30:.2f} GiB up to the "
+          f"snapshot's staging; the snapshot's write waited "
+          f"{t['save_wait_s']:.2f} s after the run, a restore took "
+          f"{t['restore_s']:.2f} s")
+    print(f"train: resumed at step {TRAIN_RESUME_AT}: losses {t['resumed']} "
+          f"against {t['resumed_want']}, max rel diff "
+          f"{t['resume_max_rel_diff']} (bitwise equal: {t['resume_bitwise']})")
+    print(f"train: one batch from a fresh state, A = 2 / A = 1: {t['accum']}, "
+          f"rel diff {t['accum_rel']}")
+    if t["profile"] is not None:
+        print_profile("train, two steps", t["profile"])
+    print(f"train: {t['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 6. report
 # ---------------------------------------------------------------------------
 
 def entry_kernel(name: str, source: str, replaces: str, entry: dict,
@@ -4123,6 +4364,9 @@ def main(argv=()) -> int:
                   f"(limit {SSM_DRIFT_FACTOR})")
         for what, p in serve["profiles"].items():
             print_profile(f"serve {arch} {what}", p)
+
+    train = phase_train(device, get_config(TRAIN_ARCH))
+    print_train(train)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
@@ -4138,7 +4382,7 @@ def main(argv=()) -> int:
                                "max_abs_err": lint["max_abs_err"],
                                "times": lint_t},
                       "memcheck": memcheck, "guard": guard,
-                      "serve": serves}))
+                      "serve": serves, "train": train}))
 
     fa_archs = [a for a in serves
                 if serve_kernel(get_config(a))[0] == "flash_attention"]

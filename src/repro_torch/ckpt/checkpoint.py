@@ -7,7 +7,10 @@ compute, so the observed overhead is small (~4.8 %, paper Fig 5).
 A snapshot is ``step-N/arrays.npz`` plus ``manifest.json``, committed by
 an atomic rename, with the reference's leaf keys (an ``EngineCarry``
 leaf is ``.table``, ``.pending_k``, ...): a snapshot either package
-writes restores into the other. ``keep`` bounds the snapshots on disk.
+writes restores into the other; a bf16 leaf is stored as the
+reference's npz stores one, as raw 2-byte void (``V2``). A training
+state goes through ``train.train_step.state_tree``. ``keep`` bounds the
+snapshots on disk.
 
 The reference can hand its immutable arrays to the worker thread. The
 port's carry is written in place (the window's scatter, the fused
@@ -27,8 +30,10 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
 import time
+import zipfile
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
@@ -38,7 +43,10 @@ import torch
 
 def _flatten(tree, path=()):
     """``[(path, leaf)]`` in the reference's order: a NamedTuple's
-    fields (key ``.name``), a dict's sorted keys, a sequence's indices."""
+    fields (key ``.name``), a dict's sorted keys, a sequence's indices;
+    ``None`` holds no leaf, as in a JAX pytree."""
+    if tree is None:
+        return []
     if hasattr(tree, "_fields"):
         return [kv for f in tree._fields
                 for kv in _flatten(getattr(tree, f), path + (f".{f}",))]
@@ -54,6 +62,8 @@ def _flatten(tree, path=()):
 def _unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from the
     iterator ``leaves``."""
+    if like is None:
+        return None
     if hasattr(like, "_fields"):
         return type(like)(*(_unflatten(getattr(like, f), leaves)
                             for f in like._fields))
@@ -95,6 +105,72 @@ def _stage(tree) -> tuple[dict, list]:
     return staged, list(events.values())
 
 
+def _host_array(v) -> np.ndarray:
+    """What npz stores for a staged leaf. numpy has no bf16: a bf16
+    tensor is written as the reference's npz holds ml_dtypes' bf16, its
+    16-bit patterns as a 2-byte void (``V2``) array."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    if v.dtype == torch.bfloat16:
+        return v.view(torch.int16).numpy().view(np.dtype("V2"))
+    return v.numpy()
+
+
+def _tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A stored array as a tensor of ``like``'s dtype and device. Raw
+    void bytes (a bf16 leaf of either package) are reinterpreted when
+    their width is the dtype's, as the reference's ``restore`` does;
+    anything else is cast. A 0-d array stays 0-d."""
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == like.element_size():
+        t = torch.from_numpy(arr.view(f"i{arr.dtype.itemsize}")) \
+            .view(like.dtype)
+    else:
+        t = torch.from_numpy(arr).to(like.dtype)
+    return t.to(like.device)
+
+
+def _numpy_dtype(dtype: torch.dtype):
+    return (None if dtype == torch.bfloat16
+            else torch.empty(0, dtype=dtype).numpy().dtype)
+
+
+def _read_stored(f, info, like: torch.Tensor) -> torch.Tensor | None:
+    """An npz member read by one ``readinto`` straight into a new host
+    tensor of ``like``'s dtype (pinned when it goes on to a card), then
+    moved to ``like``'s device: ``np.load`` copies a member in small
+    chunks and checks its CRC, a few times slower for the gigabytes of a
+    training state. None for a member this cannot read as raw bytes
+    (compressed, Fortran order, another dtype): ``_tensor`` decodes
+    those."""
+    if info is None or info.compress_type != zipfile.ZIP_STORED:
+        return None
+    f.seek(info.header_offset)
+    name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+    f.seek(info.header_offset + 30 + name_len + extra_len)
+    version = np.lib.format.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+    else:
+        return None
+    raw = (dtype.kind == "V" and dtype.itemsize == like.element_size()) \
+        or dtype == _numpy_dtype(like.dtype)
+    if fortran or not raw:
+        return None
+    host = torch.empty(shape, dtype=like.dtype, pin_memory=like.is_cuda)
+    view = memoryview(host.reshape(-1).view(torch.uint8).numpy())
+    done = 0
+    while done < len(view):
+        n = f.readinto(view[done:])
+        if not n:
+            raise EOFError(f"{info.filename}: the archive ends early")
+        done += n
+    return host.to(like.device, non_blocking=True)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 2):
         self.dir = directory
@@ -125,8 +201,7 @@ class CheckpointManager:
         leaves, events = staged
         for event in events:
             event.synchronize()
-        arrays = {k: v.numpy() if isinstance(v, torch.Tensor) else v
-                  for k, v in leaves.items()}
+        arrays = {k: _host_array(v) for k, v in leaves.items()}
         tmp = os.path.join(self.dir, f".tmp-{step}")
         final = os.path.join(self.dir, f"step-{step}")
         os.makedirs(tmp, exist_ok=True)
@@ -209,14 +284,18 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         leaves = []
-        with np.load(os.path.join(d, "arrays.npz")) as data:
+        npz = os.path.join(d, "arrays.npz")
+        with np.load(npz) as data, zipfile.ZipFile(npz) as zf, \
+                open(npz, "rb", buffering=0) as raw:
+            members = {i.filename: i for i in zf.infolist()}
             for path, like in _flatten(tree_like):
-                arr = data[_leaf_key(path)]
+                key = _leaf_key(path)
                 if isinstance(like, torch.Tensor):
-                    t = torch.from_numpy(np.ascontiguousarray(arr))
-                    leaves.append(t.to(like.dtype).to(like.device))
+                    t = _read_stored(raw, members.get(key + ".npy"), like)
+                    leaves.append(_tensor(data[key], like) if t is None
+                                  else t)
                 else:
-                    leaves.append(arr.astype(np.asarray(like).dtype))
+                    leaves.append(data[key].astype(np.asarray(like).dtype))
         tree = _unflatten(tree_like, iter(leaves))
         return step, tree, manifest.get("extra", {})
 

@@ -5,12 +5,15 @@ properties, so a config of either package describes the same model. It
 spans every architecture family of the reference; the port runs the
 dense families (``configs/registry.py`` lists them). ``MeshConfig``
 is the reference's too: the elastic fleet's ``remesh_plan`` and
-``remesh_fleet`` return it. ``ShapeConfig`` and ``RunConfig`` are not
-ported yet (ROADMAP Queue 1 item 12).
+``remesh_fleet`` return it, and a ``RunConfig`` names one. The shapes
+(``ShapeConfig``, ``SHAPES``), ``TrainConfig`` and ``RunConfig`` are
+copies of the reference's, with the same defaults; ``RunConfig`` has
+no ``use_pallas``, which only the reference's dry run reads.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -218,3 +221,86 @@ class MeshConfig:
             if a == "model":
                 return s
         return 1
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned cells)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Train / run
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    moment_dtype: str = "float32"        # "bfloat16" for the big archs
+    accum_dtype: str = "float32"         # grad-accum buffer
+    grad_accum: int = 1
+    remat_policy: str = "full"           # full | dots | none
+    decoupled_grad_sync: bool = True     # per-layer reduce-scatter (sharded)
+    compress_cross_pod: bool = False     # int8 error-feedback on pod axis
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = SINGLE_POD
+    train: TrainConfig = field(default_factory=TrainConfig)
+    microbatch: int = 0                  # 0 -> auto
+
+    def resolved_microbatch(self) -> int:
+        if self.microbatch:
+            return self.microbatch
+        if not self.shape.is_train:
+            return self.shape.global_batch
+        # Bound live logits: keep ~<=128k tokens per microbatch globally.
+        target = 131_072
+        mb = max(1, min(self.shape.global_batch,
+                        target // max(1, self.shape.seq_len)))
+        while self.shape.global_batch % mb:
+            mb -= 1
+        return mb
+
+    @property
+    def grad_accum_steps(self) -> int:
+        if not self.shape.is_train:
+            return 1
+        return self.shape.global_batch // self.resolved_microbatch()
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)

@@ -3,7 +3,7 @@
 Numpy copies of ``repro/data/corpus.py``: a Zipf word-law token stream
 (the statistically relevant property of PUMA-Wikipedia) and the
 compute-repeat grids (footnote 5: a task is *computed* r times while
-its input is read once). Each gives the reference's arrays for the same
+its input is read once), and the LM training stream. Each gives the reference's arrays for the same
 arguments and seed.
 """
 from __future__ import annotations
@@ -65,3 +65,14 @@ def zipf_skew_repeats(n_procs: int, tasks_per_proc: int, s: float, *,
     jitter = rng.integers(0, 2, size=(n_procs, tasks_per_proc))
     reps = np.round(per_rank[:, None]).astype(np.int64) + jitter
     return np.maximum(reps, 1).astype(np.int32)
+
+
+def lm_token_stream(n_tokens: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """Token stream for LM training (markov-flavoured Zipf, so the model
+    has something learnable)."""
+    rng = np.random.default_rng(seed)
+    base = zipf_tokens(n_tokens, vocab, seed=seed)
+    # inject local structure: with p=0.3, repeat the previous token + 1
+    mask = rng.random(n_tokens) < 0.3
+    shifted = np.roll(base, 1) + 1
+    return np.where(mask, shifted % vocab, base).astype(np.int32)

@@ -1,11 +1,16 @@
-"""Carry the reference's weights into the port.
+"""Carry weights between the reference's parameter tree and the port.
 
 ``params_from_numpy`` takes the parameter tree of the reference's
 ``init_model`` with numpy leaves (``jax.tree.map(np.asarray, params)``)
-and builds the port's ``Model``. The reference stacks ``blocks`` on a
-leading ``n_scan_blocks`` axis, ``block_pattern`` layers per super-block;
-layer ``b * block_pattern + j`` of the port is ``blocks["layer{j}"][b]``.
-Leaves keep their ``(in, out)`` layout, so carrying them is a copy.
+and builds the port's ``Model``; ``params_to_numpy`` is its inverse. The
+reference stacks ``blocks`` on a leading ``n_scan_blocks`` axis,
+``block_pattern`` layers per super-block; layer ``b * block_pattern +
+j`` of the port is ``blocks["layer{j}"][b]``. Leaves keep their ``(in,
+out)`` layout, so carrying them is a copy.
+
+``ref_tree`` and ``ref_leaves`` do the same for any tensors that line up
+with a model's parameters (gradients, AdamW's moments): the train
+state's snapshot uses them to write and read the reference's leaf keys.
 """
 from __future__ import annotations
 
@@ -19,10 +24,88 @@ from repro_torch.models.transformer import Model, _check_supported
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.array(a)                         # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16, as JAX gives it
+    # ml_dtypes' bf16, as JAX gives it, or its bit patterns as
+    # ``params_to_numpy`` gives them
+    if a.dtype.name in ("bfloat16", "uint16"):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
             .to(device)
     return torch.from_numpy(a).to(device)
+
+
+def ref_tree(cfg: ModelConfig, named, stack=torch.stack) -> dict:
+    """The reference's tree of ``named``, pairs of a ``Model`` parameter
+    name (``model.named_parameters()``: ``embed_tokens``,
+    ``blocks.3.attn.wq``, ``final_norm.scale``, ...) and a tensor of that
+    parameter's shape. ``stack`` joins the ``n_scan_blocks`` tensors of
+    each ``blocks/layer{j}`` leaf, in block order."""
+    tree, stacked = {}, {}
+    bp = cfg.block_pattern
+    for name, t in named:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            i, sub, leaf = int(parts[1]), parts[2], parts[3]
+            stacked.setdefault((f"layer{i % bp}", sub, leaf), []).append(t)
+        else:
+            node = tree
+            for k in parts[:-1]:
+                node = node.setdefault(k, {})
+            node[parts[-1]] = t
+    blocks = tree["blocks"] = {}
+    for (layer, sub, leaf), ts in stacked.items():
+        blocks.setdefault(layer, {}).setdefault(sub, {})[leaf] = stack(ts)
+    return tree
+
+
+def ref_leaves(cfg: ModelConfig, tree: dict, names) -> list:
+    """The inverse of ``ref_tree``: for each parameter name, its tensor
+    in ``tree`` (a block leaf's slice for that layer)."""
+    bp = cfg.block_pattern
+    out = []
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            i, sub, leaf = int(parts[1]), parts[2], parts[3]
+            out.append(tree["blocks"][f"layer{i % bp}"][sub][leaf][i // bp])
+        else:
+            node = tree
+            for k in parts:
+                node = node[k]
+            out.append(node)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 as its raw 16-bit patterns (``np.uint16``): the
+    card's host need not have ``ml_dtypes``."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_numpy(cfg: ModelConfig, model: Model, leaves=None) -> dict:
+    """The inverse of ``params_from_numpy``: the model's parameters as
+    the reference's tree with numpy leaves, blocks stacked to
+    ``(n_scan_blocks, ...)``; a bf16 leaf as ``np.uint16`` bit patterns.
+    ``leaves``, tensors in the order of ``model.parameters()``
+    (gradients, moments), are converted in the parameters' place."""
+    names = [n for n, _ in model.named_parameters()]
+    if leaves is None:
+        leaves = [p.detach() for p in model.parameters()]
+    tree = ref_tree(cfg, zip(names, leaves))
+    # a norm without parameters (OLMo's) is an empty dict, as there
+    tree.setdefault("final_norm", {})
+    for i, layer in enumerate(model.blocks):
+        node = tree["blocks"].setdefault(f"layer{i % cfg.block_pattern}", {})
+        for sub in layer:
+            node.setdefault(sub, {})
+    return _map(tree, _numpy)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> Model:

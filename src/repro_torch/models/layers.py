@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, RoPE, SwiGLU MLP, embeddings.
+"""Shared layer primitives: norms, RoPE, SwiGLU MLP, embeddings, the
+LM loss.
 
 The counterpart of ``repro/models/layers.py``. ``init_*`` builds a dict
 of tensors under the reference's leaf names from an explicit
@@ -122,3 +123,20 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor):
     if cfg.tie_embeddings:
         return x @ p["embed_tokens"].t()
     return x @ p["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor = None) -> torch.Tensor:
+    """Token-mean CE in fp32; with ``mask``, the mean over the masked-in
+    tokens (a mask of zeros gives 0)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, -1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / mask.sum().clamp_min(1)

@@ -74,11 +74,13 @@ def ssd_ref(x, dt, A, B, C, *, chunk: int = 256, init_state=None):
         Bc = Bh[:, c0:c1].transpose(1, 2).float()        # (B,H,n,N)
         Cc = Ch[:, c0:c1].transpose(1, 2).float()
         cum = torch.cumsum(dtc * A[None, :, None], -1)   # fp32, negative
-        # L[i,j] = exp(cum_i - cum_j) for i >= j (select, never multiply:
-        # the exp overflows above the diagonal)
-        L = torch.where(causal[:n, :n],
-                        torch.exp(cum[..., :, None] - cum[..., None, :]),
-                        0.0)
+        # L[i,j] = exp(cum_i - cum_j) for i >= j. Above the diagonal the
+        # difference is positive and its exp can overflow: select -inf
+        # before the exp (exp gives 0), so that the backward pass does not
+        # multiply a zero gradient by inf
+        L = torch.exp(torch.where(causal[:n, :n],
+                                  cum[..., :, None] - cum[..., None, :],
+                                  -torch.inf))
         s = (Cc @ Bc.transpose(-1, -2)) * L              # (B,H,i,j)
         xdt = (xc * dtc[..., None]).float()              # rounds in x's dtype
         y = s @ xdt

@@ -10,26 +10,36 @@ layers are an ``nn.ModuleList``, one ``ModuleDict`` per layer under the
 reference's leaf names, and the scans are Python loops.
 
 Entry points, as in the reference:
+  ``loss_fn``      train forward + CE (``remat`` per layer)
   ``forward``      full-sequence forward (+ raw per-layer caches)
   ``prefill``      last-position logits of ``forward``
   ``decode_step``  one token against the decode caches
 
+``prefill`` and ``decode_step`` run under ``torch.no_grad``: serving
+builds no autograd graph, even on a model that a train state made
+trainable (``train.train_step.init_train_state``).
+
 MoE and hybrid stacks, MLA, the encoder and modality frontends,
-``first_k_dense``, ``remat`` and ``unroll`` raise ``NotImplementedError``
-(ROADMAP Queue 1 item 12).
+``first_k_dense`` and ``unroll`` raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
-                                       embed_tokens, init_embed, init_mlp,
-                                       init_norm, unembed)
+from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                       cross_entropy, dtype_of, embed_tokens,
+                                       init_embed, init_mlp, init_norm,
+                                       unembed)
 
 _unported = attn._unported
 
@@ -164,20 +174,48 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
 # whole-stack forward
 # ---------------------------------------------------------------------------
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: keep the outputs of
+    matrix products, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(name: str, fn, *args):
+    """``fn(*args)`` with its activations kept as the reference's
+    ``_remat_policy(name)`` keeps a scanned super-block's (one layer
+    here): "none" all of them, "dots" the matrix products' outputs,
+    "full" none (the layer is recomputed in the backward pass)."""
+    if name == "none":
+        return fn(*args)
+    if name == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    if name == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"remat policy {name!r}: expected full, dots or none")
+
+
 def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
             dp_entry=None, use_kernel=False, remat="none",
             want_cache: bool = False, unroll: bool = False):
-    """Prefill forward. batch: ``tokens`` (B, S) on the model's device.
-    Returns (logits (B, S, V), aux_loss[, caches]); ``caches["blocks"][i]``
-    holds layer i's raw cache at sequence length S (k/v of an attention
-    layer; state and conv carries of an ssm layer), which
-    ``serve.engine.prefill_to_decode_cache`` turns into decode layout.
+    """Train / prefill forward. batch: ``tokens`` (B, S) on the model's
+    device. Returns (logits (B, S, V), aux_loss[, caches]);
+    ``caches["blocks"][i]`` holds layer i's raw cache at sequence length
+    S (k/v of an attention layer; state and conv carries of an ssm
+    layer), which ``serve.engine.prefill_to_decode_cache`` turns into
+    decode layout. ``remat`` ("none", "dots" or "full") checkpoints each
+    layer's body, as the reference does each super-block's.
     """
     _check_supported(cfg)
     if mesh is not None:
         raise _unported("the sharded model (mesh=...)")
-    if remat != "none":
-        raise _unported(f"remat={remat!r}")
     if "frontend_embeds" in batch:
         raise _unported("frontend_embeds")
     tokens = batch["tokens"]
@@ -187,8 +225,9 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
                              device=x.device).expand(B, S)
     block_caches = []
     for i, p in enumerate(params["blocks"]):
-        x, c, _ = _layer_forward(cfg, p, x, positions, i, causal=True,
-                                 use_kernel=use_kernel, unroll=unroll)
+        body = partial(_layer_forward, cfg, p, positions=positions, i=i,
+                       causal=True, use_kernel=use_kernel, unroll=unroll)
+        x, c, _ = _remat(remat, body, x)
         if want_cache:
             block_caches.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -197,6 +236,21 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     if want_cache:
         return logits, aux_total, {"blocks": block_caches}
     return logits, aux_total
+
+
+def loss_fn(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
+            dp_entry=None, use_kernel=False, remat="none",
+            unroll: bool = False):
+    """(loss, {"ce", "aux"}) of a batch of ``tokens`` and ``labels``
+    (B, S) and an optional ``loss_mask``; loss = ce + router_aux_coef *
+    aux, aux 0 without MoE."""
+    logits, aux = forward(cfg, params, batch, mesh=mesh, dp_entry=dp_entry,
+                          use_kernel=use_kernel, remat=remat, unroll=unroll)
+    labels = batch["labels"]
+    ce = cross_entropy(logits[:, -labels.shape[1]:], labels,
+                       batch.get("loss_mask"))
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +309,7 @@ def _layer_decode(cfg: ModelConfig, p, x, cache: dict, t: int, i: int, *,
     return x, new_cache
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
                 mesh=None, dp_entry=None, unroll: bool = False):
     """One decode step. tokens_t: (B, 1); t: the new token's position (the
@@ -274,6 +329,7 @@ def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
     return unembed(cfg, params, x), {"blocks": new_blocks}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
             dp_entry=None, use_kernel=False, unroll: bool = False):
     """Full-sequence forward returning last-token logits (B, 1, V)."""

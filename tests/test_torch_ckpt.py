@@ -421,3 +421,140 @@ def test_straggler_functions_equal_jax(seed):
     done = [hook(_stub(remaining, exhausted=True)[1], slice_stats)
             for hook in hooks]
     assert done == [None, None]
+
+
+# ---------------------------------------------------------------------------
+# training states across the packages
+# ---------------------------------------------------------------------------
+
+def _train_states(dtype):
+    """The same olmo-smoke TrainState in each package: parameters of the
+    reference's ``init_model`` in ``dtype``, moments of seeded normals in
+    ``dtype``, step 5."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.config import TrainConfig as JTrain
+    from repro.configs import registry as jreg
+    from repro.models import transformer as jtf
+    from repro.optim.adamw import AdamWState as JAdam
+    from repro.train import train_step as jts
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import convert
+    from repro_torch.train import train_step as tts
+
+    jcfg, tcfg = (dataclasses.replace(reg.get_smoke_config("olmo-1b"),
+                                      dtype=dtype, param_dtype=dtype)
+                  for reg in (jreg, treg))
+    jp = jtf.init_model(jcfg, jax.random.key(2))
+    rng = np.random.default_rng(9)
+    mu, nu = (jax.tree.map(lambda p: jnp.asarray(
+        rng.normal(size=p.shape), p.dtype), jp) for _ in range(2))
+    jstate = jts.init_train_state(jcfg, JTrain(moment_dtype=dtype), jp) \
+        ._replace(opt=JAdam(jnp.int32(5), mu, nu))
+
+    cpu = torch.device("cpu")
+    model = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
+                                      cpu)
+    tstate = tts.init_train_state(tcfg, TrainConfig(moment_dtype=dtype),
+                                  model)
+    for dst, tree in ((tstate.opt.mu, mu), (tstate.opt.nu, nu)):
+        src = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, tree),
+                                        cpu)
+        for d, s in zip(dst, src.parameters()):
+            d.copy_(s.detach())
+    tstate.opt.step.fill_(5)
+    return tcfg, jstate, tstate
+
+
+def _bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def _state_leaves(tcfg, tstate) -> dict:
+    """The port's state as ``{reference leaf key: numpy}`` (bf16 as its
+    16-bit patterns)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.train import train_step as tts
+    out = {}
+    for path, t in _flatten(tts.state_tree(tcfg, tstate)):
+        t = t.detach()
+        out["/".join(path)] = (t.view(torch.int16).numpy().view(np.uint16)
+                               if t.dtype == torch.bfloat16 else t.numpy())
+    return out
+
+
+def _jax_leaves(tree) -> dict:
+    import jax
+    from repro.ckpt.checkpoint import _leaf_key
+    return {_leaf_key(p): _bits(jax.device_get(x)) for p, x in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_port_train_state_snapshot_restores_in_jax_bit_for_bit(tmp_path,
+                                                                dtype):
+    """A ``TrainState`` written by the port (``state_tree`` under the
+    reference's leaf keys; a bf16 leaf as raw ``V2``, the form the
+    reference's npz holds) restores in the reference. Before the port
+    wrote bf16 this way its ``save`` raised on a bf16 leaf."""
+    import jax
+    from repro_torch.train import train_step as tts
+    tcfg, jstate, tstate = _train_states(dtype)
+    CheckpointManager(str(tmp_path)).save(
+        5, tts.state_tree(tcfg, tstate), extra={"next_step": 6})
+    step, got, extra = JManager(str(tmp_path)).restore(
+        jax.eval_shape(lambda: jstate))
+    assert (step, extra) == (5, {"next_step": 6})
+    want, have = _jax_leaves(jstate), _jax_leaves(got)
+    assert sorted(have) == sorted(want)
+    assert sorted(np.load(tmp_path / "step-5" / "arrays.npz").files) == \
+        sorted(want)
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        assert_equal(have[k], want[k], k)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_jax_train_state_snapshot_restores_in_the_port_bit_for_bit(tmp_path,
+                                                                    dtype):
+    from repro_torch.config import TrainConfig
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import train_step as tts
+    tcfg, jstate, _ = _train_states(dtype)
+    JManager(str(tmp_path)).save(5, jstate, extra={"next_step": 6})
+    fresh = tts.init_train_state(tcfg, TrainConfig(moment_dtype=dtype),
+                                 init_model(tcfg, 11, device="cpu"))
+    step, extra = tts.restore_state(CheckpointManager(str(tmp_path)), tcfg,
+                                    fresh)
+    assert (step, extra) == (5, {"next_step": 6})
+    want, have = _jax_leaves(jstate), _state_leaves(tcfg, fresh)
+    assert sorted(have) == sorted(want)
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        assert_equal(have[k], want[k], k)
+    assert all(p.requires_grad for p in fresh.params.parameters())
+
+
+def test_bf16_leaf_round_trips_between_the_packages(tmp_path):
+    """One bf16 leaf and one 0-d int32 leaf: the port's snapshot restores
+    in the reference and the reference's in the port, bit for bit."""
+    import jax.numpy as jnp
+    bits = np.array([0x3FC0, 0xC010, 0x7F80, 0x0001, 0x8000], np.uint16)
+    leaf = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    tree = {"w": leaf, "n": torch.tensor(7, dtype=torch.int32)}
+    CheckpointManager(str(tmp_path / "t")).save(0, tree)
+    like = {"w": jnp.zeros((5,), jnp.bfloat16), "n": jnp.int32(0)}
+    _, got, _ = JManager(str(tmp_path / "t")).restore(like)
+    assert_equal(_bits(got["w"]), bits)
+    assert int(got["n"]) == 7 and np.asarray(got["n"]).shape == ()
+    JManager(str(tmp_path / "j")).save(0, got)
+    _, back, _ = CheckpointManager(str(tmp_path / "j")).restore(
+        {"w": torch.zeros(5, dtype=torch.bfloat16),
+         "n": torch.tensor(0, dtype=torch.int32)})
+    assert back["w"].dtype == torch.bfloat16 and back["n"].shape == ()
+    assert_equal(back["w"].view(torch.int16).numpy().view(np.uint16), bits)
+    assert int(back["n"]) == 7

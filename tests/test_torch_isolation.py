@@ -52,6 +52,18 @@ def test_the_scans_cover_the_scheduler_modules():
             "fleet/supervisor.py"} <= names
 
 
+TRAINING_MODULES = ("config", "data.pipeline", "data.tokenizer", "optim",
+                    "optim.adamw", "optim.compress", "train",
+                    "train.train_step", "launch.specs", "launch.train")
+
+
+def test_the_scans_cover_the_training_modules():
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {m.replace(".", "/") + ("/__init__.py" if m in ("optim", "train")
+                                   else ".py")
+            for m in TRAINING_MODULES} <= names
+
+
 def test_importing_everything_loads_no_jax():
     mods = [".".join(p.relative_to(PORT.parent).with_suffix("").parts)
             for p in sorted(PORT.rglob("*.py"))]
@@ -83,6 +95,27 @@ def test_each_package_imports_first_in_a_fresh_interpreter(first):
             "t = np.arange(200, dtype=np.int32) % 50\n"
             "r = core.submit(cfg, t, device='cpu').result()\n"
             "assert r.records == core.wordcount_oracle(t, 50)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(PORT.parent), REPO]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("first", ["data.pipeline", "data.tokenizer",
+                                   "optim", "train", "launch.train"])
+def test_training_modules_import_first_in_a_fresh_interpreter(first):
+    """Each training package or entry module imports first, then the
+    rest, and one step of the launcher trains."""
+    code = (f"import repro_torch.{first}\n"
+            "import sys\n"
+            "from repro_torch.launch.train import main\n"
+            "losses = main(['--smoke', '--device', 'cpu', '--steps', '1', "
+            "'--batch', '2', '--seq', '8'])\n"
+            "assert len(losses) == 1\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(PORT.parent), REPO]))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -506,3 +539,40 @@ def test_smoke_entry_point_phases_rehearse_on_cpu():
     assert routing[2]["bytes"] == 786_688
     olmo = chip_smoke.decode_bound(chip_smoke.DECODE_FULL["olmo-1b"])
     assert olmo[1] == "bytes" and round(olmo[0], 4) == 0.0407
+
+
+def test_smoke_train_phase_rehearses_on_cpu():
+    """Phase 5 at the olmo-1b SMOKE config on the CPU: two microbatches a
+    step, full remat, the snapshot after step 3; its checks (a)-(d) hold
+    (inside), no kernel is launched, and the resumed losses equal the
+    uninterrupted run's bit for bit here. At full width the run is
+    olmo-1b's published shape in bf16 with fp32 moments, A = 2."""
+    from repro_torch.configs import get_config, get_smoke_config
+    t = chip_smoke.phase_train(torch.device("cpu"),
+                               get_smoke_config("olmo-1b"), seq=64, batch=4,
+                               microbatch=2, steps=10, n_tokens=50_000)
+    assert t["grad_accum"] == 2 and t["remat"] == "full"
+    assert len(t["losses"]) == 10 and not any(t["launches"].values())
+    assert t["resume_bitwise"] and t["resume_max_rel_diff"] == 0.0
+    assert set(t["accum"]) == {"1", "2"}
+    assert t["accum_rel"]["loss"] <= chip_smoke.TRAIN_ACCUM_RTOL["loss"]
+    assert t["profile"] is None and t["mfu"] is None
+    assert t["tokens_per_s"] > 0
+    chip_smoke.print_train(t)
+    cfg = get_config(chip_smoke.TRAIN_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == \
+        (16, 2048, 8192, 50_304)
+    assert cfg.param_dtype == "bfloat16"
+    assert round(cfg.param_count() / 1e9, 2) == 1.18
+    run, _, state = chip_smoke.train_state(
+        get_smoke_config("olmo-1b"), torch.device("cpu"),
+        chip_smoke.TRAIN_SEQ, chip_smoke.TRAIN_BATCH,
+        chip_smoke.TRAIN_MICROBATCH, chip_smoke.TRAIN_STEPS)
+    assert run.grad_accum_steps == 2 and run.train.remat_policy == "full"
+    assert run.train.moment_dtype == "float32"
+    assert (run.train.lr, run.train.warmup_steps, run.train.total_steps) \
+        == (3e-3, 1, 20)
+    assert state.opt.mu[0].dtype == torch.float32
+    tokens = chip_smoke.TRAIN_SEQ * chip_smoke.TRAIN_BATCH
+    assert chip_smoke.train_flops(cfg, 512, 8) == \
+        6 * cfg.param_count() * tokens + 6 * 16 * 512 * 2048 * tokens

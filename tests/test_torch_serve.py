@@ -318,7 +318,7 @@ def test_configs_are_the_reference_configs():
 
 
 @pytest.mark.parametrize("what", ["hybrid", "moe", "mla", "first_k_dense",
-                                  "encoder", "frontend", "remat", "unroll"])
+                                  "encoder", "frontend", "unroll"])
 def test_unported_parts_raise(what):
     cfg = tregistry.get_smoke_config("olmo-1b")
     bad = {"hybrid": dict(family="hybrid", attn_every=2), "moe": dict(n_experts=4, top_k=2),
@@ -333,8 +333,7 @@ def test_unported_parts_raise(what):
                            device=CPU)
         else:
             model = ttf.init_model(cfg, 0, device=CPU)
-            kw = {"remat": "full"} if what == "remat" else {"unroll": True}
-            ttf.forward(cfg, model, toks, **kw)
+            ttf.forward(cfg, model, toks, unroll=True)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

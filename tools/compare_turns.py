@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """MR-1S against MR-2S, snapshots, key skew, fleets, I/O overlap, the
-coded shuffle, cross-job co-scheduling and the elastic fleet.
+coded shuffle, cross-job co-scheduling, the elastic fleet and training.
 
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
-                  elastic]
+                  elastic,train]
         [--out FILE]
 
 Phases 3b-3i of ``chip_smoke.py`` on their own, on one CUDA card (its
@@ -20,7 +20,9 @@ input in turns; fig15's coded arms in turns; fig14's fleets with and
 without co-scheduling; fig13's supervised campaigns and the fused job
 re-meshed 8 -> 6 -> 8. Every job's records are held to the oracle or to
 the uninterrupted or solo job's. ``fused_map`` is built from this
-checkout at its first use.
+checkout at its first use. ``train`` is phase 5, olmo-1b trained at
+full width (``phase_train``, with its checks (a)-(d)); it reaches no
+kernel.
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -53,7 +55,8 @@ def main(argv=None) -> int:
     phases = args.phases.split(",")
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
-              if set(phases) - {"keyskew", "coded", "crossjob"} else None)
+              if set(phases) - {"keyskew", "coded", "crossjob", "train"}
+              else None)
     out = {}
     for phase in phases:
         run, show = {
@@ -71,7 +74,9 @@ def main(argv=None) -> int:
             "crossjob": (lambda: cs.phase_crossjob(device),
                          cs.print_crossjob),
             "elastic": (lambda: cs.phase_elastic(device, corpus),
-                        cs.print_elastic)}[phase]
+                        cs.print_elastic),
+            "train": (lambda: cs.phase_train(
+                device, cs._serve()[0](cs.TRAIN_ARCH)), cs.print_train)}[phase]
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
