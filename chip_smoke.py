@@ -24,8 +24,9 @@ Phases, each of which asserts (nothing is caught):
                the fp32 kernel at the same shape, and the share of its
                bf16 outputs off the plain version's bits against a
                control's (``check_ssd_bits``). The
-               three kernels that only their own entry points reach
-               (hist, bucket_slots, flash_decode) run that path here:
+               three kernels that their own entry points reach (hist,
+               bucket_slots, flash_decode; bucket_slots is also on phase
+               4's MoE path) run that path here:
                ``wordcount_hist`` on the job's 2**27-token corpus and on
                as many uniform keys over V, in count and owner mode (also
                by device time), ``bucket_slots`` on deepseek-v2-lite's
@@ -189,13 +190,28 @@ Phases, each of which asserts (nothing is caught):
                host twin's, the device fold's and ``rebucketize_tasks``'
                seconds, each part's wall and steps, and the P 6 part's
                wall over the P 8 job's second half;
-  4. serve   — olmo-1b, mamba2-780m and h2o-danube-1.8b (head dim 80)
-               at full width through ``ServeEngine.generate``: 16
-               requests (h2o: one batch) in batches of 8, 2048-token
-               prompts, 32 new tokens, greedy; the arch's
-               kernel (flash_attention, ssd_scan) launched once per layer
-               and prefill, and the kernel's last-position logits within
-               3e-2 * max|logits| of the reference path's; for mamba2,
+  4. serve   — olmo-1b, mamba2-780m, h2o-danube-1.8b (head dim 80) and
+               deepseek-v2-lite-16b (27 layers, MLA, one leading dense
+               layer, 26 MoE layers of 64 experts top-6 and 2 shared)
+               at full width through ``ServeEngine.generate``: one batch
+               of 8 requests each, 2048-token prompts, 32 new tokens,
+               greedy; (a) the arch's kernel (flash_attention, ssd_scan)
+               launched once per layer and prefill, bucket_slots 2 (G +
+               1) times an MoE layer at the prefill and at every decode
+               step (``serve_launches``); (b) the kernel path's
+               last-position logits within 3e-2 * max|logits| of the
+               reference path's (bucket_slots_ref for deepseek) and
+               finite; (c) the first served token a maximum of them;
+               (d) for deepseek every bucket_slots call of one prefill
+               bit for bit equal to bucket_slots_ref (``served_slots``);
+               (e) every call of one decode step of the engine likewise,
+               and that step's logits and caches bit for bit equal to the
+               plain path's (``served_decode``); the kernel timed at the
+               first MoE layer's four served shapes (T 24,576 at E 1 and
+               T 30,721 at E 64 at prefill, T 12 at E 1 and T 16 at E 64
+               at decode) by events and device time beside its plain
+               version and bound, and its share of the prefill's and a
+               decode step's device time; for mamba2,
                whose bf16 paths drift apart with depth, each layer's mixer
                instead, and each served batch against the same weights in
                fp32: the fp32 kernel path within 1e-3 * max|logits| of the
@@ -262,10 +278,12 @@ N_UNFUSED = 2**25               # the fused-vs-unfused comparison's corpus
 
 
 # the served configurations at full width (depth and width as published),
-# random weights from seed 0, and the requests each serves
+# random weights from seed 0, and the requests each serves: one batch
+# each, so that deepseek-v2-lite's phase fits the smoke's time
 REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = 16, 8, 2048, 32
-SERVE_ARCHS = {"olmo-1b": REQUESTS, "mamba2-780m": REQUESTS,
-               "h2o-danube-1.8b": BATCH}
+MOE_ARCH = "deepseek-v2-lite-16b"
+SERVE_ARCHS = {"olmo-1b": BATCH, "mamba2-780m": BATCH,
+               "h2o-danube-1.8b": BATCH, MOE_ARCH: BATCH}
 
 
 def _port():
@@ -3653,12 +3671,124 @@ def _sync(device):
 
 
 def serve_kernel(cfg):
-    """(name, wrapper) of the kernel that a prefill of ``cfg``'s stack
-    runs once per layer: ssd_scan for the ssm family, else
-    flash_attention."""
+    """(name, wrapper) of the kernel that serving ``cfg``'s stack runs:
+    bucket_slots for a stack with experts (MLA's prefill takes no
+    kernel), ssd_scan for the ssm family, else flash_attention."""
+    if cfg.n_experts:
+        return "bucket_slots", _slots()[0].bucket_slots
     if cfg.family == "ssm":
         return "ssd_scan", _ssd()[0].ssd
     return "flash_attention", _fa()[0].flash_attention
+
+
+def slot_shapes(cfg, T: int) -> list:
+    """The (records, buckets) of each bucket_slots call that one MoE
+    layer makes over ``T`` tokens (tp 1), in order: one
+    ``_bucket_indices`` (peer buckets, E = 1) and one ``_expert_gemm``
+    (expert buffers, E = n_experts) a step; 1s runs G + 1 steps over
+    groups of T / G tokens (G = ``dispatch_groups`` capped at T), 2s
+    one step over all T."""
+    one_s = cfg.dispatch_mode == "1s"
+    G = max(1, min(cfg.dispatch_groups, T)) if one_s else 1
+    Tkg = T // G * cfg.top_k
+    cap = int(cfg.capacity_factor * Tkg) + 1
+    return [(Tkg, 1), (cap, cfg.n_experts)] * (G + 1 if one_s else 1)
+
+
+def serve_launches(cfg, requests: int, batch: int, prompt_len: int,
+                   new_tokens: int) -> int:
+    """Launches of ``serve_kernel(cfg)`` while ``ServeEngine.generate``
+    serves ``requests`` in batches: flash_attention and ssd_scan once a
+    layer and prefill; bucket_slots ``slot_shapes``' calls an MoE layer,
+    at the prefill and at each of the ``new_tokens - 1`` decode
+    steps."""
+    batches = [min(batch, requests - lo) for lo in range(0, requests, batch)]
+    if not cfg.n_experts:
+        return cfg.n_layers * len(batches)
+    moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    return sum(moe * (len(slot_shapes(cfg, B * prompt_len))
+                      + (new_tokens - 1) * len(slot_shapes(cfg, B)))
+               for B in batches)
+
+
+# the bucket_slots kernel, as the profiler names it
+SLOTS_KERNEL = ("slots_kernel",)
+
+
+def served_slots(run) -> dict:
+    """Every bucket_slots call of ``run()``, a served program through the
+    kernel path, held bit for bit to ``bucket_slots_ref`` on the same
+    ids (through ``models.moe.slot_ops``: the counted wrapper is called
+    as served). Returns ``run()``'s result (``out``), the calls checked
+    and, by (records, buckets), the first ids of each shape that hold a
+    valid id (the first MoE layer's): the served shapes."""
+    import types
+
+    from repro_torch.models import moe
+    ops, ref = _slots()
+    real = ops.bucket_slots
+    seen = {"calls": 0, "ids": {}}
+
+    def checked(ids, n, **kw):
+        slots, counts = real(ids, n, **kw)
+        want = ref.bucket_slots_ref(ids, n)
+        assert torch.equal(slots, want[0]) and torch.equal(counts, want[1]), \
+            ("bucket_slots != plain on the served routing", seen["calls"],
+             ids.numel(), n)
+        seen["calls"] += 1
+        if (ids.numel(), n) not in seen["ids"] and bool((ids >= 0).any()):
+            seen["ids"][(ids.numel(), n)] = ids.clone()
+        return slots, counts
+
+    moe.slot_ops = types.SimpleNamespace(bucket_slots=checked)
+    try:
+        with torch.inference_mode():
+            seen["out"] = run()
+    finally:
+        moe.slot_ops = ops
+    return seen
+
+
+def _copy_cache(cache: dict) -> dict:
+    return {"blocks": [{k: v.clone() for k, v in c.items()}
+                       for c in cache["blocks"]]}
+
+
+def served_decode(cfg, engine, model, cache, tok, t: int) -> dict:
+    """Gate (e) of phase 4: one step of the engine (the kernel path) on a
+    copy of ``cache``, its slot calls held bit for bit by
+    ``served_slots``, and its logits and caches equal bit for bit to
+    ``decode_step(use_kernel=False)``'s on another copy: the port
+    combines expert rows by gathers, so equal slots give equal bits.
+    Returns ``served_slots``' calls and ids."""
+    _, tf, _ = _serve()
+    seen = served_slots(lambda: engine._step(model, _copy_cache(cache),
+                                             tok, t))
+    lk, ck = seen.pop("out")
+    with torch.inference_mode():
+        lr, cr = tf.decode_step(cfg, model, _copy_cache(cache), tok, t,
+                                use_kernel=False)
+    assert bool(torch.isfinite(lk).all()), "non-finite decode logits"
+    assert torch.equal(lk, lr), \
+        ("a decode step's logits, kernel path != plain path",
+         (lk.float() - lr.float()).abs().max().item())
+    assert all(torch.equal(a[k], b[k]) for a, b in
+               zip(ck["blocks"], cr["blocks"]) for k in a), \
+        "a decode step's caches, kernel path != plain path"
+    return seen
+
+
+def time_served_slots(ids_by_shape: dict) -> dict:
+    """``time_entry``'s numbers of bucket_slots on the served ids: CUDA
+    events and device time a call, the plain version, the bound."""
+    ops, ref = _slots()
+    cases = {f"served_T{T}_E{n}": dict(
+        kernel="bucket_slots", exact=True,
+        run=functools.partial(ops.bucket_slots, ids, n),
+        plain=functools.partial(ref.bucket_slots_ref, ids, n),
+        library=None, bound=slots_bound(T, n))
+        for (T, n), ids in sorted(ids_by_shape.items())}
+    return time_entry(cases)
 
 
 def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
@@ -3666,10 +3796,12 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                 new_tokens: int = NEW_TOKENS) -> dict:
     """Serve ``requests`` prompts through ``ServeEngine.generate`` (the
     main path: counts zeroed just before, read just after), then check
-    the served tokens and time the engine's prefill and decode step."""
+    the served tokens (gates (a)-(e) of the module's docstring) and time
+    the engine's prefill and decode step."""
     _, tf, eng = _serve()
     _, kernel = serve_kernel(cfg)
     cuda = device.type == "cuda"
+    moe = bool(cfg.n_experts)
     t0 = time.perf_counter()
     model = tf.init_model(cfg, 0, device=device)
     _sync(device)
@@ -3679,7 +3811,6 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                              device=device)
     prompts = serve_prompts(cfg, requests, prompt_len)
     engine.generate(prompts[:batch, :min(prompt_len, 128)], 2)   # warm
-    _sync(device)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -3695,9 +3826,10 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     out = np.concatenate(outs)
     assert out.shape == (requests, new_tokens), out.shape
     assert out.min() >= 0 and out.max() < cfg.vocab_size
-    n_batches = -(-requests // batch)
+    want_launches = serve_launches(cfg, requests, batch, prompt_len,
+                                   new_tokens)
     if cuda:
-        assert launches == cfg.n_layers * n_batches, launches
+        assert launches == want_launches, (launches, want_launches)
 
     # the kernel's prefill against the reference path's (chunked attention,
     # ssd_ref), and the first served token a maximum of the kernel path's
@@ -3733,6 +3865,13 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
 
         # the engine's two programs, timed alone on the first batch
         tokens = {"tokens": torch.from_numpy(prompts[:batch]).to(device)}
+        B = tokens["tokens"].shape[0]
+        slots = None
+        if moe:     # gate (d): every slot call of one prefill
+            slots = served_slots(lambda: tf.prefill(cfg, model, tokens,
+                                                    use_kernel=True))
+            del slots["out"]
+            assert set(slots["ids"]) == set(slot_shapes(cfg, B * prompt_len))
         layer_errs = ssm_layer_errs(cfg, model, tokens["tokens"]) if ssm \
             else []
         assert max(layer_errs, default=0.0) <= 1.0, layer_errs
@@ -3762,25 +3901,129 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
             tok = logits[:, -1:].argmax(-1).to(torch.int32)
         _sync(device)
         decode_s = (time.perf_counter() - t0) / (new_tokens - 1)
+        if moe:     # gate (e): one decode step, slots and logits
+            dec = served_decode(cfg, engine, model, cache, tok,
+                                prompt_len + new_tokens - 1)
+            moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+            assert dec["calls"] == moe_layers * len(slot_shapes(cfg, B))
+            assert set(dec["ids"]) == set(slot_shapes(cfg, B)), dec["ids"]
+            slots["decode_calls"] = dec["calls"]
+            slots["ids"].update(dec["ids"])
         profiles = {}
+        # an MoE decode step runs ~10,000 ops: the profiler's trace of
+        # four took ~40 s to read, so it traces one
+        steps = 1 if moe else 4
+        decode = f"decode_{steps}_steps"
         if cuda:
             profiles["prefill"] = device_profile(
                 lambda: engine._prefill(model, tokens),
-                keep=SSD_PASSES if ssm else ())
+                keep=SSD_PASSES if ssm else SLOTS_KERNEL if moe else ())
             t = prompt_len + new_tokens - 1
-            profiles["decode_4_steps"] = device_profile(
+            profiles[decode] = device_profile(
                 lambda: [engine._step(model, cache, tok, t + i)
-                         for i in range(4)])
-    return dict(arch=cfg.name, requests=requests, batch=batch,
+                         for i in range(steps)],
+                keep=SLOTS_KERNEL if moe else ())
+        if moe:
+            slots["times"] = time_served_slots(slots["ids"]) if cuda else {}
+            slots["shapes"] = sorted(slots.pop("ids"))
+            slots["prefill_share"] = kept_share(profiles.get("prefill"))
+            slots["decode_share"] = kept_share(profiles.get(decode))
+    return dict(arch=cfg.name, kernel=serve_kernel(cfg)[0],
+                requests=requests, batch=batch,
                 prompt_len=prompt_len, new_tokens=new_tokens,
-                launches=launches, wall_s=wall,
+                launches=launches, want_launches=want_launches, wall_s=wall,
                 served_tokens_per_s=out.size / wall,
                 prompt_tokens_per_s=requests * prompt_len / wall,
                 prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3,
                 peak_bytes=peak, init_s=init_s,
                 kernel_vs_ref_err_over_limit=worst,
                 layer_err_over_limit=max(layer_errs, default=None),
-                drift=drifts, memory=memory, profiles=profiles)
+                drift=drifts, memory=memory, profiles=profiles,
+                slots=slots)
+
+
+def phase_serves(device, archs) -> dict:
+    """Phase 4: ``phase_serve`` for each arch of ``archs`` at its
+    ``SERVE_ARCHS`` requests, with its seconds, printed as it ends; the
+    card's cache freed between."""
+    get_config, _, _ = _serve()
+    out = {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        out[arch] = phase_serve(device, get_config(arch), SERVE_ARCHS[arch])
+        out[arch]["seconds"] = time.perf_counter() - t0
+        print_serve(out[arch])
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def kept_share(prof) -> float | None:
+    """The share of a ``device_profile``'s device time that its kept
+    names took (None without a profile)."""
+    if not prof:
+        return None
+    return sum(ms for _, ms, _ in prof["kept"]) / 1e3 / prof["device_s"]
+
+
+def print_serve(serve: dict):
+    """Phase 4's lines for one served arch."""
+    arch, name = serve["arch"], serve["kernel"]
+    print(f"serve: {arch} at full width, {serve['requests']} "
+          f"requests in batches of {serve['batch']}, prompt "
+          f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, "
+          f"greedy: {serve['wall_s']:.3f} s, "
+          f"{serve['served_tokens_per_s']:.1f} served tokens/s (the "
+          f"phase {serve['seconds']:.1f} s); prefill "
+          f"{serve['prefill_ms']:.1f} ms per batch, decode "
+          f"{serve['decode_ms_per_token']:.2f} ms per token; {name} "
+          f"launches {serve['launches']} (expected "
+          f"{serve['want_launches']}); peak device memory "
+          f"{serve['peak_bytes'] / 2**30:.2f} GiB; kernel-vs-reference "
+          f"logits at {serve['kernel_vs_ref_err_over_limit']:.3f} of the "
+          f"3e-2 * max|logits| limit")
+    mem = serve["memory"]
+    print(f"serve: {arch} memory: weights "
+          f"{mem['weights_bytes'] / 2**30:.3f} GiB; one prefill from "
+          f"{mem['before_prefill_bytes'] / 2**30:.3f} GiB allocated to a "
+          f"peak of {mem['prefill_peak_bytes'] / 2**30:.3f} GiB, leaving "
+          f"logits of {mem['logits_bytes'] / 2**30:.3f} GiB and a cache "
+          f"of {mem['cache_bytes'] / 2**30:.3f} GiB that holds "
+          f"{mem['cache_storage_bytes'] / 2**30:.3f} GiB of storage")
+    if serve["layer_err_over_limit"] is not None:
+        print(f"serve: {arch} per-layer mixer, kernel vs ssd_ref on the "
+              f"same input: worst layer at "
+              f"{serve['layer_err_over_limit']:.3f} of the 3e-2 * "
+              f"max|out| limit (the bf16 kernel-vs-reference gap above "
+              f"is reported; each batch is held to fp32 below)")
+    for i, d in enumerate(serve["drift"]):
+        print(f"serve: {arch} batch {i} against the same weights in "
+              f"fp32: fp32 kernel path at "
+              f"{d['fp32_err_over_limit']:.4f} of 1e-3 * max|logits|; "
+              f"bf16 kernel path {d['kernel_low_vs_fp32']:.4f}, bf16 "
+              f"reference path {d['ref_low_vs_fp32']:.4f} of "
+              f"max|logits|, ratio "
+              f"{d['kernel_low_vs_fp32'] / d['ref_low_vs_fp32']:.3f} "
+              f"(limit {SSM_DRIFT_FACTOR})")
+    sl = serve["slots"]
+    if sl is not None:
+        shapes = ", ".join(f"T {t} at E {e}" for t, e in sl["shapes"])
+        print(f"serve: {arch} bucket_slots: {sl['calls']} calls of one "
+              f"prefill and {sl['decode_calls']} of one decode step == "
+              f"bucket_slots_ref bit for bit (the first MoE layer's: "
+              f"{shapes}); that decode step's logits and caches == the "
+              f"plain path's bit for bit; share of the device time: "
+              f"prefill {sl['prefill_share']}, a decode step "
+              f"{sl['decode_share']}")
+        for shape, t in sl["times"].items():
+            print(f"serve: {arch} bucket_slots at {shape}: {t['ms']:.5f} "
+                  f"ms by events (device {t['device_ms']:.5f} ms, "
+                  f"{t['device_activities_per_call']:.2f} device "
+                  f"activities a call), plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.3g} ms ({t['bound_by']}: {t['bytes']} B "
+                  f"at 3.35 TB/s, {t['ops']} operations)")
+    for what, p in serve["profiles"].items():
+        print_profile(f"serve {arch} {what}", p)
 
 
 def ssm_layer_errs(cfg, model, tokens) -> list:
@@ -4095,6 +4338,30 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
             **{o: {k: times[o][k] for k in (*keys, *extra)} for o in others}}
 
 
+def served_slots_kernel(serve: dict, entry: dict) -> dict:
+    """The ``kernels`` line's bucket_slots entry: its launches on the
+    served path (``serve``, phase 4's MoE arch) and its numbers at the
+    served shape of the expert buffers (the larger), then the other
+    served shape and the entry-point shapes of phase 2 (``entry``)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "device_activities_per_call")
+    sl = serve["slots"]
+    times = sl["times"]
+    main = max(times, key=lambda n: times[n]["bytes"])
+    return {**entry, **{k: times[main][k] for k in keys},
+            "launches": serve["launches"],
+            "launches_by_path": {f"serve {serve['arch']}": serve["launches"],
+                                 "entry points": entry["launches"]},
+            "served_calls_checked": {"prefill": sl["calls"],
+                                     "decode_step": sl["decode_calls"]},
+            "prefill_share": sl["prefill_share"],
+            "decode_share": sl["decode_share"],
+            "shape": main,
+            **{n: {k: t[k] for k in keys} for n, t in times.items()
+               if n != main},
+            entry["shape"]: {k: entry[k] for k in keys if k in entry}}
+
+
 def mutant_kernel(name: str, lint: dict, times: dict, built: dict) -> dict:
     """The ``kernels`` line's entry of a near twin's mutant kernel."""
     t = times[name]
@@ -4322,50 +4589,8 @@ def main(argv=()) -> int:
     print_elastic(elastic)
     del corpus
 
-    get_config, _, _ = _serve()
-    serves = {}
-    for arch, requests in SERVE_ARCHS.items():
-        cfg = get_config(arch)
-        serve = serves[arch] = phase_serve(device, cfg, requests)
-        name, _ = serve_kernel(cfg)
-        print(f"serve: {serve['arch']} at full width, {serve['requests']} "
-              f"requests in batches of {serve['batch']}, prompt "
-              f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, "
-              f"greedy: {serve['wall_s']:.3f} s, "
-              f"{serve['served_tokens_per_s']:.1f} served tokens/s; prefill "
-              f"{serve['prefill_ms']:.1f} ms per batch, decode "
-              f"{serve['decode_ms_per_token']:.2f} ms per token; {name} "
-              f"launches {serve['launches']}; peak device memory "
-              f"{serve['peak_bytes'] / 2**30:.2f} GiB; kernel-vs-reference "
-              f"logits at {serve['kernel_vs_ref_err_over_limit']:.3f} of the "
-              f"3e-2 * max|logits| limit")
-        mem = serve["memory"]
-        print(f"serve: {arch} memory: weights "
-              f"{mem['weights_bytes'] / 2**30:.3f} GiB; one prefill from "
-              f"{mem['before_prefill_bytes'] / 2**30:.3f} GiB allocated to a "
-              f"peak of {mem['prefill_peak_bytes'] / 2**30:.3f} GiB, leaving "
-              f"logits of {mem['logits_bytes'] / 2**30:.3f} GiB and a cache "
-              f"of {mem['cache_bytes'] / 2**30:.3f} GiB that holds "
-              f"{mem['cache_storage_bytes'] / 2**30:.3f} GiB of storage")
-        if serve["layer_err_over_limit"] is not None:
-            print(f"serve: {arch} per-layer mixer, kernel vs ssd_ref on the "
-                  f"same input: worst layer at "
-                  f"{serve['layer_err_over_limit']:.3f} of the 3e-2 * "
-                  f"max|out| limit (the bf16 kernel-vs-reference gap above "
-                  f"is reported; each batch is held to fp32 below)")
-        for i, d in enumerate(serve["drift"]):
-            print(f"serve: {arch} batch {i} against the same weights in "
-                  f"fp32: fp32 kernel path at "
-                  f"{d['fp32_err_over_limit']:.4f} of 1e-3 * max|logits|; "
-                  f"bf16 kernel path {d['kernel_low_vs_fp32']:.4f}, bf16 "
-                  f"reference path {d['ref_low_vs_fp32']:.4f} of "
-                  f"max|logits|, ratio "
-                  f"{d['kernel_low_vs_fp32'] / d['ref_low_vs_fp32']:.3f} "
-                  f"(limit {SSM_DRIFT_FACTOR})")
-        for what, p in serve["profiles"].items():
-            print_profile(f"serve {arch} {what}", p)
-
-    train = phase_train(device, get_config(TRAIN_ARCH))
+    serves = phase_serves(device, SERVE_ARCHS)
+    train = phase_train(device, _serve()[0](TRAIN_ARCH))
     print_train(train)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
@@ -4384,8 +4609,7 @@ def main(argv=()) -> int:
                       "memcheck": memcheck, "guard": guard,
                       "serve": serves, "train": train}))
 
-    fa_archs = [a for a in serves
-                if serve_kernel(get_config(a))[0] == "flash_attention"]
+    fa_archs = [a for a in serves if serves[a]["kernel"] == "flash_attention"]
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_map/csrc/fused_map.cu",
@@ -4445,9 +4669,10 @@ def main(argv=()) -> int:
                      "wordcount_hash/kernel.py:66", entry, entry_t,
                      "hist_count", ("hist_owner", "hist_count_uniform",
                                     "hist_owner_uniform"), built, 0),
-        entry_kernel("bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
-                     "moe_dispatch/kernel.py:51", entry, entry_t,
-                     "slots_routing", ("slots_owner_window",), built, 0),
+        served_slots_kernel(serves[MOE_ARCH], entry_kernel(
+            "bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
+            "moe_dispatch/kernel.py:51", entry, entry_t, "slots_routing",
+            ("slots_owner_window",), built, 0)),
         entry_kernel("flash_decode", "flash_decode/csrc/flash_decode.cu",
                      "flash_decode/kernel.py:71", entry, entry_t,
                      "decode_olmo-1b", ("decode_h2o-danube-1.8b",), built,

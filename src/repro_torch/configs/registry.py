@@ -1,7 +1,8 @@
 """Arch registry of the port (counterpart of ``repro/configs/registry.py``).
 
 It lists only the archs whose every layer the port runs: the dense
-families and the attention-free ``ssm`` family. Any other arch of the
+families, the attention-free ``ssm`` family and deepseek-v2-lite's MoE
+stack (MLA attention, one leading dense layer). Any other arch of the
 reference raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
 }
 
 ARCH_IDS: list[str] = list(_MODULES)

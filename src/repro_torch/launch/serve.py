@@ -6,9 +6,16 @@
         --smoke --device cpu                                 # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --smoke --device cpu                   # the ssm stack, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --smoke --device cpu   # MoE + MLA
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --requests 8 --prompt-len 2048 \\
+        --new-tokens 32                      # 31.3 GB of bf16 weights
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: olmo-1b,
-h2o-danube-1.8b (dense) and mamba2-780m (ssm).
+h2o-danube-1.8b (dense), mamba2-780m (ssm) and deepseek-v2-lite-16b
+(MoE with MLA attention and one leading dense layer; its MoE layers
+slot their records through the bucket_slots kernel on the card).
 
 The weights are random, from ``--seed``. Runs on ``cuda`` unless
 ``--device`` names another device.

@@ -1,17 +1,21 @@
-"""Attention for the dense families: GQA / MHA / sliding-window, with the
-prefill and decode paths (counterpart of ``repro/models/attention.py``).
+"""Attention: GQA / MHA / sliding-window / MLA, with the prefill and
+decode paths (counterpart of ``repro/models/attention.py``).
 
 Layout contracts, as in the reference:
   activations      (B, S, D)
   q/k/v            (B, S, H|KV, hd)
   GQA cache        {"k","v"}: (B, S_max, KV, hd)
   SWA cache        ring buffer, S_max = window
+  MLA cache        {"ckv"}: (B, S_max, lora + rope)
 
 Prefill attention goes through the flash_attention kernel's wrapper
 (``use_kernel=True``: the kernel on the card, its plain version on the
-CPU) or through the chunked ``flash_attention_ref``. Decode is the
-single-shard flash-decode of the reference: online-softmax partials over
-the whole cache, combined locally. MLA, the seq-sharded cache and the
+CPU) or through the chunked ``flash_attention_ref``. MLA's prefill
+always takes ``flash_attention_ref``, as the reference's does (its qk
+head dim, 192 at deepseek-v2-lite, is not one the kernel takes). Decode
+is the single-shard flash-decode of the reference: online-softmax
+partials over the whole cache, combined locally; MLA decodes absorbed
+over its compressed cache. The seq-sharded cache (``mesh=``) and the
 cost-exact unrolled attention are not ported yet (ROADMAP Queue 1 item
 12).
 """
@@ -56,6 +60,21 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
         p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
         p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
     return p
+
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rope_d, v_d = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    dt = DTYPES[cfg.param_dtype]
+    s = d ** -0.5
+    return {
+        "wq": _init(gen, (d, H * (nope + rope_d)), s, dt),
+        "w_kv_a": _init(gen, (d, lora + rope_d), s, dt),
+        "w_kv_b": _init(gen, (lora, H * (nope + v_d)), lora ** -0.5, dt),
+        "wo": _init(gen, (H * v_d, d), (H * v_d) ** -0.5, dt),
+        "kv_norm": torch.ones((lora,), dtype=dt, device=gen.device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +283,6 @@ def attention_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *,
     """
     if mesh is not None:
         raise _unported("the seq-sharded decode cache (mesh=...)")
-    if cfg.attn_type == "mla":
-        raise _unported("MLA decode")
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.d_head
     q, k, v = _qkv(cfg, p, x)
@@ -291,3 +308,82 @@ def attention_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *,
     o = combine_partials(o, l, m, None)
     o = o.reshape(B, 1, H * hd).to(x.dtype)
     return o @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek): prefill materialises k/v; decode runs absorbed over the
+# compressed cache
+# ---------------------------------------------------------------------------
+
+def _mla_expand(cfg: ModelConfig, p, ckv):
+    """ckv: (B, S, lora) -> k_nope, v: (B, S, H, nope|v)."""
+    B, S, _ = ckv.shape
+    H, nope, v_d = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    kv = (ckv @ p["w_kv_b"]).reshape(B, S, H, nope + v_d)
+    return kv[..., :nope], kv[..., nope:]
+
+
+def mla_forward(cfg: ModelConfig, p, x, positions, *, unroll=False):
+    """Train / prefill pass. Returns (out, {"ckv": (B, S, lora + rope)}):
+    the normed latent and the rotated shared key, which the decode cache
+    holds. Attention runs through ``flash_attention_ref`` with v padded to
+    the qk head dim, as the reference's does."""
+    if unroll:
+        raise _unported("the cost-exact unrolled attention (unroll=True)")
+    B, S, _ = x.shape
+    H, lora = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope_d, v_d = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, nope + rope_d)
+    q_rope = _rope_bshd(q[..., nope:], positions, cfg.rope_theta)
+    a = x @ p["w_kv_a"]                                 # (B, S, lora+rope)
+    ckv = rms_over(a[..., :lora], p["kv_norm"])
+    k_rope = _rope_bshd(a[..., None, lora:], positions,
+                        cfg.rope_theta)                 # (B, S, 1, rope)
+    k_nope, v = _mla_expand(cfg, p, ckv)
+    q_full = torch.cat([q[..., :nope], q_rope], -1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d)], -1)
+    v_pad = torch.nn.functional.pad(v, (0, nope + rope_d - v_d))
+    o = flash_attention_ref(q_full, k_full, v_pad, causal=True)[..., :v_d]
+    cache = {"ckv": torch.cat([ckv, k_rope[:, :, 0]], -1)}
+    return o.reshape(B, S, H * v_d) @ p["wo"], cache
+
+
+def mla_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *, mesh=None,
+               dp_entry=None):
+    """Absorbed one-token decode over the compressed cache {"ckv": (B,
+    S_max, lora + rope)}: ``w_kv_b``'s key half is folded into q and its
+    value half into the output. The new entry is written into ``cache``
+    in place, as ``attention_decode`` writes k/v; past the cache's end it
+    is not written, as the reference's masked update leaves it."""
+    if mesh is not None:
+        raise _unported("the seq-sharded MLA decode cache (mesh=...)")
+    B = x.shape[0]
+    H, lora = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope_d, v_d = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q = (x @ p["wq"]).reshape(B, 1, H, nope + rope_d)
+    q_rope = _rope_bshd(q[..., nope:], pos, cfg.rope_theta)[:, 0]
+    a = (x @ p["w_kv_a"])[:, 0]                         # (B, lora+rope)
+    ckv_new = rms_over(a[..., :lora], p["kv_norm"])
+    kr_new = apply_rope(a[:, None, lora:], pos, cfg.rope_theta)[:, 0]
+
+    w_b = p["w_kv_b"].reshape(lora, H, nope + v_d)
+    q_lora = torch.einsum("bhn,lhn->bhl", q[:, 0, :, :nope],
+                          w_b[..., :nope])               # (B, H, lora)
+    qq = torch.cat([q_lora, q_rope], -1)                # (B, H, lora+rope)
+
+    c = cache["ckv"]
+    S_max = c.shape[1]
+    if t < S_max:
+        c[:, t] = torch.cat([ckv_new, kr_new], -1)
+    s = _einsum_f32("bhl,bsl->bhs", qq, c) * (nope + rope_d) ** -0.5
+    valid = (torch.arange(S_max, device=x.device) < t + 1)[None, None]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(-1)
+    pr = torch.exp(s - m[..., None]).masked_fill(~valid, 0.0)
+    l = pr.sum(-1)
+    o_l = _einsum_f32("bhs,bsl->bhl", pr.to(c.dtype), c[..., :lora])
+    o_l = (o_l / l.clamp_min(1e-30)[..., None]).to(x.dtype)
+    # un-absorb the value half, in fp32 as the reference does
+    o = torch.einsum("bhl,lhv->bhv", o_l.float(), w_b[..., nope:].float())
+    return o.reshape(B, 1, H * v_d).to(x.dtype) @ p["wo"], cache

@@ -3,10 +3,12 @@
 ``params_from_numpy`` takes the parameter tree of the reference's
 ``init_model`` with numpy leaves (``jax.tree.map(np.asarray, params)``)
 and builds the port's ``Model``; ``params_to_numpy`` is its inverse. The
-reference stacks ``blocks`` on a leading ``n_scan_blocks`` axis,
-``block_pattern`` layers per super-block; layer ``b * block_pattern +
-j`` of the port is ``blocks["layer{j}"][b]``. Leaves keep their ``(in,
-out)`` layout, so carrying them is a copy.
+reference keeps its ``first_k_dense`` leading layers apart, layer ``i``
+under ``dense_layers["layer{i}"]``, and stacks ``blocks`` on a leading
+``n_scan_blocks`` axis, ``block_pattern`` layers per super-block; layer
+``first_k_dense + b * block_pattern + j`` of the port is
+``blocks["layer{j}"][b]``. Leaves keep their ``(in, out)`` layout, so
+carrying them is a copy.
 
 ``ref_tree`` and ``ref_leaves`` do the same for any tensors that line up
 with a model's parameters (gradients, AdamW's moments): the train
@@ -32,19 +34,34 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _ref_layer(cfg: ModelConfig, i: int) -> tuple[str, str, int | None]:
+    """Where port layer ``i`` sits in the reference's tree: (subtree,
+    layer key, block index), the block index None for a leading dense
+    layer."""
+    first, bp = cfg.first_k_dense, cfg.block_pattern
+    if i < first:
+        return "dense_layers", f"layer{i}", None
+    return "blocks", f"layer{(i - first) % bp}", (i - first) // bp
+
+
 def ref_tree(cfg: ModelConfig, named, stack=torch.stack) -> dict:
     """The reference's tree of ``named``, pairs of a ``Model`` parameter
     name (``model.named_parameters()``: ``embed_tokens``,
     ``blocks.3.attn.wq``, ``final_norm.scale``, ...) and a tensor of that
     parameter's shape. ``stack`` joins the ``n_scan_blocks`` tensors of
-    each ``blocks/layer{j}`` leaf, in block order."""
+    each ``blocks/layer{j}`` leaf, in block order; a leading dense
+    layer's leaves go under ``dense_layers/layer{i}`` as they are."""
     tree, stacked = {}, {}
-    bp = cfg.block_pattern
     for name, t in named:
         parts = name.split(".")
         if parts[0] == "blocks":
             i, sub, leaf = int(parts[1]), parts[2], parts[3]
-            stacked.setdefault((f"layer{i % bp}", sub, leaf), []).append(t)
+            top, layer, b = _ref_layer(cfg, i)
+            if b is None:
+                tree.setdefault(top, {}).setdefault(layer, {}) \
+                    .setdefault(sub, {})[leaf] = t
+            else:
+                stacked.setdefault((layer, sub, leaf), []).append(t)
         else:
             node = tree
             for k in parts[:-1]:
@@ -59,13 +76,14 @@ def ref_tree(cfg: ModelConfig, named, stack=torch.stack) -> dict:
 def ref_leaves(cfg: ModelConfig, tree: dict, names) -> list:
     """The inverse of ``ref_tree``: for each parameter name, its tensor
     in ``tree`` (a block leaf's slice for that layer)."""
-    bp = cfg.block_pattern
     out = []
     for name in names:
         parts = name.split(".")
         if parts[0] == "blocks":
             i, sub, leaf = int(parts[1]), parts[2], parts[3]
-            out.append(tree["blocks"][f"layer{i % bp}"][sub][leaf][i // bp])
+            top, layer, b = _ref_layer(cfg, i)
+            t = tree[top][layer][sub][leaf]
+            out.append(t if b is None else t[b])
         else:
             node = tree
             for k in parts:
@@ -96,7 +114,8 @@ def params_to_numpy(cfg: ModelConfig, model: Model, leaves=None) -> dict:
     # a norm without parameters (OLMo's) is an empty dict, as there
     tree.setdefault("final_norm", {})
     for i, layer in enumerate(model.blocks):
-        node = tree["blocks"].setdefault(f"layer{i % cfg.block_pattern}", {})
+        top, key, _ = _ref_layer(cfg, i)
+        node = tree.setdefault(top, {}).setdefault(key, {})
         for sub in layer:
             node.setdefault(sub, {})
     return _map(tree, _numpy)
@@ -115,10 +134,13 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> Model:
     device = resolve_device(device)
     out = {k: _tensor(tree[k], device) for k in ("embed_tokens", "lm_head")
            if k in tree}
-    out["blocks"] = [
-        {sub: {leaf: _tensor(a[b], device) for leaf, a in leaves.items()}
-         for sub, leaves in tree["blocks"][f"layer{j}"].items()}
-        for b in range(cfg.n_scan_blocks) for j in range(cfg.block_pattern)]
+    out["blocks"] = []
+    for i in range(cfg.n_layers):
+        top, key, b = _ref_layer(cfg, i)
+        out["blocks"].append(
+            {sub: {leaf: _tensor(a if b is None else a[b], device)
+                   for leaf, a in leaves.items()}
+             for sub, leaves in tree[top][key].items()})
     out["final_norm"] = {k: _tensor(a, device)
                          for k, a in tree["final_norm"].items()}
     return Model(out)

@@ -1,13 +1,16 @@
-"""The model stack for the dense and ssm families (counterpart of
+"""The model stack for the dense, ssm and MoE families (counterpart of
 ``repro/models/transformer.py``).
 
 A model is ``n_layers`` layers between a token embedding and a final
 norm with an (optionally tied) head: attention plus SwiGLU MLP in a
 dense stack, one Mamba-2 SSD mixer (``models/ssm.py``) and no MLP in an
-``ssm`` stack. The
-reference scans super-blocks over a stacked parameter tree; here the
-layers are an ``nn.ModuleList``, one ``ModuleDict`` per layer under the
-reference's leaf names, and the scans are Python loops.
+``ssm`` stack, attention (GQA or MLA) plus an MoE layer
+(``models/moe.py``) in a ``moe`` stack, whose ``first_k_dense`` leading
+layers carry an MLP instead. The reference keeps the leading dense
+layers apart and scans super-blocks over a stacked parameter tree; here
+the layers are one ``nn.ModuleList``, one ``ModuleDict`` per layer under
+the reference's leaf names (layer i is ``blocks[i]``, leading dense
+layers included), and the scans are Python loops.
 
 Entry points, as in the reference:
   ``loss_fn``      train forward + CE (``remat`` per layer)
@@ -19,9 +22,13 @@ Entry points, as in the reference:
 builds no autograd graph, even on a model that a train state made
 trainable (``train.train_step.init_train_state``).
 
-MoE and hybrid stacks, MLA, the encoder and modality frontends,
-``first_k_dense`` and ``unroll`` raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 12).
+``use_kernel=True`` routes prefill attention through the
+flash_attention kernel, the SSD scan through ssd_scan and the MoE
+layers' slotting through bucket_slots (each the kernel on a CUDA tensor,
+its plain version on a CPU one); ``decode_step``'s ``use_kernel``
+does the same for its MoE layers' slotting. Hybrid stacks, the encoder
+and modality frontends and ``unroll`` raise ``NotImplementedError``
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        cross_entropy, dtype_of, embed_tokens,
@@ -49,24 +57,21 @@ _unported = attn._unported
 # ---------------------------------------------------------------------------
 
 def layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
-    """(mixer, ff) for absolute layer index i: ("attn", "mlp") for every
-    layer of a dense stack, ("ssm", "none") for every layer of an ssm
-    stack; the kinds the port runs."""
+    """(mixer, ff) for absolute layer index i.
+
+    mixer: "attn" | "mla" | "ssm";  ff: "mlp" | "moe" | "none"
+    """
     if cfg.family == "ssm":
         return "ssm", "none"
     if cfg.family == "hybrid":
         raise _unported(f"the hybrid stack of {cfg.name} (attention, SSM "
                         f"and MoE layers)")
-    if cfg.attn_type == "mla":
-        raise _unported(f"the MLA attention of {cfg.name}")
-    if cfg.is_moe_layer(i):
-        raise _unported(f"the MoE layers of {cfg.name}")
-    return "attn", "mlp"
+    mixer = "mla" if cfg.attn_type == "mla" else "attn"
+    return mixer, "moe" if cfg.is_moe_layer(i) else "mlp"
 
 
 def _check_supported(cfg: ModelConfig):
-    for what, on in (("first_k_dense", cfg.first_k_dense),
-                     ("the encoder (n_enc_layers)", cfg.n_enc_layers),
+    for what, on in (("the encoder (n_enc_layers)", cfg.n_enc_layers),
                      (f"the {cfg.frontend} frontend",
                       cfg.frontend != "none")):
         if on:
@@ -88,8 +93,9 @@ class Model(nn.Module):
     """The parameters of a stack under the reference's names:
     ``embed_tokens`` (and ``lm_head`` when untied), ``blocks`` (layer i
     is ``blocks[i]``, a ``ModuleDict`` of ``norm1``, ``attn``, ``norm2``,
-    ``mlp`` in a dense stack, of ``norm1`` and ``ssm`` in an ssm stack)
-    and ``final_norm``. ``p[name]`` and ``name in p`` read it as
+    ``mlp`` in a dense stack, ``moe`` in place of ``mlp`` on an MoE
+    layer, of ``norm1`` and ``ssm`` in an ssm stack) and
+    ``final_norm``. ``p[name]`` and ``name in p`` read it as
     the reference reads its parameter dict.
 
     ``tree`` holds tensors: ``{"embed_tokens", ["lm_head"], "blocks":
@@ -123,11 +129,16 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int) -> dict:
     p = {"norm1": init_norm(cfg, gen)}
     if mixer == "ssm":
         p["ssm"] = ssm_mod.init_ssm(cfg, gen)
+    elif mixer == "mla":
+        p["attn"] = attn.init_mla(cfg, gen)
     else:
         p["attn"] = attn.init_attention(cfg, gen)
     if ff != "none":
         p["norm2"] = init_norm(cfg, gen)
-        p["mlp"] = init_mlp(cfg, gen)
+        if ff == "moe":
+            p["moe"] = moe_mod.init_moe(cfg, gen)
+        else:
+            p["mlp"] = init_mlp(cfg, gen)
     return p
 
 
@@ -152,12 +163,16 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
 def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
                    causal: bool, use_kernel: bool = False,
                    unroll: bool = False):
-    """Returns (x, cache_dict, aux_loss); aux is 0 without MoE."""
+    """Returns (x, cache_dict, aux_loss); aux is 0.0 without MoE."""
     mixer, ff = layer_kind(cfg, i)
+    aux = 0.0
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "ssm":
         out, cache = ssm_mod.ssm_forward(cfg, p["ssm"], h,
                                          use_kernel=use_kernel)
+    elif mixer == "mla":
+        out, cache = attn.mla_forward(cfg, p["attn"], h, positions,
+                                      unroll=unroll)
     else:
         out, kv = attn.attention_forward(cfg, p["attn"], h, positions,
                                          causal=causal, use_kernel=use_kernel,
@@ -166,8 +181,13 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
     x = x + out
     if ff != "none":
         h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(p["mlp"], h)
-    return x, cache, 0.0
+        if ff == "moe":
+            y, aux = moe_mod.moe_forward(cfg, p["moe"], h, unroll=unroll,
+                                         use_kernel=use_kernel)
+        else:
+            y = apply_mlp(p["mlp"], h)
+        x = x + y
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -208,10 +228,11 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     """Train / prefill forward. batch: ``tokens`` (B, S) on the model's
     device. Returns (logits (B, S, V), aux_loss[, caches]);
     ``caches["blocks"][i]`` holds layer i's raw cache at sequence length
-    S (k/v of an attention layer; state and conv carries of an ssm
-    layer), which ``serve.engine.prefill_to_decode_cache`` turns into
-    decode layout. ``remat`` ("none", "dots" or "full") checkpoints each
-    layer's body, as the reference does each super-block's.
+    S (k/v of an attention layer, ``ckv`` of an MLA layer; state and
+    conv carries of an ssm layer), which
+    ``serve.engine.prefill_to_decode_cache`` turns into decode layout.
+    ``remat`` ("none", "dots" or "full") checkpoints each layer's body,
+    as the reference does each super-block's.
     """
     _check_supported(cfg)
     if mesh is not None:
@@ -224,15 +245,17 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     block_caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
         body = partial(_layer_forward, cfg, p, positions=positions, i=i,
                        causal=True, use_kernel=use_kernel, unroll=unroll)
-        x, c, _ = _remat(remat, body, x)
+        x, c, aux = _remat(remat, body, x)
+        if torch.is_tensor(aux):        # an MoE layer's
+            aux_total = aux_total + aux
         if want_cache:
             block_caches.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params, x)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if want_cache:
         return logits, aux_total, {"blocks": block_caches}
     return logits, aux_total
@@ -260,9 +283,15 @@ def loss_fn(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
 def _layer_cache_shape(cfg: ModelConfig, i: int, B: int, S_max: int,
                        device) -> dict:
     """Zero decode cache of one layer: the fp32 SSD state and the conv
-    carries (model dtype) of an ssm layer, k/v of an attention layer."""
+    carries (model dtype) of an ssm layer, the compressed ``ckv`` of an
+    MLA layer, k/v of an attention layer."""
     dt = dtype_of(cfg)
-    if layer_kind(cfg, i)[0] == "ssm":
+    mixer = layer_kind(cfg, i)[0]
+    if mixer == "mla":
+        width = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return {"ckv": torch.zeros((B, S_max, width), dtype=dt,
+                                   device=device)}
+    if mixer == "ssm":
         di, K = cfg.d_inner, cfg.ssm_conv
         GN = cfg.ssm_groups * cfg.ssm_state
         return {
@@ -294,28 +323,41 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, enc_len: int = 0, *,
 
 
 def _layer_decode(cfg: ModelConfig, p, x, cache: dict, t: int, i: int, *,
-                  mesh=None, dp_entry=None):
+                  mesh=None, dp_entry=None, use_kernel=False):
     mixer, ff = layer_kind(cfg, i)
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "ssm":
         out, new_cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+    elif mixer == "mla":
+        out, new_cache = attn.mla_decode(cfg, p["attn"], h, cache, t,
+                                         mesh=mesh, dp_entry=dp_entry)
     else:
         out, new_cache = attn.attention_decode(cfg, p["attn"], h, cache, t,
                                                mesh=mesh, dp_entry=dp_entry)
     x = x + out
     if ff != "none":
         h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(p["mlp"], h)
+        if ff == "moe":
+            y, _ = moe_mod.moe_forward(cfg, p["moe"], h, mesh=mesh,
+                                       dp_entry=dp_entry,
+                                       use_kernel=use_kernel)
+        else:
+            y = apply_mlp(p["mlp"], h)
+        x = x + y
     return x, new_cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
-                mesh=None, dp_entry=None, unroll: bool = False):
+                mesh=None, dp_entry=None, use_kernel=False,
+                unroll: bool = False):
     """One decode step. tokens_t: (B, 1); t: the new token's position (the
     current length). Returns (logits (B, 1, V), new_cache); attention
-    caches are updated in place (see ``attention.attention_decode``), an
-    ssm layer's state and carries are new tensors."""
+    and MLA caches are updated in place (see
+    ``attention.attention_decode``), an ssm layer's state and carries
+    are new tensors. With ``use_kernel=True`` an MoE layer slots its
+    records through bucket_slots' wrapper (the kernel on the card, its
+    plain version on the CPU), else through the plain version."""
     _check_supported(cfg)
     if unroll:
         raise _unported("unroll=True")
@@ -323,7 +365,7 @@ def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
     new_blocks = []
     for i, (p, c) in enumerate(zip(params["blocks"], cache["blocks"])):
         x, nc = _layer_decode(cfg, p, x, c, t, i, mesh=mesh,
-                              dp_entry=dp_entry)
+                              dp_entry=dp_entry, use_kernel=use_kernel)
         new_blocks.append(nc)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed(cfg, params, x), {"blocks": new_blocks}

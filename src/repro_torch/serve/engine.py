@@ -6,11 +6,13 @@ max_len-sized cache. ``ServeEngine`` wraps it: batched requests, greedy
 or temperature sampling, early-stop bookkeeping.
 
 One deliberate difference from the reference: its engine prefills with
-``use_pallas`` left at False, this one prefills with ``use_kernel=True``,
-so a served request runs the flash_attention kernel (dense stacks) or
-the ssd_scan kernel (ssm stacks) on the card, once per layer and
-prefill. Both compute the same function (the kernels are held to it by
-the tests).
+``use_pallas`` left at False, this one prefills and decodes with
+``use_kernel=True``, so a served request runs the flash_attention kernel
+(dense stacks) or the ssd_scan kernel (ssm stacks) on the card once per
+layer and prefill, or the bucket_slots kernel (MoE stacks) twice a
+pipeline step of every MoE layer, at prefill and at every decode
+step. Both compute the same
+function (the kernels are held to it by the tests).
 """
 from __future__ import annotations
 
@@ -34,9 +36,14 @@ from repro_torch.models.transformer import Model, layer_kind
 def _convert_layer(cfg: ModelConfig, kind: str, raw: dict, S: int,
                    S_max: int) -> dict:
     """raw prefill cache (seq length S) -> decode layout (capacity S_max).
-    ``kind`` is "ssm" or "attn": ``layer_kind`` raises on the others."""
+    ``kind`` is "ssm", "mla" or "attn": ``layer_kind`` raises on the
+    others."""
     if kind == "ssm":
         return raw  # state + conv carries are already the decode layout
+    if kind == "mla":
+        _fits(S, S_max)
+        return {"ckv": torch.nn.functional.pad(raw["ckv"],
+                                               (0, 0, 0, S_max - S))}
     out = {}
     if cfg.attn_type == "swa":
         W = min(cfg.sliding_window, S_max)
@@ -49,13 +56,17 @@ def _convert_layer(cfg: ModelConfig, kind: str, raw: dict, S: int,
             ring[:, slots] = x[:, S - n:]
             out[name] = ring
     else:
-        if S > S_max:
-            raise ValueError(f"a prefill of {S} tokens does not fit a "
-                             f"cache of {S_max}")
+        _fits(S, S_max)
         for name in ("k", "v"):
             out[name] = torch.nn.functional.pad(raw[name],
                                                 (0, 0, 0, 0, 0, S_max - S))
     return out
+
+
+def _fits(S: int, S_max: int):
+    if S > S_max:
+        raise ValueError(f"a prefill of {S} tokens does not fit a "
+                         f"cache of {S_max}")
 
 
 def prefill_to_decode_cache(cfg: ModelConfig, caches: dict, S: int,
@@ -74,10 +85,12 @@ def prefill_to_decode_cache(cfg: ModelConfig, caches: dict, S: int,
 def make_serve_step(cfg: ModelConfig, *, mesh=None, dp_entry=None,
                     unroll: bool = False):
     """serve_step(params, cache, tokens_t (B,1), t) -> (logits, cache):
-    one new token with a KV cache of max_len."""
+    one new token with a KV cache of max_len, through the kernel path
+    (``use_kernel=True``), as the engine's prefill."""
     def serve_step(params, cache, tokens_t, t):
         return tf.decode_step(cfg, params, cache, tokens_t, t,
-                              mesh=mesh, dp_entry=dp_entry, unroll=unroll)
+                              mesh=mesh, dp_entry=dp_entry, use_kernel=True,
+                              unroll=unroll)
     return serve_step
 
 

@@ -16,9 +16,10 @@ state in place (parameters, moments, step counter, residuals) and
 returns the same state, as the reference's jitted step donates its
 input state.
 
-Only the single-device step is ported: ``mesh=``, ``dp_entry=`` and
-``unroll=True`` raise ``NotImplementedError`` (ROADMAP Queue 1 item
-12, the distributed entry).
+Only the single-device step of the dense, SWA and ssm stacks is
+ported: ``mesh=``, ``dp_entry=``, ``unroll=True`` and a stack with MoE
+layers or MLA attention raise ``NotImplementedError`` (ROADMAP Queue 1
+item 12; those stacks serve, and ``loss_fn`` runs them forward).
 """
 from __future__ import annotations
 
@@ -105,6 +106,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, mesh=None,
                         "the distributed entry)")
     if unroll:
         raise _unported("unroll=True")
+    if cfg.n_experts or cfg.attn_type == "mla":
+        raise _unported(f"training of {cfg.name}'s MoE and MLA layers")
     tcfg = run.train
 
     def grads(state: TrainState, batch: dict):

@@ -1276,3 +1276,132 @@ def test_train_phase_on_the_card_at_a_narrow_width(cuda_device):
     assert t["grad_accum"] == 2 and len(t["grads_ms"]) == 8
     assert t["profile"]["device_s"] > 0 and t["peak_bytes"] > 0
     assert t["resume_max_rel_diff"] <= chip_smoke.TRAIN_RESUME_RTOL
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer on the card: bucket_slots on the served path
+# ---------------------------------------------------------------------------
+
+def _moe_layer(cuda_device, **kw):
+    """deepseek-v2-lite's SMOKE config (or ``kw`` over it) and one MoE
+    layer of random weights on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import init_moe
+    cfg = dataclasses.replace(get_smoke_config(chip_smoke.MOE_ARCH), **kw)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    return cfg, init_moe(cfg, gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_kernel_path_equals_the_plain_path(cuda_device, mode, dtype):
+    """The MoE layer with its slots from the kernel equals the layer with
+    them from ``bucket_slots_ref`` bit for bit on the card (the port
+    combines by gathers, with no atomics), and in fp32 the CPU's run of
+    the same weights within 1e-5."""
+    from repro_torch.models.moe import moe_forward
+    cfg, p = _moe_layer(cuda_device, dispatch_mode=mode, dtype=dtype,
+                        param_dtype=dtype)
+    x = torch.randn((4, 96, cfg.d_model), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device) \
+        .to(getattr(torch, dtype))
+    with torch.inference_mode():
+        yk, ak = moe_forward(cfg, p, x, use_kernel=True)
+        yp, ap = moe_forward(cfg, p, x, use_kernel=False)
+        assert torch.equal(yk, yp) and torch.equal(ak, ap)
+        if dtype == "float32":
+            yc, _ = moe_forward(cfg, {k: v.cpu() for k, v in p.items()},
+                                x.cpu(), use_kernel=True)
+            np.testing.assert_allclose(yk.cpu().numpy(), yc.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_forward_launches_twice_a_pipeline_step(cuda_device):
+    """One 1s forward launches bucket_slots 2 (G + 1) times (G = 2 here),
+    a 2s forward twice; the plain path launches it never."""
+    from repro_torch.models.moe import moe_forward
+    cfg, p = _moe_layer(cuda_device)
+    x = torch.randn((2, 64, cfg.d_model), device=cuda_device,
+                    dtype=torch.bfloat16)
+    for mode, want in (("1s", 2 * (cfg.dispatch_groups + 1)), ("2s", 2)):
+        before = sl_ops.bucket_slots.launches
+        moe_forward(dataclasses.replace(cfg, dispatch_mode=mode), p, x,
+                    use_kernel=True)
+        torch.cuda.synchronize(cuda_device)
+        assert sl_ops.bucket_slots.launches == before + want, mode
+    before = sl_ops.bucket_slots.launches
+    moe_forward(cfg, p, x, use_kernel=False)
+    assert sl_ops.bucket_slots.launches == before
+
+
+@pytest.mark.cuda
+def test_bucket_slots_at_the_served_shapes(cuda_device, monkeypatch):
+    """One MoE layer at deepseek-v2-lite's full width (d_model 2048, 64
+    experts top-6, 2 shared) on a served batch of 8 x 2048 tokens:
+    every slot call, the peer buckets (T 24,576 at E 1) and the expert
+    buffers (T 30,721 at E 64) of each pipeline step, equals
+    ``bucket_slots_ref`` bit for bit."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch.ref import bucket_slots_ref
+    from repro_torch.models import moe
+    cfg = get_config(chip_smoke.MOE_ARCH)
+    p = moe.init_moe(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    x = torch.randn((8, 2048, cfg.d_model), device=cuda_device,
+                    dtype=torch.bfloat16)
+    real, shapes = sl_ops.bucket_slots, []
+
+    def checked(ids, n, **kw):
+        got = real(ids, n, **kw)
+        want = bucket_slots_ref(ids, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        shapes.append((ids.numel(), n))
+        return got
+
+    monkeypatch.setattr(moe, "slot_ops", types.SimpleNamespace(
+        bucket_slots=checked))
+    with torch.inference_mode():
+        moe.moe_forward(cfg, p, x, use_kernel=True)
+    assert shapes == [(24_576, 1), (30_721, 64)] * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_step_kernel_path_equals_the_plain_path(cuda_device,
+                                                           dtype):
+    """One decode step of deepseek-v2-lite's SMOKE stack on the card: the
+    engine's step launches bucket_slots 2 (G + 1) times an MoE layer,
+    ``decode_step(use_kernel=False)`` never, and the two give the same
+    logits and caches bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine as eng
+    cfg = dataclasses.replace(get_smoke_config(chip_smoke.MOE_ARCH),
+                              dtype=dtype, param_dtype=dtype)
+    model = tf.init_model(cfg, 0, device=cuda_device)
+    B, S = 4, 48
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    with torch.inference_mode():
+        _, _, raw = tf.forward(cfg, model, {"tokens": toks}, want_cache=True)
+    engine = eng.ServeEngine(cfg, model, max_len=S + 4, device=cuda_device)
+    nxt = toks[:, :1].to(torch.int32)
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    out = {}
+    for name, want in (("kernel", moe_layers * len(chip_smoke.slot_shapes(
+            cfg, B))), ("plain", 0)):
+        cache = eng.prefill_to_decode_cache(cfg, raw, S, S + 4)
+        before = sl_ops.bucket_slots.launches
+        with torch.inference_mode():
+            out[name] = engine._step(model, cache, nxt, S) \
+                if name == "kernel" else \
+                tf.decode_step(cfg, model, cache, nxt, S, use_kernel=False)
+        torch.cuda.synchronize(cuda_device)
+        assert sl_ops.bucket_slots.launches == before + want, name
+    assert torch.equal(out["kernel"][0], out["plain"][0])
+    for a, b in zip(out["kernel"][1]["blocks"], out["plain"][1]["blocks"]):
+        assert torch.equal(a["ckv"], b["ckv"])

@@ -52,6 +52,12 @@ def test_the_scans_cover_the_scheduler_modules():
             "fleet/supervisor.py"} <= names
 
 
+def test_the_scans_cover_the_moe_modules():
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"models/moe.py", "models/attention.py",
+            "configs/deepseek_v2_lite.py"} <= names
+
+
 TRAINING_MODULES = ("config", "data.pipeline", "data.tokenizer", "optim",
                     "optim.adamw", "optim.compress", "train",
                     "train.train_step", "launch.specs", "launch.train")
@@ -489,6 +495,60 @@ def test_smoke_ssd_and_mamba_serve_phases_rehearse_on_cpu():
     mem = serve["memory"]
     assert mem["cache_storage_bytes"] == mem["cache_bytes"] > 0
     assert mem["logits_bytes"] == 2 * 40 * cfg.vocab_size * 2   # bf16
+
+
+def test_smoke_moe_serve_phase_rehearses_on_cpu():
+    """deepseek-v2-lite's part of phase 4 at its SMOKE config (MLA, one
+    leading dense layer, two MoE layers): served tokens checked, the
+    kernel path's logits against bucket_slots_ref's, every slot call of
+    a prefill and of a decode step bit for bit (12 each: two layers x 2
+    (G + 1)) at the prefill's and the decode's shapes, that decode
+    step's logits equal to the plain path's, no kernel launched on the
+    CPU; the launches it expects here and at full width (10 a layer and
+    call, 26 MoE layers, a prefill and 31 decode steps) and the served
+    shapes there; and the ``kernels`` entry it makes from the card's
+    numbers."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config(chip_smoke.MOE_ARCH)
+    assert chip_smoke.SERVE_ARCHS == dict.fromkeys(
+        ("olmo-1b", "mamba2-780m", "h2o-danube-1.8b", chip_smoke.MOE_ARCH),
+        chip_smoke.BATCH)
+    assert chip_smoke.serve_kernel(cfg)[0] == "bucket_slots"
+    serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
+                                   prompt_len=32, new_tokens=4)
+    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["want_launches"] == 2 * 3 * 2 * 4
+    assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
+    slots = serve["slots"]
+    assert slots["calls"] == slots["decode_calls"] == 12
+    assert slots["times"] == {}
+    # (Tkg, 1) and (cap at 1.25, 8): the decode's 2 tokens, the prefill's 64
+    assert slots["shapes"] == [(2, 1), (3, 8), (64, 1), (81, 8)]
+    serve["seconds"] = 0.0
+    chip_smoke.print_serve(serve)
+    full = get_config(chip_smoke.MOE_ARCH)
+    assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == 10 * 26 * 32
+    assert chip_smoke.slot_shapes(full, 8 * 2048) == \
+        [(24_576, 1), (30_721, 64)] * 5
+    assert chip_smoke.slot_shapes(full, 8) == [(12, 1), (16, 64)] * 5
+    assert chip_smoke.serve_launches(get_config("olmo-1b"), 16, 8, 2048,
+                                     32) == 32
+    # the kernels line's entry, from numbers shaped as the card's
+    t = dict(ms=0.02, plain_ms=1.0, bound_ms=1e-4, bound_by="bytes",
+             library_ms=None, device_ms=0.006,
+             device_activities_per_call=1.0)
+    serve["slots"]["times"] = {"served_T24576_E1": {**t, "bytes": 196_612},
+                               "served_T30721_E64": {**t, "bytes": 246_024}}
+    entry = {"name": "bucket_slots", "launches": 2, "max_abs_err": 0,
+             **t, "shape": "slots_routing", "slots_owner_window": t}
+    e = chip_smoke.served_slots_kernel(serve, entry)
+    assert e["launches"] == 0 and e["shape"] == "served_T30721_E64"
+    assert e["launches_by_path"]["entry points"] == 2
+    assert e["served_calls_checked"] == {"prefill": 12, "decode_step": 12}
+    assert set(e) >= {"served_T24576_E1", "slots_routing",
+                      "slots_owner_window", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms"}
 
 
 def test_smoke_entry_point_phases_rehearse_on_cpu():

@@ -33,7 +33,8 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
 ARCHS = ("olmo-1b", "h2o-danube-1.8b")
-ALL_ARCHS = ARCHS + ("mamba2-780m",)    # the ssm family: test_torch_ssm_serve
+# the ssm family: test_torch_ssm_serve; MoE + MLA: test_torch_mla_serve
+ALL_ARCHS = ARCHS + ("mamba2-780m", "deepseek-v2-lite-16b")
 B, S, NEW = 2, 96, 6
 CPU = torch.device("cpu")
 
@@ -320,17 +321,35 @@ def test_configs_are_the_reference_configs():
 @pytest.mark.parametrize("what", ["hybrid", "moe", "mla", "first_k_dense",
                                   "encoder", "frontend", "unroll"])
 def test_unported_parts_raise(what):
+    """What the port does not run raises, naming its ROADMAP item. MoE,
+    MLA and first_k_dense stacks build and serve (test_torch_mla_serve),
+    so their cases hold what of them stays unported: the MoE layer under
+    a mesh, MLA decode over a seq-sharded cache, and the replicated
+    decode-time dispatch of deepseek-v2-lite's expert layers."""
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import moe as tmoe
     cfg = tregistry.get_smoke_config("olmo-1b")
-    bad = {"hybrid": dict(family="hybrid", attn_every=2), "moe": dict(n_experts=4, top_k=2),
-           "mla": dict(attn_type="mla"), "first_k_dense": dict(
-               first_k_dense=1, n_layers=3),
+    ds = tregistry.get_smoke_config("deepseek-v2-lite-16b")
+    bad = {"hybrid": dict(family="hybrid", attn_every=2),
            "encoder": dict(n_enc_layers=2), "frontend": dict(
                frontend="vision_stub")}
     toks = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    x = torch.zeros((1, 8, ds.d_model))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         if what in bad:
             ttf.init_model(dataclasses.replace(cfg, **bad[what]), 0,
                            device=CPU)
+        elif what in ("moe", "mla", "first_k_dense"):
+            layer = ttf.init_model(ds, 0, device=CPU)["blocks"][1]
+            if what == "moe":
+                tmoe.moe_forward(ds, layer["moe"], x, mesh=object())
+            elif what == "mla":
+                cache = ttf.init_cache(ds, 1, 16, device=CPU)["blocks"][1]
+                tattn.mla_decode(ds, layer["attn"], x[:, :1], cache, 8,
+                                 mesh=object())
+            else:
+                tmoe._dispatch_replicated(ds, layer["moe"], x[0], None,
+                                          None, ds.n_experts, "model")
         else:
             model = ttf.init_model(cfg, 0, device=CPU)
             ttf.forward(cfg, model, toks, unroll=True)

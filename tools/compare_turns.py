@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """MR-1S against MR-2S, snapshots, key skew, fleets, I/O overlap, the
-coded shuffle, cross-job co-scheduling, the elastic fleet and training.
+coded shuffle, cross-job co-scheduling, the elastic fleet, serving and
+training.
 
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
-                  elastic,train]
-        [--out FILE]
+                  elastic,serve,train]
+        [--archs ARCH,...] [--out FILE]
 
 Phases 3b-3i of ``chip_smoke.py`` on their own, on one CUDA card (its
 ``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
@@ -20,9 +21,11 @@ input in turns; fig15's coded arms in turns; fig14's fleets with and
 without co-scheduling; fig13's supervised campaigns and the fused job
 re-meshed 8 -> 6 -> 8. Every job's records are held to the oracle or to
 the uninterrupted or solo job's. ``fused_map`` is built from this
-checkout at its first use. ``train`` is phase 5, olmo-1b trained at
-full width (``phase_train``, with its checks (a)-(d)); it reaches no
-kernel.
+checkout at its first use. ``serve`` is phase 4 (``phase_serves``:
+``phase_serve`` with its gates) for each arch of ``--archs`` (default:
+every arch of ``SERVE_ARCHS``; ``--archs deepseek-v2-lite-16b`` serves
+the MoE stack alone). ``train`` is phase 5, olmo-1b trained at full width
+(``phase_train``, with its checks (a)-(d)); it reaches no kernel.
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -46,6 +49,7 @@ import chip_smoke as cs  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="compare,snapshots")
+    ap.add_argument("--archs", default=",".join(cs.SERVE_ARCHS))
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,7 +59,8 @@ def main(argv=None) -> int:
     phases = args.phases.split(",")
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
-              if set(phases) - {"keyskew", "coded", "crossjob", "train"}
+              if set(phases) - {"keyskew", "coded", "crossjob", "serve",
+                                "train"}
               else None)
     out = {}
     for phase in phases:
@@ -75,6 +80,9 @@ def main(argv=None) -> int:
                          cs.print_crossjob),
             "elastic": (lambda: cs.phase_elastic(device, corpus),
                         cs.print_elastic),
+            "serve": (lambda: cs.phase_serves(device,
+                                              args.archs.split(",")),
+                      lambda out: None),    # printed arch by arch
             "train": (lambda: cs.phase_train(
                 device, cs._serve()[0](cs.TRAIN_ARCH)), cs.print_train)}[phase]
         t0 = time.perf_counter()
