@@ -12,9 +12,10 @@ Phases, each of which asserts (nothing is caught):
                mutant kernels share ``mutants.cu``);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
-               shapes (flash_attention at olmo-1b's and h2o-danube-1.8b's
-               served shapes and at h2o's heads over S 8192, where its
-               window skips tiles; fused_map, hist and bucket_slots bit
+               shapes (flash_attention at olmo-1b's, h2o-danube-1.8b's and
+               jamba-v0.1's served shapes and at h2o's heads over S 8192,
+               where its window skips tiles; ssd_scan at mamba2-780m's
+               and jamba-v0.1's; fused_map, hist and bucket_slots bit
                for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
                events, beside the library call where there is one;
@@ -69,7 +70,7 @@ Phases, each of which asserts (nothing is caught):
                numpy oracle and the kernel launched once a step on the
                main path, each step a CUDA graph replay; the feed's
                prefetch hits and its host seconds a segment; on a
-               2**25-token corpus of the same width the fused job, its
+               2**24-token corpus of the same width the fused job, its
                eager step loop (the graph's baseline) and the unfused
                job (~9x slower), all equal; then, over a segment whose
                input is read, the graph's and the eager loop's host
@@ -190,57 +191,81 @@ Phases, each of which asserts (nothing is caught):
                host twin's, the device fold's and ``rebucketize_tasks``'
                seconds, each part's wall and steps, and the P 6 part's
                wall over the P 8 job's second half;
-  4. serve   — olmo-1b, mamba2-780m, h2o-danube-1.8b (head dim 80) and
-               deepseek-v2-lite-16b (27 layers, MLA, one leading dense
-               layer, 26 MoE layers of 64 experts top-6 and 2 shared)
-               at full width through ``ServeEngine.generate``: one batch
+  4. serve   — olmo-1b, mamba2-780m, h2o-danube-1.8b (head dim 80),
+               deepseek-v2-lite-16b (its width, 9 of its 27 layers: MLA,
+               one leading dense layer, 8 MoE layers of 64 experts top-6
+               and 2 shared) and
+               jamba-v0.1-52b (its width, one period of 8 layers: SSD
+               layers of 128 heads x 64 with state 16, GQA 32/8 attention
+               at slot 4, MoE of 16 experts top-2 on the odd slots) at
+               full width through ``ServeEngine.generate``: one batch
                of 8 requests each, 2048-token prompts, 32 new tokens,
-               greedy; (a) the arch's kernel (flash_attention, ssd_scan)
-               launched once per layer and prefill, bucket_slots 2 (G +
-               1) times an MoE layer at the prefill and at every decode
-               step (``serve_launches``); (b) the kernel path's
+               greedy; (a) each of the arch's kernels launched as the
+               code says (``serve_launches``): flash_attention once an
+               attention layer and prefill, ssd_scan once an SSD layer and
+               prefill, bucket_slots 2 (G + 1) times an MoE layer at the
+               prefill and at every decode step; (b) the kernel path's
                last-position logits within 3e-2 * max|logits| of the
-               reference path's (bucket_slots_ref for deepseek) and
-               finite; (c) the first served token a maximum of them;
-               (d) for deepseek every bucket_slots call of one prefill
-               bit for bit equal to bucket_slots_ref (``served_slots``);
-               (e) every call of one decode step of the engine likewise,
-               and that step's logits and caches bit for bit equal to the
-               plain path's (``served_decode``); the kernel timed at the
-               first MoE layer's four served shapes (T 24,576 at E 1 and
+               reference path's (an MoE stack's with the kernel path's
+               routing, ``same_routing``) and finite; (c) the first
+               served token a maximum of them; (d) for an MoE stack every
+               bucket_slots call of one prefill bit for bit equal to
+               bucket_slots_ref (``served_slots``); (e) every call of one
+               decode step of the engine likewise, and that step's logits
+               and caches bit for bit equal to the plain path's
+               (``served_decode``); the kernel timed at the first MoE
+               layer's four served shapes (deepseek: T 24,576 at E 1 and
                T 30,721 at E 64 at prefill, T 12 at E 1 and T 16 at E 64
-               at decode) by events and device time beside its plain
-               version and bound, and its share of the prefill's and a
-               decode step's device time; for mamba2,
-               whose bf16 paths drift apart with depth, each layer's mixer
-               instead, and each served batch against the same weights in
-               fp32: the fp32 kernel path within 1e-3 * max|logits| of the
-               fp32 reference path, and the bf16 kernel path no more than
-               1.5 times as far from it as the bf16 reference path; the
-               weights, a prefill's peak and what it leaves in memory;
+               at decode; jamba: T 8,192 at E 1, T 10,241 at E 16, T 4 at
+               E 1, T 6 at E 16) by events and device time beside its
+               plain version and bound, and its share of the prefill's
+               and a decode step's device time; every attention and SSD
+               layer's mixer, kernel against plain on the kernel path's
+               input, within 3e-2 * max|out|; for mamba2 and jamba, whose
+               bf16 paths drift apart with depth, (b) is reported and
+               the stack held instead to the same weights in fp32 (mamba2
+               each served batch, jamba its first 2 prompts with its
+               weights upcast a layer at a time): the fp32 kernel path
+               within 1e-3 * max|logits| of the fp32 reference path, and
+               the bf16 kernel path no more than 1.5 times as far from it
+               as the bf16 reference path; the weights, a prefill's peak
+               and what it leaves in memory;
   5. train  — olmo-1b at full width (16 layers, d_model 2048, bf16
                parameters, fp32 AdamW moments) through
                ``make_train_step``: 20 steps of 8 x 512 tokens of
                ``lm_token_stream`` behind the ``DoubleBufferedLoader``, two
                microbatches of 4 a step, full remat, ``save_async`` after
-               step 3. No kernel is launched: the reference's train step
-               reaches no Pallas kernel. The losses of the first and last
-               step, median ms a step split into fwd+bwd and optimizer by
-               CUDA events, tokens/s, the model-FLOPs share at 989 TFLOP/s,
-               peak memory and the busy share over two steps; (a) every
-               loss finite and the last 5 below the first 5 on average,
-               (b) on one batch from a fresh state one step at A = 2 and
-               one at A = 1 within 1e-2 (loss) and 2e-2 (grad norm)
-               relative, (c) the snapshot restored into a fresh state and
-               steps 3-5 rerun on ``lm_batches(skip=3)`` within 1e-3 of
-               the uninterrupted run's losses, (d) no parameter non-finite;
+               step 3; no kernel is launched: the reference's train step
+               reaches no Pallas kernel. Then deepseek-v2-lite-16b at full
+               width cut to 4 layers (the leading dense layer and 3 MoE
+               layers, 1s dispatch), 10 steps of the same shape, no
+               snapshot: its MoE layers slot every pipeline step's records
+               through bucket_slots, twice under full remat, and it
+               launches no other kernel. Each: the losses of the first and
+               last step, median ms a step split into fwd+bwd and
+               optimizer by CUDA events, tokens/s, the model-FLOPs share
+               over the active parameters at 989 TFLOP/s, peak memory and
+               the busy share over two steps, the launches (equal to the
+               code's count, ``train_launches``); (a) every loss finite
+               and the last 5 below the first 5 on average, (b) on one
+               batch from a fresh state one step at A = 2 and one at A = 1
+               within 1e-2 (loss) and 2e-2 (grad norm) relative, (c) for
+               olmo the snapshot restored into a fresh state and steps 3-5
+               rerun on ``lm_batches(skip=3)`` within 1e-3 of the
+               uninterrupted run's losses, (d) no parameter non-finite,
+               (e) for deepseek one microbatch's gradients under full
+               remat and under remat none, every slot call of each bit for
+               bit equal to bucket_slots_ref, the recompute's calls equal
+               to the forward's and the forward's to remat none's, and the
+               two gradients within 1e-2 of each leaf's max
+               (``train_slots``);
   6. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
 3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
-each rank count's part of 3i, each arch of 4, and the training run of
+each rank count's part of 3i, each arch of 4, and each training run of
 5) and read just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
@@ -274,16 +299,28 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 # 20 s on an H100, so the input was raised to keep the run measurable)
 VOCAB, N_PROCS, TASK, CAP, SEGMENT = 262_144, 8, 256, 64, 512
 N_TOKENS = 2**27
-N_UNFUSED = 2**25               # the fused-vs-unfused comparison's corpus
+# the fused-vs-unfused comparison's corpus: the unfused job takes ~4 us a
+# token on an H100 (113.6-139.4 s at 2**25), so it runs at 2**24 to keep
+# the smoke within 800 s
+N_UNFUSED = 2**24
 
 
-# the served configurations at full width (depth and width as published),
-# random weights from seed 0, and the requests each serves: one batch
-# each, so that deepseek-v2-lite's phase fits the smoke's time
+# the served configurations at full width (width as published, depth as
+# published unless ``SERVE_LAYERS`` cuts it), random weights from seed 0,
+# and the requests each serves: one batch each, so that the MoE phases
+# fit the smoke's time
 REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = 16, 8, 2048, 32
 MOE_ARCH = "deepseek-v2-lite-16b"
+HYBRID_ARCH = "jamba-v0.1-52b"
 SERVE_ARCHS = {"olmo-1b": BATCH, "mamba2-780m": BATCH,
-               "h2o-danube-1.8b": BATCH, MOE_ARCH: BATCH}
+               "h2o-danube-1.8b": BATCH, MOE_ARCH: BATCH, HYBRID_ARCH: BATCH}
+# depth cuts, the width kept: jamba-v0.1's 32 layers (51.5 B parameters,
+# ~103 GB in bf16) do not fit one 80 GB card; one period of 8 layers
+# (13.3 B, 26.5 GB) holds every layer kind of the family. deepseek-v2-lite's
+# 27 layers took 58-78 s of the smoke on an H100 (its decode is host-bound,
+# ~10,000 ops a step); the leading dense layer and 8 MoE layers keep every
+# layer kind and the smoke within 800 s
+SERVE_LAYERS = {HYBRID_ARCH: 8, MOE_ARCH: 9}
 
 
 def _port():
@@ -614,8 +651,10 @@ FLASH_MATRIX = {
 FLASH_SERVED = (BATCH, PROMPT_LEN, 16, 16, 128, True, 0, "bfloat16")
 FLASH_H2O = (BATCH, PROMPT_LEN, 32, 8, 80, True, 4096, "bfloat16")
 FLASH_H2O_LONG = (1, 8192, 32, 8, 80, True, 4096, "bfloat16")
+# jamba-v0.1's attention layer at prefill: GQA 32 / 8 at head dim 128
+FLASH_JAMBA = (BATCH, PROMPT_LEN, 32, 8, 128, True, 0, "bfloat16")
 FLASH_FULL = {"served": FLASH_SERVED, "h2o_served": FLASH_H2O,
-              "h2o_long8192": FLASH_H2O_LONG}
+              "h2o_long8192": FLASH_H2O_LONG, "jamba_served": FLASH_JAMBA}
 
 
 def flash_tol(dtype: str) -> dict:
@@ -682,14 +721,15 @@ def flash_bound(case) -> tuple[float, str, dict]:
 
 def time_flash(device) -> dict:
     """CUDA-event time per call at the served shapes (olmo-1b's, and
-    h2o-danube-1.8b's under ``"h2o"``): the kernel, its plain version and
-    ``scaled_dot_product_attention`` (the library yardstick, never on the
-    port's path; ``enable_gqa`` for h2o, whose 4096 window is wider than
-    the prompt, so ``is_causal`` is the same function), beside the
-    bound."""
+    h2o-danube-1.8b's and jamba-v0.1's under ``"h2o"`` and ``"jamba"``):
+    the kernel, its plain version and ``scaled_dot_product_attention``
+    (the library yardstick, never on the port's path; ``enable_gqa`` for
+    GQA; h2o's 4096 window is wider than the prompt, so ``is_causal`` is
+    the same function), beside the bound."""
     fa_ops, fa_ref = _fa()
     out = {}
-    for name, case in (("olmo", FLASH_SERVED), ("h2o", FLASH_H2O)):
+    for name, case in (("olmo", FLASH_SERVED), ("h2o", FLASH_H2O),
+                       ("jamba", FLASH_JAMBA)):
         q, k, v = flash_inputs(case, device)
         window = case[6]
         ms = _event_ms(lambda: fa_ops.flash_attention(
@@ -709,7 +749,7 @@ def time_flash(device) -> dict:
                          sdpa_vs_kernel_max_abs=sdpa_err, bound_ms=bound_ms,
                          bound_by=bound_by, **work)
         del q, k, v
-    return {**out["olmo"], "h2o": out["h2o"]}
+    return {**out["olmo"], "h2o": out["h2o"], "jamba": out["jamba"]}
 
 
 # the reference's ssd_scan test matrix (tests/test_kernels.py::
@@ -741,6 +781,10 @@ SSD_MATRIX = {
 }
 SSD_SERVED = (BATCH, PROMPT_LEN, 48, 64, 128, 1, 256, "bfloat16", "bfloat16",
               None)
+# jamba-v0.1's SSD layers at prefill: 128 heads of 64, state 16
+SSD_JAMBA = (BATCH, PROMPT_LEN, 128, 64, 16, 1, 256, "bfloat16", "bfloat16",
+             None)
+SSD_FULL = {"served": SSD_SERVED, "jamba_served": SSD_JAMBA}
 
 
 def ssd_inputs(case, device):
@@ -876,30 +920,39 @@ def check_ssd_bits(device, cases: dict) -> dict:
 
 
 def time_ssd(device) -> dict:
-    """At the served shape: CUDA-event and profiler device time per call of
-    the bf16 kernel, its device kernels a call (checked against the
-    wrapper's ``DEVICE_KERNELS``), the fp32 kernel's event time on the
-    same inputs in fp32, and the plain version's, beside the bound. No
-    single PyTorch call computes the scan, so there is no library time."""
+    """At the served shapes (mamba2-780m's, and jamba-v0.1's under
+    ``"jamba"``): CUDA-event and profiler device time per call of the bf16
+    kernel, its device kernels a call (checked against the wrapper's
+    ``DEVICE_KERNELS``), and the plain version's, beside the bound; at
+    mamba2's also the fp32 kernel's event time on the same inputs in
+    fp32. No single PyTorch call computes the scan, so there is no
+    library time."""
     ssd_ops, ssd_ref = _ssd()
-    args = ssd_inputs(SSD_SERVED, device)
-    chunk = SSD_SERVED[6]
-    run = lambda: ssd_ops.ssd(*args, chunk=chunk)   # noqa: E731
-    ms = _event_ms(run, 20)
-    expect = ssd_ops.DEVICE_KERNELS[torch.bfloat16]
-    device_ms, kernels, per_call = _device_ms(run, 20, tries=5,
-                                              per_call=expect)
-    assert round(per_call) == expect, (per_call, kernels)
-    args32 = ssd_inputs((*SSD_SERVED[:7], "float32", "float32", None),
-                        device)
-    fp32_ms = _event_ms(lambda: ssd_ops.ssd(*args32, chunk=chunk), 5)
-    del args32
-    plain_ms = _event_ms(lambda: ssd_ref.ssd_plain(*args, chunk=chunk), 3)
-    bound_ms, bound_by, work = ssd_bound(SSD_SERVED)
-    return dict(ms=ms, device_ms=device_ms, device_kernels=round(per_call),
-                device_kernel_names=kernels,
-                fp32_ms=fp32_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, **work)
+    out = {}
+    for name, case in (("mamba2", SSD_SERVED), ("jamba", SSD_JAMBA)):
+        args = ssd_inputs(case, device)
+        chunk = case[6]
+        run = lambda: ssd_ops.ssd(*args, chunk=chunk)   # noqa: E731
+        ms = _event_ms(run, 20)
+        expect = ssd_ops.DEVICE_KERNELS[torch.bfloat16]
+        device_ms, kernels, per_call = _device_ms(run, 20, tries=5,
+                                                  per_call=expect)
+        assert round(per_call) == expect, (per_call, kernels)
+        if name == "mamba2":
+            args32 = ssd_inputs((*case[:7], "float32", "float32", None),
+                                device)
+            fp32_ms = _event_ms(lambda: ssd_ops.ssd(*args32, chunk=chunk), 5)
+            del args32
+        plain_ms = _event_ms(lambda: ssd_ref.ssd_plain(*args, chunk=chunk),
+                             3)
+        bound_ms, bound_by, work = ssd_bound(case)
+        out[name] = dict(ms=ms, device_ms=device_ms,
+                         device_kernels=round(per_call),
+                         device_kernel_names=kernels, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by, **work)
+        del args
+    return {**out["mamba2"], "fp32_ms": fp32_ms, "jamba": out["jamba"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3670,15 +3723,26 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve_kernel(cfg):
-    """(name, wrapper) of the kernel that serving ``cfg``'s stack runs:
-    bucket_slots for a stack with experts (MLA's prefill takes no
-    kernel), ssd_scan for the ssm family, else flash_attention."""
+def layer_kinds(cfg) -> list:
+    """``layer_kind`` of every layer of ``cfg``'s stack."""
+    _, tf, _ = _serve()
+    return [tf.layer_kind(cfg, i) for i in range(cfg.n_layers)]
+
+
+def serve_kernels(cfg) -> dict:
+    """The kernels that serving ``cfg``'s stack runs, by name, each its
+    counted wrapper: flash_attention for GQA or MHA layers (MLA's prefill
+    takes no kernel), ssd_scan for SSD layers, bucket_slots for MoE
+    layers."""
+    mixers = {m for m, _ in layer_kinds(cfg)}
+    out = {}
+    if "attn" in mixers:
+        out["flash_attention"] = _fa()[0].flash_attention
+    if "ssm" in mixers:
+        out["ssd_scan"] = _ssd()[0].ssd
     if cfg.n_experts:
-        return "bucket_slots", _slots()[0].bucket_slots
-    if cfg.family == "ssm":
-        return "ssd_scan", _ssd()[0].ssd
-    return "flash_attention", _fa()[0].flash_attention
+        out["bucket_slots"] = _slots()[0].bucket_slots
+    return out
 
 
 def slot_shapes(cfg, T: int) -> list:
@@ -3696,38 +3760,49 @@ def slot_shapes(cfg, T: int) -> list:
 
 
 def serve_launches(cfg, requests: int, batch: int, prompt_len: int,
-                   new_tokens: int) -> int:
-    """Launches of ``serve_kernel(cfg)`` while ``ServeEngine.generate``
-    serves ``requests`` in batches: flash_attention and ssd_scan once a
-    layer and prefill; bucket_slots ``slot_shapes``' calls an MoE layer,
-    at the prefill and at each of the ``new_tokens - 1`` decode
+                   new_tokens: int) -> dict:
+    """Launches of each of ``serve_kernels(cfg)`` while
+    ``ServeEngine.generate`` serves ``requests`` in batches:
+    flash_attention once an attention layer and prefill, ssd_scan once an
+    SSD layer and prefill; bucket_slots ``slot_shapes``' calls an MoE
+    layer, at the prefill and at each of the ``new_tokens - 1`` decode
     steps."""
     batches = [min(batch, requests - lo) for lo in range(0, requests, batch)]
-    if not cfg.n_experts:
-        return cfg.n_layers * len(batches)
-    moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    return sum(moe * (len(slot_shapes(cfg, B * prompt_len))
-                      + (new_tokens - 1) * len(slot_shapes(cfg, B)))
-               for B in batches)
+    kinds = layer_kinds(cfg)
+    out = {}
+    for name, mixer in (("flash_attention", "attn"), ("ssd_scan", "ssm")):
+        n = sum(m == mixer for m, _ in kinds)
+        if n:
+            out[name] = n * len(batches)
+    if cfg.n_experts:
+        moe = sum(f == "moe" for _, f in kinds)
+        out["bucket_slots"] = sum(
+            moe * (len(slot_shapes(cfg, B * prompt_len))
+                   + (new_tokens - 1) * len(slot_shapes(cfg, B)))
+            for B in batches)
+    return out
 
 
 # the bucket_slots kernel, as the profiler names it
 SLOTS_KERNEL = ("slots_kernel",)
 
 
-def served_slots(run) -> dict:
-    """Every bucket_slots call of ``run()``, a served program through the
-    kernel path, held bit for bit to ``bucket_slots_ref`` on the same
-    ids (through ``models.moe.slot_ops``: the counted wrapper is called
-    as served). Returns ``run()``'s result (``out``), the calls checked
-    and, by (records, buckets), the first ids of each shape that hold a
-    valid id (the first MoE layer's): the served shapes."""
+def served_slots(run, grad: bool = False) -> dict:
+    """Every bucket_slots call of ``run()``, a program through the kernel
+    path (under ``inference_mode`` unless ``grad``), held bit for bit to
+    ``bucket_slots_ref`` on the same ids (through ``models.moe.slot_ops``:
+    the counted wrapper is called as the program calls it). Returns
+    ``run()``'s result (``out``), the calls checked, each call's ids and
+    outputs in order (``calls_made``, with ``grad``) and, by (records,
+    buckets), the first ids of each shape that hold a valid id (the first
+    MoE layer's): the served shapes."""
+    import contextlib
     import types
 
     from repro_torch.models import moe
     ops, ref = _slots()
     real = ops.bucket_slots
-    seen = {"calls": 0, "ids": {}}
+    seen = {"calls": 0, "ids": {}, "calls_made": []}
 
     def checked(ids, n, **kw):
         slots, counts = real(ids, n, **kw)
@@ -3736,13 +3811,15 @@ def served_slots(run) -> dict:
             ("bucket_slots != plain on the served routing", seen["calls"],
              ids.numel(), n)
         seen["calls"] += 1
+        if grad:
+            seen["calls_made"].append((ids.clone(), slots, counts))
         if (ids.numel(), n) not in seen["ids"] and bool((ids >= 0).any()):
             seen["ids"][(ids.numel(), n)] = ids.clone()
         return slots, counts
 
     moe.slot_ops = types.SimpleNamespace(bucket_slots=checked)
     try:
-        with torch.inference_mode():
+        with (contextlib.nullcontext() if grad else torch.inference_mode()):
             seen["out"] = run()
     finally:
         moe.slot_ops = ops
@@ -3791,6 +3868,105 @@ def time_served_slots(ids_by_shape: dict) -> dict:
     return time_entry(cases)
 
 
+# the kernels of phase 4's served paths, as the profiler names them
+FLASH_KERNEL = ("fa_bf16_kernel",)
+SSD_PASSES = ("chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
+PROFILE_NAMES = {"flash_attention": FLASH_KERNEL, "ssd_scan": SSD_PASSES,
+                 "bucket_slots": SLOTS_KERNEL}
+
+
+def same_routing(*runs) -> tuple:
+    """``runs[0]()``, then each of the other ``runs`` with each MoE layer
+    routed as the first routed it (routing is discrete: where two
+    experts' router probabilities tie within two paths' rounding, they
+    would pick apart, and a token's output would move by a whole
+    expert's). A later run's gates are its own probabilities of those
+    experts, renormalised. Returns the runs' results and, for each later
+    run, its MoE calls, the rows it would have routed otherwise and the
+    largest probability gap among them."""
+    from repro_torch.models import moe
+    real, calls = moe._route, []
+
+    def record(cfg, router_w, x_flat):
+        out = real(cfg, router_w, x_flat)
+        calls.append(out[0])
+        return out
+
+    def replay(routed):
+        def route(cfg, router_w, x_flat):
+            ids, _, probs = real(cfg, router_w, x_flat)
+            want = calls[routed["calls"]]
+            routed["calls"] += 1
+            differ = (ids.sort(-1)[0] != want.sort(-1)[0]).any(-1)
+            gap = probs.gather(1, ids.long()).amin(-1)[:, None] \
+                - probs.gather(1, want.long())
+            routed["rows"] += int(differ.sum())
+            routed["max_gap"] = max(routed["max_gap"], float(
+                torch.where(differ[:, None], gap, 0.0).max()))
+            g = probs.gather(1, want.long())
+            return want, g / g.sum(-1, keepdim=True).clamp_min(1e-9), probs
+        return route
+
+    outs, reroutes = [], []
+    try:
+        moe._route = record
+        outs.append(runs[0]())
+        for run in runs[1:]:
+            reroutes.append({"calls": 0, "rows": 0, "max_gap": 0.0})
+            moe._route = replay(reroutes[-1])
+            outs.append(run())
+            assert reroutes[-1]["calls"] == len(calls), (reroutes, len(calls))
+    finally:
+        moe._route = real
+    return outs, reroutes
+
+
+def streamed_prefill(cfg, model, tokens, use_kernel: bool):
+    """``transformer.prefill`` of ``model``'s weights in fp32, upcast one
+    layer at a time (a stack whose fp32 copy does not fit beside its
+    model-dtype weights): the embedding, head and final norm upcast once,
+    each layer upcast, run and dropped. Returns the last-position
+    logits."""
+    from repro_torch.models import layers
+    _, tf, _ = _serve()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    head = {k: model[k].float() for k in ("embed_tokens", "lm_head")
+            if k in model}
+    x = layers.embed_tokens(cfg32, head, tokens["tokens"])
+    B, S = tokens["tokens"].shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    for i, layer in enumerate(model["blocks"]):
+        p32 = {sub: {k: t.float() for k, t in leaves.items()}
+               for sub, leaves in layer.items()}
+        x = tf._layer_forward(cfg32, p32, x, pos, i, causal=True,
+                              use_kernel=use_kernel,
+                              slot_kernel=use_kernel)[0]
+        del p32
+    norm = {k: t.float() for k, t in model["final_norm"].items()}
+    x = layers.apply_norm(cfg32, norm, x)
+    return layers.unembed(cfg32, head, x)[:, -1:]
+
+
+# the hybrid stack's fp32 drift check runs on this many prompts of a batch
+DRIFT_ROWS = 2
+
+
+def hybrid_drift(cfg, model, tokens) -> dict:
+    """``drift_check`` of the hybrid stack on the first ``DRIFT_ROWS``
+    prompts of ``tokens``: the model-dtype kernel and reference paths'
+    last-position logits against the same weights in fp32
+    (``streamed_prefill``: jamba's fp32 copy does not fit beside its bf16
+    weights) through both paths, all four with the model-dtype kernel
+    path's routing (``same_routing``)."""
+    _, tf, _ = _serve()
+    few = {"tokens": tokens["tokens"][:DRIFT_ROWS]}
+    runs = [functools.partial(fn, cfg, model, few, use_kernel=k)
+            for fn in (tf.prefill, streamed_prefill) for k in (True, False)]
+    (lk, lr, lk32, lr32), reroutes = same_routing(*runs)
+    out = drift_check(*(t[:, 0].float() for t in (lk, lr, lk32, lr32)))
+    return dict(out, rows=DRIFT_ROWS, reroutes=reroutes)
+
+
 def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                 prompt_len: int = PROMPT_LEN,
                 new_tokens: int = NEW_TOKENS) -> dict:
@@ -3799,9 +3975,12 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     the served tokens (gates (a)-(e) of the module's docstring) and time
     the engine's prefill and decode step."""
     _, tf, eng = _serve()
-    _, kernel = serve_kernel(cfg)
+    kernels = serve_kernels(cfg)
     cuda = device.type == "cuda"
     moe = bool(cfg.n_experts)
+    ssm = cfg.family == "ssm"
+    # a bf16 stack with SSD layers drifts between its two paths with depth
+    drifts_apart = cfg.family in ("ssm", "hybrid") and cfg.dtype != "float32"
     t0 = time.perf_counter()
     model = tf.init_model(cfg, 0, device=device)
     _sync(device)
@@ -3820,7 +3999,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
             for lo in range(0, requests, batch)]
     _sync(device)
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
     out = np.concatenate(outs)
@@ -3831,36 +4010,47 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     if cuda:
         assert launches == want_launches, (launches, want_launches)
 
-    # the kernel's prefill against the reference path's (chunked attention,
-    # ssd_ref), and the first served token a maximum of the kernel path's
-    # logits. In bf16 an ssm stack's two paths drift apart with depth, as
-    # the bf16 reference drifts from its own fp32 run (PERF.md, Findings):
-    # that gap is reported, and each batch is held instead to the same
-    # weights run in fp32 (``ssm_drift``), beside each layer's mixer
-    # (``ssm_layer_errs``).
-    ssm = cfg.family == "ssm"
-    if ssm:
+    # the kernel path's prefill against the reference path's (chunked
+    # attention, ssd_ref, bucket_slots_ref), and the first served token a
+    # maximum of the kernel path's logits. An MoE stack's plain path takes
+    # the kernel path's routing (``same_routing``). In bf16 a stack with
+    # SSD layers drifts apart between its two paths with depth, as the
+    # bf16 reference drifts from its own fp32 run (PERF.md, Findings):
+    # that gap is reported, and the stack is held instead to the same
+    # weights run in fp32 (``ssm_drift`` each batch of an ssm stack,
+    # ``hybrid_drift`` the first prompts of a hybrid one). Each attention
+    # and SSD layer's mixer is held on the kernel path's own input too
+    # (``mixer_layer_errs``).
+    if ssm and drifts_apart:
         cfg32 = dataclasses.replace(cfg, dtype="float32",
                                     param_dtype="float32")
         model32 = copy.deepcopy(model).float()
-    worst, drifts = 0.0, []
+    worst, drifts, reroutes = 0.0, [], []
     with torch.inference_mode():
         for i, lo in enumerate(range(0, requests, batch)):
             tokens = {"tokens": torch.from_numpy(
                 prompts[lo:lo + batch]).to(device)}
-            lk = tf.prefill(cfg, model, tokens, use_kernel=True)[:, 0].float()
-            lr = tf.prefill(cfg, model, tokens, use_kernel=False)[:, 0].float()
+            runs = [functools.partial(tf.prefill, cfg, model, tokens,
+                                      use_kernel=k) for k in (True, False)]
+            if moe:
+                (lk, lr), routed = same_routing(*runs)
+                reroutes += routed
+            else:
+                lk, lr = (run() for run in runs)
+            lk, lr = lk[:, 0].float(), lr[:, 0].float()
             assert bool(torch.isfinite(lk).all()), "non-finite logits"
             err = (lk - lr).abs().max().item()
             lim = 3e-2 * lr.abs().max().item()
-            assert ssm or err <= lim, (err, lim)
+            assert drifts_apart or err <= lim, (err, lim)
             worst = max(worst, err / lim)
             first = torch.from_numpy(outs[i][:, :1]).to(device).long()
             assert bool((lk.gather(1, first)[:, 0] == lk.amax(1)).all()), \
                 "the first served token is not a maximum of its logits"
-            if ssm:
+            if ssm and drifts_apart:
                 drifts.append(ssm_drift(cfg32, model32, tokens, lk, lr))
-        if ssm:
+            elif drifts_apart and i == 0:
+                drifts.append(hybrid_drift(cfg, model, tokens))
+        if ssm and drifts_apart:
             del model32
 
         # the engine's two programs, timed alone on the first batch
@@ -3872,8 +4062,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                                                     use_kernel=True))
             del slots["out"]
             assert set(slots["ids"]) == set(slot_shapes(cfg, B * prompt_len))
-        layer_errs = ssm_layer_errs(cfg, model, tokens["tokens"]) if ssm \
-            else []
+        layer_errs = mixer_layer_errs(cfg, model, tokens["tokens"])
         assert max(layer_errs, default=0.0) <= 1.0, layer_errs
         _sync(device)
         base = torch.cuda.memory_allocated(device) if cuda else 0
@@ -3904,7 +4093,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
         if moe:     # gate (e): one decode step, slots and logits
             dec = served_decode(cfg, engine, model, cache, tok,
                                 prompt_len + new_tokens - 1)
-            moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+            moe_layers = sum(f == "moe" for _, f in layer_kinds(cfg))
             assert dec["calls"] == moe_layers * len(slot_shapes(cfg, B))
             assert set(dec["ids"]) == set(slot_shapes(cfg, B)), dec["ids"]
             slots["decode_calls"] = dec["calls"]
@@ -3914,21 +4103,23 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
         # four took ~40 s to read, so it traces one
         steps = 1 if moe else 4
         decode = f"decode_{steps}_steps"
+        keep = tuple(n for k in kernels for n in PROFILE_NAMES[k])
         if cuda:
             profiles["prefill"] = device_profile(
-                lambda: engine._prefill(model, tokens),
-                keep=SSD_PASSES if ssm else SLOTS_KERNEL if moe else ())
+                lambda: engine._prefill(model, tokens), keep=keep)
             t = prompt_len + new_tokens - 1
             profiles[decode] = device_profile(
                 lambda: [engine._step(model, cache, tok, t + i)
-                         for i in range(steps)],
-                keep=SLOTS_KERNEL if moe else ())
+                         for i in range(steps)], keep=keep)
         if moe:
             slots["times"] = time_served_slots(slots["ids"]) if cuda else {}
             slots["shapes"] = sorted(slots.pop("ids"))
-            slots["prefill_share"] = kept_share(profiles.get("prefill"))
-            slots["decode_share"] = kept_share(profiles.get(decode))
-    return dict(arch=cfg.name, kernel=serve_kernel(cfg)[0],
+            slots["prefill_share"] = kept_share(profiles.get("prefill"),
+                                                SLOTS_KERNEL)
+            slots["decode_share"] = kept_share(profiles.get(decode),
+                                               SLOTS_KERNEL)
+    return dict(arch=cfg.name, n_layers=cfg.n_layers,
+                params=cfg.param_count(), kernels=list(kernels),
                 requests=requests, batch=batch,
                 prompt_len=prompt_len, new_tokens=new_tokens,
                 launches=launches, want_launches=want_launches, wall_s=wall,
@@ -3938,19 +4129,22 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                 peak_bytes=peak, init_s=init_s,
                 kernel_vs_ref_err_over_limit=worst,
                 layer_err_over_limit=max(layer_errs, default=None),
-                drift=drifts, memory=memory, profiles=profiles,
-                slots=slots)
+                drift=drifts, reroutes=reroutes, memory=memory,
+                profiles=profiles, slots=slots)
 
 
 def phase_serves(device, archs) -> dict:
     """Phase 4: ``phase_serve`` for each arch of ``archs`` at its
-    ``SERVE_ARCHS`` requests, with its seconds, printed as it ends; the
-    card's cache freed between."""
+    ``SERVE_ARCHS`` requests and its ``SERVE_LAYERS`` depth, with its
+    seconds, printed as it ends; the card's cache freed between."""
     get_config, _, _ = _serve()
     out = {}
     for arch in archs:
         t0 = time.perf_counter()
-        out[arch] = phase_serve(device, get_config(arch), SERVE_ARCHS[arch])
+        cfg = get_config(arch)
+        if arch in SERVE_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
+        out[arch] = phase_serve(device, cfg, SERVE_ARCHS[arch])
         out[arch]["seconds"] = time.perf_counter() - t0
         print_serve(out[arch])
         if device.type == "cuda":
@@ -3958,30 +4152,37 @@ def phase_serves(device, archs) -> dict:
     return out
 
 
-def kept_share(prof) -> float | None:
+def kept_share(prof, names: tuple) -> float | None:
     """The share of a ``device_profile``'s device time that its kept
-    names took (None without a profile)."""
+    activities holding one of ``names`` took (None without a profile)."""
     if not prof:
         return None
-    return sum(ms for _, ms, _ in prof["kept"]) / 1e3 / prof["device_s"]
+    return sum(ms for k, ms, _ in prof["kept"] if any(n in k for n in names)) \
+        / 1e3 / prof["device_s"]
 
 
 def print_serve(serve: dict):
     """Phase 4's lines for one served arch."""
-    arch, name = serve["arch"], serve["kernel"]
-    print(f"serve: {arch} at full width, {serve['requests']} "
+    arch = serve["arch"]
+    print(f"serve: {arch} at full width ({serve['n_layers']} layers, "
+          f"{serve['params']:,} parameters), {serve['requests']} "
           f"requests in batches of {serve['batch']}, prompt "
           f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, "
           f"greedy: {serve['wall_s']:.3f} s, "
           f"{serve['served_tokens_per_s']:.1f} served tokens/s (the "
           f"phase {serve['seconds']:.1f} s); prefill "
           f"{serve['prefill_ms']:.1f} ms per batch, decode "
-          f"{serve['decode_ms_per_token']:.2f} ms per token; {name} "
-          f"launches {serve['launches']} (expected "
-          f"{serve['want_launches']}); peak device memory "
-          f"{serve['peak_bytes'] / 2**30:.2f} GiB; kernel-vs-reference "
-          f"logits at {serve['kernel_vs_ref_err_over_limit']:.3f} of the "
-          f"3e-2 * max|logits| limit")
+          f"{serve['decode_ms_per_token']:.2f} ms per token; launches "
+          f"{serve['launches']} (expected {serve['want_launches']}); peak "
+          f"device memory {serve['peak_bytes'] / 2**30:.2f} GiB; "
+          f"kernel-vs-reference logits at "
+          f"{serve['kernel_vs_ref_err_over_limit']:.3f} of the 3e-2 * "
+          f"max|logits| limit")
+    for i, r in enumerate(serve["reroutes"]):
+        print(f"serve: {arch} batch {i}: the plain path took the kernel "
+              f"path's routing of {r['calls']} MoE calls; it would have "
+              f"routed {r['rows']} rows otherwise (largest probability gap "
+              f"{r['max_gap']:.3g})")
     mem = serve["memory"]
     print(f"serve: {arch} memory: weights "
           f"{mem['weights_bytes'] / 2**30:.3f} GiB; one prefill from "
@@ -3991,14 +4192,17 @@ def print_serve(serve: dict):
           f"of {mem['cache_bytes'] / 2**30:.3f} GiB that holds "
           f"{mem['cache_storage_bytes'] / 2**30:.3f} GiB of storage")
     if serve["layer_err_over_limit"] is not None:
-        print(f"serve: {arch} per-layer mixer, kernel vs ssd_ref on the "
-              f"same input: worst layer at "
+        print(f"serve: {arch} per-layer mixer (attention, SSD), kernel vs "
+              f"plain on the same input: worst layer at "
               f"{serve['layer_err_over_limit']:.3f} of the 3e-2 * "
-              f"max|out| limit (the bf16 kernel-vs-reference gap above "
-              f"is reported; each batch is held to fp32 below)")
+              f"max|out| limit")
     for i, d in enumerate(serve["drift"]):
+        rows = (f"its first {d['rows']} prompts, all four paths with the "
+                f"bf16 kernel path's routing ({d['reroutes']}), "
+                if "rows" in d else "")
         print(f"serve: {arch} batch {i} against the same weights in "
-              f"fp32: fp32 kernel path at "
+              f"fp32 ({rows}upcast{' a layer at a time' if rows else ''}): "
+              f"fp32 kernel path at "
               f"{d['fp32_err_over_limit']:.4f} of 1e-3 * max|logits|; "
               f"bf16 kernel path {d['kernel_low_vs_fp32']:.4f}, bf16 "
               f"reference path {d['ref_low_vs_fp32']:.4f} of "
@@ -4026,22 +4230,44 @@ def print_serve(serve: dict):
         print_profile(f"serve {arch} {what}", p)
 
 
-def ssm_layer_errs(cfg, model, tokens) -> list:
-    """Each ssm layer's mixer on the kernel path's own input: the block
-    through the kernel against the block through ``ssd_ref``, max abs
-    error over 3e-2 * max|ssd_ref block|, layer by layer."""
+def mixer_layer_errs(cfg, model, tokens) -> list:
+    """Each attention (GQA, MHA) and SSD layer's mixer on the kernel
+    path's own input: the mixer through its kernel against the mixer
+    through its plain version (chunked attention, ``ssd_ref``), max abs
+    error over 3e-2 * max|plain|, layer by layer; the kernel path's
+    layer, its MLP or MoE included, makes the next layer's input. An MLA
+    layer takes no kernel and is passed."""
     _port()
-    from repro_torch.models import layers, ssm
+    from repro_torch.models import attention, layers, ssm
+    _, tf, _ = _serve()
     errs = []
     x = layers.embed_tokens(cfg, model, tokens)
-    for p in model["blocks"]:
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    for i, p in enumerate(model["blocks"]):
+        mixer, ff = tf.layer_kind(cfg, i)
         h = layers.apply_norm(cfg, p["norm1"], x)
-        ok, _ = ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=True)
-        ref, _ = ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=False)
-        assert bool(torch.isfinite(ok).all()), "non-finite ssm output"
-        errs.append((ok - ref).abs().max().item()
-                    / (3e-2 * ref.abs().max().item()))
-        x = x + ok
+        if mixer == "ssm":
+            outs = [ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=k)[0]
+                    for k in (True, False)]
+        elif mixer == "attn":
+            outs = [attention.attention_forward(cfg, p["attn"], h, pos,
+                                                causal=True,
+                                                use_kernel=k)[0]
+                    for k in (True, False)]
+        else:
+            outs = None
+        if outs is not None:
+            ok, ref = outs
+            assert bool(torch.isfinite(ok).all()), \
+                f"non-finite {mixer} output, layer {i}"
+            errs.append((ok - ref).abs().max().item()
+                        / (3e-2 * ref.abs().max().item()))
+        if ff == "none":
+            x = x + ok
+        else:
+            x = tf._layer_forward(cfg, p, x, pos, i, causal=True,
+                                  use_kernel=True)[0]
     return errs
 
 
@@ -4050,21 +4276,24 @@ def ssm_layer_errs(cfg, model, tokens) -> list:
 # on an H100 and 0.80 at B 1, S 512 on the CPU (PERF.md, Findings)
 SSM_DRIFT_FACTOR = 1.5
 
-# the bf16 ssd_scan kernel's three passes, as the profiler names them
-SSD_PASSES = ("chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
-
 
 def ssm_drift(cfg32, model32, tokens, lk, lr) -> dict:
-    """One batch's last-position logits of the stack in fp32 (``model32``,
-    the served weights upcast) through both prefill paths. Holds the fp32
-    kernel path within 1e-3 * max|logits| of the fp32 reference path, and
-    the model-dtype kernel path's logits ``lk`` within
-    ``SSM_DRIFT_FACTOR`` times the model-dtype reference path's ``lr``
-    distance from that fp32 reference. Distances are fractions of
-    max|logits|."""
+    """``drift_check`` of one batch: its last-position logits ``lk`` and
+    ``lr`` of the model-dtype kernel and reference paths against the
+    stack in fp32 (``model32``, the served weights upcast) through both
+    prefill paths."""
     _, tf, _ = _serve()
     lk32 = tf.prefill(cfg32, model32, tokens, use_kernel=True)[:, 0]
     lr32 = tf.prefill(cfg32, model32, tokens, use_kernel=False)[:, 0]
+    return drift_check(lk, lr, lk32, lr32)
+
+
+def drift_check(lk, lr, lk32, lr32) -> dict:
+    """Holds the fp32 kernel path's logits ``lk32`` within 1e-3 *
+    max|logits| of the fp32 reference path's ``lr32``, and the
+    model-dtype kernel path's ``lk`` within ``SSM_DRIFT_FACTOR`` times
+    the model-dtype reference path's ``lr`` distance from ``lr32``.
+    Distances are fractions of max|logits|."""
     assert bool(torch.isfinite(lk32).all()), "non-finite fp32 logits"
     top = lr32.abs().max().item()
     err32 = (lk32 - lr32).abs().max().item()
@@ -4088,21 +4317,31 @@ def cache_bytes(raw) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 5. training olmo-1b at full width
+# 5. training olmo-1b and deepseek-v2-lite at full width
 # ---------------------------------------------------------------------------
 
-# the run: olmo-1b as published, bf16 parameters and fp32 AdamW moments
-# (``train_config_for``), batches of 8 x 512 tokens in two microbatches
-# of 4, full remat; 20 steps of the LM token stream, a snapshot after
-# step 3 and steps 3-5 again from it
+# the runs: bf16 parameters and fp32 AdamW moments (``train_config_for``),
+# batches of 8 x 512 tokens in two microbatches of 4, full remat. olmo-1b
+# as published: 20 steps of the LM token stream, a snapshot after step 3
+# and steps 3-5 again from it. deepseek-v2-lite at its full width cut to
+# 4 layers (the leading dense layer and 3 MoE layers of 64 experts top-6,
+# 1s dispatch): all 27 layers hold 15.65 B parameters, whose fp32 moments
+# alone take ~125 GB; 4 layers hold 2.196 B, ~35 GB with the moments, the
+# fp32 accumulator and a microbatch's gradients. 10 steps, no snapshot.
 TRAIN_ARCH = "olmo-1b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH = 512, 8, 4
 TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_TOKENS = 20, 3, 2_000_000
 TRAIN_LR = 3e-3
+TRAIN_LAYERS = {MOE_ARCH: 4}
+TRAIN_ARCHS = {TRAIN_ARCH: dict(steps=TRAIN_STEPS, resume_at=TRAIN_RESUME_AT),
+               MOE_ARCH: dict(steps=10, resume_at=0)}
 # step A = 2 against A = 1 on one batch (bf16 on the card), and the
 # resumed losses against the uninterrupted run's
 TRAIN_ACCUM_RTOL = {"loss": 1e-2, "grad_norm": 2e-2}
 TRAIN_RESUME_RTOL = 1e-3
+# a full-remat step's gradients against a remat "none" step's on the
+# same state and batch, max |difference| over max |gradient| of each leaf
+TRAIN_REMAT_RTOL = 1e-2
 
 
 def _train():
@@ -4117,24 +4356,43 @@ def _train():
 
 
 def train_flops(cfg, seq: int, batch: int) -> int:
-    """Model FLOPs of a step: 6 N a token, plus the causal attention's
-    12 L S d a token halved (remat's recomputation is not counted)."""
+    """Model FLOPs of a step: 6 N a token over the active parameters N
+    (an MoE token passes top_k routed experts and the shared ones), plus
+    the causal attention's 12 L S d a token halved (remat's recomputation
+    is not counted)."""
     tokens = seq * batch
-    return (6 * cfg.param_count() * tokens
+    return (6 * cfg.active_param_count() * tokens
             + 12 * cfg.n_layers * seq * cfg.d_model * tokens // 2)
 
 
+def train_launches(cfg, run, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps: bucket_slots
+    ``slot_shapes``' calls an MoE layer and microbatch, twice where remat
+    recomputes the layer in the backward pass; no other kernel (the
+    reference's train step reaches no Pallas kernel)."""
+    moe = sum(f == "moe" for _, f in layer_kinds(cfg))
+    if not moe:
+        return {}
+    mb = run.resolved_microbatch() * run.shape.seq_len
+    again = 2 if run.train.remat_policy in ("full", "dots") else 1
+    return {"bucket_slots": moe * len(slot_shapes(cfg, mb)) * again
+            * run.grad_accum_steps * steps}
+
+
 def train_state(cfg, device, seq: int, batch: int, microbatch: int,
-                steps: int):
+                steps: int, remat: str | None = None):
     """(run, step function, a fresh state): ``make_run`` at (seq,
     batch) with ``TrainConfig(lr=3e-3, warmup_steps=1,
-    total_steps=steps)`` and the model of seed 0."""
+    total_steps=steps)`` (and ``remat``, where given, for full) and the
+    model of seed 0."""
     config, _, _, _, specs, tf, ts = _train()
     run = specs.make_run(cfg, config.ShapeConfig("smoke", seq, batch,
                                                  "train"),
                          config.MeshConfig((1, 1)), microbatch=microbatch)
-    run = config.replace(run, train=config.TrainConfig(
-        lr=TRAIN_LR, warmup_steps=1, total_steps=steps))
+    tcfg = config.TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    if remat is not None:
+        tcfg = config.replace(tcfg, remat_policy=remat)
+    run = config.replace(run, train=tcfg)
     state = ts.init_train_state(cfg, run.train,
                                 tf.init_model(cfg, 0, device=device))
     return run, ts.make_train_step(cfg, run), state
@@ -4144,16 +4402,57 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+def train_slots(cfg, device, seq: int, batch: int, fixed: dict) -> dict:
+    """One step's slots on the card: the gradients of one batch of
+    ``batch`` rows (one microbatch of the main run) at A = 1 from a fresh
+    state, under full remat and under remat "none", every
+    bucket_slots call of each held bit for bit to ``bucket_slots_ref``
+    (``served_slots``); full remat's calls are the forward's, then each
+    MoE layer's again, last layer first, on the same ids with the same
+    slots, and the forward's are "none"'s. Full remat's gradients
+    against "none"'s: max |difference| over max |gradient| of each
+    leaf, at most ``TRAIN_REMAT_RTOL``."""
+    runs = {}
+    for remat in ("full", "none"):
+        _, fn, st = train_state(cfg, device, seq, batch, batch, 1,
+                                remat=remat)
+        seen = served_slots(lambda: fn.grads(st, fixed)[0], grad=True)
+        runs[remat] = (seen, [g.float() for g in seen.pop("out")])
+        del fn, st
+    (full, gf), (none, gn) = runs["full"], runs["none"]
+    per_layer = len(slot_shapes(cfg, batch * seq))
+    fwd, again = full["calls_made"][:none["calls"]], \
+        full["calls_made"][none["calls"]:]
+    assert full["calls"] == 2 * none["calls"] > 0, (full["calls"],
+                                                    none["calls"])
+    blocks = [fwd[i:i + per_layer] for i in range(0, len(fwd), per_layer)]
+    for got, want in zip(again, [c for b in blocks[::-1] for c in b]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            "a recomputed slot call differs from the forward's"
+    for got, want in zip(fwd, none["calls_made"]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            "full remat's forward slots differ from remat none's"
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(gf, gn))
+    assert rel <= TRAIN_REMAT_RTOL, rel
+    return dict(calls_full=full["calls"], calls_none=none["calls"],
+                shapes=sorted(full["ids"]), remat_grad_rel=rel,
+                remat_grads_bitwise=all(torch.equal(a, b)
+                                        for a, b in zip(gf, gn)))
+
+
 def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
                 microbatch: int = TRAIN_MICROBATCH, steps: int = TRAIN_STEPS,
                 resume_at: int = TRAIN_RESUME_AT,
                 n_tokens: int = TRAIN_TOKENS) -> dict:
     """Train ``cfg`` for ``steps`` steps through ``make_train_step`` on
     ``lm_batches`` behind the ``DoubleBufferedLoader`` (the main path:
-    counts zeroed just before, read just after; it reaches no kernel, as
-    the reference's train step reaches no Pallas kernel), each step's
-    two halves timed by CUDA events and ``save_async`` after step
-    ``resume_at``; then the checks (a)-(d) (module docstring)."""
+    counts zeroed just before, read just after; its MoE layers, if any,
+    slot through bucket_slots, and it reaches no other kernel, as the
+    reference's train step reaches no Pallas kernel), each step's two
+    halves timed by CUDA events and, with ``resume_at``, ``save_async``
+    after step ``resume_at``; then the checks (a)-(e) (module
+    docstring), (c) only with ``resume_at``, (e) only with MoE layers."""
     import tempfile
     _, Manager, corpus, pipeline, _, _, ts = _train()
     cuda = device.type == "cuda"
@@ -4163,8 +4462,9 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
                                       steps)
     loader = pipeline.DoubleBufferedLoader(
         pipeline.lm_batches(stream, batch, seq), device)
-    tmp = tempfile.TemporaryDirectory(prefix="train-ckpt-")
-    mgr = Manager(tmp.name, keep=1)
+    if resume_at:
+        tmp = tempfile.TemporaryDirectory(prefix="train-ckpt-")
+        mgr = Manager(tmp.name, keep=1)
 
     def timed_step(b):
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
@@ -4190,7 +4490,7 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
         losses.append(m["loss"])
         marks.append(mk)
         host_s.append(hs)
-        if i == resume_at - 1:
+        if resume_at and i == resume_at - 1:
             mgr.save_async(i, ts.state_tree(cfg, state),
                            extra={"next_step": resume_at})
             if cuda:        # the snapshot's stacked copy, apart from steps
@@ -4199,7 +4499,10 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
     _sync(device)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers().items()}
-    assert not any(launches.values()), launches
+    want_launches = train_launches(cfg, run, steps)
+    if cuda:
+        assert {k: v for k, v in launches.items() if v} == want_launches, \
+            (launches, want_launches)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     losses = [float(x) for x in losses]
     metrics = {k: float(v) for k, v in m.items()}
@@ -4209,7 +4512,8 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
     else:
         grads_ms = update_ms = []
     t0 = time.perf_counter()
-    mgr.wait()
+    if resume_at:
+        mgr.wait()
     save_wait_s = time.perf_counter() - t0
 
     # (a) finite and falling; (d) every parameter finite
@@ -4218,26 +4522,35 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
     assert all(bool(torch.isfinite(p).all())
                for p in state.params.parameters()), "a parameter is not finite"
     profile = (device_profile(lambda: [step_fn(state, next(loader))
-                                       for _ in range(2)])
+                                       for _ in range(2)],
+                              keep=SLOTS_KERNEL)
                if cuda else None)
     del state, loader, m
 
-    # (c) a fresh state from the snapshot, the batches from step resume_at
-    t0 = time.perf_counter()
-    _, step_fn, state = train_state(cfg, device, seq, batch, microbatch,
-                                    steps)
-    at, extra = ts.restore_state(mgr, cfg, state)
-    restore_s = time.perf_counter() - t0
-    assert (at, extra["next_step"]) == (resume_at - 1, resume_at), (at, extra)
-    loader = pipeline.DoubleBufferedLoader(
-        pipeline.lm_batches(stream, batch, seq, skip=resume_at), device)
-    resumed = [float(step_fn(state, next(loader))[1]["loss"])
-               for _ in range(resume_at, 2 * resume_at)]
-    want = losses[resume_at:2 * resume_at]
-    resume_diff = max(_rel(a, b) for a, b in zip(resumed, want))
-    assert resume_diff <= TRAIN_RESUME_RTOL, (resumed, want)
-    del state, loader
-    tmp.cleanup()
+    resume = {}
+    if resume_at:
+        # (c) a fresh state from the snapshot, the batches from resume_at
+        t0 = time.perf_counter()
+        _, step_fn, state = train_state(cfg, device, seq, batch, microbatch,
+                                        steps)
+        at, extra = ts.restore_state(mgr, cfg, state)
+        restore_s = time.perf_counter() - t0
+        assert (at, extra["next_step"]) == (resume_at - 1, resume_at), \
+            (at, extra)
+        loader = pipeline.DoubleBufferedLoader(
+            pipeline.lm_batches(stream, batch, seq, skip=resume_at), device)
+        resumed = [float(step_fn(state, next(loader))[1]["loss"])
+                   for _ in range(resume_at, 2 * resume_at)]
+        want = losses[resume_at:2 * resume_at]
+        resume_diff = max(_rel(a, b) for a, b in zip(resumed, want))
+        assert resume_diff <= TRAIN_RESUME_RTOL, (resumed, want)
+        del state, loader
+        tmp.cleanup()
+        resume = dict(snapshot_peak_bytes=snap_peak, save_wait_s=save_wait_s,
+                      restore_s=restore_s, resumed=resumed,
+                      resumed_want=want, resume_max_rel_diff=resume_diff,
+                      resume_bitwise=resumed == want)
+    del step_fn
 
     # (b) one step at A = 2 and one at A = 1 from fresh states, one batch
     fixed = {k: torch.from_numpy(v).to(device) for k, v in
@@ -4252,6 +4565,10 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
     (a_many, many), (a_one, one) = sorted(accum.items(), reverse=True)
     for k, tol in TRAIN_ACCUM_RTOL.items():
         assert _rel(many[k], one[k]) <= tol, (k, accum)
+    # (e) one step's slots, and the gradients they give, against remat none
+    slots = (train_slots(cfg, device, seq, microbatch,
+                         {k: v[:microbatch] for k, v in fixed.items()})
+             if want_launches else None)
     if cuda:
         torch.cuda.empty_cache()
 
@@ -4261,10 +4578,15 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
     tokens = seq * batch
     flops = train_flops(cfg, seq, batch)
     return dict(
-        arch=cfg.name, seq=seq, batch=batch, microbatch=microbatch,
-        grad_accum=run.grad_accum_steps, remat=run.train.remat_policy,
-        steps=steps, params=cfg.param_count(), losses=losses,
-        last_metrics=metrics, launches=launches, wall_s=wall,
+        arch=cfg.name, n_layers=cfg.n_layers, seq=seq, batch=batch,
+        microbatch=microbatch, grad_accum=run.grad_accum_steps,
+        remat=run.train.remat_policy, dispatch=cfg.dispatch_mode,
+        steps=steps, params=cfg.param_count(),
+        active_params=cfg.active_param_count(), losses=losses,
+        last_metrics=metrics, launches=launches,
+        want_launches=want_launches,
+        launches_per_step={k: v / steps for k, v in want_launches.items()},
+        slots=slots, wall_s=wall,
         host_s=host_s, grads_ms=grads_ms, update_ms=update_ms,
         median_step_ms=med,
         median_grads_ms=float(np.median(grads_ms)) if cuda else None,
@@ -4273,43 +4595,70 @@ def phase_train(device, cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
         wall_tokens_per_s=steps * tokens / wall,
         model_flops=flops,
         mfu=flops / (med / 1e3) / BF16_FLOPS_PER_S if cuda else None,
-        peak_bytes=peak, snapshot_peak_bytes=snap_peak,
-        save_wait_s=save_wait_s, restore_s=restore_s,
-        resumed=resumed, resumed_want=want, resume_max_rel_diff=resume_diff,
-        resume_bitwise=resumed == want,
-        accum={str(k): v for k, v in accum.items()},
+        peak_bytes=peak, accum={str(k): v for k, v in accum.items()},
         accum_rel={k: _rel(many[k], one[k]) for k in TRAIN_ACCUM_RTOL},
-        profile=profile, seconds=time.perf_counter() - t_phase)
+        profile=profile, seconds=time.perf_counter() - t_phase, **resume)
+
+
+def phase_trains(device, archs) -> dict:
+    """Phase 5: ``phase_train`` for each arch of ``archs`` at its
+    ``TRAIN_LAYERS`` depth with its ``TRAIN_ARCHS`` steps, printed as it
+    ends; the card's cache freed between."""
+    get_config, _, _ = _serve()
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        if arch in TRAIN_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
+        out[arch] = phase_train(device, cfg, **TRAIN_ARCHS[arch])
+        print_train(out[arch])
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def print_train(t: dict):
-    print(f"train: {t['arch']} at full width ({t['params']:,} parameters), "
+    print(f"train: {t['arch']} at full width ({t['n_layers']} layers, "
+          f"{t['params']:,} parameters, {t['active_params']:,} active), "
           f"{t['steps']} steps of {t['batch']} x {t['seq']} tokens, "
           f"A = {t['grad_accum']} (microbatch {t['microbatch']}), remat "
           f"{t['remat']}: loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; "
-          f"kernel launches {t['launches']}")
+          f"kernel launches {({k: v for k, v in t['launches'].items() if v})}"
+          f" (expected {t['want_launches']}, a step "
+          f"{t['launches_per_step']})")
     print(f"train: median step {t['median_step_ms']:.2f} ms"
           + (f" (fwd+bwd {t['median_grads_ms']:.2f} ms, optimizer "
              f"{t['median_update_ms']:.2f} ms; CUDA events)"
              if t["median_grads_ms"] is not None else " (host clock)")
           + f", {t['tokens_per_s']:,.0f} tokens/s, model-FLOPs share "
           f"{t['mfu']} at 989 TFLOP/s ({t['model_flops'] / 1e12:.2f} TFLOP "
-          f"a step); wall {t['wall_s']:.2f} s for the run "
-          f"({t['wall_tokens_per_s']:,.0f} tokens/s, the snapshot's staging "
-          f"included)")
+          f"a step over the active parameters); wall {t['wall_s']:.2f} s for "
+          f"the run ({t['wall_tokens_per_s']:,.0f} tokens/s)")
     print(f"train: peak device memory {t['peak_bytes'] / 2**30:.2f} GiB over "
-          f"the steps, {t['snapshot_peak_bytes'] / 2**30:.2f} GiB up to the "
-          f"snapshot's staging; the snapshot's write waited "
-          f"{t['save_wait_s']:.2f} s after the run, a restore took "
-          f"{t['restore_s']:.2f} s")
-    print(f"train: resumed at step {TRAIN_RESUME_AT}: losses {t['resumed']} "
-          f"against {t['resumed_want']}, max rel diff "
-          f"{t['resume_max_rel_diff']} (bitwise equal: {t['resume_bitwise']})")
+          f"the steps")
+    if "resumed" in t:
+        print(f"train: {t['snapshot_peak_bytes'] / 2**30:.2f} GiB up to the "
+              f"snapshot's staging; the snapshot's write waited "
+              f"{t['save_wait_s']:.2f} s after the run, a restore took "
+              f"{t['restore_s']:.2f} s; resumed at step {TRAIN_RESUME_AT}: "
+              f"losses {t['resumed']} against {t['resumed_want']}, max rel "
+              f"diff {t['resume_max_rel_diff']} (bitwise equal: "
+              f"{t['resume_bitwise']})")
     print(f"train: one batch from a fresh state, A = 2 / A = 1: {t['accum']}, "
           f"rel diff {t['accum_rel']}")
+    if t["slots"] is not None:
+        s = t["slots"]
+        shapes = ", ".join(f"T {n} at E {e}" for n, e in s["shapes"])
+        print(f"train: one microbatch's slots: {s['calls_full']} "
+              f"bucket_slots calls under full remat (the backward's "
+              f"recompute equal to the forward's), {s['calls_none']} under "
+              f"remat none, each == bucket_slots_ref bit for bit "
+              f"({shapes}); gradients against remat none's: max rel "
+              f"{s['remat_grad_rel']} (bitwise equal: "
+              f"{s['remat_grads_bitwise']})")
     if t["profile"] is not None:
         print_profile("train, two steps", t["profile"])
-    print(f"train: {t['seconds']:.1f} s")
+    print(f"train: {t['arch']} {t['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4338,24 +4687,37 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
             **{o: {k: times[o][k] for k in (*keys, *extra)} for o in others}}
 
 
-def served_slots_kernel(serve: dict, entry: dict) -> dict:
+def served_slots_kernel(serves: dict, train: dict, entry: dict) -> dict:
     """The ``kernels`` line's bucket_slots entry: its launches on the
-    served path (``serve``, phase 4's MoE arch) and its numbers at the
-    served shape of the expert buffers (the larger), then the other
-    served shape and the entry-point shapes of phase 2 (``entry``)."""
+    served paths (phase 4's MoE archs) and the training path (phase 5's
+    MoE run), its numbers at deepseek-v2-lite's served shape of the
+    expert buffers (the larger), then its other served shapes, jamba's,
+    and the entry-point shapes of phase 2 (``entry``)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "device_activities_per_call")
-    sl = serve["slots"]
-    times = sl["times"]
-    main = max(times, key=lambda n: times[n]["bytes"])
+    by_path = {f"serve {a}": r["launches"]["bucket_slots"]
+               for a, r in serves.items() if "bucket_slots" in r["launches"]}
+    by_path.update({f"train {a}": r["launches"]["bucket_slots"]
+                    for a, r in train.items() if r["want_launches"]})
+    times = {f"{a} {n}": t for a, r in serves.items() if r["slots"]
+             for n, t in r["slots"]["times"].items()}
+    sl = serves[MOE_ARCH]["slots"]
+    main = max(sl["times"], key=lambda n: sl["times"][n]["bytes"])
+    main = f"{MOE_ARCH} {main}"
     return {**entry, **{k: times[main][k] for k in keys},
-            "launches": serve["launches"],
-            "launches_by_path": {f"serve {serve['arch']}": serve["launches"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": {**by_path,
                                  "entry points": entry["launches"]},
-            "served_calls_checked": {"prefill": sl["calls"],
-                                     "decode_step": sl["decode_calls"]},
-            "prefill_share": sl["prefill_share"],
-            "decode_share": sl["decode_share"],
+            "served_calls_checked": {
+                a: {"prefill": r["slots"]["calls"],
+                    "decode_step": r["slots"]["decode_calls"]}
+                for a, r in serves.items() if r["slots"]},
+            "train_calls_checked": {a: r["slots"]["calls_full"]
+                                    for a, r in train.items() if r["slots"]},
+            "prefill_share": {a: r["slots"]["prefill_share"]
+                              for a, r in serves.items() if r["slots"]},
+            "decode_share": {a: r["slots"]["decode_share"]
+                             for a, r in serves.items() if r["slots"]},
             "shape": main,
             **{n: {k: t[k] for k in keys} for n, t in times.items()
                if n != main},
@@ -4427,7 +4789,9 @@ def main(argv=()) -> int:
     for shape, t in ((f"B={BATCH} S={PROMPT_LEN} H=KV=16 hd=128 causal",
                       fa),
                      (f"B={BATCH} S={PROMPT_LEN} H=32 KV=8 hd=80 causal "
-                      f"window=4096", fa["h2o"])):
+                      f"window=4096", fa["h2o"]),
+                     (f"B={BATCH} S={PROMPT_LEN} H=32 KV=8 hd=128 causal "
+                      f"(jamba-v0.1)", fa["jamba"])):
         print(f"flash_attention at {shape} bf16: {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms (max "
               f"abs diff to the kernel {t['sdpa_vs_kernel_max_abs']}), bound "
@@ -4435,23 +4799,26 @@ def main(argv=()) -> int:
               f"{t['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s, "
               f"{t['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
 
-    ssd_errs = phase_ssd_vs_plain(device, {**SSD_MATRIX,
-                                           "served": SSD_SERVED})
+    ssd_errs = phase_ssd_vs_plain(device, {**SSD_MATRIX, **SSD_FULL})
     for name, e in ssd_errs.items():
         print(f"kernels: ssd_scan ~ plain on {name}: max abs err {e}")
-    ssd_bits = check_ssd_bits(device, {**SSD_MATRIX, "served": SSD_SERVED})
+    ssd_bits = check_ssd_bits(device, {**SSD_MATRIX, **SSD_FULL})
     for name, b in ssd_bits.items():
         print(f"kernels: ssd_scan on {name}: y off the plain version's bits "
               f"{b['kernel']}, scores rounded to bf16 {b['scores_bf16']}")
     ssd = time_ssd(device)
-    print(f"ssd_scan at B={BATCH} S={PROMPT_LEN} H=48 P=64 N=128 G=1 chunk=256 "
-          f"bf16: {ssd['ms']:.4f} ms (device {ssd['device_ms']:.4f} ms, "
-          f"{ssd['device_kernels']} device kernels a call: "
-          f"{ssd['device_kernel_names']}), fp32 kernel in fp32 "
-          f"{ssd['fp32_ms']:.3f} ms, plain {ssd['plain_ms']:.3f} ms, bound "
-          f"{ssd['bound_ms']:.4f} ms ({ssd['bound_by']}: "
-          f"{ssd['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
-          f"{ssd['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s)")
+    for shape, t in (("H=48 P=64 N=128 G=1 chunk=256", ssd),
+                     ("H=128 P=64 N=16 G=1 chunk=256 (jamba-v0.1)",
+                      ssd["jamba"])):
+        fp32 = (f", fp32 kernel in fp32 {t['fp32_ms']:.3f} ms"
+                if "fp32_ms" in t else "")
+        print(f"ssd_scan at B={BATCH} S={PROMPT_LEN} {shape} bf16: "
+              f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, "
+              f"{t['device_kernels']} device kernels a call: "
+              f"{t['device_kernel_names']}){fp32}, plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
+              f"{t['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s)")
 
     matrix = matrix_cases(device, slots={**SLOTS_MATRIX, **SLOTS_LOOKBACK},
                           decode={**DECODE_MATRIX, **DECODE_FULL_F32})
@@ -4590,8 +4957,7 @@ def main(argv=()) -> int:
     del corpus
 
     serves = phase_serves(device, SERVE_ARCHS)
-    train = phase_train(device, _serve()[0](TRAIN_ARCH))
-    print_train(train)
+    train = phase_trains(device, TRAIN_ARCHS)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
@@ -4609,7 +4975,9 @@ def main(argv=()) -> int:
                       "memcheck": memcheck, "guard": guard,
                       "serve": serves, "train": train}))
 
-    fa_archs = [a for a in serves if serves[a]["kernel"] == "flash_attention"]
+    def by_arch(kernel: str) -> dict:
+        return {a: r["launches"][kernel] for a, r in serves.items()
+                if kernel in r["launches"]}
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_map/csrc/fused_map.cu",
@@ -4642,21 +5010,24 @@ def main(argv=()) -> int:
         "fp32_source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-        "launches": sum(serves[a]["launches"] for a in fa_archs),
-        "launches_by_arch": {a: serves[a]["launches"] for a in fa_archs},
+        "launches": sum(by_arch("flash_attention").values()),
+        "launches_by_arch": by_arch("flash_attention"),
         "max_abs_err": max(fa_errs.values()),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
         "build_s": built["flash_attention"].seconds,
         "fp32_build_s": built["flash_attention_fp32"].seconds,
-        "shape": "olmo-1b", "h2o-danube-1.8b": {k: fa["h2o"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
+        "shape": "olmo-1b", **{arch: {k: fa[key][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for arch, key in (("h2o-danube-1.8b", "h2o"),
+                              (HYBRID_ARCH, "jamba"))}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bf16.cu",
         "fp32_source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:77",
-        "launches": serves["mamba2-780m"]["launches"],
+        "launches": sum(by_arch("ssd_scan").values()),
+        "launches_by_arch": by_arch("ssd_scan"),
         "device_kernels_per_launch": ssd["device_kernels"],
         "max_abs_err": max(ssd_errs.values()),
         "ms": ssd["ms"], "device_ms": ssd["device_ms"],
@@ -4664,12 +5035,15 @@ def main(argv=()) -> int:
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None,
         "build_s": built["ssd_scan"].seconds,
-        "fp32_build_s": built["ssd_scan_fp32"].seconds},
+        "fp32_build_s": built["ssd_scan_fp32"].seconds,
+        "shape": "mamba2-780m", HYBRID_ARCH: {k: ssd["jamba"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}},
         entry_kernel("hist", "wordcount_hash/csrc/hist.cu",
                      "wordcount_hash/kernel.py:66", entry, entry_t,
                      "hist_count", ("hist_owner", "hist_count_uniform",
                                     "hist_owner_uniform"), built, 0),
-        served_slots_kernel(serves[MOE_ARCH], entry_kernel(
+        served_slots_kernel(serves, train, entry_kernel(
             "bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
             "moe_dispatch/kernel.py:51", entry, entry_t, "slots_routing",
             ("slots_owner_window",), built, 0)),

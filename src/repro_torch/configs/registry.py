@@ -1,9 +1,10 @@
 """Arch registry of the port (counterpart of ``repro/configs/registry.py``).
 
 It lists only the archs whose every layer the port runs: the dense
-families, the attention-free ``ssm`` family and deepseek-v2-lite's MoE
-stack (MLA attention, one leading dense layer). Any other arch of the
-reference raises ``NotImplementedError``.
+families, the attention-free ``ssm`` family, deepseek-v2-lite's MoE
+stack (MLA attention, one leading dense layer) and jamba's hybrid stack
+(SSD and GQA attention layers, MoE on every other layer). Any other arch
+of the reference raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ _MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
 
 ARCH_IDS: list[str] = list(_MODULES)

@@ -11,11 +11,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b --requests 8 --prompt-len 2048 \\
         --new-tokens 32                      # 31.3 GB of bf16 weights
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --smoke --device cpu      # the hybrid stack
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: olmo-1b,
-h2o-danube-1.8b (dense), mamba2-780m (ssm) and deepseek-v2-lite-16b
+h2o-danube-1.8b (dense), mamba2-780m (ssm), deepseek-v2-lite-16b
 (MoE with MLA attention and one leading dense layer; its MoE layers
-slot their records through the bucket_slots kernel on the card).
+slot their records through the bucket_slots kernel on the card) and
+jamba-v0.1-52b (hybrid: SSD and GQA attention layers, MoE on every
+other layer). jamba's 32 layers hold ~103 GB of bf16 weights, more than
+one 80 GB card: ``tools/compare_turns.py --phases serve --archs
+jamba-v0.1-52b`` serves one period of 8 layers at its full width.
 
 The weights are random, from ``--seed``. Runs on ``cuda`` unless
 ``--device`` names another device.

@@ -6,9 +6,15 @@ checkpoints -> throughput tracking -> resume.
         --smoke --device cpu --steps 20                       # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --steps 20 --batch 8 --seq 512 --microbatch 4         # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --smoke --device cpu --dispatch 2s
 
 The flags are the reference's (``repro.launch.train``) plus ``--device``
-(cuda unless given; no fallback to the CPU). One device only: ``--devices``
+(cuda unless given; no fallback to the CPU). ``--arch`` takes any arch of
+the port's registry; an MoE stack trains with ``--dispatch`` 1s or 2s,
+its MoE layers slotting their records through the bucket_slots kernel
+on the card. At full depth deepseek-v2-lite-16b (fp32 moments, ~188 GB)
+and jamba-v0.1-52b do not fit one 80 GB card. One device only: ``--devices``
 above 1 or a ``--mesh`` other than 1x1 raises ``NotImplementedError``
 (ROADMAP Queue 1 item 12, the distributed entry). ``--ckpt-dir`` writes
 a snapshot every ``--ckpt-every`` steps and at the end, under the

@@ -1,16 +1,20 @@
-"""The model stack for the dense, ssm and MoE families (counterpart of
-``repro/models/transformer.py``).
+"""The model stack for the dense, ssm, MoE and hybrid families
+(counterpart of ``repro/models/transformer.py``).
 
 A model is ``n_layers`` layers between a token embedding and a final
 norm with an (optionally tied) head: attention plus SwiGLU MLP in a
 dense stack, one Mamba-2 SSD mixer (``models/ssm.py``) and no MLP in an
 ``ssm`` stack, attention (GQA or MLA) plus an MoE layer
 (``models/moe.py``) in a ``moe`` stack, whose ``first_k_dense`` leading
-layers carry an MLP instead. The reference keeps the leading dense
-layers apart and scans super-blocks over a stacked parameter tree; here
-the layers are one ``nn.ModuleList``, one ``ModuleDict`` per layer under
-the reference's leaf names (layer i is ``blocks[i]``, leading dense
-layers included), and the scans are Python loops.
+layers carry an MLP instead. A ``hybrid`` stack (jamba) mixes them: an
+attention layer every ``attn_every`` layers at ``attn_offset``, an SSD
+mixer elsewhere, each followed by an MLP, or by an MoE layer on the
+layers ``is_moe_layer`` names. The reference keeps the leading dense
+layers apart and scans super-blocks of ``block_pattern`` layers over a
+stacked parameter tree; here the layers are one ``nn.ModuleList``, one
+``ModuleDict`` per layer under the reference's leaf names (layer i is
+``blocks[i]``, leading dense layers included), and the scans are Python
+loops.
 
 Entry points, as in the reference:
   ``loss_fn``      train forward + CE (``remat`` per layer)
@@ -26,9 +30,12 @@ trainable (``train.train_step.init_train_state``).
 flash_attention kernel, the SSD scan through ssd_scan and the MoE
 layers' slotting through bucket_slots (each the kernel on a CUDA tensor,
 its plain version on a CPU one); ``decode_step``'s ``use_kernel``
-does the same for its MoE layers' slotting. Hybrid stacks, the encoder
-and modality frontends and ``unroll`` raise ``NotImplementedError``
-(ROADMAP Queue 1 item 12).
+does the same for its MoE layers' slotting. ``slot_kernel`` of
+``forward`` and ``loss_fn`` sends the slotting alone through
+bucket_slots (the train step's choice: its slots are integers and need
+no backward, while the attention and SSD kernels have none). The
+encoder and modality frontends and ``unroll`` raise
+``NotImplementedError`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -63,10 +70,12 @@ def layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
     """
     if cfg.family == "ssm":
         return "ssm", "none"
-    if cfg.family == "hybrid":
-        raise _unported(f"the hybrid stack of {cfg.name} (attention, SSM "
-                        f"and MoE layers)")
-    mixer = "mla" if cfg.attn_type == "mla" else "attn"
+    if cfg.family == "hybrid" and not cfg.is_attn_layer(i):
+        mixer = "ssm"
+    elif cfg.attn_type == "mla":
+        mixer = "mla"
+    else:
+        mixer = "attn"
     return mixer, "moe" if cfg.is_moe_layer(i) else "mlp"
 
 
@@ -94,7 +103,8 @@ class Model(nn.Module):
     ``embed_tokens`` (and ``lm_head`` when untied), ``blocks`` (layer i
     is ``blocks[i]``, a ``ModuleDict`` of ``norm1``, ``attn``, ``norm2``,
     ``mlp`` in a dense stack, ``moe`` in place of ``mlp`` on an MoE
-    layer, of ``norm1`` and ``ssm`` in an ssm stack) and
+    layer, ``ssm`` in place of ``attn`` on an SSD layer; an ssm stack's
+    layers hold ``norm1`` and ``ssm`` alone) and
     ``final_norm``. ``p[name]`` and ``name in p`` read it as
     the reference reads its parameter dict.
 
@@ -162,8 +172,10 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
 
 def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
                    causal: bool, use_kernel: bool = False,
-                   unroll: bool = False):
-    """Returns (x, cache_dict, aux_loss); aux is 0.0 without MoE."""
+                   slot_kernel: bool = False, unroll: bool = False):
+    """Returns (x, cache_dict, aux_loss); aux is 0.0 without MoE.
+    ``use_kernel`` is attention's and the SSD's, ``slot_kernel`` the MoE
+    layer's slotting's."""
     mixer, ff = layer_kind(cfg, i)
     aux = 0.0
     h = apply_norm(cfg, p["norm1"], x)
@@ -183,7 +195,7 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
         h = apply_norm(cfg, p["norm2"], x)
         if ff == "moe":
             y, aux = moe_mod.moe_forward(cfg, p["moe"], h, unroll=unroll,
-                                         use_kernel=use_kernel)
+                                         use_kernel=slot_kernel)
         else:
             y = apply_mlp(p["mlp"], h)
         x = x + y
@@ -223,7 +235,7 @@ def _remat(name: str, fn, *args):
 
 
 def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
-            dp_entry=None, use_kernel=False, remat="none",
+            dp_entry=None, use_kernel=False, slot_kernel=None, remat="none",
             want_cache: bool = False, unroll: bool = False):
     """Train / prefill forward. batch: ``tokens`` (B, S) on the model's
     device. Returns (logits (B, S, V), aux_loss[, caches]);
@@ -232,7 +244,10 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     conv carries of an ssm layer), which
     ``serve.engine.prefill_to_decode_cache`` turns into decode layout.
     ``remat`` ("none", "dots" or "full") checkpoints each layer's body,
-    as the reference does each super-block's.
+    as the reference does each super-block's; under "dots" and "full"
+    the backward pass runs a layer's forward again, its MoE slotting
+    included. ``slot_kernel`` (None: as ``use_kernel``) sends the MoE
+    layers' slotting through bucket_slots' wrapper.
     """
     _check_supported(cfg)
     if mesh is not None:
@@ -244,11 +259,14 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    if slot_kernel is None:
+        slot_kernel = use_kernel
     block_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
         body = partial(_layer_forward, cfg, p, positions=positions, i=i,
-                       causal=True, use_kernel=use_kernel, unroll=unroll)
+                       causal=True, use_kernel=use_kernel,
+                       slot_kernel=slot_kernel, unroll=unroll)
         x, c, aux = _remat(remat, body, x)
         if torch.is_tensor(aux):        # an MoE layer's
             aux_total = aux_total + aux
@@ -262,13 +280,15 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
 
 
 def loss_fn(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
-            dp_entry=None, use_kernel=False, remat="none",
+            dp_entry=None, use_kernel=False, slot_kernel=None, remat="none",
             unroll: bool = False):
     """(loss, {"ce", "aux"}) of a batch of ``tokens`` and ``labels``
     (B, S) and an optional ``loss_mask``; loss = ce + router_aux_coef *
-    aux, aux 0 without MoE."""
+    aux, aux the MoE layers' summed load-balancing losses (0 without
+    MoE)."""
     logits, aux = forward(cfg, params, batch, mesh=mesh, dp_entry=dp_entry,
-                          use_kernel=use_kernel, remat=remat, unroll=unroll)
+                          use_kernel=use_kernel, slot_kernel=slot_kernel,
+                          remat=remat, unroll=unroll)
     labels = batch["labels"]
     ce = cross_entropy(logits[:, -labels.shape[1]:], labels,
                        batch.get("loss_mask"))

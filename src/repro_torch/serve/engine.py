@@ -8,11 +8,11 @@ or temperature sampling, early-stop bookkeeping.
 One deliberate difference from the reference: its engine prefills with
 ``use_pallas`` left at False, this one prefills and decodes with
 ``use_kernel=True``, so a served request runs the flash_attention kernel
-(dense stacks) or the ssd_scan kernel (ssm stacks) on the card once per
-layer and prefill, or the bucket_slots kernel (MoE stacks) twice a
-pipeline step of every MoE layer, at prefill and at every decode
-step. Both compute the same
-function (the kernels are held to it by the tests).
+once per attention layer (GQA or MHA) and prefill, the ssd_scan kernel
+once per SSD layer and prefill, and the bucket_slots kernel twice a
+pipeline step of every MoE layer, at prefill and at every decode step;
+a hybrid stack (jamba) runs all three. Both compute the same function
+(the kernels are held to it by the tests).
 """
 from __future__ import annotations
 
@@ -36,8 +36,7 @@ from repro_torch.models.transformer import Model, layer_kind
 def _convert_layer(cfg: ModelConfig, kind: str, raw: dict, S: int,
                    S_max: int) -> dict:
     """raw prefill cache (seq length S) -> decode layout (capacity S_max).
-    ``kind`` is "ssm", "mla" or "attn": ``layer_kind`` raises on the
-    others."""
+    ``kind`` is the layer's mixer, "ssm", "mla" or "attn"."""
     if kind == "ssm":
         return raw  # state + conv carries are already the decode layout
     if kind == "mla":
@@ -72,7 +71,8 @@ def _fits(S: int, S_max: int):
 def prefill_to_decode_cache(cfg: ModelConfig, caches: dict, S: int,
                             S_max: int) -> dict:
     """Convert ``forward(want_cache=True)`` output to ``decode_step``
-    layout."""
+    layout, layer by layer as each layer's mixer keeps it (a hybrid
+    stack holds SSD states and conv carries beside k/v)."""
     return {"blocks": [
         _convert_layer(cfg, layer_kind(cfg, i)[0], c, S, S_max)
         for i, c in enumerate(caches["blocks"])]}

@@ -3,10 +3,16 @@
 
 The reference differentiates ``loss_fn`` with ``jax.value_and_grad``
 outside any Pallas kernel (its train step leaves ``use_pallas`` off):
-attention runs through ``flash_attention_ref`` and the SSD through its
-reference scan. The port does the same under autograd:
-``loss_fn(use_kernel=False)``, and ``torch.autograd.grad`` over the
-model's parameters.
+attention runs through ``flash_attention_ref``, the SSD through its
+reference scan and the MoE layers slot their records with an argsort.
+The port does the same under autograd (``torch.autograd.grad`` over the
+model's parameters) with one kernel: ``loss_fn(use_kernel=False,
+slot_kernel=True)`` slots the MoE layers' records through bucket_slots'
+wrapper, the kernel on a CUDA tensor and its plain version on a CPU
+one. The slots are integers, so they need no backward; attention and
+the SSD keep their plain, differentiable math, since neither kernel has
+a backward. Under ``remat="full"`` or ``"dots"`` the backward pass
+slots each MoE layer's records again, on the same ids.
 
 ``init_train_state`` makes the model it is handed trainable
 (``requires_grad``); serving it still builds no graph
@@ -16,10 +22,10 @@ state in place (parameters, moments, step counter, residuals) and
 returns the same state, as the reference's jitted step donates its
 input state.
 
-Only the single-device step of the dense, SWA and ssm stacks is
-ported: ``mesh=``, ``dp_entry=``, ``unroll=True`` and a stack with MoE
-layers or MLA attention raise ``NotImplementedError`` (ROADMAP Queue 1
-item 12; those stacks serve, and ``loss_fn`` runs them forward).
+Only the single-device step is ported, for every stack the port
+builds (dense, SWA, ssm, MoE with MLA, hybrid): ``mesh=``,
+``dp_entry=`` and ``unroll=True`` raise ``NotImplementedError``
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -66,7 +72,8 @@ def _accumulate_grads(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig,
     leaves = list(params.parameters())
 
     def grads_of(b):
-        loss, metrics = loss_fn(cfg, params, b, remat=tcfg.remat_policy)
+        loss, metrics = loss_fn(cfg, params, b, slot_kernel=True,
+                                remat=tcfg.remat_policy)
         return loss, metrics, torch.autograd.grad(loss, leaves)
 
     if A == 1:
@@ -106,8 +113,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, mesh=None,
                         "the distributed entry)")
     if unroll:
         raise _unported("unroll=True")
-    if cfg.n_experts or cfg.attn_type == "mla":
-        raise _unported(f"training of {cfg.name}'s MoE and MLA layers")
     tcfg = run.train
 
     def grads(state: TrainState, batch: dict):

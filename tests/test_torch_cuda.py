@@ -1405,3 +1405,78 @@ def test_moe_decode_step_kernel_path_equals_the_plain_path(cuda_device,
     assert torch.equal(out["kernel"][0], out["plain"][0])
     for a, b in zip(out["kernel"][1]["blocks"], out["plain"][1]["blocks"]):
         assert torch.equal(a["ckv"], b["ckv"])
+
+
+# ---------------------------------------------------------------------------
+# MoE training and the hybrid stack on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_moe_train_step_slots_through_the_kernel(cuda_device):
+    """Phase 5 at deepseek-v2-lite's SMOKE config (bf16) on the card: the
+    train step launches bucket_slots twice an MoE layer's slotting and
+    microbatch (the forward and full remat's recompute) and nothing else;
+    one step's slot calls, under full remat and under remat none, each
+    equal ``bucket_slots_ref`` bit for bit, the recompute's the
+    forward's, and the two steps' gradients agree."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(chip_smoke.MOE_ARCH)
+    t = chip_smoke.phase_train(cuda_device, cfg, seq=128, batch=8,
+                               microbatch=4, steps=6, resume_at=0,
+                               n_tokens=200_000)
+    moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    per_step = moe * 2 * (cfg.dispatch_groups + 1) * 2 * 2
+    assert t["launches"]["bucket_slots"] == 6 * per_step
+    assert not any(v for k, v in t["launches"].items()
+                   if k != "bucket_slots")
+    assert t["slots"]["calls_full"] == 2 * t["slots"]["calls_none"] > 0
+    assert t["slots"]["remat_grad_rel"] <= chip_smoke.TRAIN_REMAT_RTOL
+
+
+def _narrow_jamba(dtype="float32"):
+    """jamba's SMOKE config widened to shapes the kernels take: head dim
+    64 for flash_attention, SSD heads of 64 and chunk 64 for ssd_scan."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(
+        get_smoke_config(chip_smoke.HYBRID_ARCH), d_model=256, n_heads=4,
+        n_kv_heads=2, d_head=64, d_ff=256, d_ff_expert=256, ssm_head_dim=64,
+        ssm_chunk=64, dtype=dtype, param_dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_launches_its_three_kernels(cuda_device):
+    """One prefill of a narrow jamba stack (one period: 7 SSD layers,
+    attention at slot 4, MoE on the odd slots) launches flash_attention
+    once, ssd_scan 7 times and bucket_slots 2 (G + 1) times an MoE
+    layer; the plain path launches none, and the logits agree."""
+    from repro_torch.models import transformer as tf
+    cfg = _narrow_jamba()
+    model = tf.init_model(cfg, 0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 192), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    kernels = chip_smoke.serve_kernels(cfg)
+    assert sorted(kernels) == ["bucket_slots", "flash_attention", "ssd_scan"]
+    out = {}
+    for use_kernel in (True, False):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        out[use_kernel] = tf.prefill(cfg, model, {"tokens": toks},
+                                     use_kernel=use_kernel)
+        torch.cuda.synchronize(cuda_device)
+        got = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        want = {"flash_attention": 1, "ssd_scan": 7,
+                "bucket_slots": 4 * 2 * (cfg.dispatch_groups + 1)}
+        assert got == (want if use_kernel else dict.fromkeys(want, 0))
+    np.testing.assert_allclose(out[True].cpu().numpy(),
+                               out[False].cpu().numpy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_hybrid_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
+    """Phase 4 on the narrow jamba stack in fp32: gates (a)-(e) hold."""
+    s = chip_smoke.phase_serve(cuda_device, _narrow_jamba(), requests=3,
+                               batch=2, prompt_len=192, new_tokens=4)
+    assert s["launches"] == s["want_launches"]
+    assert s["slots"]["calls"] > 0 and s["slots"]["decode_calls"] > 0
+    assert s["layer_err_over_limit"] <= 1.0

@@ -435,7 +435,8 @@ def test_smoke_flash_and_serve_phases_rehearse_on_cpu():
     serve = chip_smoke.phase_serve(cpu, get_smoke_config("olmo-1b"),
                                    requests=4, batch=2, prompt_len=64,
                                    new_tokens=4)
-    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["launches"] == {"flash_attention": 0}
+    assert serve["served_tokens_per_s"] > 0
     assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
 
 
@@ -464,10 +465,11 @@ def test_smoke_h2o_phases_rehearse_on_cpu():
                                           + (S - window) * window)
     cfg = dataclasses.replace(get_smoke_config("h2o-danube-1.8b"),
                               n_heads=2, n_kv_heads=1, d_head=80)
-    assert chip_smoke.serve_kernel(cfg)[0] == "flash_attention"
+    assert list(chip_smoke.serve_kernels(cfg)) == ["flash_attention"]
     serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
                                    prompt_len=48, new_tokens=4)
-    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["launches"] == {"flash_attention": 0}
+    assert serve["served_tokens_per_s"] > 0
     assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
 
 
@@ -481,10 +483,11 @@ def test_smoke_ssd_and_mamba_serve_phases_rehearse_on_cpu():
     assert set(errs) == set(chip_smoke.SSD_MATRIX)
     assert max(errs.values()) == 0.0
     cfg = get_smoke_config("mamba2-780m")
-    assert chip_smoke.serve_kernel(cfg)[0] == "ssd_scan"
+    assert list(chip_smoke.serve_kernels(cfg)) == ["ssd_scan"]
     serve = chip_smoke.phase_serve(cpu, cfg, requests=4, batch=2,
                                    prompt_len=40, new_tokens=4)
-    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
+    assert serve["launches"] == {"ssd_scan": 0}
+    assert serve["served_tokens_per_s"] > 0
     assert serve["layer_err_over_limit"] <= 1.0
     assert serve["kernel_vs_ref_err_over_limit"] <= 1.0   # two layers
     assert len(serve["drift"]) == 2
@@ -512,13 +515,14 @@ def test_smoke_moe_serve_phase_rehearses_on_cpu():
     cpu = torch.device("cpu")
     cfg = get_smoke_config(chip_smoke.MOE_ARCH)
     assert chip_smoke.SERVE_ARCHS == dict.fromkeys(
-        ("olmo-1b", "mamba2-780m", "h2o-danube-1.8b", chip_smoke.MOE_ARCH),
-        chip_smoke.BATCH)
-    assert chip_smoke.serve_kernel(cfg)[0] == "bucket_slots"
+        ("olmo-1b", "mamba2-780m", "h2o-danube-1.8b", chip_smoke.MOE_ARCH,
+         chip_smoke.HYBRID_ARCH), chip_smoke.BATCH)
+    assert list(chip_smoke.serve_kernels(cfg)) == ["bucket_slots"]
     serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
                                    prompt_len=32, new_tokens=4)
-    assert serve["launches"] == 0 and serve["served_tokens_per_s"] > 0
-    assert serve["want_launches"] == 2 * 3 * 2 * 4
+    assert serve["launches"] == {"bucket_slots": 0}
+    assert serve["served_tokens_per_s"] > 0
+    assert serve["want_launches"] == {"bucket_slots": 2 * 3 * 2 * 4}
     assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
     slots = serve["slots"]
     assert slots["calls"] == slots["decode_calls"] == 12
@@ -528,12 +532,13 @@ def test_smoke_moe_serve_phase_rehearses_on_cpu():
     serve["seconds"] = 0.0
     chip_smoke.print_serve(serve)
     full = get_config(chip_smoke.MOE_ARCH)
-    assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == 10 * 26 * 32
+    assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == \
+        {"bucket_slots": 10 * 26 * 32}
     assert chip_smoke.slot_shapes(full, 8 * 2048) == \
         [(24_576, 1), (30_721, 64)] * 5
     assert chip_smoke.slot_shapes(full, 8) == [(12, 1), (16, 64)] * 5
     assert chip_smoke.serve_launches(get_config("olmo-1b"), 16, 8, 2048,
-                                     32) == 32
+                                     32) == {"flash_attention": 32}
     # the kernels line's entry, from numbers shaped as the card's
     t = dict(ms=0.02, plain_ms=1.0, bound_ms=1e-4, bound_by="bytes",
              library_ms=None, device_ms=0.006,
@@ -542,13 +547,78 @@ def test_smoke_moe_serve_phase_rehearses_on_cpu():
                                "served_T30721_E64": {**t, "bytes": 246_024}}
     entry = {"name": "bucket_slots", "launches": 2, "max_abs_err": 0,
              **t, "shape": "slots_routing", "slots_owner_window": t}
-    e = chip_smoke.served_slots_kernel(serve, entry)
-    assert e["launches"] == 0 and e["shape"] == "served_T30721_E64"
+    e = chip_smoke.served_slots_kernel({chip_smoke.MOE_ARCH: serve}, {},
+                                       entry)
+    arch = chip_smoke.MOE_ARCH
+    assert e["launches"] == 0 and e["shape"] == f"{arch} served_T30721_E64"
     assert e["launches_by_path"]["entry points"] == 2
-    assert e["served_calls_checked"] == {"prefill": 12, "decode_step": 12}
-    assert set(e) >= {"served_T24576_E1", "slots_routing",
+    assert e["served_calls_checked"] == {arch: {"prefill": 12,
+                                                "decode_step": 12}}
+    assert set(e) >= {f"{arch} served_T24576_E1", "slots_routing",
                       "slots_owner_window", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms"}
+
+
+def test_smoke_hybrid_serve_and_moe_train_phases_rehearse_on_cpu():
+    """jamba-v0.1's part of phase 4 at a narrow bf16 config (one period,
+    head dims the kernels take): the three kernels it expects, served
+    tokens checked, the mixers on the kernel path's input, the stack
+    against fp32 streamed a layer at a time with the bf16 kernel path's
+    routing, every slot call bit for bit, no kernel launched on the CPU;
+    the launches at full width. Then deepseek-v2-lite's part of phase 5
+    at its SMOKE config: the launches it expects (twice a layer's slotting
+    under full remat), one microbatch's slots under full remat and remat
+    none, and A = 2 against A = 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(
+        get_smoke_config(chip_smoke.HYBRID_ARCH), d_model=256, n_heads=4,
+        n_kv_heads=2, d_head=64, d_ff=256, d_ff_expert=256, ssm_head_dim=64,
+        ssm_chunk=64)
+    assert list(chip_smoke.serve_kernels(cfg)) == [
+        "flash_attention", "ssd_scan", "bucket_slots"]
+    serve = chip_smoke.phase_serve(cpu, cfg, requests=3, batch=2,
+                                   prompt_len=192, new_tokens=4)
+    assert serve["launches"] == dict.fromkeys(serve["want_launches"], 0)
+    assert serve["want_launches"] == {"flash_attention": 2, "ssd_scan": 14,
+                                      "bucket_slots": 4 * (6 + 3 * 6)
+                                      + 4 * (6 + 3 * 4)}
+    assert serve["layer_err_over_limit"] <= 1.0
+    (d,) = serve["drift"]
+    assert d["rows"] == chip_smoke.DRIFT_ROWS and len(d["reroutes"]) == 3
+    assert d["kernel_low_vs_fp32"] <= \
+        chip_smoke.SSM_DRIFT_FACTOR * d["ref_low_vs_fp32"]
+    assert serve["slots"]["calls"] == serve["slots"]["decode_calls"] == 24
+    full = dataclasses.replace(get_config(chip_smoke.HYBRID_ARCH),
+                               n_layers=chip_smoke.SERVE_LAYERS[
+                                   chip_smoke.HYBRID_ARCH])
+    assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == {
+        "flash_attention": 1, "ssd_scan": 7, "bucket_slots": 1280}
+    assert chip_smoke.slot_shapes(full, 8 * 2048) == \
+        [(8_192, 1), (10_241, 16)] * 5
+    assert chip_smoke.slot_shapes(full, 8) == [(4, 1), (6, 16)] * 5
+
+    moe = get_smoke_config(chip_smoke.MOE_ARCH)
+    t = chip_smoke.phase_train(cpu, moe, seq=64, batch=8, microbatch=4,
+                               steps=6, resume_at=0, n_tokens=100_000)
+    assert not any(t["launches"].values())
+    assert t["want_launches"] == {"bucket_slots": 6 * 2 * 2 * 2 * 6}
+    assert t["slots"]["calls_full"] == 2 * t["slots"]["calls_none"] == 24
+    assert t["slots"]["shapes"] == [(256, 1), (321, 8)]
+    assert t["slots"]["remat_grads_bitwise"]
+    assert "resumed" not in t and t["grad_accum"] == 2
+    chip_smoke.print_train(t)
+    deep = dataclasses.replace(get_config(chip_smoke.MOE_ARCH),
+                               n_layers=chip_smoke.TRAIN_LAYERS[
+                                   chip_smoke.MOE_ARCH])
+    run, _, _ = chip_smoke.train_state(moe, cpu, 512, 8, 4, 1)
+    run = dataclasses.replace(run, model=deep)
+    assert chip_smoke.train_launches(deep, run, 10) == {
+        "bucket_slots": 3 * 10 * 2 * 2 * 10}
+    assert chip_smoke.slot_shapes(deep, 4 * 512) == \
+        [(3_072, 1), (3_841, 64)] * 5
 
 
 def test_smoke_entry_point_phases_rehearse_on_cpu():

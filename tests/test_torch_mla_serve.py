@@ -20,14 +20,12 @@ Routing is discrete, so where two experts' router probabilities tie to
 within bf16's rounding, the two packages may pick apart, and one token's
 output moves by a whole expert's. The stack-level comparisons therefore
 record the reference's routing of every MoE call and run the port with
-it (``_same_routing``): every row the port routes otherwise must be such
-a tie (its own probabilities of the two choices within ``TIE``), and in
-fp32 none may differ. The layer-level tests of ``test_torch_moe.py`` run
-each package's own routing.
+it (``torch_routing.same_routing``): every row the port routes otherwise
+must be such a tie (its own probabilities of the two choices within
+``torch_routing.TIE``), and in fp32 none may differ. The layer-level
+tests of ``test_torch_moe.py`` run each package's own routing.
 """
-import contextlib
 import dataclasses
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -38,7 +36,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import registry as jregistry  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
-from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
 from repro_torch.configs import registry as tregistry  # noqa: E402
@@ -47,13 +44,12 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
+from torch_routing import recording as _recording  # noqa: E402
+from torch_routing import same_routing as _same_routing  # noqa: E402
 
 ARCH = "deepseek-v2-lite-16b"
 B, S, NEW = 2, 40, 6
 CPU = torch.device("cpu")
-# a router probability gap that bf16 rounding may cross (1e-3 of a
-# probability, against bf16's relative step of 2**-8 on the router input)
-TIE = {"float32": 0.0, "bfloat16": 1e-3}
 
 
 @dataclasses.dataclass
@@ -104,52 +100,6 @@ def _tokens(cfg, seed=0, n=S):
 def _jt(a, dtype):
     return jnp.asarray(a, jnp.dtype(dtype)), \
         torch.from_numpy(a).to(getattr(torch, dtype))
-
-
-@contextlib.contextmanager
-def _recording(calls: list):
-    """Append the expert ids of every reference ``_route`` call (under
-    jit and scans, through an ordered debug callback) to ``calls``."""
-    real = jmoe._route
-
-    def route(cfg, router_w, x_flat):
-        out = real(cfg, router_w, x_flat)
-        jax.debug.callback(lambda ids: calls.append(np.asarray(ids)),
-                           out[0], ordered=True)
-        return out
-
-    with mock.patch.object(jmoe, "_route", route):
-        yield
-
-
-@contextlib.contextmanager
-def _same_routing(calls: list, dtype: str, flips: list):
-    """Run the port's ``_route`` calls with the recorded reference ids,
-    call by call: a row whose expert set differs must be a tie (each
-    expert only the reference picked within ``TIE[dtype]`` of the port's
-    k-th probability); its gates are the port's probabilities of the
-    reference's experts, renormalised. ``flips`` gets each call's count
-    of such rows (none in fp32 here; a few in bf16)."""
-    real = tmoe._route
-    it = iter(calls)
-
-    def route(cfg, router_w, x_flat):
-        ids, gates, probs = real(cfg, router_w, x_flat)
-        want = torch.from_numpy(next(it).copy())
-        assert want.shape == ids.shape
-        differ = (ids.sort(-1)[0] != want.sort(-1)[0]).any(-1)
-        kth = probs.gather(1, ids.long()).amin(-1)
-        gap = kth[:, None] - probs.gather(1, want.long())
-        assert float(torch.where(differ[:, None], gap, 0.0).max()) \
-            <= TIE[dtype], \
-            "a routing choice apart from the reference's is not a tie"
-        flips.append(int(differ.sum()))
-        g = probs.gather(1, want.long())
-        return want, g / g.sum(-1, keepdim=True).clamp_min(1e-9), probs
-
-    with mock.patch.object(tmoe, "_route", route):
-        yield
-    assert next(it, None) is None, "the port routed fewer calls"
 
 
 def _ref_cache(cfg, caches, i):
@@ -406,11 +356,13 @@ def test_launch_serve_on_the_cpu(capsys):
 
 
 def test_training_the_stack_raises(pair):
-    """Training of the MoE and MLA stacks is not ported: the train step
-    refuses it, naming its ROADMAP item."""
+    """The MoE and MLA stack trains (``test_torch_moe_train.py``); its
+    sharded train step is not ported: ``make_train_step`` refuses a
+    mesh, naming its ROADMAP item."""
     from repro_torch import config as tconfig
     from repro_torch.train import train_step as tts
     run = tconfig.RunConfig(pair.tcfg, tconfig.ShapeConfig("t", S, B,
                                                            "train"))
+    tts.make_train_step(pair.tcfg, run)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tts.make_train_step(pair.tcfg, run)
+        tts.make_train_step(pair.tcfg, run, mesh=object())

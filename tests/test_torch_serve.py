@@ -34,7 +34,8 @@ from repro_torch.serve import engine as tengine  # noqa: E402
 
 ARCHS = ("olmo-1b", "h2o-danube-1.8b")
 # the ssm family: test_torch_ssm_serve; MoE + MLA: test_torch_mla_serve
-ALL_ARCHS = ARCHS + ("mamba2-780m", "deepseek-v2-lite-16b")
+ALL_ARCHS = ARCHS + ("mamba2-780m", "deepseek-v2-lite-16b",
+                     "jamba-v0.1-52b")
 B, S, NEW = 2, 96, 6
 CPU = torch.device("cpu")
 
@@ -323,20 +324,23 @@ def test_configs_are_the_reference_configs():
 def test_unported_parts_raise(what):
     """What the port does not run raises, naming its ROADMAP item. MoE,
     MLA and first_k_dense stacks build and serve (test_torch_mla_serve),
-    so their cases hold what of them stays unported: the MoE layer under
-    a mesh, MLA decode over a seq-sharded cache, and the replicated
-    decode-time dispatch of deepseek-v2-lite's expert layers."""
+    and so do hybrid ones (test_torch_hybrid_serve), so their cases hold
+    what of them stays unported: the MoE layer under a mesh, MLA decode
+    over a seq-sharded cache, the replicated decode-time dispatch of
+    deepseek-v2-lite's expert layers, and an arch outside the port's
+    registry."""
     from repro_torch.models import attention as tattn
     from repro_torch.models import moe as tmoe
     cfg = tregistry.get_smoke_config("olmo-1b")
     ds = tregistry.get_smoke_config("deepseek-v2-lite-16b")
-    bad = {"hybrid": dict(family="hybrid", attn_every=2),
-           "encoder": dict(n_enc_layers=2), "frontend": dict(
-               frontend="vision_stub")}
+    bad = {"encoder": dict(n_enc_layers=2), "frontend": dict(
+        frontend="vision_stub")}
     toks = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
     x = torch.zeros((1, 8, ds.d_model))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        if what in bad:
+        if what == "hybrid":       # no arch of the port's registry
+            tregistry.get_config("llama4-maverick-400b-a17b")
+        elif what in bad:
             ttf.init_model(dataclasses.replace(cfg, **bad[what]), 0,
                            device=CPU)
         elif what in ("moe", "mla", "first_k_dense"):

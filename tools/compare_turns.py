@@ -6,7 +6,7 @@ training.
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
                   elastic,serve,train]
-        [--archs ARCH,...] [--out FILE]
+        [--archs ARCH,...] [--train-archs ARCH,...] [--out FILE]
 
 Phases 3b-3i of ``chip_smoke.py`` on their own, on one CUDA card (its
 ``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
@@ -24,8 +24,11 @@ the uninterrupted or solo job's. ``fused_map`` is built from this
 checkout at its first use. ``serve`` is phase 4 (``phase_serves``:
 ``phase_serve`` with its gates) for each arch of ``--archs`` (default:
 every arch of ``SERVE_ARCHS``; ``--archs deepseek-v2-lite-16b`` serves
-the MoE stack alone). ``train`` is phase 5, olmo-1b trained at full width
-(``phase_train``, with its checks (a)-(d)); it reaches no kernel.
+the MoE stack alone, ``--archs jamba-v0.1-52b`` one period of the hybrid
+stack). ``train`` is phase 5 (``phase_trains``: ``phase_train`` with its
+checks) for each arch of ``--train-archs`` (default: every arch of
+``TRAIN_ARCHS``: olmo-1b, which reaches no kernel, and deepseek-v2-lite
+cut to 4 layers, whose MoE layers slot through bucket_slots).
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -50,6 +53,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="compare,snapshots")
     ap.add_argument("--archs", default=",".join(cs.SERVE_ARCHS))
+    ap.add_argument("--train-archs", default=",".join(cs.TRAIN_ARCHS))
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -83,8 +87,9 @@ def main(argv=None) -> int:
             "serve": (lambda: cs.phase_serves(device,
                                               args.archs.split(",")),
                       lambda out: None),    # printed arch by arch
-            "train": (lambda: cs.phase_train(
-                device, cs._serve()[0](cs.TRAIN_ARCH)), cs.print_train)}[phase]
+            "train": (lambda: cs.phase_trains(
+                device, args.train_archs.split(",")),
+                      lambda out: None)}[phase]    # printed arch by arch
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
