@@ -12,9 +12,11 @@ Phases, each of which asserts (nothing is caught):
                mutant kernels share ``mutants.cu``);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
-               shapes (flash_attention at olmo-1b's, h2o-danube-1.8b's and
-               jamba-v0.1's served shapes and at h2o's heads over S 8192,
-               where its window skips tiles; ssd_scan at mamba2-780m's
+               shapes (flash_attention over head dims 64, 80, 128 and 160
+               at the served shapes of olmo-1b, h2o-danube-1.8b,
+               jamba-v0.1, stablelm-12b (hd 160), codeqwen1.5-7b and
+               llama4-maverick, and at h2o's heads over S 8192, where its
+               window skips tiles; ssd_scan at mamba2-780m's
                and jamba-v0.1's; fused_map, hist and bucket_slots bit
                for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
@@ -194,10 +196,15 @@ Phases, each of which asserts (nothing is caught):
   4. serve   — olmo-1b, mamba2-780m, h2o-danube-1.8b (head dim 80),
                deepseek-v2-lite-16b (its width, 9 of its 27 layers: MLA,
                one leading dense layer, 8 MoE layers of 64 experts top-6
-               and 2 shared) and
+               and 2 shared),
                jamba-v0.1-52b (its width, one period of 8 layers: SSD
                layers of 128 heads x 64 with state 16, GQA 32/8 attention
-               at slot 4, MoE of 16 experts top-2 on the odd slots) at
+               at slot 4, MoE of 16 experts top-2 on the odd slots),
+               codeqwen1.5-7b (32 layers, MHA 32 with the qkv bias),
+               stablelm-12b (40 layers, LayerNorm, qk-norm, GQA 32/8 at
+               head dim 160) and llama4-maverick (its width, 2 of its 48
+               layers: one dense, one MoE of 128 experts top-1 and a
+               shared expert, GQA 40/8) at
                full width through ``ServeEngine.generate``: one batch
                of 8 requests each, 2048-token prompts, 32 new tokens,
                greedy; (a) each of the arch's kernels launched as the
@@ -217,7 +224,8 @@ Phases, each of which asserts (nothing is caught):
                layer's four served shapes (deepseek: T 24,576 at E 1 and
                T 30,721 at E 64 at prefill, T 12 at E 1 and T 16 at E 64
                at decode; jamba: T 8,192 at E 1, T 10,241 at E 16, T 4 at
-               E 1, T 6 at E 16) by events and device time beside its
+               E 1, T 6 at E 16; llama4: T 4,096 at E 1, T 5,121 at E 128,
+               T 2 at E 1, T 3 at E 128) by events and device time beside its
                plain version and bound, and its share of the prefill's
                and a decode step's device time; every attention and SSD
                layer's mixer, kernel against plain on the kernel path's
@@ -312,15 +320,20 @@ N_UNFUSED = 2**24
 REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = 16, 8, 2048, 32
 MOE_ARCH = "deepseek-v2-lite-16b"
 HYBRID_ARCH = "jamba-v0.1-52b"
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
 SERVE_ARCHS = {"olmo-1b": BATCH, "mamba2-780m": BATCH,
-               "h2o-danube-1.8b": BATCH, MOE_ARCH: BATCH, HYBRID_ARCH: BATCH}
+               "h2o-danube-1.8b": BATCH, MOE_ARCH: BATCH, HYBRID_ARCH: BATCH,
+               "codeqwen1.5-7b": BATCH, "stablelm-12b": BATCH,
+               LLAMA4_ARCH: BATCH}
 # depth cuts, the width kept: jamba-v0.1's 32 layers (51.5 B parameters,
 # ~103 GB in bf16) do not fit one 80 GB card; one period of 8 layers
 # (13.3 B, 26.5 GB) holds every layer kind of the family. deepseek-v2-lite's
 # 27 layers took 58-78 s of the smoke on an H100 (its decode is host-bound,
 # ~10,000 ops a step); the leading dense layer and 8 MoE layers keep every
-# layer kind and the smoke within 800 s
-SERVE_LAYERS = {HYBRID_ARCH: 8, MOE_ARCH: 9}
+# layer kind and the smoke within 800 s. llama4-maverick's 48 layers hold
+# 397.7 B parameters; its first 2, one dense and one MoE layer of 128
+# experts, hold 18.55 B (37.1 GB; 4 layers would take 70.1 GB)
+SERVE_LAYERS = {HYBRID_ARCH: 8, MOE_ARCH: 9, LLAMA4_ARCH: 2}
 
 
 def _port():
@@ -644,6 +657,23 @@ FLASH_MATRIX = {
                                          "bfloat16", 333),
     "swa64_sq512_skv192_bf16": (1, 512, 4, 2, 64, True, 64, "bfloat16",
                                 192),
+    # head dim 160 (stablelm-12b): in both dtypes GQA over a ragged S, a
+    # window, no causal mask and Sq != Skv both ways (the bf16 kernel's
+    # third panel, 32 columns in 64-byte swizzle, and its 2-stage ring;
+    # the fp32 kernel's two tail columns)
+    "gqa4_hd160_ragged333_bf16": (1, 333, 8, 2, 160, True, 0, "bfloat16"),
+    "gqa2_hd160_ragged200_f32": (1, 200, 4, 2, 160, True, 0, "float32"),
+    "swa96_hd160_ragged300_bf16": (1, 300, 4, 2, 160, True, 96, "bfloat16"),
+    "swa64_hd160_f32": (1, 256, 4, 4, 160, True, 64, "float32"),
+    "bidir_gqa_hd160_bf16": (1, 256, 4, 2, 160, False, 0, "bfloat16"),
+    "bidir_hd160_ragged130_f32": (1, 130, 2, 2, 160, False, 0, "float32"),
+    "sq128_skv384_gqa_hd160_bf16": (1, 128, 8, 2, 160, True, 0, "bfloat16",
+                                    384),
+    "sq320_skv130_hd160_bf16": (1, 320, 4, 4, 160, True, 0, "bfloat16",
+                                130),
+    "bidir_sq100_skv260_hd160_f32": (1, 100, 4, 2, 160, False, 0, "float32",
+                                     260),
+    "sq256_skv96_hd160_f32": (1, 256, 2, 1, 160, True, 0, "float32", 96),
 }
 # the served shapes: olmo-1b's prefill, and h2o-danube-1.8b's (its window
 # of 4096 is wider than the prompt); h2o's heads at S 8192, where the
@@ -653,8 +683,21 @@ FLASH_H2O = (BATCH, PROMPT_LEN, 32, 8, 80, True, 4096, "bfloat16")
 FLASH_H2O_LONG = (1, 8192, 32, 8, 80, True, 4096, "bfloat16")
 # jamba-v0.1's attention layer at prefill: GQA 32 / 8 at head dim 128
 FLASH_JAMBA = (BATCH, PROMPT_LEN, 32, 8, 128, True, 0, "bfloat16")
+# stablelm-12b's (GQA 32 / 8 at head dim 160), codeqwen1.5-7b's (MHA 32 at
+# 128) and llama4-maverick's (GQA 40 / 8 at 128)
+FLASH_STABLELM = (BATCH, PROMPT_LEN, 32, 8, 160, True, 0, "bfloat16")
+FLASH_CODEQWEN = (BATCH, PROMPT_LEN, 32, 32, 128, True, 0, "bfloat16")
+FLASH_LLAMA4 = (BATCH, PROMPT_LEN, 40, 8, 128, True, 0, "bfloat16")
 FLASH_FULL = {"served": FLASH_SERVED, "h2o_served": FLASH_H2O,
-              "h2o_long8192": FLASH_H2O_LONG, "jamba_served": FLASH_JAMBA}
+              "h2o_long8192": FLASH_H2O_LONG, "jamba_served": FLASH_JAMBA,
+              "stablelm_served": FLASH_STABLELM,
+              "codeqwen_served": FLASH_CODEQWEN,
+              "llama4_served": FLASH_LLAMA4}
+# the served shapes ``time_flash`` times, by the arch whose prefill has
+# them (the first is olmo-1b's, the ``kernels`` line's headline)
+FLASH_TIMED = {"olmo-1b": FLASH_SERVED, "h2o-danube-1.8b": FLASH_H2O,
+               HYBRID_ARCH: FLASH_JAMBA, "stablelm-12b": FLASH_STABLELM,
+               "codeqwen1.5-7b": FLASH_CODEQWEN, LLAMA4_ARCH: FLASH_LLAMA4}
 
 
 def flash_tol(dtype: str) -> dict:
@@ -720,16 +763,19 @@ def flash_bound(case) -> tuple[float, str, dict]:
 
 
 def time_flash(device) -> dict:
-    """CUDA-event time per call at the served shapes (olmo-1b's, and
-    h2o-danube-1.8b's and jamba-v0.1's under ``"h2o"`` and ``"jamba"``):
-    the kernel, its plain version and ``scaled_dot_product_attention``
-    (the library yardstick, never on the port's path; ``enable_gqa`` for
-    GQA; h2o's 4096 window is wider than the prompt, so ``is_causal`` is
-    the same function), beside the bound."""
+    """CUDA-event time per call at each served shape of ``FLASH_TIMED``,
+    by arch: the kernel, its plain version and
+    ``scaled_dot_product_attention`` (the library yardstick, never on the
+    port's path; ``enable_gqa`` for GQA; h2o's 4096 window is wider than
+    the prompt, so ``is_causal`` is the same function), beside the
+    bound; and the fp32 kernel on the same shape in fp32 (``fp32_ms``,
+    on the CUDA cores, whose fp32 bound is 14.8x the bf16 one)."""
     fa_ops, fa_ref = _fa()
     out = {}
-    for name, case in (("olmo", FLASH_SERVED), ("h2o", FLASH_H2O),
-                       ("jamba", FLASH_JAMBA)):
+    for name, case in FLASH_TIMED.items():
+        q, k, v = flash_inputs(case[:7] + ("float32",), device)
+        fp32_ms = _event_ms(lambda: fa_ops.flash_attention(
+            q, k, v, causal=True, window=case[6]), 5)
         q, k, v = flash_inputs(case, device)
         window = case[6]
         ms = _event_ms(lambda: fa_ops.flash_attention(
@@ -746,10 +792,11 @@ def time_flash(device) -> dict:
             q, k, v, causal=True, window=window).float()).abs().max().item()
         bound_ms, bound_by, work = flash_bound(case)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         sdpa_vs_kernel_max_abs=sdpa_err, bound_ms=bound_ms,
-                         bound_by=bound_by, **work)
+                         fp32_ms=fp32_ms, sdpa_vs_kernel_max_abs=sdpa_err,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         shape=case[:7], **work)
         del q, k, v
-    return {**out["olmo"], "h2o": out["h2o"], "jamba": out["jamba"]}
+    return out
 
 
 # the reference's ssd_scan test matrix (tests/test_kernels.py::
@@ -1052,7 +1099,9 @@ def hist_tokens(case) -> np.ndarray:
 # one below, at and one above its tile (1,024 ids at these sizes) and
 # two tiles, one id in every tile and in a run across a tile's edge (the
 # carry crosses tiles), every id invalid, one expert, 256 experts over
-# eight tiles, a T that is no multiple of 4: (T, E, kind of ids)
+# eight tiles, a T that is no multiple of 4, and llama4-maverick's expert
+# buffers at prefill (5,121 records at E 128, a fifth of them empty):
+# (T, E, kind of ids)
 SLOTS_MATRIX = {
     "sweep0": (256, 8, "uniform"),
     "sweep1": (1024, 16, "uniform"),
@@ -1073,6 +1122,7 @@ SLOTS_MATRIX = {
     "E1": (4100, 1, "invalid"),
     "E256_eight_tiles": (8192, 256, "uniform"),
     "T4099": (4099, 32, "uniform"),
+    "E128_llama4": (5121, 128, "invalid"),
 }
 # card only (too long for the Pallas kernel's interpret mode): tiles
 # enough that the kernel's look-back over earlier tiles takes several
@@ -3701,7 +3751,7 @@ def print_elastic(c: dict, wa: Width = ELASTIC_W, wb: Width = FULL):
 
 
 # ---------------------------------------------------------------------------
-# 4. serving olmo-1b, mamba2-780m and h2o-danube-1.8b at full width
+# 4. serving every arch of the registry at full width
 # ---------------------------------------------------------------------------
 
 def _serve():
@@ -4786,13 +4836,13 @@ def main(argv=()) -> int:
     for name, e in fa_errs.items():
         print(f"kernels: flash_attention ~ plain on {name}: max abs err {e}")
     fa = time_flash(device)
-    for shape, t in ((f"B={BATCH} S={PROMPT_LEN} H=KV=16 hd=128 causal",
-                      fa),
-                     (f"B={BATCH} S={PROMPT_LEN} H=32 KV=8 hd=80 causal "
-                      f"window=4096", fa["h2o"]),
-                     (f"B={BATCH} S={PROMPT_LEN} H=32 KV=8 hd=128 causal "
-                      f"(jamba-v0.1)", fa["jamba"])):
-        print(f"flash_attention at {shape} bf16: {t['ms']:.4f} ms, plain "
+    for arch, t in fa.items():
+        B, S, H, KV, hd, causal, window = t["shape"]
+        shape = (f"B={B} S={S} H={H} KV={KV} hd={hd}"
+                 f"{' causal' if causal else ''}"
+                 f"{f' window={window}' if window else ''} ({arch})")
+        print(f"flash_attention at {shape} bf16: {t['ms']:.4f} ms (the fp32 "
+              f"kernel in fp32 {t['fp32_ms']:.3f} ms), plain "
               f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms (max "
               f"abs diff to the kernel {t['sdpa_vs_kernel_max_abs']}), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
@@ -5013,15 +5063,14 @@ def main(argv=()) -> int:
         "launches": sum(by_arch("flash_attention").values()),
         "launches_by_arch": by_arch("flash_attention"),
         "max_abs_err": max(fa_errs.values()),
-        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
-        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
-        "library_ms": fa["library_ms"],
+        **{k: fa["olmo-1b"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "fp32_ms")},
         "build_s": built["flash_attention"].seconds,
         "fp32_build_s": built["flash_attention_fp32"].seconds,
-        "shape": "olmo-1b", **{arch: {k: fa[key][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for arch, key in (("h2o-danube-1.8b", "h2o"),
-                              (HYBRID_ARCH, "jamba"))}}, {
+        "shape": "olmo-1b", **{arch: {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "fp32_ms")} for arch, t in fa.items() if arch != "olmo-1b"}}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bf16.cu",
         "fp32_source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",

@@ -5,7 +5,8 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _fa_kernel) for fp32 inputs. It computes
 // the function of ref.py::flash_attention_plain, on the (B, S, H, hd)
-// layout as it lies in memory (no transposes), for hd 64, 80 and 128:
+// layout as it lies in memory (no transposes), for hd 64, 80, 128 and
+// 160:
 //   * q is scaled by hd**-0.5 in fp32;
 //   * the online softmax starts at m = -1e30, l = 0; a key is visible when
 //     k_pos < Skv, k_pos <= q_pos (causal) and k_pos > q_pos - window
@@ -23,7 +24,8 @@
 // staged through one shared buffer, and P goes back through shared memory
 // transposed. Thread (ty, tx) owns score rows ty*4..+3 and columns
 // tx + 16j, and output rows ty*4..+3 and columns g*64 + tx*4..+3 (plus
-// column 64 + tx when hd is 80): each row's 16 owners are one half-warp,
+// the tail columns 64 * (hd / 64) + 16t + tx: t 0 at hd 80, t 0 and 1 at
+// hd 160): each row's 16 owners are one half-warp,
 // so row max and row sum are shuffles, and every operand read is a float4
 // from a bank-conflict-free row (rows padded by 4 floats).
 //
@@ -73,9 +75,10 @@ flash_attention_kernel(const float* __restrict__ q,
                        int window, float scale) {
   constexpr int kLd = HD + 4;      // padded row of the Q and K/V tiles
   constexpr int kGroups = HD / 64; // float4 output column groups per thread
-  constexpr int kTail = HD % 64 / 16;  // + column 64 + tx when hd is 80
+  constexpr int kTail = HD % 64 / 16;  // tail columns per thread
   constexpr int kCols = 4 * kGroups + kTail;   // output columns per thread
-  static_assert(HD % 64 == 0 || HD % 64 == 16, "hd is 64, 80 or 128");
+  static_assert(HD % 64 == 0 || HD % 64 == 16 || HD % 64 == 32,
+                "hd is 64, 80, 128 or 160");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [64][kLd], scaled Q
   float* kv = qs + kBlockQ * kLd;               // [64][kLd], K then V
@@ -205,11 +208,13 @@ flash_attention_kernel(const float* __restrict__ q,
           acc[i][g * 4 + 3] = fmaf(pr[i], vb.w, acc[i][g * 4 + 3]);
         }
       }
-      if constexpr (kTail) {
-        const float vt = kv[c * kLd + 64 * kGroups + tx];
+#pragma unroll
+      for (int t = 0; t < kTail; ++t) {
+        const float vt = kv[c * kLd + 64 * kGroups + 16 * t + tx];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          acc[i][4 * kGroups] = fmaf(pr[i], vt, acc[i][4 * kGroups]);
+          acc[i][4 * kGroups + t] =
+              fmaf(pr[i], vt, acc[i][4 * kGroups + t]);
       }
     }
   }
@@ -225,7 +230,9 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         row[g * 64 + tx * 4 + e] = acc[i][g * 4 + e] / den;
-    if constexpr (kTail) row[64 * kGroups + tx] = acc[i][4 * kGroups] / den;
+#pragma unroll
+    for (int t = 0; t < kTail; ++t)
+      row[64 * kGroups + 16 * t + tx] = acc[i][4 * kGroups + t] / den;
   }
 }
 
@@ -249,7 +256,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // Launch on ``stream`` (PyTorch's current stream). q, k, v are contiguous
-// fp32; hd is 64, 80 or 128. Returns cudaGetLastError(), or
+// fp32; hd is 64, 80, 128 or 160. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a head dim the kernel is not built for, so the
 // caller can raise.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
@@ -266,6 +273,9 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                       s);
   if (hd == 128)
     return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                       s);
+  if (hd == 160)
+    return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
                        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

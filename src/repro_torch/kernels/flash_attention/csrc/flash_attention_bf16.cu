@@ -6,7 +6,7 @@
 // flash_attention_pallas (body _fa_kernel) for bf16 inputs; fp32 inputs go
 // to flash_attention.cu. It computes the function of
 // ref.py::flash_attention_plain on the (B, S, H, hd) layout as it lies in
-// memory (no transposes, no padded copies), for hd 64, 80 and 128:
+// memory (no transposes, no padded copies), for hd 64, 80, 128 and 160:
 //   * scores are bf16 q . bf16 k summed in fp32; hd**-0.5 (with log2(e)
 //     folded in, for exp2f) is applied to the fp32 scores, in the exp's
 //     FFMA;
@@ -35,9 +35,9 @@
 //     quad of lanes, so two shuffles reduce them;
 //   * one producer warpgroup keeps TMA loads (cp.async.bulk.tensor) of K
 //     and V in flight through a 3-stage ring guarded by full/empty
-//     mbarriers, and hands its registers to the consumers (setmaxnreg:
-//     24 for it, 240 for each consumer, so the pipelined loop below
-//     does not spill at hd 128);
+//     mbarriers (2 stages at hd 160, below), and hands its registers to
+//     the consumers (setmaxnreg: 24 for it, 240 for each consumer, so the
+//     pipelined loop below does not spill at hd 128 or 160);
 //     K and V have barriers of their own, so S of a tile starts before its
 //     V has landed. Two consumer warpgroups own 64 query rows each (block
 //     128 x 128 keys), so one's softmax overlaps the other's products;
@@ -54,6 +54,13 @@
 // two 64-column panels; hd 64: one). QK^T takes one k16 step per 16
 // columns of either panel; PV issues one wgmma per panel (n64, then n64
 // or n16), each with its own descriptor.
+// hd 160: three panels, [0, 64) and [64, 128) in 128-byte swizzle and
+// [128, 160) (64-byte rows) in 64-byte swizzle; QK^T takes 4 + 4 + 2 k16
+// steps and PV one n64, n64 and n32 wgmma a k16 step, so a consumer holds
+// 80 fp32 of O beside the 64 of S. Q and a 3-stage ring of 128 x 160 K
+// and V tiles would take 287,848 bytes of shared memory against the
+// 232,448 a CTA may have, so the ring has 2 stages at hd 160 (205,896
+// bytes); the smaller head dims keep 3.
 //
 // Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the build needs no -lcuda)
@@ -68,21 +75,29 @@ namespace {
 
 constexpr int kBlockQ = 128;               // 2 consumer warpgroups x 64 rows
 constexpr int kBlockKV = 128;
-constexpr int kStages = 3;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32 + 128;  // + 1 producer warpgroup
 constexpr float kNegInf = -1e30f;
 
 // The head dim's panels: panel 0 holds columns [0, 64) with 128-byte rows
-// in 128-byte swizzle; panel 1 holds [64, HD): none for HD 64, 64 columns
-// in 128-byte swizzle for HD 128, 16 columns in 32-byte swizzle for HD 80.
+// in 128-byte swizzle; panel 1 holds [64, min(HD, 128)): none for HD 64,
+// 16 columns in 32-byte swizzle for HD 80, 64 columns in 128-byte swizzle
+// for HD 128 and 160; panel 2 holds [128, HD): 32 columns in 64-byte
+// swizzle for HD 160, none otherwise. kStages is the K/V ring's depth.
 template <int HD>
 struct Panels {
-  static constexpr int kW1 = HD - 64;
-  static_assert(kW1 == 0 || kW1 == 16 || kW1 == 64, "hd is 64, 80 or 128");
+  static constexpr int kW1 = HD - 64 < 64 ? HD - 64 : 64;
+  static constexpr int kW2 = HD - 64 - kW1;
+  static_assert((kW1 == 0 || kW1 == 16 || kW1 == 64) &&
+                    (kW2 == 0 || kW2 == 32),
+                "hd is 64, 80, 128 or 160");
   static constexpr int kRow1 = kW1 * 2;          // bytes of a panel-1 row
   static constexpr int kSbo1 = 8 * kRow1;        // one 8-row swizzle atom
   static constexpr int kLayout1 = kW1 == 64 ? 1 : 3;   // B128 : B32
+  static constexpr int kRow2 = kW2 * 2;          // bytes of a panel-2 row
+  static constexpr int kSbo2 = 8 * kRow2;
+  static constexpr int kLayout2 = 2;             // B64
+  static constexpr int kStages = HD > 128 ? 2 : 3;
 };
 
 // wgmma descriptor of a swizzled tile at shared address `addr`: `sbo` is
@@ -217,6 +232,24 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d(64 x 32, fp32) += A(64 x 16, bf16 registers) . B(16 x 32, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d(64 x 16, fp32) += A(64 x 16, bf16 registers) . B(16 x 16, smem,
 // MN-major).
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
@@ -241,9 +274,11 @@ template <int HD>
 constexpr int smem_bytes() {
   // Q, then kStages K tiles, then kStages V tiles, then the mbarriers;
   // 1024 bytes of slack to align the base to the 128-byte swizzle's atom
+  constexpr int kStages = Panels<HD>::kStages;
   return kBlockQ * HD * 2 + 2 * kStages * kBlockKV * HD * 2 +
          (1 + 4 * kStages) * 8 + 1024;
 }
+static_assert(smem_bytes<160>() <= 232448, "a CTA has 227 KB on sm_90");
 
 // Accumulator layout of wgmma m64nN (fp32), per thread of a warpgroup:
 // warp w, lane l own rows 16w + l/4 (entries 4j, 4j+1) and 16w + l/4 + 8
@@ -252,14 +287,19 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
                const __grid_constant__ CUtensorMap tq1,
+               const __grid_constant__ CUtensorMap tq2,
                const __grid_constant__ CUtensorMap tk0,
                const __grid_constant__ CUtensorMap tk1,
+               const __grid_constant__ CUtensorMap tk2,
                const __grid_constant__ CUtensorMap tv0,
                const __grid_constant__ CUtensorMap tv1,
+               const __grid_constant__ CUtensorMap tv2,
                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
                int causal, int window, float scale_log2) {
   using P = Panels<HD>;
+  constexpr int kStages = P::kStages;
   constexpr int kTile = kBlockKV * HD * 2;   // bytes of a K or V tile
+  constexpr int kOff2 = 128 + P::kRow1;      // panel 2 at kOff2 * rows
   constexpr int kQBytes = kBlockQ * HD * 2;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -311,6 +351,8 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
       tma_load(sq, &tq0, q_full, 0, h, q0, b);
       if constexpr (P::kW1 > 0)
         tma_load(sq + kBlockQ * 128, &tq1, q_full, 64, h, q0, b);
+      if constexpr (P::kW2 > 0)
+        tma_load(sq + kBlockQ * kOff2, &tq2, q_full, 128, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages, ph = (i / kStages) & 1;
         const int k0 = (kt_lo + i) * kBlockKV;
@@ -320,11 +362,17 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
         tma_load(dk, &tk0, k_full(st), 0, kvh, k0, b);
         if constexpr (P::kW1 > 0)
           tma_load(dk + kBlockKV * 128, &tk1, k_full(st), 64, kvh, k0, b);
+        if constexpr (P::kW2 > 0)
+          tma_load(dk + kBlockKV * kOff2, &tk2, k_full(st), 128, kvh, k0,
+                   b);
         bar_wait(v_empty(st), ph ^ 1);
         bar_expect_tx(v_full(st), kTile);
         tma_load(dv, &tv0, v_full(st), 0, kvh, k0, b);
         if constexpr (P::kW1 > 0)
           tma_load(dv + kBlockKV * 128, &tv1, v_full(st), 64, kvh, k0, b);
+        if constexpr (P::kW2 > 0)
+          tma_load(dv + kBlockKV * kOff2, &tv2, v_full(st), 128, kvh, k0,
+                   b);
       }
     }
     return;
@@ -338,17 +386,26 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
   const int col_l = 2 * (lane % 4);
   const uint32_t qa0 = sq + wg * 64 * 128;
   const uint32_t qa1 = sq + kBlockQ * 128 + wg * 64 * P::kRow1;
+  const uint32_t qa2 = sq + kBlockQ * kOff2 + wg * 64 * P::kRow2;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
   float s[64];
   uint32_t pa[8][4];
   float o0[32];
   float o1[P::kW1 > 0 ? P::kW1 / 2 : 1];
+  float o2[P::kW2 > 0 ? P::kW2 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o0[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (P::kW1 > 0 ? P::kW1 / 2 : 1); ++i) o1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (P::kW2 > 0 ? P::kW2 / 2 : 1); ++i) o2[i] = 0.f;
 
+  auto fence_o = [&]() {
+    fence_regs(o0);
+    fence_regs(o1);
+    if constexpr (P::kW2 > 0) fence_regs(o2);
+  };
   // S = Q K^T of the tile in stage st, fp32 in registers
   auto issue_qk = [&](int st) {
     const uint32_t kb = sk + st * kTile;
@@ -361,6 +418,12 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
       wgmma_ss_n128(s, desc(qa1 + 32 * kk, P::kSbo1, P::kLayout1),
                     desc(kb + kBlockKV * 128 + 32 * kk, P::kSbo1,
                          P::kLayout1),
+                    1);
+#pragma unroll
+    for (int kk = 0; kk < P::kW2 / 16; ++kk)
+      wgmma_ss_n128(s, desc(qa2 + 32 * kk, P::kSbo2, P::kLayout2),
+                    desc(kb + kBlockKV * kOff2 + 32 * kk, P::kSbo2,
+                         P::kLayout2),
                     1);
     wg_commit();
     fence_regs(s);
@@ -379,10 +442,13 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
         else
           wgmma_rs_n16(o1, pa[t], d1);
       }
+      if constexpr (P::kW2 > 0)
+        wgmma_rs_n32(o2, pa[t],
+                     desc(vb + kBlockKV * kOff2 + t * 16 * P::kRow2,
+                          P::kSbo2, P::kLayout2));
     }
     wg_commit();
-    fence_regs(o0);
-    fence_regs(o1);
+    fence_o();
   };
   // the online softmax of the tile at key k0: p (fp32) in place of s, the
   // row max m and sum l updated, corr the rescale of the rows' O. Only a
@@ -439,6 +505,10 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
 #pragma unroll
       for (int i = 0; i < P::kW1 / 2; ++i) o1[i] *= corr[(i >> 1) & 1];
     }
+    if constexpr (P::kW2 > 0) {
+#pragma unroll
+      for (int i = 0; i < P::kW2 / 2; ++i) o2[i] *= corr[(i >> 1) & 1];
+    }
 #pragma unroll
     for (int t = 0; t < 8; ++t)
 #pragma unroll
@@ -472,8 +542,7 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
     if (lane == 0) bar_arrive(k_empty(st));
     softmax((kt_lo + i) * kBlockKV);
     wg_wait<0>();                          // P V of tile i - 1 is done
-    fence_regs(o0);
-    fence_regs(o1);
+    fence_o();
     if (lane == 0) bar_arrive(v_empty(sp));
     rescale_and_pack();
   }
@@ -483,8 +552,7 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
     wg_fence();
     issue_pv(sp);
     wg_wait<0>();
-    fence_regs(o0);
-    fence_regs(o1);
+    fence_o();
     if (lane == 0) bar_arrive(v_empty(sp));
   }
 
@@ -513,6 +581,13 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
         *reinterpret_cast<__nv_bfloat162*>(row + 64 + 8 * j) =
             __floats2bfloat162_rn(o1[4 * j + 2 * r] * inv[r],
                                   o1[4 * j + 2 * r + 1] * inv[r]);
+    }
+    if constexpr (P::kW2 > 0) {
+#pragma unroll
+      for (int j = 0; j < P::kW2 / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 128 + 8 * j) =
+            __floats2bfloat162_rn(o2[4 * j + 2 * r] * inv[r],
+                                  o2[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
@@ -543,10 +618,11 @@ EncodeFn encode_fn() {
 }
 
 // The map of x (B, S, heads, hd) as the 4-d tensor (hd, heads, S, B) with
-// boxes of `cols` columns by `rows` rows of one head; rows past S read as
-// zeros.
+// boxes of `cols` columns by `rows` rows of one head, in the swizzle whose
+// span is a box row (64 columns: 128 bytes, 32: 64, 16: 32); rows past S
+// read as zeros.
 bool make_map(EncodeFn enc, CUtensorMap* map, const void* x, int B, int S,
-              int heads, int hd, int cols, int rows, bool swizzle128) {
+              int heads, int hd, int cols, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
@@ -560,8 +636,9 @@ bool make_map(EncodeFn enc, CUtensorMap* map, const void* x, int B, int S,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_32B,
+             cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+             : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -573,23 +650,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   using P = Panels<HD>;
   const EncodeFn enc = encode_fn();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap m[6];   // q, k, v: panel 0 and panel 1 each
-  const int w1 = P::kW1 > 0 ? P::kW1 : 64;   // unused map when HD is 64
-  const bool sw1 = P::kW1 != 16;
-  if (!make_map(enc, &m[0], q, B, Sq, H, HD, 64, kBlockQ, true) ||
-      !make_map(enc, &m[1], q, B, Sq, H, HD, w1, kBlockQ, sw1) ||
-      !make_map(enc, &m[2], k, B, Skv, KV, HD, 64, kBlockKV, true) ||
-      !make_map(enc, &m[3], k, B, Skv, KV, HD, w1, kBlockKV, sw1) ||
-      !make_map(enc, &m[4], v, B, Skv, KV, HD, 64, kBlockKV, true) ||
-      !make_map(enc, &m[5], v, B, Skv, KV, HD, w1, kBlockKV, sw1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[9];   // q, k, v: panels 0, 1 and 2 each
+  // a panel the head dim lacks gets an unused map of 64 columns
+  const int w[3] = {64, P::kW1 > 0 ? P::kW1 : 64, P::kW2 > 0 ? P::kW2 : 64};
+  for (int p = 0; p < 3; ++p)
+    if (!make_map(enc, &m[p], q, B, Sq, H, HD, w[p], kBlockQ) ||
+        !make_map(enc, &m[3 + p], k, B, Skv, KV, HD, w[p], kBlockKV) ||
+        !make_map(enc, &m[6 + p], v, B, Skv, KV, HD, w[p], kBlockKV))
+      return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<HD>();
   const cudaError_t e = cudaFuncSetAttribute(
       fa_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
   fa_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<__nv_bfloat16*>(o),
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8],
+      static_cast<__nv_bfloat16*>(o),
       Sq, Skv, H, KV, causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -597,7 +673,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // Launch on ``stream`` (PyTorch's current stream). q, k, v are contiguous
-// bf16 with 16-byte aligned bases; hd is 64, 80 or 128. Returns
+// bf16 with 16-byte aligned bases; hd is 64, 80, 128 or 160. Returns
 // cudaGetLastError(), or an error code for a head dim the kernel is not
 // built for or a tensor map cuTensorMapEncodeTiled refuses, so the caller
 // can raise.
@@ -615,6 +691,9 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                       s);
   if (hd == 128)
     return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
+                       s);
+  if (hd == 160)
+    return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
                        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

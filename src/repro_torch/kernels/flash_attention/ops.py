@@ -23,7 +23,7 @@ SOURCES = {torch.bfloat16: CSRC / "flash_attention_bf16.cu",
            torch.float32: CSRC / "flash_attention.cu"}
 _ENTRY = {torch.bfloat16: "flash_attention_bf16_launch",
           torch.float32: "flash_attention_f32_launch"}
-HEAD_DIMS = (64, 80, 128)       # the head dims both kernels are built for
+HEAD_DIMS = (64, 80, 128, 160)  # the head dims both kernels are built for
 
 _FN = {}      # dtype -> the typed C entry point, resolved at first launch
 

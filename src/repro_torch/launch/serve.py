@@ -13,15 +13,20 @@
         --new-tokens 32                      # 31.3 GB of bf16 weights
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-v0.1-52b --smoke --device cpu      # the hybrid stack
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama4-maverick-400b-a17b --layers 2 --requests 8 \\
+        --prompt-len 2048            # one dense and one MoE layer, 37.1 GB
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: olmo-1b,
-h2o-danube-1.8b (dense), mamba2-780m (ssm), deepseek-v2-lite-16b
-(MoE with MLA attention and one leading dense layer; its MoE layers
-slot their records through the bucket_slots kernel on the card) and
-jamba-v0.1-52b (hybrid: SSD and GQA attention layers, MoE on every
-other layer). jamba's 32 layers hold ~103 GB of bf16 weights, more than
-one 80 GB card: ``tools/compare_turns.py --phases serve --archs
-jamba-v0.1-52b`` serves one period of 8 layers at its full width.
+h2o-danube-1.8b, codeqwen1.5-7b and stablelm-12b (dense; stablelm's head
+dim is 160), mamba2-780m (ssm), deepseek-v2-lite-16b (MoE with MLA
+attention and one leading dense layer) and llama4-maverick-400b-a17b
+(dense and MoE layers 1:1, 128 experts top-1 and a shared expert),
+whose MoE layers slot their records through the bucket_slots kernel on
+the card, and jamba-v0.1-52b (hybrid: SSD and GQA attention layers, MoE
+on every other layer). ``--layers N`` serves the first N layers at the
+arch's full width: jamba's 32 layers hold ~103 GB of bf16 weights and
+llama4's 48 ~795 GB, more than one 80 GB card.
 
 The weights are random, from ``--seed``. Runs on ``cuda`` unless
 ``--device`` names another device.
@@ -29,6 +34,7 @@ The weights are random, from ``--seed``. Runs on ``cuda`` unless
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 
@@ -38,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the first N layers (default: all)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--greedy", action="store_true", default=True)
@@ -54,6 +62,8 @@ def main(argv=None):
     from repro_torch.serve.engine import ServeEngine
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_model(cfg, args.seed, device=args.device)
     max_len = args.prompt_len + args.new_tokens + 8
     eng = ServeEngine(cfg, params, max_len=max_len, device=params.device)
@@ -62,7 +72,8 @@ def main(argv=None):
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.requests, args.prompt_len)).astype(np.int32)
 
-    print(f"[serve] {cfg.name} on {eng.device}: {args.requests} requests, "
+    print(f"[serve] {cfg.name} on {eng.device}: {cfg.n_layers} layers, "
+          f"{args.requests} requests, "
           f"batch {args.batch}, prompt {args.prompt_len}, "
           f"gen {args.new_tokens}")
     t0 = time.perf_counter()

@@ -552,8 +552,8 @@ def test_finished_and_queued_feeds_hold_no_pinned_pair(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_the_card(cuda_device):
-    """Every case of the reference's flash_attention matrix (hd 64, 80
-    and 128; bf16 through the tensor-core kernel, fp32 through the
+    """Every case of the reference's flash_attention matrix (hd 64, 80,
+    128 and 160; bf16 through the tensor-core kernel, fp32 through the
     CUDA-core one), at its per-dtype tolerance (the helper raises on a
     miss)."""
     errs = chip_smoke.phase_flash_vs_plain(cuda_device,
@@ -563,7 +563,8 @@ def test_flash_kernel_matches_plain_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_at_full_width(cuda_device):
-    """olmo-1b's and h2o-danube-1.8b's served shapes, and h2o's heads at
+    """The served shapes of olmo-1b, h2o-danube-1.8b, jamba-v0.1,
+    stablelm-12b, codeqwen1.5-7b and llama4-maverick, and h2o's heads at
     S 8192 with window 4096 (whole KV tiles skipped at full width)."""
     errs = chip_smoke.phase_flash_vs_plain(cuda_device,
                                            chip_smoke.FLASH_FULL)
@@ -1477,6 +1478,68 @@ def test_hybrid_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
     """Phase 4 on the narrow jamba stack in fp32: gates (a)-(e) hold."""
     s = chip_smoke.phase_serve(cuda_device, _narrow_jamba(), requests=3,
                                batch=2, prompt_len=192, new_tokens=4)
+    assert s["launches"] == s["want_launches"]
+    assert s["slots"]["calls"] > 0 and s["slots"]["decode_calls"] > 0
+    assert s["layer_err_over_limit"] <= 1.0
+
+
+HD160_CASES = [n for n, c in chip_smoke.FLASH_MATRIX.items() if c[4] == 160]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HD160_CASES)
+def test_flash_kernels_at_head_dim_160_match_plain(cuda_device, name):
+    """stablelm-12b's head dim: the bf16 kernel (three panels, a 2-stage
+    ring) and the fp32 kernel (two tail columns) launch once each case
+    and hold to the plain version at its per-dtype tolerance."""
+    before = fa_ops.flash_attention.launches
+    errs = chip_smoke.phase_flash_vs_plain(
+        cuda_device, {name: chip_smoke.FLASH_MATRIX[name]})
+    assert fa_ops.flash_attention.launches == before + 1
+    assert set(errs) == {name}
+
+
+def _narrow_llama4(dtype="float32"):
+    """llama4-maverick's SMOKE config cut to one dense and one MoE layer
+    of 128 experts top-1 and the shared expert, at head dim 64 (which
+    flash_attention takes)."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(
+        get_smoke_config(chip_smoke.LLAMA4_ARCH), n_layers=2, d_model=256,
+        n_heads=4, n_kv_heads=2, d_head=64, d_ff=256, d_ff_expert=256,
+        n_experts=128, dtype=dtype, param_dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_llama4_prefill_slots_at_128_experts(cuda_device):
+    """One prefill of the narrow llama4 stack: every bucket_slots call,
+    at E 1 and at E 128, bit for bit bucket_slots_ref's on the same ids
+    (``served_slots``), 2 (G + 1) launches for its MoE layer and one
+    flash_attention launch a layer."""
+    from repro_torch.models import transformer as tf
+    cfg = _narrow_llama4()
+    model = tf.init_model(cfg, 0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 160), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    kernels = chip_smoke.serve_kernels(cfg)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    seen = chip_smoke.served_slots(lambda: tf.prefill(
+        cfg, model, {"tokens": toks}, use_kernel=True))
+    torch.cuda.synchronize(cuda_device)
+    got = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    assert got == {"flash_attention": 2,
+                   "bucket_slots": 2 * (cfg.dispatch_groups + 1)}
+    assert seen["calls"] == got["bucket_slots"]
+    assert set(seen["ids"]) == set(chip_smoke.slot_shapes(cfg, 2 * 160))
+    assert any(n == 128 for _, n in seen["ids"])
+
+
+@pytest.mark.cuda
+def test_llama4_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
+    """Phase 4 on the narrow llama4 stack in fp32: gates (a)-(e) hold."""
+    s = chip_smoke.phase_serve(cuda_device, _narrow_llama4(), requests=3,
+                               batch=2, prompt_len=160, new_tokens=4)
     assert s["launches"] == s["want_launches"]
     assert s["slots"]["calls"] > 0 and s["slots"]["decode_calls"] > 0
     assert s["layer_err_over_limit"] <= 1.0

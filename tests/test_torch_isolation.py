@@ -58,6 +58,12 @@ def test_the_scans_cover_the_moe_modules():
             "configs/deepseek_v2_lite.py"} <= names
 
 
+def test_the_scans_cover_the_new_arch_configs():
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"configs/codeqwen_7b.py", "configs/stablelm_12b.py",
+            "configs/llama4_maverick.py", "configs/registry.py"} <= names
+
+
 TRAINING_MODULES = ("config", "data.pipeline", "data.tokenizer", "optim",
                     "optim.adamw", "optim.compress", "train",
                     "train.train_step", "launch.specs", "launch.train")
@@ -516,7 +522,8 @@ def test_smoke_moe_serve_phase_rehearses_on_cpu():
     cfg = get_smoke_config(chip_smoke.MOE_ARCH)
     assert chip_smoke.SERVE_ARCHS == dict.fromkeys(
         ("olmo-1b", "mamba2-780m", "h2o-danube-1.8b", chip_smoke.MOE_ARCH,
-         chip_smoke.HYBRID_ARCH), chip_smoke.BATCH)
+         chip_smoke.HYBRID_ARCH, "codeqwen1.5-7b", "stablelm-12b",
+         chip_smoke.LLAMA4_ARCH), chip_smoke.BATCH)
     assert list(chip_smoke.serve_kernels(cfg)) == ["bucket_slots"]
     serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
                                    prompt_len=32, new_tokens=4)
@@ -619,6 +626,84 @@ def test_smoke_hybrid_serve_and_moe_train_phases_rehearse_on_cpu():
         "bucket_slots": 3 * 10 * 2 * 2 * 10}
     assert chip_smoke.slot_shapes(deep, 4 * 512) == \
         [(3_072, 1), (3_841, 64)] * 5
+
+
+def test_smoke_new_arch_phases_rehearse_on_cpu():
+    """codeqwen1.5-7b's, stablelm-12b's and llama4-maverick's parts of
+    phases 2 and 4: the hd-160 flash cases through the wrapper (the plain
+    version here), the three served flash shapes against the archs'
+    configs and their bounds, the E 128 slots case; then phase 4 at
+    narrow configs (codeqwen's SMOKE; stablelm at its head dim of 160;
+    llama4 with one dense and one MoE layer of 128 experts top-1 and the
+    shared expert): served tokens checked, the kernel path against the
+    plain path (llama4's on its routing), every slot call bit for bit,
+    no kernel launched on the CPU; and the launches and slot shapes that
+    phase 4 expects at full width (32 / 40 / 2 flash_attention, 320
+    bucket_slots)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    cpu = torch.device("cpu")
+    hd160 = {n: c for n, c in chip_smoke.FLASH_MATRIX.items() if c[4] == 160}
+    assert {c[7] for c in hd160.values()} == {"float32", "bfloat16"}
+    assert any(not c[5] for c in hd160.values())           # no causal mask
+    assert any(c[6] for c in hd160.values())               # a window
+    assert any(len(c) > 8 and c[8] > c[1] for c in hd160.values())
+    assert any(len(c) > 8 and c[8] < c[1] for c in hd160.values())
+    errs = chip_smoke.phase_flash_vs_plain(cpu, hd160)
+    assert set(errs) == set(hd160) and max(errs.values()) == 0.0
+    timed = chip_smoke.FLASH_TIMED
+    for arch in ("codeqwen1.5-7b", "stablelm-12b", chip_smoke.LLAMA4_ARCH):
+        full = get_config(arch)
+        case = timed[arch]
+        assert case in chip_smoke.FLASH_FULL.values()
+        assert case[:5] == (chip_smoke.BATCH, chip_smoke.PROMPT_LEN,
+                            full.n_heads, full.n_kv_heads, full.d_head)
+    bound, by, work = chip_smoke.flash_bound(timed["stablelm-12b"])
+    assert by == "operations" and round(work["flops"] / 1e9, 1) == 343.8
+    assert round(bound, 4) == 0.3476
+    assert chip_smoke.flash_bound(timed["codeqwen1.5-7b"])[2]["flops"] == \
+        chip_smoke.flash_bound(timed[chip_smoke.HYBRID_ARCH])[2]["flops"]
+    assert chip_smoke.SLOTS_MATRIX["E128_llama4"] == (5121, 128, "invalid")
+
+    stablelm = dataclasses.replace(
+        get_smoke_config("stablelm-12b"), n_layers=2, d_model=320,
+        n_heads=2, n_kv_heads=1, d_head=160, d_ff=192)
+    llama4 = dataclasses.replace(
+        get_smoke_config(chip_smoke.LLAMA4_ARCH), n_layers=2,
+        n_experts=128)
+    for cfg, want in ((get_smoke_config("codeqwen1.5-7b"),
+                       {"flash_attention": 2}),
+                      (stablelm, {"flash_attention": 2}),
+                      (llama4, {"flash_attention": 2,
+                                "bucket_slots": 2 * 3 * (1 + 3)})):
+        serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
+                                       prompt_len=48, new_tokens=4)
+        assert serve["want_launches"] == want
+        assert serve["launches"] == dict.fromkeys(want, 0)
+        assert serve["served_tokens_per_s"] > 0
+        assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
+        assert serve["layer_err_over_limit"] <= 1.0
+    assert serve["slots"]["calls"] == serve["slots"]["decode_calls"] == 6
+    assert serve["slots"]["shapes"] == [(1, 1), (2, 128), (48, 1),
+                                        (61, 128)]
+    serve["seconds"] = 0.0
+    chip_smoke.print_serve(serve)
+    for arch, want in (("codeqwen1.5-7b", {"flash_attention": 32}),
+                       ("stablelm-12b", {"flash_attention": 40}),
+                       (chip_smoke.LLAMA4_ARCH, {"flash_attention": 2,
+                                                 "bucket_slots": 320})):
+        full = get_config(arch)
+        if arch in chip_smoke.SERVE_LAYERS:
+            full = dataclasses.replace(
+                full, n_layers=chip_smoke.SERVE_LAYERS[arch])
+        assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == want
+    assert [m for m in chip_smoke.layer_kinds(full)] == [
+        ("attn", "mlp"), ("attn", "moe")]
+    assert chip_smoke.slot_shapes(full, 8 * 2048) == \
+        [(4_096, 1), (5_121, 128)] * 5
+    assert chip_smoke.slot_shapes(full, 8) == [(2, 1), (3, 128)] * 5
+    assert round(full.param_count() / 1e9, 2) == 18.55
 
 
 def test_smoke_entry_point_phases_rehearse_on_cpu():

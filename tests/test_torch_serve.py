@@ -33,9 +33,12 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
 ARCHS = ("olmo-1b", "h2o-danube-1.8b")
-# the ssm family: test_torch_ssm_serve; MoE + MLA: test_torch_mla_serve
+# the ssm family: test_torch_ssm_serve; MoE + MLA: test_torch_mla_serve;
+# the hybrid: test_torch_hybrid_serve; codeqwen, stablelm and llama4:
+# test_torch_{codeqwen,stablelm,llama4}_serve
 ALL_ARCHS = ARCHS + ("mamba2-780m", "deepseek-v2-lite-16b",
-                     "jamba-v0.1-52b")
+                     "jamba-v0.1-52b", "codeqwen1.5-7b", "stablelm-12b",
+                     "llama4-maverick-400b-a17b")
 B, S, NEW = 2, 96, 6
 CPU = torch.device("cpu")
 
@@ -319,6 +322,28 @@ def test_configs_are_the_reference_configs():
         tconfig.ModelConfig)}
 
 
+def test_cells_are_the_reference_cells():
+    """The port's cell matrix over its archs: ``shape_cells``,
+    ``cell_status`` of every arch and shape, and ``runnable_cells`` with
+    and without the skips equal to the reference's rows of those archs,
+    in the reference's order."""
+    assert tregistry.shape_cells() == {
+        k: tconfig.ShapeConfig(**dataclasses.asdict(v))
+        for k, v in jregistry.shape_cells().items()}
+    for arch in ALL_ARCHS:
+        for name, shape in tregistry.shape_cells().items():
+            assert tregistry.cell_status(tregistry.get_config(arch), shape) \
+                == jregistry.cell_status(
+                    jregistry.get_config(arch),
+                    jregistry.shape_cells()[name]), (arch, name)
+    for skips in (False, True):
+        want = [c for c in jregistry.runnable_cells(skips)
+                if c[0] in ALL_ARCHS]
+        assert tregistry.runnable_cells(skips) == want
+    assert ("stablelm-12b", "long_500k", False) == \
+        tregistry.runnable_cells(True)[11][:3]
+
+
 @pytest.mark.parametrize("what", ["hybrid", "moe", "mla", "first_k_dense",
                                   "encoder", "frontend", "unroll"])
 def test_unported_parts_raise(what):
@@ -328,7 +353,7 @@ def test_unported_parts_raise(what):
     what of them stays unported: the MoE layer under a mesh, MLA decode
     over a seq-sharded cache, the replicated decode-time dispatch of
     deepseek-v2-lite's expert layers, and an arch outside the port's
-    registry."""
+    registry (internvl2-26b, whose vision frontend is item 12b)."""
     from repro_torch.models import attention as tattn
     from repro_torch.models import moe as tmoe
     cfg = tregistry.get_smoke_config("olmo-1b")
@@ -339,7 +364,7 @@ def test_unported_parts_raise(what):
     x = torch.zeros((1, 8, ds.d_model))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         if what == "hybrid":       # no arch of the port's registry
-            tregistry.get_config("llama4-maverick-400b-a17b")
+            tregistry.get_config("internvl2-26b")
         elif what in bad:
             ttf.init_model(dataclasses.replace(cfg, **bad[what]), 0,
                            device=CPU)

@@ -14,6 +14,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:            # chip_smoke.py lives at the repo root
     sys.path.insert(0, REPO)
 
+
+
+def _share_the_cores():
+    """Under pytest-xdist every worker is a process of its own on one
+    host, and torch's intra-op pool takes a thread a core in each: 6
+    workers on 8 cores ran 48 spinning OpenMP threads, and a smoke
+    rehearsal that takes 8 s alone took 488-667 s. So a worker keeps its
+    share of the cores (one thread a worker at 6 workers on 8 cores)."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        return
+    try:
+        import torch
+    except ImportError:
+        return
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // int(workers)))
+
+
+_share_the_cores()
+
 SENT = 2**31 - 1
 
 # one constructor expression per use-case, evaluated against each package

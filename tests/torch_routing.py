@@ -40,13 +40,15 @@ def recording(calls: list):
 
 
 @contextlib.contextmanager
-def same_routing(calls: list, dtype: str, flips: list):
+def same_routing(calls: list, dtype: str, flips: list, tie=None):
     """Run the port's ``_route`` calls with the recorded reference ids,
     call by call: a row whose expert set differs must be a tie (each
-    expert only the reference picked within ``TIE[dtype]`` of the port's
-    k-th probability); its gates are the port's probabilities of the
-    reference's experts, renormalised. ``flips`` gets each call's count
-    of such rows (none in fp32; a few in bf16)."""
+    expert only the reference picked within ``tie``, by default
+    ``TIE[dtype]``, of the port's k-th probability); its gates are the
+    port's probabilities of the reference's experts, renormalised.
+    ``flips`` gets each call's count of such rows (none in fp32; a few
+    in bf16)."""
+    tie = TIE[dtype] if tie is None else tie
     real = tmoe._route
     it = iter(calls)
 
@@ -58,7 +60,7 @@ def same_routing(calls: list, dtype: str, flips: list):
         kth = probs.gather(1, ids.long()).amin(-1)
         gap = kth[:, None] - probs.gather(1, want.long())
         assert float(torch.where(differ[:, None], gap, 0.0).max()) \
-            <= TIE[dtype], \
+            <= tie, \
             "a routing choice apart from the reference's is not a tie"
         flips.append(int(differ.sum()))
         g = probs.gather(1, want.long())
