@@ -14,9 +14,12 @@ Phases, each of which asserts (nothing is caught):
                card over the reference test matrix and at the full-width
                shapes (flash_attention over head dims 64, 80, 128 and 160
                at the served shapes of olmo-1b, h2o-danube-1.8b,
-               jamba-v0.1, stablelm-12b (hd 160), codeqwen1.5-7b and
-               llama4-maverick, and at h2o's heads over S 8192, where its
-               window skips tiles; ssd_scan at mamba2-780m's
+               jamba-v0.1, stablelm-12b (hd 160), codeqwen1.5-7b,
+               llama4-maverick, internvl2-26b and whisper-tiny (its
+               encoder's in fp32 without the causal mask, as the
+               reference's promotion of fp32 frames runs it; its
+               decoder's in bf16), and at h2o's heads over S 8192, where
+               its window skips tiles; ssd_scan at mamba2-780m's
                and jamba-v0.1's; fused_map, hist and bucket_slots bit
                for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
@@ -200,23 +203,31 @@ Phases, each of which asserts (nothing is caught):
                jamba-v0.1-52b (its width, one period of 8 layers: SSD
                layers of 128 heads x 64 with state 16, GQA 32/8 attention
                at slot 4, MoE of 16 experts top-2 on the odd slots),
-               codeqwen1.5-7b (32 layers, MHA 32 with the qkv bias),
+               codeqwen1.5-7b (its width, 8 of its 32 layers: MHA 32
+               with the qkv bias),
                stablelm-12b (40 layers, LayerNorm, qk-norm, GQA 32/8 at
-               head dim 160) and llama4-maverick (its width, 2 of its 48
+               head dim 160), llama4-maverick (its width, 2 of its 48
                layers: one dense, one MoE of 128 experts top-1 and a
-               shared expert, GQA 40/8) at
-               full width through ``ServeEngine.generate``: one batch
-               of 8 requests each, 2048-token prompts, 32 new tokens,
-               greedy; (a) each of the arch's kernels launched as the
-               code says (``serve_launches``): flash_attention once an
-               attention layer and prefill, ssd_scan once an SSD layer and
-               prefill, bucket_slots 2 (G + 1) times an MoE layer at the
-               prefill and at every decode step; (b) the kernel path's
-               last-position logits within 3e-2 * max|logits| of the
-               reference path's (an MoE stack's with the kernel path's
-               routing, ``same_routing``) and finite; (c) the first
-               served token a maximum of them; (d) for an MoE stack every
-               bucket_slots call of one prefill bit for bit equal to
+               shared expert, GQA 40/8), internvl2-26b (48 layers, GQA
+               48/8, a vision prefix) and whisper-tiny (a 4-layer encoder
+               over fp32 frames, cross-attention in its 4 decoder layers)
+               at full width through ``ServeEngine.generate``: one batch
+               of 8 requests each at a context of 2048 positions (split
+               as ``frontend_geometry`` splits it: internvl2 512 seeded
+               fp32 prefix rows and 1,536 text tokens, whisper 1,024
+               seeded fp32 frames and 2,048 text tokens), 32 new tokens,
+               greedy, a cache of the context + 40 positions; (a) each of
+               the arch's kernels launched as the code says
+               (``serve_launches``): flash_attention once an attention
+               layer (an encoder's too) and prefill, ssd_scan once an SSD
+               layer and prefill, bucket_slots 2 (G + 1) times an MoE
+               layer at the prefill and at every decode step; (b) the
+               kernel path's last-position logits within 3e-2 *
+               max|logits| of the reference path's (an MoE stack's with
+               the kernel path's routing, ``same_routing``) and finite;
+               (c) the first served token a maximum of them; (d) for an
+               MoE stack every bucket_slots call of one prefill bit for
+               bit equal to
                bucket_slots_ref (``served_slots``); (e) every call of one
                decode step of the engine likewise, and that step's logits
                and caches bit for bit equal to the plain path's
@@ -229,11 +240,12 @@ Phases, each of which asserts (nothing is caught):
                plain version and bound, and its share of the prefill's
                and a decode step's device time; every attention and SSD
                layer's mixer, kernel against plain on the kernel path's
-               input, within 3e-2 * max|out|; for mamba2 and jamba, whose
-               bf16 paths drift apart with depth, (b) is reported and
-               the stack held instead to the same weights in fp32 (mamba2
-               each served batch, jamba its first 2 prompts with its
-               weights upcast a layer at a time): the fp32 kernel path
+               input, within 3e-2 * max|out| (whisper's encoder layers
+               too); for mamba2, jamba and internvl2, whose bf16 paths
+               drift apart with depth, (b) is reported and the stack
+               held instead to the same weights in fp32 (mamba2 each
+               served batch, jamba and internvl2 their first 2 prompts
+               with the weights upcast a layer at a time): the fp32 kernel path
                within 1e-3 * max|logits| of the fp32 reference path, and
                the bf16 kernel path no more than 1.5 times as far from it
                as the bf16 reference path; the weights, a prefill's peak
@@ -301,6 +313,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit rate
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+# the peak rate of a flash_attention call by its dtype: the bf16 kernel
+# runs on the tensor cores, the fp32 one on the CUDA cores
+FLOPS_PER_S = {"bfloat16": BF16_FLOPS_PER_S, "float32": SCALAR_OPS_PER_S}
 
 # the documented fused configuration and its PUMA-like input: the PUMA
 # Wikipedia corpus cut to 2**27 tokens (a fused run of 2**25 took under
@@ -321,10 +336,12 @@ REQUESTS, BATCH, PROMPT_LEN, NEW_TOKENS = 16, 8, 2048, 32
 MOE_ARCH = "deepseek-v2-lite-16b"
 HYBRID_ARCH = "jamba-v0.1-52b"
 LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+VISION_ARCH = "internvl2-26b"
+AUDIO_ARCH = "whisper-tiny"
 SERVE_ARCHS = {"olmo-1b": BATCH, "mamba2-780m": BATCH,
                "h2o-danube-1.8b": BATCH, MOE_ARCH: BATCH, HYBRID_ARCH: BATCH,
                "codeqwen1.5-7b": BATCH, "stablelm-12b": BATCH,
-               LLAMA4_ARCH: BATCH}
+               LLAMA4_ARCH: BATCH, VISION_ARCH: BATCH, AUDIO_ARCH: BATCH}
 # depth cuts, the width kept: jamba-v0.1's 32 layers (51.5 B parameters,
 # ~103 GB in bf16) do not fit one 80 GB card; one period of 8 layers
 # (13.3 B, 26.5 GB) holds every layer kind of the family. deepseek-v2-lite's
@@ -332,8 +349,12 @@ SERVE_ARCHS = {"olmo-1b": BATCH, "mamba2-780m": BATCH,
 # ~10,000 ops a step); the leading dense layer and 8 MoE layers keep every
 # layer kind and the smoke within 800 s. llama4-maverick's 48 layers hold
 # 397.7 B parameters; its first 2, one dense and one MoE layer of 128
-# experts, hold 18.55 B (37.1 GB; 4 layers would take 70.1 GB)
-SERVE_LAYERS = {HYBRID_ARCH: 8, MOE_ARCH: 9, LLAMA4_ARCH: 2}
+# experts, hold 18.55 B (37.1 GB; 4 layers would take 70.1 GB).
+# codeqwen1.5-7b's 32 layers: with internvl2-26b and whisper-tiny served
+# the smoke took 827.8 s on an H100, past its 820 s aim; 8 of them (every
+# layer is the same MHA layer with the qkv bias) keep the layer on the path
+SERVE_LAYERS = {HYBRID_ARCH: 8, MOE_ARCH: 9, LLAMA4_ARCH: 2,
+                "codeqwen1.5-7b": 8}
 
 
 def _port():
@@ -688,16 +709,29 @@ FLASH_JAMBA = (BATCH, PROMPT_LEN, 32, 8, 128, True, 0, "bfloat16")
 FLASH_STABLELM = (BATCH, PROMPT_LEN, 32, 8, 160, True, 0, "bfloat16")
 FLASH_CODEQWEN = (BATCH, PROMPT_LEN, 32, 32, 128, True, 0, "bfloat16")
 FLASH_LLAMA4 = (BATCH, PROMPT_LEN, 40, 8, 128, True, 0, "bfloat16")
+# internvl2-26b's (GQA 48 / 8 at 128, a 512-row prefix and 1,536 text
+# tokens), whisper-tiny's encoder (MHA 6 at 64 over its 1,024 frames,
+# no causal mask, in fp32: the frames are fp32 and JAX's promotion keeps
+# the encoder there) and its decoder's self-attention
+FLASH_INTERNVL2 = (BATCH, PROMPT_LEN, 48, 8, 128, True, 0, "bfloat16")
+FLASH_WHISPER_ENC = (BATCH, PROMPT_LEN // 2, 6, 6, 64, False, 0, "float32")
+FLASH_WHISPER_DEC = (BATCH, PROMPT_LEN, 6, 6, 64, True, 0, "bfloat16")
 FLASH_FULL = {"served": FLASH_SERVED, "h2o_served": FLASH_H2O,
               "h2o_long8192": FLASH_H2O_LONG, "jamba_served": FLASH_JAMBA,
               "stablelm_served": FLASH_STABLELM,
               "codeqwen_served": FLASH_CODEQWEN,
-              "llama4_served": FLASH_LLAMA4}
+              "llama4_served": FLASH_LLAMA4,
+              "internvl2_served": FLASH_INTERNVL2,
+              "whisper_encoder_served": FLASH_WHISPER_ENC,
+              "whisper_decoder_served": FLASH_WHISPER_DEC}
 # the served shapes ``time_flash`` times, by the arch whose prefill has
 # them (the first is olmo-1b's, the ``kernels`` line's headline)
 FLASH_TIMED = {"olmo-1b": FLASH_SERVED, "h2o-danube-1.8b": FLASH_H2O,
                HYBRID_ARCH: FLASH_JAMBA, "stablelm-12b": FLASH_STABLELM,
-               "codeqwen1.5-7b": FLASH_CODEQWEN, LLAMA4_ARCH: FLASH_LLAMA4}
+               "codeqwen1.5-7b": FLASH_CODEQWEN, LLAMA4_ARCH: FLASH_LLAMA4,
+               VISION_ARCH: FLASH_INTERNVL2,
+               f"{AUDIO_ARCH} encoder": FLASH_WHISPER_ENC,
+               AUDIO_ARCH: FLASH_WHISPER_DEC}
 
 
 def flash_tol(dtype: str) -> dict:
@@ -746,8 +780,9 @@ def phase_flash_vs_plain(device, cases: dict) -> dict:
 def flash_bound(case) -> tuple[float, str, dict]:
     """Least time of one attention call: the FLOPs of the (query, key)
     pairs the masks leave visible (2 products of 2 * hd each) at the
-    bf16 tensor-core rate, against q, k, v read once and o written once
-    at the memory rate."""
+    peak rate of the case's dtype (bf16 on the tensor cores, fp32 on
+    the CUDA cores, ``FLOPS_PER_S``), against q, k, v read once and o
+    written once at the memory rate."""
     B, S, H, KV, hd, causal, window, dtype = case
     qp = np.arange(S)
     hi = qp + 1 if causal else np.full(S, S)
@@ -756,7 +791,7 @@ def flash_bound(case) -> tuple[float, str, dict]:
     flops = 4 * B * H * hd * pairs
     nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * \
         torch.finfo(getattr(torch, dtype)).bits // 8
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, {"flops": flops, "bytes": nbytes}
@@ -769,32 +804,36 @@ def time_flash(device) -> dict:
     port's path; ``enable_gqa`` for GQA; h2o's 4096 window is wider than
     the prompt, so ``is_causal`` is the same function), beside the
     bound; and the fp32 kernel on the same shape in fp32 (``fp32_ms``,
-    on the CUDA cores, whose fp32 bound is 14.8x the bf16 one)."""
+    on the CUDA cores, whose fp32 bound is 14.8x the bf16 one; for an
+    fp32 case, whisper's encoder, that is ``ms``)."""
     fa_ops, fa_ref = _fa()
     out = {}
     for name, case in FLASH_TIMED.items():
-        q, k, v = flash_inputs(case[:7] + ("float32",), device)
-        fp32_ms = _event_ms(lambda: fa_ops.flash_attention(
-            q, k, v, causal=True, window=case[6]), 5)
+        causal, window, dtype = case[5:8]
+        fp32_ms = None
+        if dtype != "float32":
+            q, k, v = flash_inputs(case[:7] + ("float32",), device)
+            fp32_ms = _event_ms(lambda: fa_ops.flash_attention(
+                q, k, v, causal=causal, window=window), 5)
         q, k, v = flash_inputs(case, device)
-        window = case[6]
         ms = _event_ms(lambda: fa_ops.flash_attention(
-            q, k, v, causal=True, window=window), 20)
+            q, k, v, causal=causal, window=window), 20)
         plain_ms = _event_ms(lambda: fa_ref.flash_attention_plain(
-            q, k, v, causal=True, window=window), 3)
+            q, k, v, causal=causal, window=window), 3)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=case[2] != case[3])
+                is_causal=causal, enable_gqa=case[2] != case[3])
         library_ms = _event_ms(sdpa, 20)
         sdpa_err = (sdpa().transpose(1, 2).float() - fa_ops.flash_attention(
-            q, k, v, causal=True, window=window).float()).abs().max().item()
+            q, k, v, causal=causal, window=window).float()).abs().max().item()
         bound_ms, bound_by, work = flash_bound(case)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         fp32_ms=fp32_ms, sdpa_vs_kernel_max_abs=sdpa_err,
+                         fp32_ms=ms if fp32_ms is None else fp32_ms,
+                         sdpa_vs_kernel_max_abs=sdpa_err,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         shape=case[:7], **work)
+                         shape=case[:7], dtype=dtype, **work)
         del q, k, v
     return out
 
@@ -3768,6 +3807,35 @@ def serve_prompts(cfg, requests: int, prompt_len: int) -> np.ndarray:
                         (requests, prompt_len)).astype(np.int32)
 
 
+def serve_inputs(cfg, requests: int, context: int) -> tuple:
+    """What ``requests`` of ``cfg`` send at a context of ``context``
+    positions, split as the reference's ``frontend_geometry`` splits it:
+    (prompts, frontend_embeds, the positions the cache holds ahead of
+    the first new token). A VLM sends a prefix of ``vlm_prefix_len``
+    rows and the rest as text, an audio stack ``context / 2`` frames and
+    ``context`` text tokens; the stub frontend's rows are seeded fp32
+    (None without a frontend)."""
+    _port()
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.specs import frontend_geometry
+    text, rows, _ = frontend_geometry(
+        cfg, ShapeConfig("serve", context, requests, "prefill"))
+    fe = None
+    if rows:
+        fe = np.random.default_rng(1).standard_normal(
+            (requests, rows, cfg.d_model), dtype=np.float32)
+    ahead = text + (rows if cfg.frontend == "vision_stub" else 0)
+    return serve_prompts(cfg, requests, text), fe, ahead
+
+
+def serve_batch(prompts, fe, lo: int, hi: int, device) -> dict:
+    """Requests ``lo:hi`` as a batch of ``transformer.forward``."""
+    batch = {"tokens": torch.from_numpy(prompts[lo:hi]).to(device)}
+    if fe is not None:
+        batch["frontend_embeds"] = torch.from_numpy(fe[lo:hi]).to(device)
+    return batch
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -3813,15 +3881,16 @@ def serve_launches(cfg, requests: int, batch: int, prompt_len: int,
                    new_tokens: int) -> dict:
     """Launches of each of ``serve_kernels(cfg)`` while
     ``ServeEngine.generate`` serves ``requests`` in batches:
-    flash_attention once an attention layer and prefill, ssd_scan once an
-    SSD layer and prefill; bucket_slots ``slot_shapes``' calls an MoE
-    layer, at the prefill and at each of the ``new_tokens - 1`` decode
-    steps."""
+    flash_attention once an attention layer (an encoder's too) and
+    prefill, ssd_scan once an SSD layer and prefill; bucket_slots
+    ``slot_shapes``' calls an MoE layer, at the prefill and at each of
+    the ``new_tokens - 1`` decode steps."""
     batches = [min(batch, requests - lo) for lo in range(0, requests, batch)]
     kinds = layer_kinds(cfg)
     out = {}
-    for name, mixer in (("flash_attention", "attn"), ("ssd_scan", "ssm")):
-        n = sum(m == mixer for m, _ in kinds)
+    for name, mixer, extra in (("flash_attention", "attn", cfg.n_enc_layers),
+                               ("ssd_scan", "ssm", 0)):
+        n = sum(m == mixer for m, _ in kinds) + extra
         if n:
             out[name] = n * len(batches)
     if cfg.n_experts:
@@ -3918,8 +3987,9 @@ def time_served_slots(ids_by_shape: dict) -> dict:
     return time_entry(cases)
 
 
-# the kernels of phase 4's served paths, as the profiler names them
-FLASH_KERNEL = ("fa_bf16_kernel",)
+# the kernels of phase 4's served paths, as the profiler names them (the
+# fp32 flash_attention kernel serves whisper's encoder)
+FLASH_KERNEL = ("fa_bf16_kernel", "flash_attention_kernel")
 SSD_PASSES = ("chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
 PROFILE_NAMES = {"flash_attention": FLASH_KERNEL, "ssd_scan": SSD_PASSES,
                  "bucket_slots": SLOTS_KERNEL}
@@ -3975,15 +4045,19 @@ def streamed_prefill(cfg, model, tokens, use_kernel: bool):
     """``transformer.prefill`` of ``model``'s weights in fp32, upcast one
     layer at a time (a stack whose fp32 copy does not fit beside its
     model-dtype weights): the embedding, head and final norm upcast once,
-    each layer upcast, run and dropped. Returns the last-position
+    each layer upcast, run and dropped; a VLM's prefix
+    (``frontend_embeds``) prepended in fp32. Returns the last-position
     logits."""
     from repro_torch.models import layers
     _, tf, _ = _serve()
+    assert not cfg.n_enc_layers, "an encoder stack is not streamed"
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     head = {k: model[k].float() for k in ("embed_tokens", "lm_head")
             if k in model}
     x = layers.embed_tokens(cfg32, head, tokens["tokens"])
-    B, S = tokens["tokens"].shape
+    if "frontend_embeds" in tokens:
+        x = torch.cat([tokens["frontend_embeds"].float(), x], 1)
+    B, S = x.shape[:2]
     pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     for i, layer in enumerate(model["blocks"]):
         p32 = {sub: {k: t.float() for k, t in leaves.items()}
@@ -3993,23 +4067,23 @@ def streamed_prefill(cfg, model, tokens, use_kernel: bool):
                               slot_kernel=use_kernel)[0]
         del p32
     norm = {k: t.float() for k, t in model["final_norm"].items()}
-    x = layers.apply_norm(cfg32, norm, x)
-    return layers.unembed(cfg32, head, x)[:, -1:]
+    x = layers.apply_norm(cfg32, norm, x[:, -1:])
+    return layers.unembed(cfg32, head, x)
 
 
-# the hybrid stack's fp32 drift check runs on this many prompts of a batch
+# the streamed fp32 drift check runs on this many prompts of a batch
 DRIFT_ROWS = 2
 
 
-def hybrid_drift(cfg, model, tokens) -> dict:
-    """``drift_check`` of the hybrid stack on the first ``DRIFT_ROWS``
+def streamed_drift(cfg, model, tokens) -> dict:
+    """``drift_check`` of a stack whose fp32 copy does not fit beside its
+    bf16 weights (jamba's, internvl2's) on the first ``DRIFT_ROWS``
     prompts of ``tokens``: the model-dtype kernel and reference paths'
     last-position logits against the same weights in fp32
-    (``streamed_prefill``: jamba's fp32 copy does not fit beside its bf16
-    weights) through both paths, all four with the model-dtype kernel
-    path's routing (``same_routing``)."""
+    (``streamed_prefill``) through both paths, all four with the
+    model-dtype kernel path's routing (``same_routing``)."""
     _, tf, _ = _serve()
-    few = {"tokens": tokens["tokens"][:DRIFT_ROWS]}
+    few = {k: t[:DRIFT_ROWS] for k, t in tokens.items()}
     runs = [functools.partial(fn, cfg, model, few, use_kernel=k)
             for fn in (tf.prefill, streamed_prefill) for k in (True, False)]
     (lk, lr, lk32, lr32), reroutes = same_routing(*runs)
@@ -4029,23 +4103,29 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     cuda = device.type == "cuda"
     moe = bool(cfg.n_experts)
     ssm = cfg.family == "ssm"
-    # a bf16 stack with SSD layers drifts between its two paths with depth
-    drifts_apart = cfg.family in ("ssm", "hybrid") and cfg.dtype != "float32"
+    # a bf16 stack with SSD layers drifts between its two paths with depth,
+    # and so does internvl2's at 48 layers (1.096x the 3e-2 limit, PERF.md)
+    drifts_apart = (cfg.family in ("ssm", "hybrid")
+                    or cfg.name == VISION_ARCH) and cfg.dtype != "float32"
     t0 = time.perf_counter()
     model = tf.init_model(cfg, 0, device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
-    engine = eng.ServeEngine(cfg, model,
-                             max_len=prompt_len + new_tokens + 8,
+    # ``prompt_len`` is the context: with a frontend, prefix or frames
+    # and text as ``frontend_geometry`` splits it
+    prompts, fe, ctx = serve_inputs(cfg, requests, prompt_len)
+    engine = eng.ServeEngine(cfg, model, max_len=ctx + new_tokens + 8,
                              device=device)
-    prompts = serve_prompts(cfg, requests, prompt_len)
-    engine.generate(prompts[:batch, :min(prompt_len, 128)], 2)   # warm
+    engine.generate(prompts[:batch, :128], 2,                    # warm
+                    frontend_embeds=None if fe is None else fe[:batch, :128])
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
     zero_counts()
     t0 = time.perf_counter()
-    outs = [engine.generate(prompts[lo:lo + batch], new_tokens)
+    outs = [engine.generate(prompts[lo:lo + batch], new_tokens,
+                            frontend_embeds=None if fe is None
+                            else fe[lo:lo + batch])
             for lo in range(0, requests, batch)]
     _sync(device)
     wall = time.perf_counter() - t0
@@ -4068,9 +4148,9 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     # bf16 reference drifts from its own fp32 run (PERF.md, Findings):
     # that gap is reported, and the stack is held instead to the same
     # weights run in fp32 (``ssm_drift`` each batch of an ssm stack,
-    # ``hybrid_drift`` the first prompts of a hybrid one). Each attention
-    # and SSD layer's mixer is held on the kernel path's own input too
-    # (``mixer_layer_errs``).
+    # ``streamed_drift`` the first prompts of a hybrid stack or of
+    # internvl2). Each attention and SSD layer's mixer is held on the
+    # kernel path's own input too (``mixer_layer_errs``).
     if ssm and drifts_apart:
         cfg32 = dataclasses.replace(cfg, dtype="float32",
                                     param_dtype="float32")
@@ -4078,8 +4158,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
     worst, drifts, reroutes = 0.0, [], []
     with torch.inference_mode():
         for i, lo in enumerate(range(0, requests, batch)):
-            tokens = {"tokens": torch.from_numpy(
-                prompts[lo:lo + batch]).to(device)}
+            tokens = serve_batch(prompts, fe, lo, lo + batch, device)
             runs = [functools.partial(tf.prefill, cfg, model, tokens,
                                       use_kernel=k) for k in (True, False)]
             if moe:
@@ -4099,12 +4178,12 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
             if ssm and drifts_apart:
                 drifts.append(ssm_drift(cfg32, model32, tokens, lk, lr))
             elif drifts_apart and i == 0:
-                drifts.append(hybrid_drift(cfg, model, tokens))
+                drifts.append(streamed_drift(cfg, model, tokens))
         if ssm and drifts_apart:
             del model32
 
         # the engine's two programs, timed alone on the first batch
-        tokens = {"tokens": torch.from_numpy(prompts[:batch]).to(device)}
+        tokens = serve_batch(prompts, fe, 0, batch, device)
         B = tokens["tokens"].shape[0]
         slots = None
         if moe:     # gate (d): every slot call of one prefill
@@ -4112,7 +4191,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                                                     use_kernel=True))
             del slots["out"]
             assert set(slots["ids"]) == set(slot_shapes(cfg, B * prompt_len))
-        layer_errs = mixer_layer_errs(cfg, model, tokens["tokens"])
+        layer_errs = mixer_layer_errs(cfg, model, tokens)
         assert max(layer_errs, default=0.0) <= 1.0, layer_errs
         _sync(device)
         base = torch.cuda.memory_allocated(device) if cuda else 0
@@ -4130,19 +4209,18 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                                 if cuda else 0),
             logits_bytes=logits.numel() * logits.element_size(),
             **cache_bytes(raw))
-        cache = eng.prefill_to_decode_cache(cfg, raw, prompt_len,
-                                            engine.max_len)
+        cache = eng.prefill_to_decode_cache(cfg, raw, ctx, engine.max_len)
         tok = logits[:, -1:].argmax(-1).to(torch.int32)
         _sync(device)
         t0 = time.perf_counter()
         for step in range(new_tokens - 1):
-            logits, cache = engine._step(model, cache, tok, prompt_len + step)
+            logits, cache = engine._step(model, cache, tok, ctx + step)
             tok = logits[:, -1:].argmax(-1).to(torch.int32)
         _sync(device)
         decode_s = (time.perf_counter() - t0) / (new_tokens - 1)
         if moe:     # gate (e): one decode step, slots and logits
             dec = served_decode(cfg, engine, model, cache, tok,
-                                prompt_len + new_tokens - 1)
+                                ctx + new_tokens - 1)
             moe_layers = sum(f == "moe" for _, f in layer_kinds(cfg))
             assert dec["calls"] == moe_layers * len(slot_shapes(cfg, B))
             assert set(dec["ids"]) == set(slot_shapes(cfg, B)), dec["ids"]
@@ -4157,7 +4235,7 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
         if cuda:
             profiles["prefill"] = device_profile(
                 lambda: engine._prefill(model, tokens), keep=keep)
-            t = prompt_len + new_tokens - 1
+            t = ctx + new_tokens - 1
             profiles[decode] = device_profile(
                 lambda: [engine._step(model, cache, tok, t + i)
                          for i in range(steps)], keep=keep)
@@ -4172,6 +4250,8 @@ def phase_serve(device, cfg, requests: int = REQUESTS, batch: int = BATCH,
                 params=cfg.param_count(), kernels=list(kernels),
                 requests=requests, batch=batch,
                 prompt_len=prompt_len, new_tokens=new_tokens,
+                text_len=prompts.shape[1],
+                frontend_rows=0 if fe is None else fe.shape[1],
                 launches=launches, want_launches=want_launches, wall_s=wall,
                 served_tokens_per_s=out.size / wall,
                 prompt_tokens_per_s=requests * prompt_len / wall,
@@ -4214,10 +4294,13 @@ def kept_share(prof, names: tuple) -> float | None:
 def print_serve(serve: dict):
     """Phase 4's lines for one served arch."""
     arch = serve["arch"]
+    frontend = (f", {serve['frontend_rows']} fp32 frontend rows"
+                if serve["frontend_rows"] else "")
     print(f"serve: {arch} at full width ({serve['n_layers']} layers, "
           f"{serve['params']:,} parameters), {serve['requests']} "
-          f"requests in batches of {serve['batch']}, prompt "
-          f"{serve['prompt_len']}, {serve['new_tokens']} new tokens, "
+          f"requests in batches of {serve['batch']}, context "
+          f"{serve['prompt_len']} ({serve['text_len']} text tokens"
+          f"{frontend}), {serve['new_tokens']} new tokens, "
           f"greedy: {serve['wall_s']:.3f} s, "
           f"{serve['served_tokens_per_s']:.1f} served tokens/s (the "
           f"phase {serve['seconds']:.1f} s); prefill "
@@ -4280,44 +4363,59 @@ def print_serve(serve: dict):
         print_profile(f"serve {arch} {what}", p)
 
 
-def mixer_layer_errs(cfg, model, tokens) -> list:
+def mixer_layer_errs(cfg, model, batch) -> list:
     """Each attention (GQA, MHA) and SSD layer's mixer on the kernel
     path's own input: the mixer through its kernel against the mixer
     through its plain version (chunked attention, ``ssd_ref``), max abs
-    error over 3e-2 * max|plain|, layer by layer; the kernel path's
-    layer, its MLP or MoE included, makes the next layer's input. An MLA
-    layer takes no kernel and is passed."""
+    error over 3e-2 * max|plain|, layer by layer, an encoder's layers
+    (without the causal mask) first; the kernel path's layer, its MLP or
+    MoE (and cross-attention) included, makes the next layer's input. An
+    MLA layer takes no kernel and is passed. ``batch`` is
+    ``transformer.forward``'s: a VLM's prefix is prepended, an audio
+    stack's frames go through the encoder."""
     _port()
     from repro_torch.models import attention, layers, ssm
     _, tf, _ = _serve()
     errs = []
-    x = layers.embed_tokens(cfg, model, tokens)
-    B, S = tokens.shape
-    pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    for i, p in enumerate(model["blocks"]):
-        mixer, ff = tf.layer_kind(cfg, i)
-        h = layers.apply_norm(cfg, p["norm1"], x)
-        if mixer == "ssm":
-            outs = [ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=k)[0]
-                    for k in (True, False)]
-        elif mixer == "attn":
-            outs = [attention.attention_forward(cfg, p["attn"], h, pos,
-                                                causal=True,
-                                                use_kernel=k)[0]
-                    for k in (True, False)]
-        else:
-            outs = None
-        if outs is not None:
-            ok, ref = outs
-            assert bool(torch.isfinite(ok).all()), \
-                f"non-finite {mixer} output, layer {i}"
-            errs.append((ok - ref).abs().max().item()
-                        / (3e-2 * ref.abs().max().item()))
-        if ff == "none":
-            x = x + ok
-        else:
-            x = tf._layer_forward(cfg, p, x, pos, i, causal=True,
-                                  use_kernel=True)[0]
+
+    def walk(cfg, blocks, x, causal, enc_out=None):
+        B, S = x.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=x.device).expand(B, S)
+        for i, p in enumerate(blocks):
+            mixer, ff = tf.layer_kind(cfg, i)
+            h = layers.apply_norm(cfg, p["norm1"], x)
+            if mixer == "ssm":
+                outs = [ssm.ssm_forward(cfg, p["ssm"], h, use_kernel=k)[0]
+                        for k in (True, False)]
+            elif mixer == "attn":
+                outs = [attention.attention_forward(cfg, p["attn"], h, pos,
+                                                    causal=causal,
+                                                    use_kernel=k)[0]
+                        for k in (True, False)]
+            else:
+                outs = None
+            if outs is not None:
+                ok, ref = outs
+                assert bool(torch.isfinite(ok).all()), \
+                    f"non-finite {mixer} output, layer {i}"
+                errs.append((ok - ref).abs().max().item()
+                            / (3e-2 * ref.abs().max().item()))
+            if ff == "none":
+                x = x + ok
+            else:
+                x = tf._layer_forward(cfg, p, x, pos, i, causal=causal,
+                                      enc_out=enc_out, use_kernel=True)[0]
+        return x
+
+    x = layers.embed_tokens(cfg, model, batch["tokens"])
+    fe, enc_out = batch.get("frontend_embeds"), None
+    if cfg.frontend == "vision_stub" and fe is not None:
+        x = torch.cat([fe.to(x.dtype), x], 1)
+    elif cfg.n_enc_layers and fe is not None:
+        enc_out = layers.apply_norm(cfg, model["enc_norm"], walk(
+            tf._enc_cfg(cfg), model["enc_blocks"], fe, causal=False))
+    walk(cfg, model["blocks"], x, causal=True, enc_out=enc_out)
     return errs
 
 
@@ -4841,12 +4939,16 @@ def main(argv=()) -> int:
         shape = (f"B={B} S={S} H={H} KV={KV} hd={hd}"
                  f"{' causal' if causal else ''}"
                  f"{f' window={window}' if window else ''} ({arch})")
-        print(f"flash_attention at {shape} bf16: {t['ms']:.4f} ms (the fp32 "
-              f"kernel in fp32 {t['fp32_ms']:.3f} ms), plain "
+        bf16 = t["dtype"] == "bfloat16"
+        fp32 = (f" (the fp32 kernel in fp32 {t['fp32_ms']:.3f} ms)"
+                if bf16 else " (the fp32 kernel, CUDA cores)")
+        print(f"flash_attention at {shape} {'bf16' if bf16 else 'fp32'}: "
+              f"{t['ms']:.4f} ms{fp32}, plain "
               f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms (max "
               f"abs diff to the kernel {t['sdpa_vs_kernel_max_abs']}), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
-              f"{t['flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+              f"{t['flops'] / 1e9:.1f} GFLOP at "
+              f"{FLOPS_PER_S[t['dtype']] / 1e12:.0f} TFLOP/s, "
               f"{t['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
 
     ssd_errs = phase_ssd_vs_plain(device, {**SSD_MATRIX, **SSD_FULL})

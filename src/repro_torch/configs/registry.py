@@ -1,17 +1,17 @@
 """Arch registry and cell matrix of the port (counterpart of
 ``repro/configs/registry.py``).
 
-It lists only the archs whose every layer the port runs, in the
-reference's order: the dense families (codeqwen's qkv bias, stablelm's
-LayerNorm with per-head qk-norm at head dim 160), the attention-free
-``ssm`` family, the MoE stacks (deepseek-v2-lite's MLA attention and one
-leading dense layer; llama4-maverick's dense and MoE layers 1:1 with 128
-experts top-1 and a shared expert) and jamba's hybrid stack (SSD and GQA
-attention layers, MoE on every other layer). Any other arch of the
-reference raises ``NotImplementedError``.
+It lists the reference's ten archs in the reference's order: the dense
+families (codeqwen's qkv bias, stablelm's LayerNorm with per-head
+qk-norm at head dim 160), the attention-free ``ssm`` family, the MoE
+stacks (deepseek-v2-lite's MLA attention and one leading dense layer;
+llama4-maverick's dense and MoE layers 1:1 with 128 experts top-1 and a
+shared expert), jamba's hybrid stack (SSD and GQA attention layers, MoE
+on every other layer), whisper-tiny's encoder and cross-attention and
+internvl2-26b's vision prefix.
 
-``runnable_cells()`` enumerates every (arch x shape) pair of these archs
-under the reference's skip rule: ``long_500k`` needs sub-quadratic
+``runnable_cells()`` enumerates every (arch x shape) pair under the
+reference's skip rule: ``long_500k`` needs sub-quadratic
 attention, so it runs only for the SSM, hybrid and SWA archs and is
 recorded as a skip for the pure full-attention ones.
 """
@@ -28,6 +28,8 @@ _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube",
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
 }
@@ -35,20 +37,12 @@ _MODULES = {
 ARCH_IDS: list[str] = list(_MODULES)
 
 
-def _module(arch_id: str):
-    if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 12); "
-            f"the port runs {ARCH_IDS}")
-    return importlib.import_module(_MODULES[arch_id])
-
-
 def get_config(arch_id: str) -> ModelConfig:
-    return _module(arch_id).CONFIG
+    return importlib.import_module(_MODULES[arch_id]).CONFIG
 
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
-    return _module(arch_id).SMOKE
+    return importlib.import_module(_MODULES[arch_id]).SMOKE
 
 
 def shape_cells() -> dict[str, ShapeConfig]:
@@ -65,7 +59,7 @@ def cell_status(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
 
 
 def runnable_cells(include_skips: bool = False):
-    """[(arch_id, shape_name, runnable, reason)] over the port's archs."""
+    """[(arch_id, shape_name, runnable, reason)] over every arch."""
     out = []
     for arch_id in ARCH_IDS:
         cfg = get_config(arch_id)

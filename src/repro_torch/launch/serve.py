@@ -16,6 +16,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama4-maverick-400b-a17b --layers 2 --requests 8 \\
         --prompt-len 2048            # one dense and one MoE layer, 37.1 GB
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch internvl2-26b --requests 8 --prompt-len 2048  # 39.7 GB
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch whisper-tiny --requests 8 --prompt-len 2048
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCH_IDS``: olmo-1b,
 h2o-danube-1.8b, codeqwen1.5-7b and stablelm-12b (dense; stablelm's head
@@ -23,8 +27,15 @@ dim is 160), mamba2-780m (ssm), deepseek-v2-lite-16b (MoE with MLA
 attention and one leading dense layer) and llama4-maverick-400b-a17b
 (dense and MoE layers 1:1, 128 experts top-1 and a shared expert),
 whose MoE layers slot their records through the bucket_slots kernel on
-the card, and jamba-v0.1-52b (hybrid: SSD and GQA attention layers, MoE
-on every other layer). ``--layers N`` serves the first N layers at the
+the card, jamba-v0.1-52b (hybrid: SSD and GQA attention layers, MoE
+on every other layer), whisper-tiny (a 4-layer encoder over fp32
+frames and cross-attention in every decoder layer) and internvl2-26b (a
+vision prefix ahead of the prompt). The frontends are stubs: as the
+reference's launcher does, a VLM takes 16 seeded prefix rows a request
+and an audio stack ``--prompt-len`` seeded fp32 frames. The cache holds
+``--prompt-len + --new-tokens + 8`` positions, so with a vision prefix
+the last 7 decode steps overwrite the cache's last slot, as the
+reference's do. ``--layers N`` serves the first N layers at the
 arch's full width: jamba's 32 layers hold ~103 GB of bf16 weights and
 llama4's 48 ~795 GB, more than one 80 GB card.
 
@@ -71,6 +82,13 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.requests, args.prompt_len)).astype(np.int32)
+    fe = None
+    if cfg.frontend == "vision_stub":
+        fe = rng.normal(size=(args.requests, 16, cfg.d_model)).astype(
+            np.float32)
+    elif cfg.n_enc_layers:
+        fe = rng.normal(size=(args.requests, args.prompt_len,
+                              cfg.d_model)).astype(np.float32)
 
     print(f"[serve] {cfg.name} on {eng.device}: {cfg.n_layers} layers, "
           f"{args.requests} requests, "
@@ -80,8 +98,10 @@ def main(argv=None):
     n_out = 0
     for lo in range(0, args.requests, args.batch):
         hi = min(args.requests, lo + args.batch)
-        out = eng.generate(prompts[lo:hi], args.new_tokens,
-                           greedy=args.greedy, seed=args.seed)
+        out = eng.generate(
+            prompts[lo:hi], args.new_tokens,
+            frontend_embeds=None if fe is None else fe[lo:hi],
+            greedy=args.greedy, seed=args.seed)
         n_out += out.size
         print(f"[serve] batch {lo}-{hi}: first row {out[0, :8].tolist()}")
     if eng.device.type == "cuda":

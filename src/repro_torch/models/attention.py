@@ -26,7 +26,8 @@ import math
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import DTYPES, _init, apply_rope, rms_over
+from repro_torch.models.layers import (DTYPES, _init, apply_rope, matmul,
+                                       rms_over)
 
 NEG_INF = -1e30
 
@@ -226,13 +227,16 @@ def combine_partials(o, l, m, axis: str | None):
 # ---------------------------------------------------------------------------
 
 def _qkv(cfg: ModelConfig, p, x, kv_x=None):
+    """q from ``x``, k and v from ``kv_x`` (``x`` unless given: the
+    encoder output of a cross-attention), each in the dtype JAX's
+    promotion gives (fp32 where an fp32 activation meets bf16 weights)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kv_x = x if kv_x is None else kv_x
     Skv = kv_x.shape[1]
-    q = x @ p["wq"]
-    k = kv_x @ p["wk"]
-    v = kv_x @ p["wv"]
+    q = matmul(x, p["wq"])
+    k = matmul(kv_x, p["wk"])
+    v = matmul(kv_x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -261,7 +265,7 @@ def attention_forward(cfg: ModelConfig, p, x, positions, *, causal=True,
     else:
         o = flash_attention_ref(q, k, v, causal=causal, window=window)
     B, S, H, hd = q.shape
-    return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
+    return matmul(o.reshape(B, S, H * hd), p["wo"]), (k, v)
 
 
 def _rope_bshd(x, positions, theta):

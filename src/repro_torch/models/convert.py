@@ -7,8 +7,10 @@ reference keeps its ``first_k_dense`` leading layers apart, layer ``i``
 under ``dense_layers["layer{i}"]``, and stacks ``blocks`` on a leading
 ``n_scan_blocks`` axis, ``block_pattern`` layers per super-block; layer
 ``first_k_dense + b * block_pattern + j`` of the port is
-``blocks["layer{j}"][b]``. Leaves keep their ``(in, out)`` layout, so
-carrying them is a copy.
+``blocks["layer{j}"][b]``. An encoder's layers are stacked on a leading
+``n_enc_layers`` axis under ``enc_blocks["layer0"]``: encoder layer ``i``
+of the port is ``enc_blocks["layer0"][i]``. Leaves keep their ``(in,
+out)`` layout, so carrying them is a copy.
 
 ``ref_tree`` and ``ref_leaves`` do the same for any tensors that line up
 with a model's parameters (gradients, AdamW's moments): the train
@@ -34,14 +36,20 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _ref_layer(cfg: ModelConfig, i: int) -> tuple[str, str, int | None]:
-    """Where port layer ``i`` sits in the reference's tree: (subtree,
-    layer key, block index), the block index None for a leading dense
-    layer."""
+def _ref_layer(cfg: ModelConfig, i: int,
+               top: str = "blocks") -> tuple[str, str, int | None]:
+    """Where port layer ``i`` of ``top`` ("blocks" or "enc_blocks") sits
+    in the reference's tree: (subtree, layer key, block index), the block
+    index None for a leading dense layer."""
+    if top == "enc_blocks":
+        return top, "layer0", i
     first, bp = cfg.first_k_dense, cfg.block_pattern
     if i < first:
         return "dense_layers", f"layer{i}", None
     return "blocks", f"layer{(i - first) % bp}", (i - first) // bp
+
+
+_STACKS = ("blocks", "enc_blocks")
 
 
 def ref_tree(cfg: ModelConfig, named, stack=torch.stack) -> dict:
@@ -49,27 +57,30 @@ def ref_tree(cfg: ModelConfig, named, stack=torch.stack) -> dict:
     name (``model.named_parameters()``: ``embed_tokens``,
     ``blocks.3.attn.wq``, ``final_norm.scale``, ...) and a tensor of that
     parameter's shape. ``stack`` joins the ``n_scan_blocks`` tensors of
-    each ``blocks/layer{j}`` leaf, in block order; a leading dense
-    layer's leaves go under ``dense_layers/layer{i}`` as they are."""
+    each ``blocks/layer{j}`` leaf, in block order (and the
+    ``n_enc_layers`` tensors of each ``enc_blocks/layer0`` leaf); a
+    leading dense layer's leaves go under ``dense_layers/layer{i}`` as
+    they are."""
     tree, stacked = {}, {}
     for name, t in named:
         parts = name.split(".")
-        if parts[0] == "blocks":
+        if parts[0] in _STACKS:
             i, sub, leaf = int(parts[1]), parts[2], parts[3]
-            top, layer, b = _ref_layer(cfg, i)
+            top, layer, b = _ref_layer(cfg, i, parts[0])
             if b is None:
                 tree.setdefault(top, {}).setdefault(layer, {}) \
                     .setdefault(sub, {})[leaf] = t
             else:
-                stacked.setdefault((layer, sub, leaf), []).append(t)
+                stacked.setdefault((top, layer, sub, leaf), []).append(t)
         else:
             node = tree
             for k in parts[:-1]:
                 node = node.setdefault(k, {})
             node[parts[-1]] = t
-    blocks = tree["blocks"] = {}
-    for (layer, sub, leaf), ts in stacked.items():
-        blocks.setdefault(layer, {}).setdefault(sub, {})[leaf] = stack(ts)
+    tree["blocks"] = {}
+    for (top, layer, sub, leaf), ts in stacked.items():
+        tree.setdefault(top, {}).setdefault(layer, {}) \
+            .setdefault(sub, {})[leaf] = stack(ts)
     return tree
 
 
@@ -79,9 +90,9 @@ def ref_leaves(cfg: ModelConfig, tree: dict, names) -> list:
     out = []
     for name in names:
         parts = name.split(".")
-        if parts[0] == "blocks":
+        if parts[0] in _STACKS:
             i, sub, leaf = int(parts[1]), parts[2], parts[3]
-            top, layer, b = _ref_layer(cfg, i)
+            top, layer, b = _ref_layer(cfg, i, parts[0])
             t = tree[top][layer][sub][leaf]
             out.append(t if b is None else t[b])
         else:
@@ -113,11 +124,14 @@ def params_to_numpy(cfg: ModelConfig, model: Model, leaves=None) -> dict:
     tree = ref_tree(cfg, zip(names, leaves))
     # a norm without parameters (OLMo's) is an empty dict, as there
     tree.setdefault("final_norm", {})
-    for i, layer in enumerate(model.blocks):
-        top, key, _ = _ref_layer(cfg, i)
-        node = tree.setdefault(top, {}).setdefault(key, {})
-        for sub in layer:
-            node.setdefault(sub, {})
+    if "enc_norm" in model:
+        tree.setdefault("enc_norm", {})
+    for stack in _STACKS:
+        for i, layer in enumerate(getattr(model, stack, ())):
+            top, key, _ = _ref_layer(cfg, i, stack)
+            node = tree.setdefault(top, {}).setdefault(key, {})
+            for sub in layer:
+                node.setdefault(sub, {})
     return _map(tree, _numpy)
 
 
@@ -134,13 +148,19 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> Model:
     device = resolve_device(device)
     out = {k: _tensor(tree[k], device) for k in ("embed_tokens", "lm_head")
            if k in tree}
-    out["blocks"] = []
-    for i in range(cfg.n_layers):
-        top, key, b = _ref_layer(cfg, i)
-        out["blocks"].append(
-            {sub: {leaf: _tensor(a if b is None else a[b], device)
-                   for leaf, a in leaves.items()}
-             for sub, leaves in tree[top][key].items()})
-    out["final_norm"] = {k: _tensor(a, device)
-                         for k, a in tree["final_norm"].items()}
+    for stack, n in (("blocks", cfg.n_layers),
+                     ("enc_blocks", cfg.n_enc_layers)):
+        if stack not in tree:
+            continue
+        out[stack] = []
+        for i in range(n):
+            top, key, b = _ref_layer(cfg, i, stack)
+            out[stack].append(
+                {sub: {leaf: _tensor(a if b is None else a[b], device)
+                       for leaf, a in leaves.items()}
+                 for sub, leaves in tree[top][key].items()})
+    for norm in ("enc_norm", "final_norm"):
+        if norm in tree:
+            out[norm] = {k: _tensor(a, device)
+                         for k, a in tree[norm].items()}
     return Model(out)

@@ -6,6 +6,8 @@ of tensors under the reference's leaf names from an explicit
 ``torch.Generator``; ``apply_*`` consumes any mapping with those names
 (a dict or the ``nn.ParameterDict`` the model holds). Weights keep the
 reference's ``(in, out)`` layout, so ``x @ w`` is the same product.
+Where an fp32 activation meets a bf16 weight (whisper's fp32 frames and
+encoder output), ``matmul`` promotes as JAX does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,16 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` under JAX's type promotion: bf16 against fp32 runs in
+    fp32 (torch's ``@`` refuses mixed dtypes). bf16 -> fp32 is exact, so
+    this is the reference's arithmetic."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 def _init(gen: torch.Generator, shape, scale, dtype):
@@ -96,9 +108,9 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int = 0) -> dict:
 
 
 def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ p["w_gate"])
-    h = x @ p["w_in"]
-    return (g * h) @ p["w_out"]
+    g = F.silu(matmul(x, p["w_gate"]))
+    h = matmul(x, p["w_in"])
+    return matmul(g * h, p["w_out"])
 
 
 # ---------------------------------------------------------------------------

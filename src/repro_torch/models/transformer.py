@@ -1,5 +1,5 @@
-"""The model stack for the dense, ssm, MoE and hybrid families
-(counterpart of ``repro/models/transformer.py``).
+"""The model stack of every family of the reference (counterpart of
+``repro/models/transformer.py``).
 
 A model is ``n_layers`` layers between a token embedding and a final
 norm with an (optionally tied) head: attention plus SwiGLU MLP in a
@@ -9,12 +9,17 @@ dense stack, one Mamba-2 SSD mixer (``models/ssm.py``) and no MLP in an
 layers carry an MLP instead. A ``hybrid`` stack (jamba) mixes them: an
 attention layer every ``attn_every`` layers at ``attn_offset``, an SSD
 mixer elsewhere, each followed by an MLP, or by an MoE layer on the
-layers ``is_moe_layer`` names. The reference keeps the leading dense
-layers apart and scans super-blocks of ``block_pattern`` layers over a
-stacked parameter tree; here the layers are one ``nn.ModuleList``, one
+layers ``is_moe_layer`` names. Whisper (``n_enc_layers``) adds a
+bidirectional encoder stack and a cross-attention in every decoder
+layer; the VLM and audio frontends are stubs,
+``batch["frontend_embeds"]`` carrying precomputed patch or frame
+embeddings (an early-fused prefix for VLM, the encoder's input for
+audio). The reference keeps the leading dense layers apart and scans
+super-blocks of ``block_pattern`` layers over a stacked parameter tree;
+here the layers are one ``nn.ModuleList``, one
 ``ModuleDict`` per layer under the reference's leaf names (layer i is
-``blocks[i]``, leading dense layers included), and the scans are Python
-loops.
+``blocks[i]``, leading dense layers included; encoder layer i is
+``enc_blocks[i]``), and the scans are Python loops.
 
 Entry points, as in the reference:
   ``loss_fn``      train forward + CE (``remat`` per layer)
@@ -34,11 +39,15 @@ does the same for its MoE layers' slotting. ``slot_kernel`` of
 ``forward`` and ``loss_fn`` sends the slotting alone through
 bucket_slots (the train step's choice: its slots are integers and need
 no backward, while the attention and SSD kernels have none). The
-encoder and modality frontends and ``unroll`` raise
-``NotImplementedError`` (ROADMAP Queue 1 item 12).
+encoder's attention takes the flash_attention kernel too (in fp32, the
+frames' dtype); the decoder's cross-attention takes the chunked
+``flash_attention_ref`` at prefill, as the reference's does, and the
+flash-decode partials over every encoder position at decode. ``unroll``
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
 import torch
@@ -54,7 +63,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        cross_entropy, dtype_of, embed_tokens,
                                        init_embed, init_mlp, init_norm,
-                                       unembed)
+                                       matmul, unembed)
 
 _unported = attn._unported
 
@@ -80,13 +89,15 @@ def layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
 
 
 def _check_supported(cfg: ModelConfig):
-    for what, on in (("the encoder (n_enc_layers)", cfg.n_enc_layers),
-                     (f"the {cfg.frontend} frontend",
-                      cfg.frontend != "none")):
-        if on:
-            raise _unported(f"{what} of {cfg.name}")
     for i in range(cfg.n_layers):
         layer_kind(cfg, i)
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config: plain GQA layers with an MLP, whatever the
+    decoder's family."""
+    return dataclasses.replace(cfg, attn_type="gqa", n_experts=0,
+                               family="dense", block_pattern=1)
 
 
 # ---------------------------------------------------------------------------
@@ -98,18 +109,26 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
                              for k, t in tensors.items()})
 
 
+def _layers(layers: list) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleDict({k: _frozen(v) for k, v in layer.items()})
+        for layer in layers)
+
+
 class Model(nn.Module):
     """The parameters of a stack under the reference's names:
     ``embed_tokens`` (and ``lm_head`` when untied), ``blocks`` (layer i
     is ``blocks[i]``, a ``ModuleDict`` of ``norm1``, ``attn``, ``norm2``,
     ``mlp`` in a dense stack, ``moe`` in place of ``mlp`` on an MoE
     layer, ``ssm`` in place of ``attn`` on an SSD layer; an ssm stack's
-    layers hold ``norm1`` and ``ssm`` alone) and
-    ``final_norm``. ``p[name]`` and ``name in p`` read it as
-    the reference reads its parameter dict.
+    layers hold ``norm1`` and ``ssm`` alone; with an encoder each also
+    holds ``norm_x`` and ``cross``), with an encoder ``enc_blocks`` and
+    ``enc_norm``, and ``final_norm``. ``p[name]`` and ``name in p`` read
+    it as the reference reads its parameter dict.
 
     ``tree`` holds tensors: ``{"embed_tokens", ["lm_head"], "blocks":
-    [{"norm1": {...}, "attn": {...}, ...}, ...], "final_norm": {...}}``.
+    [{"norm1": {...}, "attn": {...}, ...}, ...], ["enc_blocks": [...],
+    "enc_norm": {...}], "final_norm": {...}}``.
     """
 
     def __init__(self, tree: dict):
@@ -118,9 +137,10 @@ class Model(nn.Module):
             if name in tree:
                 self.register_parameter(
                     name, nn.Parameter(tree[name], requires_grad=False))
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({k: _frozen(v) for k, v in layer.items()})
-            for layer in tree["blocks"])
+        self.blocks = _layers(tree["blocks"])
+        if "enc_blocks" in tree:
+            self.enc_blocks = _layers(tree["enc_blocks"])
+            self.enc_norm = _frozen(tree["enc_norm"])
         self.final_norm = _frozen(tree["final_norm"])
 
     def __getitem__(self, name):
@@ -134,7 +154,8 @@ class Model(nn.Module):
         return self.embed_tokens.device
 
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int) -> dict:
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int,
+                cross: bool = False) -> dict:
     mixer, ff = layer_kind(cfg, i)
     p = {"norm1": init_norm(cfg, gen)}
     if mixer == "ssm":
@@ -143,6 +164,9 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int) -> dict:
         p["attn"] = attn.init_mla(cfg, gen)
     else:
         p["attn"] = attn.init_attention(cfg, gen)
+    if cross:
+        p["norm_x"] = init_norm(cfg, gen)
+        p["cross"] = attn.init_attention(cfg, gen, cross=True)
     if ff != "none":
         p["norm2"] = init_norm(cfg, gen)
         if ff == "moe":
@@ -161,7 +185,14 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     tree = init_embed(cfg, gen)
-    tree["blocks"] = [_init_layer(cfg, gen, i) for i in range(cfg.n_layers)]
+    cross = cfg.n_enc_layers > 0
+    tree["blocks"] = [_init_layer(cfg, gen, i, cross)
+                      for i in range(cfg.n_layers)]
+    if cross:
+        enc_cfg = _enc_cfg(cfg)
+        tree["enc_blocks"] = [_init_layer(enc_cfg, gen, 0)
+                              for _ in range(cfg.n_enc_layers)]
+        tree["enc_norm"] = init_norm(cfg, gen)
     tree["final_norm"] = init_norm(cfg, gen)
     return Model(tree)
 
@@ -171,11 +202,14 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
 # ---------------------------------------------------------------------------
 
 def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
-                   causal: bool, use_kernel: bool = False,
+                   causal: bool, enc_out=None, use_kernel: bool = False,
                    slot_kernel: bool = False, unroll: bool = False):
     """Returns (x, cache_dict, aux_loss); aux is 0.0 without MoE.
     ``use_kernel`` is attention's and the SSD's, ``slot_kernel`` the MoE
-    layer's slotting's."""
+    layer's slotting's. With ``enc_out`` a layer that holds ``cross``
+    attends to it after its mixer, through the chunked
+    ``flash_attention_ref`` (as the reference's does under
+    ``use_pallas``), and its cache gains ``cross_k``/``cross_v``."""
     mixer, ff = layer_kind(cfg, i)
     aux = 0.0
     h = apply_norm(cfg, p["norm1"], x)
@@ -191,6 +225,13 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
                                          unroll=unroll)
         cache = {"k": kv[0], "v": kv[1]}
     x = x + out
+    if enc_out is not None and "cross" in p:
+        h = apply_norm(cfg, p["norm_x"], x)
+        q, k, v = attn._qkv(cfg, p["cross"], h, enc_out)
+        o = attn.flash_attention_ref(q, k, v, causal=False)
+        B, S, H, hd = q.shape
+        x = x + matmul(o.reshape(B, S, H * hd), p["cross"]["wo"])
+        cache["cross_k"], cache["cross_v"] = k, v
     if ff != "none":
         h = apply_norm(cfg, p["norm2"], x)
         if ff == "moe":
@@ -234,14 +275,37 @@ def _remat(name: str, fn, *args):
     raise ValueError(f"remat policy {name!r}: expected full, dots or none")
 
 
+def _encoder_forward(cfg: ModelConfig, params: Model, frames, *,
+                     use_kernel=False, remat="none", unroll=False):
+    """frames: (B, S_enc, D) stub frame embeddings -> (B, S_enc, D), in
+    the frames' dtype (fp32 frames against bf16 weights run in fp32, as
+    JAX promotes them): ``n_enc_layers`` layers without the causal mask
+    at positions ``arange(S_enc)``, then ``enc_norm``. With
+    ``use_kernel`` their attention takes the flash_attention wrapper."""
+    enc_cfg = _enc_cfg(cfg)
+    B, S_enc, _ = frames.shape
+    pos = torch.arange(S_enc, dtype=torch.int32,
+                       device=frames.device).expand(B, S_enc)
+    x = frames
+    for p in params["enc_blocks"]:
+        body = partial(_layer_forward, enc_cfg, p, positions=pos, i=0,
+                       causal=False, use_kernel=use_kernel, unroll=unroll)
+        x = _remat(remat, body, x)[0]
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
 def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
             dp_entry=None, use_kernel=False, slot_kernel=None, remat="none",
             want_cache: bool = False, unroll: bool = False):
-    """Train / prefill forward. batch: ``tokens`` (B, S) on the model's
-    device. Returns (logits (B, S, V), aux_loss[, caches]);
+    """Train / prefill forward. batch: ``tokens`` (B, S_text) on the
+    model's device, and optionally ``frontend_embeds``: a VLM's (B,
+    S_img, D) prefix, cast to the model dtype and prepended (S = S_img +
+    S_text), or an audio stack's (B, S_enc, D) encoder input (S =
+    S_text). Returns (logits (B, S, V), aux_loss[, caches]);
     ``caches["blocks"][i]`` holds layer i's raw cache at sequence length
     S (k/v of an attention layer, ``ckv`` of an MLA layer; state and
-    conv carries of an ssm layer), which
+    conv carries of an ssm layer; ``cross_k``/``cross_v`` (B, S_enc, KV,
+    hd) beside k/v with an encoder), which
     ``serve.engine.prefill_to_decode_cache`` turns into decode layout.
     ``remat`` ("none", "dots" or "full") checkpoints each layer's body,
     as the reference does each super-block's; under "dots" and "full"
@@ -252,11 +316,15 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     _check_supported(cfg)
     if mesh is not None:
         raise _unported("the sharded model (mesh=...)")
-    if "frontend_embeds" in batch:
-        raise _unported("frontend_embeds")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, batch["tokens"])
+    enc_out = None
+    fe = batch.get("frontend_embeds")
+    if cfg.frontend == "vision_stub" and fe is not None:
+        x = torch.cat([fe.to(x.dtype), x], 1)
+    elif cfg.n_enc_layers and fe is not None:
+        enc_out = _encoder_forward(cfg, params, fe, use_kernel=use_kernel,
+                                   remat=remat, unroll=unroll)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     if slot_kernel is None:
@@ -265,7 +333,7 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
         body = partial(_layer_forward, cfg, p, positions=positions, i=i,
-                       causal=True, use_kernel=use_kernel,
+                       causal=True, enc_out=enc_out, use_kernel=use_kernel,
                        slot_kernel=slot_kernel, unroll=unroll)
         x, c, aux = _remat(remat, body, x)
         if torch.is_tensor(aux):        # an MoE layer's
@@ -283,9 +351,10 @@ def loss_fn(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
             dp_entry=None, use_kernel=False, slot_kernel=None, remat="none",
             unroll: bool = False):
     """(loss, {"ce", "aux"}) of a batch of ``tokens`` and ``labels``
-    (B, S) and an optional ``loss_mask``; loss = ce + router_aux_coef *
-    aux, aux the MoE layers' summed load-balancing losses (0 without
-    MoE)."""
+    (B, S) and an optional ``loss_mask`` (and ``frontend_embeds``, as
+    ``forward`` takes them: only the text positions carry loss); loss =
+    ce + router_aux_coef * aux, aux the MoE layers' summed load-balancing
+    losses (0 without MoE)."""
     logits, aux = forward(cfg, params, batch, mesh=mesh, dp_entry=dp_entry,
                           use_kernel=use_kernel, slot_kernel=slot_kernel,
                           remat=remat, unroll=unroll)
@@ -301,10 +370,11 @@ def loss_fn(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
 # ---------------------------------------------------------------------------
 
 def _layer_cache_shape(cfg: ModelConfig, i: int, B: int, S_max: int,
-                       device) -> dict:
+                       device, enc_len: int = 0) -> dict:
     """Zero decode cache of one layer: the fp32 SSD state and the conv
     carries (model dtype) of an ssm layer, the compressed ``ckv`` of an
-    MLA layer, k/v of an attention layer."""
+    MLA layer, k/v of an attention layer, and with ``enc_len`` its
+    ``cross_k``/``cross_v`` (model dtype, as the reference makes them)."""
     dt = dtype_of(cfg)
     mixer = layer_kind(cfg, i)[0]
     if mixer == "mla":
@@ -325,20 +395,23 @@ def _layer_cache_shape(cfg: ModelConfig, i: int, B: int, S_max: int,
     KV, hd = cfg.n_kv_heads, cfg.d_head
     S_cache = min(cfg.sliding_window, S_max) if cfg.attn_type == "swa" \
         else S_max
-    shape = (B, S_cache, KV, hd)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    c = {name: torch.zeros((B, S_cache, KV, hd), dtype=dt, device=device)
+         for name in ("k", "v")}
+    if enc_len:
+        for name in ("cross_k", "cross_v"):
+            c[name] = torch.zeros((B, enc_len, KV, hd), dtype=dt,
+                                  device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, enc_len: int = 0, *,
                device=None):
     """Zero decode caches, ``{"blocks": [layer 0's, layer 1's, ...]}``, on
-    ``device`` (cuda unless given)."""
+    ``device`` (cuda unless given); ``enc_len`` positions of cross
+    keys and values a layer."""
     _check_supported(cfg)
-    if enc_len:
-        raise _unported("the cross-attention cache (enc_len)")
     device = resolve_device(device)
-    return {"blocks": [_layer_cache_shape(cfg, i, B, S_max, device)
+    return {"blocks": [_layer_cache_shape(cfg, i, B, S_max, device, enc_len)
                        for i in range(cfg.n_layers)]}
 
 
@@ -352,9 +425,22 @@ def _layer_decode(cfg: ModelConfig, p, x, cache: dict, t: int, i: int, *,
         out, new_cache = attn.mla_decode(cfg, p["attn"], h, cache, t,
                                          mesh=mesh, dp_entry=dp_entry)
     else:
+        # the cache dict is updated in place and returned: cross_k and
+        # cross_v ride along unchanged
         out, new_cache = attn.attention_decode(cfg, p["attn"], h, cache, t,
                                                mesh=mesh, dp_entry=dp_entry)
     x = x + out
+    if "cross" in p and "cross_k" in cache:
+        h = apply_norm(cfg, p["norm_x"], x)
+        B = h.shape[0]
+        H, hd = cfg.n_heads, cfg.d_head
+        q = (h @ p["cross"]["wq"]).reshape(B, H, hd)
+        enc_len = cache["cross_k"].shape[1]
+        o, l, m = attn._decode_partials(
+            q, cache["cross_k"], cache["cross_v"],
+            torch.arange(enc_len, device=h.device), enc_len)
+        o = attn.combine_partials(o, l, m, None).reshape(B, 1, H * hd)
+        x = x + o.to(x.dtype) @ p["cross"]["wo"]
     if ff != "none":
         h = apply_norm(cfg, p["norm2"], x)
         if ff == "moe":

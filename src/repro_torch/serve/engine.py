@@ -11,8 +11,9 @@ One deliberate difference from the reference: its engine prefills with
 once per attention layer (GQA or MHA) and prefill, the ssd_scan kernel
 once per SSD layer and prefill, and the bucket_slots kernel twice a
 pipeline step of every MoE layer, at prefill and at every decode step;
-a hybrid stack (jamba) runs all three. Both compute the same function
-(the kernels are held to it by the tests).
+a hybrid stack (jamba) runs all three. An encoder's layers (whisper's)
+run flash_attention at prefill too, in the frames' dtype. Both compute
+the same function (the kernels are held to it by the tests).
 """
 from __future__ import annotations
 
@@ -59,6 +60,9 @@ def _convert_layer(cfg: ModelConfig, kind: str, raw: dict, S: int,
         for name in ("k", "v"):
             out[name] = torch.nn.functional.pad(raw[name],
                                                 (0, 0, 0, 0, 0, S_max - S))
+    for name in ("cross_k", "cross_v"):     # the encoder's, as they are
+        if name in raw:
+            out[name] = raw[name]
     return out
 
 
@@ -126,23 +130,30 @@ class ServeEngine:
                  frontend_embeds: np.ndarray | None = None,
                  greedy: bool = True, temperature: float = 1.0,
                  seed: int = 0) -> np.ndarray:
-        """prompts: (B, S_prompt) int32 (same length; pad upstream).
-        Returns (B, n_new) generated ids. Sampling draws from a
-        ``torch.Generator`` seeded with ``seed``."""
-        if frontend_embeds is not None:
-            raise tf._unported("frontend_embeds")
+        """prompts: (B, S_prompt) int32 (same length; pad upstream);
+        ``frontend_embeds``: a VLM's (B, S_img, D) prefix or an audio
+        stack's (B, S_enc, D) frames (``transformer.forward``), whose
+        dtype the encoder keeps. Returns (B, n_new) generated ids.
+        Sampling draws from a ``torch.Generator`` seeded with ``seed``."""
         B, S = prompts.shape
-        tokens = torch.from_numpy(
-            np.ascontiguousarray(prompts, dtype=np.int32)).to(self.device)
-        logits, _, raw = self._prefill(self.params, {"tokens": tokens})
-        cache = prefill_to_decode_cache(self.cfg, raw, S, self.max_len)
+        batch = {"tokens": torch.from_numpy(
+            np.ascontiguousarray(prompts, dtype=np.int32)).to(self.device)}
+        if frontend_embeds is not None:
+            batch["frontend_embeds"] = torch.as_tensor(frontend_embeds,
+                                                       device=self.device)
+        logits, _, raw = self._prefill(self.params, batch)
+        # a vision prefix takes cache positions ahead of the prompt
+        S_ctx = S + (frontend_embeds.shape[1]
+                     if self.cfg.frontend == "vision_stub"
+                     and frontend_embeds is not None else 0)
+        cache = prefill_to_decode_cache(self.cfg, raw, S_ctx, self.max_len)
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         tok = logits[:, -1:].argmax(-1).to(torch.int32)
         outs = [tok]
         done = np.zeros((B,), bool)
         for step in range(n_new - 1):
-            logits, cache = self._step(self.params, cache, tok, S + step)
+            logits, cache = self._step(self.params, cache, tok, S_ctx + step)
             if greedy:
                 tok = logits[:, -1:].argmax(-1).to(torch.int32)
             else:

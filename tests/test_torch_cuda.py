@@ -1543,3 +1543,92 @@ def test_llama4_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
     assert s["launches"] == s["want_launches"]
     assert s["slots"]["calls"] > 0 and s["slots"]["decode_calls"] > 0
     assert s["layer_err_over_limit"] <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# the vision and audio frontends on the card
+# ---------------------------------------------------------------------------
+
+def _frontend_smoke(arch: str, dtype: str = "float32"):
+    """internvl2's or whisper's SMOKE config at d_model 256, so that its
+    4 heads are of head dim 64 (one flash_attention takes)."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch), d_model=256,
+                               d_head=64, dtype=dtype, param_dtype=dtype)
+
+
+FRONTEND_ARCHS = (chip_smoke.VISION_ARCH, chip_smoke.AUDIO_ARCH)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_generate_on_the_card_matches_the_cpu(cuda_device, arch):
+    """One ``generate`` with ``frontend_embeds`` (a 32-row prefix and 96
+    text tokens; 64 frames and 128 text tokens, as ``frontend_geometry``
+    splits 128) on the card, through flash_attention once an attention
+    layer and prefill (whisper's encoder layers included), gives the
+    CPU plain path's greedy tokens on the same fp32 weights."""
+    import copy
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine
+    cfg = _frontend_smoke(arch)
+    model = tf.init_model(cfg, 0, device="cpu")
+    prompts, fe, ahead = chip_smoke.serve_inputs(cfg, 2, 128)
+    max_len = ahead + 8 + 8
+    want = engine.ServeEngine(cfg, model, max_len, device="cpu").generate(
+        prompts, 8, frontend_embeds=fe)
+    card = copy.deepcopy(model).to(cuda_device)
+    before = fa_ops.flash_attention.launches
+    got = engine.ServeEngine(cfg, card, max_len, device=cuda_device) \
+        .generate(prompts, 8, frontend_embeds=fe)
+    torch.cuda.synchronize(cuda_device)
+    assert fa_ops.flash_attention.launches - before == \
+        cfg.n_layers + cfg.n_enc_layers
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_whisper_bf16_prefill_runs_its_encoder_in_fp32(cuda_device):
+    """A bf16 whisper stack on fp32 frames: the encoder's attention takes
+    the fp32 kernel and the decoder's the bf16 one (one launch a layer
+    each), ``cross_k``/``cross_v`` come out fp32 and the decoder's k/v
+    and logits bf16, as JAX's promotion gives them; the logits within
+    3e-2 * max|logits| of the plain path's on the card."""
+    from repro_torch.models import transformer as tf
+    cfg = _frontend_smoke(chip_smoke.AUDIO_ARCH, "bfloat16")
+    model = tf.init_model(cfg, 0, device=cuda_device)
+    prompts, fe, _ = chip_smoke.serve_inputs(cfg, 2, 128)
+    batch = chip_smoke.serve_batch(prompts, fe, 0, 2, cuda_device)
+    out = {}
+    for use_kernel in (True, False):
+        before = fa_ops.flash_attention.launches
+        with torch.inference_mode():
+            out[use_kernel] = tf.forward(cfg, model, batch, want_cache=True,
+                                         use_kernel=use_kernel)
+        torch.cuda.synchronize(cuda_device)
+        assert fa_ops.flash_attention.launches - before == \
+            (cfg.n_layers + cfg.n_enc_layers if use_kernel else 0)
+    (lk, _, ck), (lr, _, _) = out[True], out[False]
+    assert lk.dtype == torch.bfloat16
+    for c in ck["blocks"]:
+        assert c["k"].dtype == c["v"].dtype == torch.bfloat16
+        assert c["cross_k"].dtype == c["cross_v"].dtype == torch.float32
+        assert c["cross_k"].shape[1] == fe.shape[1]
+    err = (lk.float() - lr.float()).abs().max().item()
+    assert err <= 3e-2 * lr.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_serve_phase_on_the_card_at_a_narrow_width(cuda_device,
+                                                            arch):
+    """Phase 4 on the widened SMOKE stack in bf16 at a context of 256:
+    its gates hold, and the launches are the code's count."""
+    s = chip_smoke.phase_serve(cuda_device, _frontend_smoke(arch,
+                                                            "bfloat16"),
+                               requests=3, batch=2, prompt_len=256,
+                               new_tokens=4)
+    assert s["launches"] == s["want_launches"]
+    assert s["layer_err_over_limit"] <= 1.0
+    assert s["kernel_vs_ref_err_over_limit"] <= 1.0

@@ -64,6 +64,16 @@ def test_the_scans_cover_the_new_arch_configs():
             "configs/llama4_maverick.py", "configs/registry.py"} <= names
 
 
+def test_the_scans_cover_the_frontend_modules():
+    """The two checks above reach the modules that serve whisper-tiny's
+    encoder and internvl2-26b's vision prefix."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"configs/whisper_tiny.py", "configs/internvl2_26b.py",
+            "launch/specs.py", "launch/serve.py", "models/transformer.py",
+            "models/convert.py", "models/layers.py",
+            "serve/engine.py"} <= names
+
+
 TRAINING_MODULES = ("config", "data.pipeline", "data.tokenizer", "optim",
                     "optim.adamw", "optim.compress", "train",
                     "train.train_step", "launch.specs", "launch.train")
@@ -523,7 +533,8 @@ def test_smoke_moe_serve_phase_rehearses_on_cpu():
     assert chip_smoke.SERVE_ARCHS == dict.fromkeys(
         ("olmo-1b", "mamba2-780m", "h2o-danube-1.8b", chip_smoke.MOE_ARCH,
          chip_smoke.HYBRID_ARCH, "codeqwen1.5-7b", "stablelm-12b",
-         chip_smoke.LLAMA4_ARCH), chip_smoke.BATCH)
+         chip_smoke.LLAMA4_ARCH, chip_smoke.VISION_ARCH,
+         chip_smoke.AUDIO_ARCH), chip_smoke.BATCH)
     assert list(chip_smoke.serve_kernels(cfg)) == ["bucket_slots"]
     serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
                                    prompt_len=32, new_tokens=4)
@@ -638,8 +649,8 @@ def test_smoke_new_arch_phases_rehearse_on_cpu():
     shared expert): served tokens checked, the kernel path against the
     plain path (llama4's on its routing), every slot call bit for bit,
     no kernel launched on the CPU; and the launches and slot shapes that
-    phase 4 expects at full width (32 / 40 / 2 flash_attention, 320
-    bucket_slots)."""
+    phase 4 expects at full width and its served depths (8 / 40 / 2
+    flash_attention, 320 bucket_slots)."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -689,7 +700,7 @@ def test_smoke_new_arch_phases_rehearse_on_cpu():
                                         (61, 128)]
     serve["seconds"] = 0.0
     chip_smoke.print_serve(serve)
-    for arch, want in (("codeqwen1.5-7b", {"flash_attention": 32}),
+    for arch, want in (("codeqwen1.5-7b", {"flash_attention": 8}),
                        ("stablelm-12b", {"flash_attention": 40}),
                        (chip_smoke.LLAMA4_ARCH, {"flash_attention": 2,
                                                  "bucket_slots": 320})):
@@ -791,3 +802,82 @@ def test_smoke_train_phase_rehearses_on_cpu():
     tokens = chip_smoke.TRAIN_SEQ * chip_smoke.TRAIN_BATCH
     assert chip_smoke.train_flops(cfg, 512, 8) == \
         6 * cfg.param_count() * tokens + 6 * 16 * 512 * 2048 * tokens
+
+
+def test_smoke_frontend_phases_rehearse_on_cpu():
+    """internvl2-26b's and whisper-tiny's parts of phases 2 and 4: their
+    three flash shapes against the archs' configs (whisper's encoder in
+    fp32 without the causal mask, bound at the fp32 CUDA-core rate) and
+    through the wrapper at a short S (the plain version here); then phase
+    4 at their SMOKE configs at a context of 64, split as
+    ``frontend_geometry`` splits it (a 16-row prefix and 48 text tokens;
+    32 frames and 64 text tokens): served tokens checked, the kernel path
+    against the plain path, every encoder and decoder layer's attention
+    on the kernel path's input, no kernel launched on the CPU; and the
+    launches phase 4 expects at full width (48 and 8 a batch: whisper's
+    4 encoder layers count)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    cpu = torch.device("cpu")
+    timed = chip_smoke.FLASH_TIMED
+    vis, aud = chip_smoke.VISION_ARCH, chip_smoke.AUDIO_ARCH
+    for key, arch, S, causal, dtype in (
+            (vis, vis, 2048, True, "bfloat16"),
+            (f"{aud} encoder", aud, 1024, False, "float32"),
+            (aud, aud, 2048, True, "bfloat16")):
+        full = get_config(arch)
+        case = timed[key]
+        assert case in chip_smoke.FLASH_FULL.values()
+        assert case == (chip_smoke.BATCH, S, full.n_heads, full.n_kv_heads,
+                        full.d_head, causal, 0, dtype)
+    bound, by, work = chip_smoke.flash_bound(timed[vis])
+    assert by == "operations" and round(work["flops"] / 1e9, 1) == 412.5
+    assert round(bound, 3) == 0.417
+    bound, by, work = chip_smoke.flash_bound(timed[f"{aud} encoder"])
+    assert work["flops"] == 4 * 8 * 6 * 64 * 1024 * 1024     # every pair
+    assert by == "operations" and round(bound, 3) == 0.192   # 67 TFLOP/s
+    short = {n: (1, 96) + c[2:] for n, c in chip_smoke.FLASH_FULL.items()
+             if n.startswith(("internvl2", "whisper"))}
+    assert len(short) == 3
+    errs = chip_smoke.phase_flash_vs_plain(cpu, short)
+    assert max(errs.values()) == 0.0
+
+    for arch, want, rows, text in ((vis, 2 * 2, 16, 48),
+                                   (aud, 2 * (2 + 2), 32, 64)):
+        cfg = get_smoke_config(arch)
+        serve = chip_smoke.phase_serve(cpu, cfg, requests=3, batch=2,
+                                       prompt_len=64, new_tokens=4)
+        assert serve["want_launches"] == {"flash_attention": want}
+        assert serve["launches"] == {"flash_attention": 0}
+        assert (serve["frontend_rows"], serve["text_len"]) == (rows, text)
+        assert serve["served_tokens_per_s"] > 0
+        assert serve["kernel_vs_ref_err_over_limit"] <= 1.0
+        assert serve["layer_err_over_limit"] <= 1.0
+        serve["seconds"] = 0.0
+        chip_smoke.print_serve(serve)
+    # internvl2's bf16 paths drift apart at 48 layers on the card: under
+    # its name the stack is held to its own weights in fp32, streamed a
+    # layer at a time, its prefix prepended in fp32
+    cfg = dataclasses.replace(get_smoke_config(vis), name=vis)
+    serve = chip_smoke.phase_serve(cpu, cfg, requests=2, batch=2,
+                                   prompt_len=64, new_tokens=4)
+    (d,) = serve["drift"]
+    assert d["rows"] == chip_smoke.DRIFT_ROWS and d["reroutes"] == [
+        {"calls": 0, "rows": 0, "max_gap": 0.0}] * 3
+    assert d["fp32_err_over_limit"] <= 1.0
+    assert d["kernel_low_vs_fp32"] <= \
+        chip_smoke.SSM_DRIFT_FACTOR * d["ref_low_vs_fp32"]
+    prompts, fe, ahead = chip_smoke.serve_inputs(get_config(vis), 8, 2048)
+    assert prompts.shape == (8, 1536) and fe.shape == (8, 512, 6144)
+    assert fe.dtype == np.float32 and ahead == 2048
+    prompts, fe, ahead = chip_smoke.serve_inputs(get_config(aud), 8, 2048)
+    assert prompts.shape == (8, 2048) and fe.shape == (8, 1024, 384)
+    assert ahead == 2048
+    for arch, want in ((vis, 48), (aud, 8)):
+        full = get_config(arch)
+        if arch in chip_smoke.SERVE_LAYERS:
+            full = dataclasses.replace(
+                full, n_layers=chip_smoke.SERVE_LAYERS[arch])
+        assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == \
+            {"flash_attention": want}

@@ -38,7 +38,8 @@ ARCHS = ("olmo-1b", "h2o-danube-1.8b")
 # test_torch_{codeqwen,stablelm,llama4}_serve
 ALL_ARCHS = ARCHS + ("mamba2-780m", "deepseek-v2-lite-16b",
                      "jamba-v0.1-52b", "codeqwen1.5-7b", "stablelm-12b",
-                     "llama4-maverick-400b-a17b")
+                     "llama4-maverick-400b-a17b", "whisper-tiny",
+                     "internvl2-26b")
 B, S, NEW = 2, 96, 6
 CPU = torch.device("cpu")
 
@@ -314,9 +315,7 @@ def test_configs_are_the_reference_configs():
             assert dataclasses.asdict(t) == dataclasses.asdict(j)
             assert t.param_count() == j.param_count()
     assert set(tregistry.ARCH_IDS) == set(ALL_ARCHS)
-    for arch in set(jregistry.ARCH_IDS) - set(ALL_ARCHS):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            tregistry.get_config(arch)
+    assert tregistry.ARCH_IDS == jregistry.ARCH_IDS
     fields = {f.name for f in dataclasses.fields(jconfig.ModelConfig)}
     assert fields == {f.name for f in dataclasses.fields(
         tconfig.ModelConfig)}
@@ -349,25 +348,29 @@ def test_cells_are_the_reference_cells():
 def test_unported_parts_raise(what):
     """What the port does not run raises, naming its ROADMAP item. MoE,
     MLA and first_k_dense stacks build and serve (test_torch_mla_serve),
-    and so do hybrid ones (test_torch_hybrid_serve), so their cases hold
-    what of them stays unported: the MoE layer under a mesh, MLA decode
-    over a seq-sharded cache, the replicated decode-time dispatch of
-    deepseek-v2-lite's expert layers, and an arch outside the port's
-    registry (internvl2-26b, whose vision frontend is item 12b)."""
+    and so do hybrid ones (test_torch_hybrid_serve), whisper's encoder
+    (test_torch_whisper_serve) and internvl2's vision prefix
+    (test_torch_internvl2_serve), so their cases hold what of them stays
+    unported: the MoE layer under a mesh, MLA decode over a seq-sharded
+    cache, the replicated decode-time dispatch of deepseek-v2-lite's
+    expert layers, the hybrid stack and the vision prefix under a mesh,
+    and the encoder's cost-exact unrolled attention."""
     from repro_torch.models import attention as tattn
     from repro_torch.models import moe as tmoe
     cfg = tregistry.get_smoke_config("olmo-1b")
     ds = tregistry.get_smoke_config("deepseek-v2-lite-16b")
-    bad = {"encoder": dict(n_enc_layers=2), "frontend": dict(
-        frontend="vision_stub")}
     toks = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
     x = torch.zeros((1, 8, ds.d_model))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        if what == "hybrid":       # no arch of the port's registry
-            tregistry.get_config("internvl2-26b")
-        elif what in bad:
-            ttf.init_model(dataclasses.replace(cfg, **bad[what]), 0,
-                           device=CPU)
+        if what in ("hybrid", "encoder", "frontend"):
+            arch = {"hybrid": "jamba-v0.1-52b", "encoder": "whisper-tiny",
+                    "frontend": "internvl2-26b"}[what]
+            c = tregistry.get_smoke_config(arch)
+            batch = dict(toks, frontend_embeds=torch.zeros((1, 4,
+                                                            c.d_model)))
+            ttf.forward(c, ttf.init_model(c, 0, device=CPU), batch,
+                        **({"unroll": True} if what == "encoder"
+                           else {"mesh": object()}))
         elif what in ("moe", "mla", "first_k_dense"):
             layer = ttf.init_model(ds, 0, device=CPU)["blocks"][1]
             if what == "moe":

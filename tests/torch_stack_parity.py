@@ -6,7 +6,12 @@ fixtures and tests below; each runs at that arch's SMOKE config in fp32
 and bf16, with the weights of the reference's ``init_model(cfg,
 jax.random.key(0))`` carried across by ``params_from_numpy`` and the same
 seeded numpy tokens (seeded noise on the leaves the init leaves
-constant, ``_perturbed``): ``forward``'s logits, aux and raw caches through the
+constant, ``_perturbed``), and for an arch with a frontend the same
+seeded fp32 ``frontend_embeds`` (``frontend``: a VLM's prefix of
+``FE_LEN["vision_stub"]`` rows, an audio stack's S // enc_seq_factor
+frames, as the reference's ``frontend_geometry`` sizes them):
+``forward``'s logits, aux and raw caches (``cross_k``/``cross_v`` too),
+each in the reference's dtype, through the
 kernel path (``use_kernel=True``, the plain versions on these CPU
 tensors, against ``use_pallas=True`` in interpret mode) and the
 reference path; two decode steps from the converted caches; greedy
@@ -53,6 +58,8 @@ from repro_torch.serve import engine as tengine
 from torch_routing import recording, same_routing
 
 B, S, NEW = 2, 48, 4
+# rows of a VLM's stub prefix (the reference's launcher serves 16)
+FE_LEN = {"vision_stub": 16}
 # a router probability gap that bf16 rounding may cross (module docstring)
 TIE = {"float32": 0.0, "bfloat16": 2**-8}
 CPU = torch.device("cpu")
@@ -125,6 +132,53 @@ def tokens(cfg, seed=0, n=S, b=B):
         0, cfg.vocab_size, (b, n)).astype(np.int32)
 
 
+def frontend(cfg, b=B, seed=5):
+    """Seeded fp32 ``frontend_embeds`` of ``cfg`` (None without a
+    frontend): a VLM's ``FE_LEN`` prefix rows, an audio stack's S //
+    enc_seq_factor frames."""
+    if cfg.frontend == "vision_stub":
+        n = FE_LEN["vision_stub"]
+    elif cfg.n_enc_layers:
+        n = S // max(cfg.enc_seq_factor, 1)
+    else:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (b, n, cfg.d_model)).astype(np.float32)
+
+
+def prefix_len(cfg, fe) -> int:
+    """Positions a VLM's prefix takes ahead of the text (0 otherwise)."""
+    return fe.shape[1] if cfg.frontend == "vision_stub" else 0
+
+
+def batches(toks, fe=None, **extra):
+    """The same batch for both packages: (JAX's, the port's)."""
+    jb = {"tokens": jnp.asarray(toks),
+          **{k: jnp.asarray(v) for k, v in extra.items()}}
+    tb = {"tokens": torch.from_numpy(np.ascontiguousarray(toks)),
+          **{k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in extra.items()}}
+    if fe is not None:
+        jb["frontend_embeds"] = jnp.asarray(fe)
+        tb["frontend_embeds"] = torch.from_numpy(fe)
+    return jb, tb
+
+
+def same_dtype(got, want, what=""):
+    """A port tensor's dtype is the reference array's."""
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype), \
+        (what, got.dtype, want.dtype)
+
+
+def close_caches(got: dict, want: dict, dtype, what=""):
+    """Every entry of one layer's cache (k/v, ``cross_k``/``cross_v``),
+    in the reference's dtype and within the tolerance."""
+    assert sorted(got) == sorted(want), (what, sorted(got), sorted(want))
+    for name in got:
+        same_dtype(got[name], want[name], f"{what} {name}")
+        close(got[name], want[name], dtype, f"{what} {name}")
+
+
 def ref_cache(cfg, caches, i):
     """Port layer i's cache in the reference's tree of caches."""
     top, key, b = convert._ref_layer(cfg, i)
@@ -170,15 +224,16 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_forward_logits_aux_and_caches(pair, use_kernel):
     toks = tokens(pair.tcfg)
+    jb, tb = batches(toks, frontend(pair.tcfg))
     (want, jaux, jc), calls = _ref(
         pair, f"forward{use_kernel}", lambda: jtf.forward(
-            pair.jcfg, pair.jp, {"tokens": jnp.asarray(toks)},
-            use_pallas=use_kernel, want_cache=True))
+            pair.jcfg, pair.jp, jb, use_pallas=use_kernel,
+            want_cache=True))
     with routed(pair, calls):
-        got, aux, tc = ttf.forward(pair.tcfg, pair.tp,
-                                   {"tokens": torch.from_numpy(toks)},
+        got, aux, tc = ttf.forward(pair.tcfg, pair.tp, tb,
                                    use_kernel=use_kernel, want_cache=True)
     assert got.dtype == getattr(torch, pair.dtype)
+    same_dtype(got, want, "logits")
     close(got, want, pair.dtype, "logits")
     if pair.moe:
         assert float(aux) > 0
@@ -186,65 +241,64 @@ def test_forward_logits_aux_and_caches(pair, use_kernel):
     else:
         assert float(aux) == 0.0
     for i, c in enumerate(tc["blocks"]):
-        for name in ("k", "v"):
-            close(c[name], ref_cache(pair.tcfg, jc, i)[name], pair.dtype,
-                  f"layer {i} {name}")
+        close_caches(c, ref_cache(pair.tcfg, jc, i), pair.dtype, f"layer {i}")
     with routed(pair, calls):
-        last = ttf.prefill(pair.tcfg, pair.tp,
-                           {"tokens": torch.from_numpy(toks)},
-                           use_kernel=use_kernel)
+        last = ttf.prefill(pair.tcfg, pair.tp, tb, use_kernel=use_kernel)
     close(last, want[:, -1:], pair.dtype, "prefill")
 
 
 def test_decode_steps(pair):
     """Two decode steps from the converted prefill caches: the logits
-    and every layer's k/v after each."""
+    and every layer's cache (k/v, ``cross_k``/``cross_v``) after each."""
     toks, nxt = tokens(pair.tcfg), tokens(pair.tcfg, seed=2, n=2)
-    S_max = S + 4
+    fe = frontend(pair.tcfg)
+    jb, tb = batches(toks, fe)
+    S_ctx = S + (0 if fe is None else prefix_len(pair.tcfg, fe))
+    S_max = S_ctx + 4
 
     def run():
-        _, _, jc = jtf.forward(pair.jcfg, pair.jp,
-                               {"tokens": jnp.asarray(toks)}, want_cache=True)
-        cache, out = jengine.prefill_to_decode_cache(pair.jcfg, jc, S,
+        _, _, jc = jtf.forward(pair.jcfg, pair.jp, jb, want_cache=True)
+        cache, out = jengine.prefill_to_decode_cache(pair.jcfg, jc, S_ctx,
                                                      S_max), []
         for step in range(2):
             logits, cache = jtf.decode_step(
                 pair.jcfg, pair.jp, cache, jnp.asarray(nxt[:, step:step + 1]),
-                S + step)
+                S_ctx + step)
             out.append((logits, [ref_cache(pair.tcfg, cache, i)
                                  for i in range(pair.tcfg.n_layers)]))
         return out
     want, calls = _ref(pair, "decode", run)
     with routed(pair, calls):
-        _, _, tc = ttf.forward(pair.tcfg, pair.tp,
-                               {"tokens": torch.from_numpy(toks)},
-                               want_cache=True)
-        cache = tengine.prefill_to_decode_cache(pair.tcfg, tc, S, S_max)
+        _, _, tc = ttf.forward(pair.tcfg, pair.tp, tb, want_cache=True)
+        cache = tengine.prefill_to_decode_cache(pair.tcfg, tc, S_ctx, S_max)
         for step, (wl, wc) in enumerate(want):
             logits, cache = ttf.decode_step(
                 pair.tcfg, pair.tp, cache,
-                torch.from_numpy(nxt[:, step:step + 1]), S + step)
+                torch.from_numpy(nxt[:, step:step + 1]), S_ctx + step)
+            same_dtype(logits, wl, f"decode logits {step}")
             close(logits, wl, pair.dtype, f"decode logits {step}")
             for i, (c, w) in enumerate(zip(cache["blocks"], wc)):
-                for n in ("k", "v"):
-                    close(c[n], w[n], pair.dtype, f"step {step} layer {i} {n}")
+                close_caches(c, w, pair.dtype, f"step {step} layer {i}")
 
 
 def test_generate_greedy(pair):
     prompts = tokens(pair.tcfg, seed=3)
-    max_len = S + NEW + 4
+    fe = frontend(pair.tcfg, seed=6)
+    max_len = S + NEW + 4 + (0 if fe is None else prefix_len(pair.tcfg, fe))
     want, calls = _ref(pair, "generate", lambda: jengine.ServeEngine(
-        pair.jcfg, pair.jp, max_len=max_len).generate(prompts, NEW))
+        pair.jcfg, pair.jp, max_len=max_len).generate(
+            prompts, NEW, frontend_embeds=fe))
     with routed(pair, calls):
         got = tengine.ServeEngine(pair.tcfg, pair.tp, max_len=max_len,
-                                  device=CPU).generate(prompts, NEW)
+                                  device=CPU).generate(
+            prompts, NEW, frontend_embeds=fe)
     assert got.shape == (B, NEW) and got.dtype == np.int32
     if pair.dtype == "float32" or pair.moe:
         np.testing.assert_array_equal(got, want)
         return
     seq = np.concatenate([prompts, got[:, :-1]], 1)
-    logits, _ = jtf.forward(pair.jcfg, pair.jp, {"tokens": jnp.asarray(seq)})
-    logits = np32(logits)[:, S - 1:]
+    logits, _ = jtf.forward(pair.jcfg, pair.jp, batches(seq, fe)[0])
+    logits = np32(logits)[:, -NEW:]
     picked = np.take_along_axis(logits, got[..., None], -1)[..., 0]
     assert (logits.max(-1) - picked).max() <= 3e-2 * np.abs(logits).max()
 
@@ -280,10 +334,8 @@ def test_loss_fn_and_every_gradient_match_jax(pair):
     bf16-grads``)."""
     rng = np.random.default_rng(4)
     toks = rng.integers(0, pair.tcfg.vocab_size, (B, S + 1)).astype(np.int32)
-    jbatch = {"tokens": jnp.asarray(toks[:, :-1]),
-              "labels": jnp.asarray(toks[:, 1:])}
-    tbatch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
-              "labels": torch.from_numpy(toks[:, 1:].copy())}
+    jbatch, tbatch = batches(toks[:, :-1], frontend(pair.tcfg, seed=8),
+                             labels=toks[:, 1:])
     ((jloss, jm), jgrads), calls = _ref(
         pair, "grads", lambda: jax.value_and_grad(
             lambda p: jtf.loss_fn(pair.jcfg, p, jbatch), has_aux=True)(
