@@ -39,15 +39,20 @@ Phases, each of which asserts (nothing is caught):
                routing of a served batch and on one segment's owner
                window, ``flash_decode`` on the olmo-1b and h2o-danube-1.8b
                served caches;
-  2c. lint   — fleetlint's kernel half (``python -m
-               repro_torch.analysis.lint``) on the card: ``--kernels``
-               clean over the six shipping wrappers and ``--selftest``
-               PASS over the eight kernel and ops mutants, each near
-               twin's kernel (copy_rows, table_add, copy_rows_i32)
-               launched once on that path; then each held bit for bit to
-               its plain version on seeded inputs and timed beside
-               ``x.clone()`` or ``table + recs[0]``, by events and, in
-               turns with that call, by device time;
+  2c. lint   — fleetlint (``python -m repro_torch.analysis.lint``) on
+               the card: ``--all`` clean over the 82 shipping programs
+               (run on seeded inputs at P = 8 under SPMD001, SPMD002 and
+               REP001; the 18 ``+fused`` handles launch fused_map once a
+               step through their step graphs, as many launches as their
+               steps) and the six shipping wrappers, and ``--selftest``
+               PASS over the 20 mutants, each near twin's kernel
+               (copy_rows, table_add, copy_rows_i32) launched once on
+               that path; each ``+fused`` program's finish outputs equal
+               to its unfused twin's, bit for bit; the phase's wall; then
+               each near twin's kernel held bit for bit to its plain
+               version on seeded inputs and timed beside ``x.clone()`` or
+               ``table + recs[0]``, by events and, in turns with that
+               call, by device time;
   2d. memcheck — the script again, in child processes under
                ``compute-sanitizer --tool memcheck`` with PyTorch's
                caching allocator off: a probe, then (a) every shipping
@@ -1665,7 +1670,7 @@ def time_entry(cases: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 2c. fleetlint's kernel half on the card, and its mutant kernels
+# 2c. fleetlint on the card: its programs, kernels and mutant kernels
 # ---------------------------------------------------------------------------
 
 # the mutant corpus's near twins and the kernel each one launches
@@ -1714,26 +1719,59 @@ def mutant_call(name: str, device) -> dict:
                 bound=_bound(nbytes, 0, SCALAR_OPS_PER_S))
 
 
+def fused_twins(device) -> list[str]:
+    """Each ``+fused`` shipping program's finish outputs against its
+    unfused twin's on the same seeded inputs, bit for bit; returns the
+    pairs' names."""
+    corpus = _lint()[0]
+    from repro_torch.analysis.rules import run_program
+    handles = {h.name: h for h in corpus.shipping_programs(device)}
+    pairs = [(n, n.replace("+fused", "")) for n in handles
+             if "+fused/finish" in n]
+    for fused, plain in pairs:
+        (*_, (_, got, _)) = run_program(handles[fused], watched=False)
+        (*_, (_, want, _)) = run_program(handles[plain], watched=False)
+        for path, x in want.items():
+            if not torch.equal(got[path], x):
+                raise AssertionError(f"{fused}: {path} differs from "
+                                     f"{plain}'s")
+    return [f for f, _ in pairs]
+
+
 def phase_lint(device) -> dict:
-    """fleetlint's kernel half on ``device``, the mutant kernels' path:
-    ``--kernels`` (the six shipping wrappers, none launched) and
-    ``--selftest`` (the eight mutants: each near twin's kernel launched
-    once, no bad twin), launch counts zeroed just before and read just
-    after; then each near twin's kernel held bit for bit to its plain
-    version on seeded inputs (``check_cases``)."""
-    _, lint, _, _ = _lint()
+    """fleetlint on ``device``, the path of its programs and mutant
+    kernels: ``--all`` (the 82 shipping programs at P = 8, the ``+fused``
+    ones launching fused_map once a step; the six shipping wrappers, none
+    launched) and ``--selftest`` (the 20 mutants: each near twin's
+    kernel launched once, no bad twin), launch counts zeroed just before
+    and read just after; fused_map's launches equal to the steps of the
+    ``+fused`` handles (``ProgramHandle.steps``) on the card; each
+    ``+fused`` finish equal to its unfused twin's (``fused_twins``); the
+    phase's wall; then each near twin's kernel held bit for bit to its
+    plain version on seeded inputs (``check_cases``)."""
+    corpus, lint, _, _ = _lint()
     fns = wrappers()
+    t0 = time.perf_counter()
     zero_counts()
-    rc_kernels = lint.main(["--kernels", "--device", str(device)])
+    rc_all = lint.main(["--all", "--device", str(device)])
     rc_selftest = lint.main(["--selftest", "--device", str(device)])
     _sync(device)
-    launches = {k: fns[k].launches for k in MUTANT_KERNELS.values()}
-    assert rc_kernels == 0 and rc_selftest == 0, (rc_kernels, rc_selftest)
+    launches = {k: fns[k].launches for k in
+                ("fused_map", *MUTANT_KERNELS.values())}
+    assert rc_all == 0 and rc_selftest == 0, (rc_all, rc_selftest)
+    steps = sum(h.steps for h in corpus.shipping_programs(device)
+                if "+fused" in h.name)
     if device.type == "cuda":
-        assert all(n == 1 for n in launches.values()), launches
+        assert all(launches[k] == 1 for k in MUTANT_KERNELS.values()), \
+            launches
+        assert launches["fused_map"] == steps > 0, (launches, steps)
+    else:
+        assert all(n == 0 for n in launches.values()), launches
+    twins = fused_twins(device)
+    wall = time.perf_counter() - t0
     cases = {name: mutant_call(name, device) for name in MUTANT_KERNELS}
-    return dict(launches=launches, cases=cases,
-                max_abs_err=check_cases(cases))
+    return dict(launches=launches, fused_steps=steps, fused_twins=twins,
+                seconds=wall, cases=cases, max_abs_err=check_cases(cases))
 
 
 # ---------------------------------------------------------------------------
@@ -5020,9 +5058,12 @@ def main(argv=()) -> int:
                         lambda f: _device_ms(f, 200)[0])
         lint_t[name].update(device_ms=dev["kernel"],
                             library_device_ms=dev["library"])
-    print(f"lint: fleetlint --kernels and --selftest on the card: clean and "
-          f"PASS; near twins' launches {lint['launches']}, each == plain bit "
-          f"for bit on seeded inputs")
+    print(f"lint: fleetlint --all and --selftest on the card: 82 programs, "
+          f"6 kernels clean and 20 mutants PASS in {lint['seconds']:.1f} s; "
+          f"launches {lint['launches']} (fused_map == the +fused handles' "
+          f"{lint['fused_steps']} steps); {len(lint['fused_twins'])} +fused "
+          f"finishes == their unfused twins' bit for bit; near twins == "
+          f"plain bit for bit on seeded inputs")
     for name, e in lint_t.items():
         print(f"lint: {MUTANT_KERNELS[name]} ({name}): {e['ms']:.5f} ms "
               f"(device {e['device_ms']:.5f} ms), plain "
@@ -5122,6 +5163,9 @@ def main(argv=()) -> int:
                                 "flash_decode_matrix_err": fd_errs,
                                 "flash_decode_matrix_bits_off": fd_bits},
                       "lint": {"launches": lint["launches"],
+                               "fused_steps": lint["fused_steps"],
+                               "fused_twins": lint["fused_twins"],
+                               "seconds": lint["seconds"],
                                "max_abs_err": lint["max_abs_err"],
                                "times": lint_t},
                       "memcheck": memcheck, "guard": guard,
@@ -5147,7 +5191,8 @@ def main(argv=()) -> int:
             "coded r1-fused": {s: row["r1-fused"]["launches"]
                                for s, row in coded["skews"].items()},
             "elastic": {arm: elastic["b"][arm]["launches"]
-                        for arm in ("p8", "p6", "p6p8")}},
+                        for arm in ("p8", "p6", "p6p8")},
+            "lint": lint["launches"]["fused_map"]},
         "max_abs_err": err,
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],

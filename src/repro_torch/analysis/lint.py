@@ -2,23 +2,28 @@
 
 Modes (those of ``python -m repro.analysis.lint``):
 
-  --all        everything ported (the default): the kernels, and a line
-               that says the programs are not ported yet
-  --programs   the backend x use-case matrix: not ported yet, raises
-               (ROADMAP Queue 1 item 13)
+  --all        check the shipping programs AND kernels (the default)
+  --programs   only the backend x use-case matrix and the re-mesh fold,
+               run on seeded inputs at P = 8 (``corpus.LINT_PROCS``)
+               under SPMD001, SPMD002 and REP001
   --kernels    only the kernel wrappers
-  --selftest   run the seeded mutant corpus instead: every rule must
-               fire on its known-bad seed and stay quiet on the
-               near miss (exit 1 otherwise); a near twin's kernel is
-               launched on ``--device``, a bad twin's never
+  --selftest   run the seeded mutant corpus instead (12 program, 8
+               kernel and ops mutants): every rule must fire on its
+               known-bad seed and stay quiet on the near miss (exit 1
+               otherwise); a near twin's kernel is launched on
+               ``--device``, a bad twin's never
+
+The program rules are run-time checks over the rank dim
+(``analysis/spmd.py``): they hold for what the seeded inputs exercise,
+where the reference's taint proof holds for every input.
 
 Output options: ``--json`` (machine-readable findings), ``--verbose``
-(per-kernel progress), ``--waive RULE:SUBSTR`` (repeatable — silence a
-finding by rule id + a substring of its provenance, e.g.
-``--waive PAL002:moe_dispatch``; waived findings are still reported,
-they just do not fail the run). ``--device`` picks where a kernel is
-launched: the card unless the caller names another (``--device cpu``
-runs the plain versions).
+(per-program and per-kernel progress), ``--waive RULE:SUBSTR``
+(repeatable — silence a finding by rule id + a substring of its
+provenance, e.g. ``--waive PAL002:moe_dispatch``; waived findings are
+still reported, they just do not fail the run). ``--device`` picks where
+the programs run and the kernels launch: the card unless the caller
+names another (``--device cpu`` runs the plain versions).
 
 Exit status: 0 clean, 1 findings (or selftest failure).
 """
@@ -27,8 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-NOT_PORTED = "not ported (Queue 1 item 13)"
 
 
 def _parse_waivers(raw: list[str]) -> list[tuple[str, str]]:
@@ -47,10 +50,18 @@ def _is_waived(finding, waivers) -> bool:
                for rule, substr in waivers)
 
 
-def run_programs():
-    raise NotImplementedError(
-        "fleetlint's program rules (SPMD001, SPMD002, REP001) are not "
-        "ported yet: ROADMAP Queue 1 item 13")
+def run_programs(device, verbose: bool, out=sys.stderr
+                 ) -> tuple[list, int]:
+    from repro_torch.analysis import corpus, rules
+    findings, checked = [], 0
+    for handle in corpus.shipping_programs(device):
+        got = rules.check_program(handle)
+        findings.extend(got)
+        checked += 1
+        if verbose:
+            status = "ok" if not got else f"{len(got)} finding(s)"
+            print(f"  program {handle.name}: {status}", file=out)
+    return findings, checked
 
 
 def run_kernels(device, verbose: bool, out=sys.stderr) -> tuple[list, int]:
@@ -92,12 +103,13 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.device import resolve_device
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
-        description="fleetlint for the port: static checks of the kernel "
-                    "wrappers and their declared launches")
+        description="fleetlint for the port: run-time SPMD checks of the "
+                    "shipping programs over the rank dim, and static "
+                    "checks of the kernel wrappers and their declared "
+                    "launches")
     ap.add_argument("--all", action="store_true",
-                    help="everything ported (default)")
-    ap.add_argument("--programs", action="store_true",
-                    help="not ported yet: raises")
+                    help="programs + kernels (default)")
+    ap.add_argument("--programs", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--selftest", action="store_true",
                     help="run the known-bad mutant corpus instead")
@@ -108,7 +120,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="silence findings of RULE whose program or "
                          "provenance contains SUBSTR (repeatable)")
     ap.add_argument("--device", default=None,
-                    help="where kernels are launched (default: the card)")
+                    help="where programs run and kernels launch "
+                         "(default: the card)")
     args = ap.parse_args(argv)
     waivers = _parse_waivers(args.waive)
     device = resolve_device(args.device)
@@ -118,12 +131,17 @@ def main(argv: list[str] | None = None) -> int:
         print("fleetlint selftest:", "PASS" if ok else "FAIL")
         return 0 if ok else 1
 
-    if args.programs:
-        run_programs()
-    findings, n = run_kernels(device, args.verbose)
-    checked = {"kernels": n}
-    if not args.kernels:
-        checked["programs"] = NOT_PORTED
+    do_programs = args.programs or args.all or not args.kernels
+    do_kernels = args.kernels or args.all or not args.programs
+    findings, checked = [], {}
+    if do_programs:
+        got, n = run_programs(device, args.verbose)
+        findings += got
+        checked["programs"] = n
+    if do_kernels:
+        got, n = run_kernels(device, args.verbose)
+        findings += got
+        checked["kernels"] = n
 
     live = [f for f in findings if not _is_waived(f, waivers)]
     waived = [f for f in findings if _is_waived(f, waivers)]
@@ -139,11 +157,10 @@ def main(argv: list[str] | None = None) -> int:
             print(f"waived  {f}")
         for f in live:
             print(str(f))
+        scope = ", ".join(f"{n} {k}" for k, n in checked.items())
         verdict = "clean" if not live else f"{len(live)} finding(s)"
-        print(f"fleetlint: {n} kernels checked — {verdict}"
-              + (f" ({len(waived)} waived)" if waived else "")
-              + (f"; programs: {NOT_PORTED}" if "programs" in checked
-                 else ""))
+        print(f"fleetlint: {scope} checked — {verdict}"
+              + (f" ({len(waived)} waived)" if waived else ""))
     return 1 if live else 0
 
 

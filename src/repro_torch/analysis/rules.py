@@ -1,10 +1,19 @@
-"""The kernel rules: the port's counterpart of ``repro/analysis/rules.py``.
+"""Rule implementations: the port's counterpart of
+``repro/analysis/rules.py``.
 
-| rule    | proves                                                          |
+| rule    | checks                                                          |
 |---------|-----------------------------------------------------------------|
+| SPMD001 | collectives reduce or exchange over the rank dim                |
+| SPMD002 | no collective after a host read of a rank-varying value         |
+| REP001  | outputs asserted replicated are equal along the rank dim        |
 | PAL001  | a kernel's declared block maps stay in bounds over its grid     |
 | PAL002  | integer kernel outputs declare a fitting worst-case count       |
 | PAL003  | one device policy (``backend.use_kernel``), no hidden fallback  |
+
+``check_program`` runs SPMD001, SPMD002 and REP001 over one
+:class:`~repro_torch.core.registry.ProgramHandle`, on seeded inputs at
+its P (``analysis/spmd.py``): they hold for what those inputs exercise,
+where the reference's proof over the jaxpr holds for every input.
 
 ``check_kernel`` runs PAL001..PAL003 over one :class:`KernelCheck`. A
 JAX kernel's block maps are read off its traced ``pallas_call``; a CUDA
@@ -17,6 +26,7 @@ memcheck instead (``chip_smoke.py``).
 from __future__ import annotations
 
 import ast
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -28,8 +38,94 @@ from collections.abc import Callable
 
 import torch
 
+from repro_torch.analysis import spmd
 from repro_torch.analysis.findings import Finding
+from repro_torch.core.registry import leaves
 from repro_torch.device import resolve_device
+
+# -- programs (SPMD001 / SPMD002 / REP001) ----------------------------------
+
+
+def _named(handle, paths: tuple, value, what: str) -> dict:
+    got = leaves(value)
+    if len(got) != len(paths):
+        raise ValueError(
+            f"{handle.name}: ran with {len(got)} tensor {what}s but the "
+            f"handle names {len(paths)} — handle interface out of sync")
+    return dict(zip(paths, got))
+
+
+def _check_seeded(handle, inputs: dict):
+    """The inputs the run made itself: those asserted replicated are, and
+    every other one differs across ranks (else REP001 would pass
+    vacuously). A breach is the harness's fault, so it raises."""
+    for path in handle.seeded:
+        x = inputs[path]
+        if x.dim() == 0 or x.shape[0] != handle.n_procs:
+            raise ValueError(f"{handle.name}: input '{path}' of shape "
+                             f"{tuple(x.shape)} has no rank dim of "
+                             f"{handle.n_procs}")
+        same = spmd.first_differing_rank(x) is None
+        if same != (path in handle.replicated_in):
+            raise ValueError(
+                f"{handle.name}: seeded input '{path}' is "
+                f"{'replicated' if same else 'rank-varying'}, the handle "
+                f"asserts it {'rank-varying' if same else 'replicated'}")
+
+
+def run_program(handle, seed: int = 0, watched: bool = True):
+    """Drive ``handle.run(seed)``, one program call at a time: yields
+    ``(inputs, outputs, watch)`` for each call, the tensors by path and
+    the :class:`~repro_torch.analysis.spmd.Watch` that observed the call
+    (None when not ``watched``)."""
+    run = handle.run(seed)
+    step = next(run, None)
+    while step is not None:
+        fn, args = step
+        inputs = _named(handle, handle.arg_paths, args, "argument")
+        _check_seeded(handle, inputs)
+        watch = spmd.Watch(handle.name, handle.n_procs) if watched else None
+        with watch or contextlib.nullcontext():
+            out = fn(*args)
+        yield inputs, _named(handle, handle.out_paths, out, "output"), watch
+        try:
+            step = run.send(out)
+        except StopIteration:
+            step = None
+
+
+def check_program(handle, seed: int = 0) -> list[Finding]:
+    """SPMD001, SPMD002 and REP001 over one ProgramHandle, run on its
+    inputs made from ``seed`` on the device it was built for; one
+    finding a rule and place. At P < 2 every output is trivially equal
+    along the rank dim, so it refuses."""
+    if handle.n_procs < 2:
+        raise ValueError(f"{handle.name}: the program rules need P >= 2 "
+                         f"ranks (got {handle.n_procs}); at P = 1 REP001 "
+                         "holds vacuously")
+    findings: list[Finding] = []
+
+    def emit(f: Finding):
+        if all((g.rule, g.where) != (f.rule, f.where) for g in findings):
+            findings.append(f)
+
+    for call, (_, outputs, watch) in enumerate(run_program(handle, seed)):
+        for f in watch.findings:
+            emit(f)
+        for path in handle.replicated_out:
+            x = outputs[path]
+            if x.dim() == 0 or x.shape[0] != handle.n_procs:
+                raise ValueError(f"{handle.name}: output '{path}' of shape "
+                                 f"{tuple(x.shape)} has no rank dim of "
+                                 f"{handle.n_procs}")
+            rank = spmd.first_differing_rank(x)
+            if rank is not None:
+                emit(Finding(
+                    "REP001", handle.name, path,
+                    f"output '{path}' is asserted replicated but rank "
+                    f"{rank}'s row differs from rank 0's after call "
+                    f"{call} (e.g. a dropped psum)"))
+    return findings
 
 # -- the declared launch ----------------------------------------------------
 

@@ -61,7 +61,7 @@ from repro_torch.core.windows import (STATUS_REDUCE, DenseWindow,
                                       init_carry)
 from repro_torch.data.feed import Segment
 from repro_torch.distributed.collectives import (all_to_all_blocks,
-                                                coded_exchange)
+                                                coded_exchange, psum)
 from repro_torch.kernels.fused_map import ops as fused_ops
 from repro_torch.kernels.fused_map.ops import fused_map
 
@@ -106,7 +106,8 @@ def _composite_map(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     + local`` gives ``map_fn`` the member's local id, every live key is
     offset into the member's window slice (``slot * (vocab //
     coslots)``), and each live task's repeats land in its slot of the
-    replicated ``carry.job_work`` row, as the reference's psum does."""
+    replicated ``carry.job_work`` row through a psum, as the reference's
+    do."""
     base = spec.vocab // spec.coslots
     live = task_id >= 0
     slot = torch.where(live, task_id // spec.costride, 0)
@@ -114,10 +115,11 @@ def _composite_map(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     keys, vals = map_fn(task, local_id, rep, max_rep)
     keys = torch.where(keys == KEY_SENTINEL, keys,
                        keys + (slot * base).unsqueeze(-1))
-    ran = torch.zeros(spec.coslots, dtype=carry.job_work.dtype,
-                      device=task.device)
-    ran.index_add_(0, slot.long(), torch.where(live, rep, 0))
-    carry.job_work.add_(ran)
+    # each rank's own repeats in its task's slot; the psum sums them
+    own = torch.zeros_like(carry.job_work)
+    own.scatter_add_(1, slot.long().unsqueeze(1),
+                     torch.where(live, rep, 0).unsqueeze(1))
+    carry.job_work.add_(psum(own))
     return keys, vals
 
 
@@ -284,6 +286,13 @@ class StealStats:
                                #   each step was run with, summed
 
 
+def _psum_own(counts: torch.Tensor) -> torch.Tensor:
+    """The ``(P, P)`` progress row that ``counts (P,)`` adds, replicated:
+    each rank contributes its own count at its own column and the psum
+    sums them, as the reference's psum does."""
+    return psum(torch.diag(counts))
+
+
 def _to_device(host: np.ndarray, device) -> torch.Tensor:
     """A small host array on ``device`` without waiting for the device:
     through pinned memory on a CUDA device (a copy from pageable memory
@@ -304,8 +313,9 @@ def _steal_segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     the slot e claimed: its tokens, global id and repeat (sentinel tokens,
     id -1 and repeat 0 when it idles; it runs ``max(rep, 1)``, as the
     reference's). Every step runs. The carry's ``work`` and ``stolen``
-    rows advance on the device by what was gathered, as the reference's
-    psum does. Returns the carry and the schedule's work row."""
+    rows advance on the device by what was gathered, through a psum of
+    each rank's own counts (:func:`_psum_own`). Returns the carry and
+    the schedule's work row."""
     P, n, S = seg.tokens.shape
     device = seg.tokens.device
     t0 = time.perf_counter()
@@ -330,9 +340,9 @@ def _steal_segment(spec: JobSpec, map_fn: Callable, carry: EngineCarry,
     ids = gather(seg.task_ids, -1).view(n, P)
     reps = gather(seg.repeats, 0).view(n, P)
     mine = torch.arange(P, device=device)
-    carry.work.add_(reps.sum(dim=0, dtype=torch.int32))
-    carry.stolen.add_((got & (src // n != mine)).sum(dim=0,
-                                                     dtype=torch.int32))
+    carry.work.add_(_psum_own(reps.sum(dim=0, dtype=torch.int32)))
+    carry.stolen.add_(_psum_own((got & (src // n != mine)).sum(
+        dim=0, dtype=torch.int32)))
     carry = _run_steps(spec, map_fn, carry, tokens, ids, reps.clamp(min=1),
                        max_rep, graphs, stats)
     stats.segments += 1
@@ -373,10 +383,10 @@ def _coded_steal_segment(spec: JobSpec, map_fn: Callable,
     ids = gather(seg.task_ids, -1).squeeze(-1)
     reps = gather(seg.repeats, 0).squeeze(-1)
     my_group = torch.arange(P, device=device) // r
-    carry.work.add_(torch.where(ids >= 0, reps, 0).sum(dim=(0, 2),
-                                                       dtype=torch.int32))
-    carry.stolen.add_((got & (src // (nb * r) != my_group)).sum(
-        dim=0, dtype=torch.int32))
+    carry.work.add_(_psum_own(torch.where(ids >= 0, reps, 0).sum(
+        dim=(0, 2), dtype=torch.int32)))
+    carry.stolen.add_(_psum_own((got & (src // (nb * r) != my_group)).sum(
+        dim=0, dtype=torch.int32)))
     carry = _run_steps(spec, map_fn, carry, tokens, ids, reps.clamp(min=1),
                        sched.step_reps, None, stats, step=_coded_step)
     stats.segments += 1
@@ -480,6 +490,15 @@ class OneSidedBackend:
                            Segment.of(tokens, task_ids, repeats, device))
         keys, vals, _ = finish_fn(carry)
         return keys[0].cpu().numpy(), vals[0].cpu().numpy()
+
+    def trace_handles(self, spec: JobSpec, map_fn: Callable, device,
+                      segments: Callable[[int], list], tag: str = ""):
+        """Runnable :class:`~repro_torch.core.registry.ProgramHandle`\\ s
+        for fleetlint (``repro_torch.analysis``): the segmented triple
+        and its replication contract, fed ``segments(seed)``."""
+        from repro_torch.core.registry import segment_program_handles
+        return segment_program_handles(self, spec, map_fn, device,
+                                       segments, tag=tag)
 
     def make_segment_fns(self, spec: JobSpec, map_fn: Callable, device):
         """``(init_fn, segment_fn, finish_fn)`` — the checkpointable path.

@@ -140,6 +140,15 @@ class TwoSidedBackend:
         keys, vals, _ = _finish(spec, carry)
         return keys[0].cpu().numpy(), vals[0].cpu().numpy()
 
+    def trace_handles(self, spec: JobSpec, map_fn: Callable, device,
+                      segments: Callable[[int], list], tag: str = ""):
+        """Runnable :class:`~repro_torch.core.registry.ProgramHandle`\\ s
+        for fleetlint (``repro_torch.analysis``): the segmented triple
+        and its replication contract, fed ``segments(seed)``."""
+        from repro_torch.core.registry import segment_program_handles
+        return segment_program_handles(self, spec, map_fn, device,
+                                       segments, tag=tag)
+
     def make_segment_fns(self, spec: JobSpec, map_fn: Callable, device):
         """``(init_fn, segment_fn, finish_fn)`` over the shared
         EngineCarry: each segment runs bulk-synchronously (map-all, bulk

@@ -3,10 +3,40 @@ the P ranks as dim 0 of every tensor on one device.
 
 Lockstep semantics match ``shard_map``'s, so a tensor ``x`` here equals
 the stack of the P per-rank values the reference would hold.
+
+Every collective reports to :data:`OBSERVER` when one is set: fleetlint's
+program rules (``repro_torch.analysis.spmd``) set it for the length of one
+program call. Outside a lint run it is ``None`` and costs one test a call;
+a CUDA graph's replay runs no Python and never reaches it.
 """
 from __future__ import annotations
 
+import os
+import sys
+
 import torch
+
+# called as OBSERVER(name, operand shapes, "file:line (fn)" of the caller)
+OBSERVER = None
+
+
+def _report(name: str, *operands: torch.Tensor):
+    """Tell :data:`OBSERVER` of one collective, at its caller's site (the
+    first frame outside this module)."""
+    frame = sys._getframe(1)
+    while frame.f_code.co_filename == __file__:
+        frame = frame.f_back
+    OBSERVER(name, tuple(tuple(x.shape) for x in operands), site_of(frame))
+
+
+def site_of(frame) -> str:
+    """``file:line (fn)`` of a frame, the file relative to the package's
+    parent directory when it lies below it."""
+    path = frame.f_code.co_filename
+    root = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
+    if path.startswith(root + os.sep):
+        path = os.path.relpath(path, root)
+    return f"{path}:{frame.f_lineno} ({frame.f_code.co_name})"
 
 
 def axis_index(n_procs: int, device) -> torch.Tensor:
@@ -21,6 +51,8 @@ def all_to_all_blocks(x: torch.Tensor, out: torch.Tensor | None = None
     rank j addressed to rank i, i.e. ``x[j, i]``. Written into ``out``
     when it is given (the receive buffers stay where they are)."""
     assert x.shape[0] == x.shape[1], x.shape
+    if OBSERVER is not None:
+        _report("all_to_all_blocks", x)
     if out is None:
         return x.transpose(0, 1).contiguous()
     return out.copy_(x.transpose(0, 1))
@@ -29,6 +61,8 @@ def all_to_all_blocks(x: torch.Tensor, out: torch.Tensor | None = None
 def psum(x: torch.Tensor) -> torch.Tensor:
     """Sum over ranks, replicated back to every rank (dtype kept: int32
     sums wrap mod 2^32 as the reference's do)."""
+    if OBSERVER is not None:
+        _report("psum", x)
     s = x.sum(dim=0, keepdim=True, dtype=x.dtype)
     return s.expand_as(x).contiguous()
 
@@ -38,6 +72,8 @@ def tree_gather_permute(x: torch.Tensor, level: int) -> torch.Tensor:
     receives rank i + 2**l's payload for i a multiple of 2**(l+1) (when
     that sender exists). Every other rank receives zeros, exactly as
     ``lax.ppermute`` delivers to non-receivers."""
+    if OBSERVER is not None:
+        _report("tree_gather_permute", x)
     P = x.shape[0]
     stride = 1 << level
     rank = torch.arange(P, device=x.device)
@@ -46,6 +82,26 @@ def tree_gather_permute(x: torch.Tensor, level: int) -> torch.Tensor:
     got = x[src.clamp(max=P - 1)]
     mask = receiver.view((P,) + (1,) * (x.dim() - 1))
     return torch.where(mask, got, torch.zeros_like(got))
+
+
+def ppermute(x: torch.Tensor, pairs) -> torch.Tensor:
+    """``lax.ppermute`` over the rank dim: for each ``(src, dst)`` in
+    ``pairs`` rank dst receives rank src's value; a rank that receives
+    nothing gets zeros. Each destination appears at most once."""
+    if OBSERVER is not None:
+        _report("ppermute", x)
+    P = x.shape[0]
+    pairs = [(int(s), int(d)) for s, d in pairs]
+    dst = [d for _, d in pairs]
+    if len(set(dst)) != len(dst) or not all(
+            0 <= r < P for pair in pairs for r in pair):
+        raise ValueError(f"ppermute over {P} ranks takes distinct "
+                         f"destinations in range, got {pairs}")
+    out = torch.zeros_like(x)
+    if pairs:
+        out[torch.tensor(dst, device=x.device)] = x[torch.tensor(
+            [s for s, _ in pairs], device=x.device)]
+    return out
 
 
 def coded_exchange(bk: torch.Tensor, bv: torch.Tensor, code_rate: int
@@ -69,6 +125,8 @@ def coded_exchange(bk: torch.Tensor, bv: torch.Tensor, code_rate: int
     r = int(code_rate)
     P = bk.shape[0]
     assert r > 1 and P % r == 0 and bk.shape[1] == P, (bk.shape, r)
+    if OBSERVER is not None:
+        _report("coded_exchange", bk, bv)
     me = torch.arange(P, device=bk.device)
     g, m = me // r, me % r
     q = me.view(1, P)

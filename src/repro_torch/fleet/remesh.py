@@ -22,7 +22,8 @@ saturate, not wrap), and the program emits a psum checksum of the folded
 windows, wrapped to int32. The host holds it against the independent
 numpy twin (:func:`repro_torch.ft.elastic.fold_windows`) before the job
 resumes; a disagreement raises :class:`RemeshChecksumError` instead of
-resuming from corrupt windows.
+resuming from corrupt windows. The program ships through fleetlint like
+every engine program (:func:`remesh_program_handles`).
 """
 from __future__ import annotations
 
@@ -95,12 +96,40 @@ def fold_program(n_old: int, n_new: int, vocab: int, device):
 
 
 def remesh_program_handles(device=None, n_old: int | None = None,
-                           vocab: int = 64) -> list:
-    """fleetlint's program half over the fold program (REP001 on the
-    folded owner rows and checksum, SPMD001): not ported yet."""
-    raise NotImplementedError(
-        "remesh_program_handles: fleetlint's program rules are not "
-        "ported yet: ROADMAP Queue 1 item 13")
+                           vocab: int = 64, n_new: int = 8) -> list:
+    """The fold program as a fleetlint :class:`ProgramHandle` on ``device``
+    (the card unless given): the re-mesh path runs through the same
+    program rules as the engines (REP001 holds the folded owner map and
+    split and the checksum replicated; SPMD001 the checksum's psum over
+    the rank dim). Its seeded inputs: count windows in [0, 1000) grouped
+    onto ``n_new`` ranks, and the old hash map and split rows replicated
+    on every rank."""
+    from repro_torch.core.registry import ProgramHandle
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(device)
+    n_new = int(n_new)
+    if n_old is None:
+        n_old = 2 * n_new        # a genuine shrink: G = 2
+    G = -(-int(n_old) // n_new)
+    fold = fold_program(n_old, n_new, vocab, device)
+
+    def run(seed: int):
+        rng = np.random.default_rng(seed)
+        groups = rng.integers(0, 1000, (n_new, G, vocab)).astype(np.int32)
+        om = np.broadcast_to(hash_owner_map(vocab, n_old), (n_new, vocab))
+        osplit = np.broadcast_to(rng.integers(1, n_old + 1, (vocab,)),
+                                 (n_new, vocab))
+        yield fold, tuple(torch.as_tensor(np.ascontiguousarray(a, np.int32))
+                          .to(device) for a in (groups, om, osplit))
+
+    return [ProgramHandle(
+        name=f"fleet/remesh/fold[{n_old}->{n_new}]", n_procs=n_new, run=run,
+        arg_paths=("tables", "owner_map", "owner_split"),
+        out_paths=("table", "owner_map", "owner_split", "checksum"),
+        replicated_in=("owner_map", "owner_split"),
+        replicated_out=("owner_map", "owner_split", "checksum"),
+        seeded=("tables", "owner_map", "owner_split"))]
 
 
 # -- host orchestration ------------------------------------------------------

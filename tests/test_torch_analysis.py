@@ -93,9 +93,11 @@ def test_plain_versions_raise_where_interpret_mode_clamps():
 # ---------------------------------------------------------------------------
 
 def test_mutant_table_equals_the_reference_kernel_half():
+    half = ("kernel", "ops")
     want = [(m.name, m.rule, m.fires, m.kind) for m in jcorpus.MUTANTS
-            if m.kind in ("kernel", "ops")]
-    assert [(m.name, m.rule, m.fires, m.kind) for m in corpus.MUTANTS] == want
+            if m.kind in half]
+    assert [(m.name, m.rule, m.fires, m.kind) for m in corpus.MUTANTS
+            if m.kind in half] == want
 
 
 @pytest.mark.parametrize("name", [m.name for m in corpus.MUTANTS])
@@ -288,16 +290,20 @@ def test_cli_kernels_clean_json(capsys):
     assert payload["findings"] == []
 
 
-def test_cli_default_says_the_programs_are_not_ported(capsys):
+def test_cli_all_clean_json(capsys):
+    assert lint.main(["--all", "--json", "--device", "cpu"]) == 0
+    payload = json.loads(capsys.readouterr().out)
+    assert payload["checked"] == {"programs": 82, "kernels": 6}
+    assert payload["findings"] == [] and payload["waived"] == []
+
+
+def test_cli_default_checks_programs_and_kernels(capsys):
+    assert lint.main(["--programs", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip() == \
+        "fleetlint: 82 programs checked — clean"
     assert lint.main(["--device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert "6 kernels checked — clean" in out
-    assert "programs: not ported (Queue 1 item 13)" in out
-
-
-def test_cli_programs_raise_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        lint.main(["--programs", "--device", "cpu"])
+    assert capsys.readouterr().out.strip() == \
+        "fleetlint: 82 programs, 6 kernels checked — clean"
 
 
 def test_cli_device_defaults_to_the_card(monkeypatch):
@@ -342,12 +348,20 @@ def test_finding_matches_the_reference_form():
 # ---------------------------------------------------------------------------
 
 def test_smoke_lint_phase_rehearses_on_cpu():
-    """The lint phase on the CPU: lint clean and PASS, no kernel launched,
-    each near twin's wrapper equal to its plain version; the bounds count
-    each operand once (of recs, the one entry read)."""
+    """The lint phase on the CPU: programs and kernels clean and PASS, no
+    kernel launched, the +fused handles' steps counted, each +fused
+    finish equal to its unfused twin's and each near twin's wrapper to
+    its plain version; the bounds count each operand once (of recs, the
+    one entry read)."""
     got = chip_smoke.phase_lint(CPU)
-    assert got["launches"] == {"copy_rows": 0, "table_add": 0,
-                               "copy_rows_i32": 0}
+    assert got["launches"] == {"fused_map": 0, "copy_rows": 0,
+                               "table_add": 0, "copy_rows_i32": 0}
+    assert got["fused_steps"] == 72
+    assert got["fused_twins"] == [
+        f"1s/{case}{v}+fused/finish" for case in ("wordcount", "histogram",
+                                                 "invindex")
+        for v in ("", "+steal")]
+    assert got["seconds"] > 0
     assert got["max_abs_err"] == {n: 0 for n in chip_smoke.MUTANT_KERNELS}
     cases = got["cases"]
     assert cases["pal001-near"]["bound"][2]["bytes"] == 2 * 8 * 128 * 4

@@ -1020,6 +1020,21 @@ def test_lint_on_the_card(cuda_device, capsys):
 
 
 @pytest.mark.cuda
+def test_program_lint_on_the_card(cuda_device, capsys):
+    """``--programs`` on the card: the 82 shipping programs clean, the
+    ``+fused`` ones capturing their step graphs under the lint's watch
+    and launching fused_map once a step, as their handles count."""
+    from repro_torch.analysis import corpus, lint
+    steps = sum(h.steps for h in corpus.shipping_programs(cuda_device)
+                if "+fused" in h.name)
+    before = ops.fused_map.launches
+    assert lint.main(["--programs"]) == 0
+    torch.cuda.synchronize()
+    assert "82 programs checked — clean" in capsys.readouterr().out
+    assert ops.fused_map.launches - before == steps == 72
+
+
+@pytest.mark.cuda
 def test_mutant_wrappers_never_take_plain_on_the_card(cuda_device,
                                                       monkeypatch):
     from repro_torch.analysis.mutant_kernels import ops as m_ops

@@ -629,9 +629,25 @@ def test_remesh_checksum_gate_refuses_corrupt_fold(tokens1, tmp_path,
     h.close()
 
 
-def test_remesh_program_handles_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        fleet.remesh_program_handles("cpu")
+def test_remesh_program_handle_contract():
+    """The fold as fleetlint's handle: the reference's name, paths and
+    replication contract, lint clean at P 8, and its outputs those of
+    ``fold_program`` on the same seeded inputs."""
+    from repro_torch.analysis import rules
+    (h,) = fleet.remesh_program_handles("cpu")
+    assert (h.name, h.n_procs) == ("fleet/remesh/fold[16->8]", 8)
+    assert h.arg_paths == ("tables", "owner_map", "owner_split")
+    assert h.out_paths == ("table", "owner_map", "owner_split", "checksum")
+    assert h.replicated_in == ("owner_map", "owner_split")
+    assert h.replicated_out == ("owner_map", "owner_split", "checksum")
+    assert rules.check_program(h) == []
+    ((ins, outs, _),) = rules.run_program(h, watched=False)
+    want = remesh.fold_program(16, 8, 64, "cpu")(*ins.values())
+    for got, w in zip(outs.values(), want, strict=True):
+        assert torch.equal(got, w)
+    assert int(outs["checksum"][0]) == remesh._wrap_i32_sum(
+        el.fold_windows(ins["tables"].numpy().transpose(1, 0, 2)
+                        .reshape(16, 64), 8))
 
 
 def test_elastic_load_shape_check_equals_reference(tokens1):
