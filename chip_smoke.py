@@ -284,14 +284,50 @@ Phases, each of which asserts (nothing is caught):
                to the forward's and the forward's to remat none's, and the
                two gradients within 1e-2 of each leaf's max
                (``train_slots``);
+  4m. serve-mesh — deepseek-v2-lite-16b (its width, 4 of its 27
+               layers: MLA, the dense layer and 3 MoE layers of 64
+               experts top-6) and llama4-maverick (its width, phase 4's 2
+               layers: GQA 40/8, 128 experts top-1 and a shared expert)
+               through ``ServeEngine(mesh=, dp_entry="data")`` on a
+               virtual (data 2, model 4) mesh (``distributed/mesh.py``:
+               the MoE layers dispatch in one shard_map region, tokens
+               and experts over "model"; the MLA and GQA decode caches
+               sequence-sharded over "model"), bf16, seed 0: one batch
+               of 8 prompts of 2048 tokens, 16 new, a cache of 2088;
+               then the same unsharded. (a) every bucket_slots call of
+               a prefill and of one decode step under the mesh bit for
+               bit equal to bucket_slots_ref, and that step's logits and
+               caches to the mesh's plain path's; (b) at the capacity
+               factor no shard drops a record at (the config's own
+               doubled until none), the last prefill logits and one
+               decode step's within 3e-2 * max|logits| of the unsharded
+               run's on the mesh's routing; (c) the launches equal to
+               the code's count (``mesh_serve_launches``: one
+               bucket_slots call a slotting step for all 8 shards while
+               shards x buckets fit 256). Each engine's prefill ms,
+               decode ms a token, tokens/s and peak memory; the drops at
+               the config's own factor; a prefill under 2s beside 1s;
+               bucket_slots at the mesh's shapes by events and device
+               time beside its plain version and bound;
+  5m. train-mesh — deepseek-v2-lite-16b at 4 layers through the
+               launcher's path under the mesh (``make_run``,
+               ``dp_entry_for``, ``make_train_step(mesh=, dp_entry=)``
+               behind the ``DoubleBufferedLoader``): 3 steps of 8 x 512
+               tokens, A = 2, full remat, then the same unsharded: every
+               loss finite, the mesh's bucket_slots launches equal to
+               the code's count; at the capacity factor no shard drops
+               at, step 0's loss under the mesh within 1e-2 relative of
+               the unsharded step 0's. The median ms a step and peak
+               memory of each;
   6. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
 3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
-each rank count's part of 3i, each arch of 4, and each training run of
-5) and read just after it.
+each rank count's part of 3i, each arch of 4, each training run of 5,
+each engine's run of 4m and each training run of 5m) and read just
+after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -3992,15 +4028,17 @@ def served_decode(cfg, engine, model, cache, tok, t: int) -> dict:
     """Gate (e) of phase 4: one step of the engine (the kernel path) on a
     copy of ``cache``, its slot calls held bit for bit by
     ``served_slots``, and its logits and caches equal bit for bit to
-    ``decode_step(use_kernel=False)``'s on another copy: the port
-    combines expert rows by gathers, so equal slots give equal bits.
-    Returns ``served_slots``' calls and ids."""
+    ``decode_step(use_kernel=False)``'s on another copy (under the
+    engine's mesh, if it has one): the port combines expert rows by
+    gathers, so equal slots give equal bits. Returns ``served_slots``'
+    calls and ids."""
     _, tf, _ = _serve()
     seen = served_slots(lambda: engine._step(model, _copy_cache(cache),
                                              tok, t))
     lk, ck = seen.pop("out")
     with torch.inference_mode():
         lr, cr = tf.decode_step(cfg, model, _copy_cache(cache), tok, t,
+                                mesh=engine.mesh, dp_entry=engine.dp_entry,
                                 use_kernel=False)
     assert bool(torch.isfinite(lk).all()), "non-finite decode logits"
     assert torch.equal(lk, lr), \
@@ -4566,22 +4604,25 @@ def train_launches(cfg, run, steps: int) -> dict:
 
 
 def train_state(cfg, device, seq: int, batch: int, microbatch: int,
-                steps: int, remat: str | None = None):
+                steps: int, remat: str | None = None, mesh=None):
     """(run, step function, a fresh state): ``make_run`` at (seq,
     batch) with ``TrainConfig(lr=3e-3, warmup_steps=1,
     total_steps=steps)`` (and ``remat``, where given, for full) and the
-    model of seed 0."""
+    model of seed 0; with ``mesh``, as ``launch/train`` assembles a mesh
+    run: the run on its ``MeshConfig`` and the step under the mesh with
+    ``dp_entry_for``'s entry."""
     config, _, _, _, specs, tf, ts = _train()
-    run = specs.make_run(cfg, config.ShapeConfig("smoke", seq, batch,
-                                                 "train"),
-                         config.MeshConfig((1, 1)), microbatch=microbatch)
+    mesh_cfg = config.MeshConfig(tuple(mesh.shape) if mesh else (1, 1))
+    shape = config.ShapeConfig("smoke", seq, batch, "train")
+    run = specs.make_run(cfg, shape, mesh_cfg, microbatch=microbatch)
     tcfg = config.TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
     if remat is not None:
         tcfg = config.replace(tcfg, remat_policy=remat)
     run = config.replace(run, train=tcfg)
     state = ts.init_train_state(cfg, run.train,
                                 tf.init_model(cfg, 0, device=device))
-    return run, ts.make_train_step(cfg, run), state
+    dp = specs.dp_entry_for(shape, mesh_cfg) if mesh else None
+    return run, ts.make_train_step(cfg, run, mesh=mesh, dp_entry=dp), state
 
 
 def _rel(a: float, b: float) -> float:
@@ -4848,6 +4889,504 @@ def print_train(t: dict):
 
 
 # ---------------------------------------------------------------------------
+# 4m / 5m. serve and train under a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# The reference's mesh of 2 x 4 host devices as the port's virtual mesh
+# on the one card (``distributed/mesh.py``): the MoE layers dispatch in
+# one shard_map region (each shard's tokens and experts over "model",
+# the batch over "data"), the GQA and MLA decode caches are
+# sequence-sharded over "model". deepseek-v2-lite at 4 of its 27 layers
+# (the dense layer and 3 MoE layers of 64 experts top-6: the MLA cache)
+# and llama4-maverick at phase 4's 2 layers (GQA 40/8, 128 experts top-1
+# and a shared expert): one batch of 8 prompts of 2048 tokens, 16 new, a
+# cache of the context + 40 positions (2088, divisible by 4).
+MESH_SHAPE = (2, 4)
+MESH_DP = "data"
+MESH_ARCHS = {MOE_ARCH: 4, LLAMA4_ARCH: 2}          # arch -> layers served
+MESH_REQUESTS, MESH_NEW_TOKENS, MESH_CACHE_EXTRA = 8, 16, 40
+MESH_LOGITS_TOL = 3e-2       # x max|logits|, against the unsharded run
+MESH_MAX_FACTOR = 64.0       # the capacity factor search's end
+# 5m: launch/train's path, deepseek-v2-lite at 4 layers, 3 steps of
+# 8 x 512 tokens, A = 2; step 0 at the raised capacity within 1e-2
+# relative of the unsharded step 0
+MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = 3, 1e-2
+
+
+def _mesh(device):
+    _port()
+    from repro_torch.distributed.mesh import local_mesh
+    return local_mesh(MESH_SHAPE, ("data", "model"), device)
+
+
+def mesh_slot_shapes(cfg, B: int, S: int, shape=MESH_SHAPE) -> list:
+    """The (records, buckets) of each bucket_slots call that one MoE layer
+    makes under a (data, model) mesh of ``shape`` with the batch over
+    "data", over B x S tokens. Each rank holds B / d rows; with S
+    dividing by m each holds S / m positions and runs the pipeline
+    (``slot_shapes``' steps), its peer buckets (m) and its expert
+    buffers (E / m experts, m x cap records); otherwise (decode) the
+    tokens replicate over "model" and each rank slots its B / d x S x k
+    records into its expert buffers once. A call slots as many ranks'
+    records as fit MAX_EXPERTS buckets (``moe.shard_slot_calls``)."""
+    d, m = shape
+    ranks, k, E_loc = d * m, cfg.top_k, cfg.n_experts // m
+    most = _slots()[0].MAX_EXPERTS
+
+    def calls(records: int, buckets: int) -> list:
+        per = max(1, most // buckets)
+        return [(n * records, n * buckets) for n in
+                (min(per, ranks - lo) for lo in range(0, ranks, per))]
+    rows = B // d
+    if S % m:
+        return calls(rows * S * k, E_loc)
+    T = rows * S // m
+    one_s = cfg.dispatch_mode == "1s"
+    G = max(1, min(cfg.dispatch_groups, T)) if one_s else 1
+    Tkg = T // G * k
+    cap = int(cfg.capacity_factor * Tkg / m) + 1
+    return (calls(Tkg, m) + calls(m * cap, E_loc)) * (G + 1 if one_s else 1)
+
+
+def mesh_serve_launches(cfg, B: int, prompt_len: int, new_tokens: int
+                        ) -> dict:
+    """``serve_launches`` of one batch of B prompts served under the mesh:
+    flash_attention once a GQA layer at the prefill, bucket_slots
+    ``mesh_slot_shapes``' calls an MoE layer at the prefill and at each
+    decode step."""
+    kinds = layer_kinds(cfg)
+    out = {}
+    n = sum(mixer == "attn" for mixer, _ in kinds)
+    if n:
+        out["flash_attention"] = n
+    moe = sum(f == "moe" for _, f in kinds)
+    out["bucket_slots"] = moe * (
+        len(mesh_slot_shapes(cfg, B, prompt_len))
+        + (new_tokens - 1) * len(mesh_slot_shapes(cfg, B, 1)))
+    return out
+
+
+def count_drops(run) -> tuple:
+    """``run()`` with the records each MoE slotting call leaves out at
+    capacity counted: (its result, the records dropped)."""
+    from repro_torch.models import moe
+    real, dropped = moe._bucket_indices, [0]
+
+    def counting(ids, valid, n, cap, **kw):
+        idx = real(ids, valid, n, cap, **kw)
+        dropped[0] += int(valid.sum()) - int((idx >= 0).sum())
+        return idx
+
+    moe._bucket_indices = counting
+    try:
+        out = run()
+    finally:
+        moe._bucket_indices = real
+    return out, dropped[0]
+
+
+def no_drop_factor(cfg, runs) -> tuple:
+    """The capacity factor, ``cfg``'s own doubled until each of ``runs``
+    (functions of a config) drops no record, and the drops of each
+    factor tried: [(factor, [drops of each run])]."""
+    f, tried = cfg.capacity_factor, []
+    while True:
+        c = dataclasses.replace(cfg, capacity_factor=f)
+        drops = [count_drops(lambda: run(c))[1] for run in runs]
+        tried.append((f, drops))
+        if not any(drops):
+            return f, tried
+        f *= 2
+        assert f <= MESH_MAX_FACTOR, tried
+
+
+def global_routing(ids, mesh, B: int, S: int):
+    """The mesh's routing of one MoE call (each rank's tokens, rank after
+    rank: ``_route`` of the region's rows) in the unsharded call's token
+    order: blocks of (B / d) x (S / m) tokens (sequence-sharded), or B / d
+    rows on every model rank (replicated; rank 0's kept)."""
+    from repro_torch.distributed import collectives
+    k = ids.shape[-1]
+    d, m = mesh.shape
+    if ids.shape[0] == B * S:
+        blocks = ids.view(d, m, B // d, S // m, k)
+        spec = (MESH_DP, "model")
+    else:
+        blocks = ids.view(d, m, B // d, S, k)
+        spec = (MESH_DP, None)
+    return collectives.unblock(blocks, spec, mesh).reshape(B * S, k)
+
+
+def mesh_against_unsharded(cfg, model, tokens, mesh, max_len: int) -> dict:
+    """Gate (b) of phase 4m at ``cfg``'s capacity: the last prefill
+    logits and one decode step's logits under the mesh, and the same
+    unsharded, on the mesh's routing (``global_routing``; a row the
+    unsharded run would route otherwise must be a tie) and the mesh
+    run's first token: max |difference| over max |unsharded logits|."""
+    _, tf, eng = _serve()
+    from repro_torch.models import moe
+    B, S = tokens["tokens"].shape
+    real, calls = moe._route, []
+
+    def run(m, tok=None):
+        with torch.inference_mode():
+            logits, _, raw = tf.forward(cfg, model, tokens, mesh=m,
+                                        dp_entry=MESH_DP if m else None,
+                                        use_kernel=True, want_cache=True)
+            last = logits[:, -1].float()
+            del logits
+            cache = eng.prefill_to_decode_cache(cfg, raw, S, max_len)
+            del raw
+            if tok is None:
+                tok = last.argmax(-1, keepdim=True).to(torch.int32)
+            step, _ = tf.decode_step(cfg, model, cache, tok, S, mesh=m,
+                                     dp_entry=MESH_DP if m else None,
+                                     use_kernel=True)
+        return last, step[:, -1].float(), tok
+
+    def record(c, router_w, x_flat):
+        out = real(c, router_w, x_flat)
+        calls.append(out[0])
+        return out
+
+    routed = {"rows": 0, "max_gap": 0.0}
+    it = iter(calls)
+
+    def replay(c, router_w, x_flat):
+        ids, _, probs = real(c, router_w, x_flat)
+        n = x_flat.shape[0]
+        want = global_routing(next(it), mesh, B, n // B)
+        differ = (ids.sort(-1)[0] != want.sort(-1)[0]).any(-1)
+        gap = probs.gather(1, ids.long()).amin(-1)[:, None] \
+            - probs.gather(1, want.long())
+        routed["rows"] += int(differ.sum())
+        routed["max_gap"] = max(routed["max_gap"], float(
+            torch.where(differ[:, None], gap, 0.0).max()))
+        g = probs.gather(1, want.long())
+        return want, g / g.sum(-1, keepdim=True).clamp_min(1e-9), probs
+
+    try:
+        moe._route = record
+        mesh_last, mesh_step, tok = run(mesh)
+        moe._route = replay
+        last, step, _ = run(None, tok)
+    finally:
+        moe._route = real
+    assert next(it, None) is None, "the unsharded run routed fewer calls"
+    out = {}
+    for name, a, b in (("prefill", mesh_last, last),
+                       ("decode", mesh_step, step)):
+        assert bool(torch.isfinite(a).all()), f"non-finite {name} logits"
+        out[name] = (a - b).abs().max().item() / b.abs().max().item()
+        assert out[name] <= MESH_LOGITS_TOL, (name, out[name])
+    return dict(err_over_max=out, reroutes=routed, calls=len(calls))
+
+
+def phase_mesh_serve(device, cfg, requests: int = MESH_REQUESTS,
+                     prompt_len: int = PROMPT_LEN,
+                     new_tokens: int = MESH_NEW_TOKENS) -> dict:
+    """Phase 4m: one batch of ``requests`` prompts through
+    ``ServeEngine(mesh=, dp_entry="data").generate`` (the main path:
+    counts zeroed just before, read just after), and the same unsharded;
+    then (a) every bucket_slots call of one prefill under the mesh and of
+    one decode step bit for bit equal to bucket_slots_ref, and that
+    step's logits and caches to the mesh's plain path's; (b) at the
+    capacity factor no shard drops a record at, the last prefill logits
+    and one decode step's within 3e-2 * max|logits| of the unsharded
+    run's; (c) the launches equal to ``mesh_serve_launches``. Each
+    engine's prefill and decode step timed alone, its tokens/s and peak
+    memory; a prefill under 2s beside 1s; bucket_slots at the mesh's
+    shapes by events and device time beside its plain version."""
+    _, tf, eng = _serve()
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    kernels = serve_kernels(cfg)
+    mesh = _mesh(device)
+    model = tf.init_model(cfg, 0, device=device)
+    prompts = serve_prompts(cfg, requests, prompt_len)
+    B = requests
+    max_len = prompt_len + MESH_CACHE_EXTRA
+    tokens = serve_batch(prompts, None, 0, B, device)
+    runs = {}
+    for name, m in (("mesh", mesh), ("unsharded", None)):
+        engine = eng.ServeEngine(cfg, model, max_len=max_len, mesh=m,
+                                 dp_entry=MESH_DP if m else None,
+                                 device=device)
+        engine.generate(prompts[:, :128], 2)                     # warm
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, new_tokens)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        assert out.shape == (B, new_tokens) and out.min() >= 0 \
+            and out.max() < cfg.vocab_size, out.shape
+        want = (mesh_serve_launches(cfg, B, prompt_len, new_tokens) if m
+                else serve_launches(cfg, B, B, prompt_len, new_tokens))
+        if cuda:                                                 # (c)
+            assert launches == want, (name, launches, want)
+        with torch.inference_mode():
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, _, raw = engine._prefill(model, tokens)
+            _sync(device)
+            prefill_s = time.perf_counter() - t0
+            cache = eng.prefill_to_decode_cache(cfg, raw, prompt_len,
+                                                max_len)
+            del raw
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            del logits
+            _sync(device)
+            t0 = time.perf_counter()
+            for step in range(new_tokens - 1):
+                logits, cache = engine._step(model, cache, tok,
+                                             prompt_len + step)
+                tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            _sync(device)
+            decode_s = (time.perf_counter() - t0) / (new_tokens - 1)
+        runs[name] = dict(launches=launches, want_launches=want,
+                          wall_s=wall, served_tokens_per_s=out.size / wall,
+                          prompt_tokens_per_s=B * prompt_len / wall,
+                          prefill_ms=prefill_s * 1e3,
+                          decode_ms_per_token=decode_s * 1e3,
+                          peak_bytes=peak)
+        if m is None:
+            del cache
+            continue
+        # (a) the prefill's slot calls, one decode step's calls, logits
+        # and caches, against the plain path on the same routing
+        slots = served_slots(lambda: tf.prefill(
+            cfg, model, tokens, mesh=mesh, dp_entry=MESH_DP,
+            use_kernel=True))
+        del slots["out"]
+        assert set(slots["ids"]) == set(mesh_slot_shapes(cfg, B,
+                                                         prompt_len))
+        dec = served_decode(cfg, engine, model, cache, tok,
+                            prompt_len + new_tokens - 1)
+        moe_layers = sum(f == "moe" for _, f in layer_kinds(cfg))
+        assert dec["calls"] == moe_layers * len(mesh_slot_shapes(cfg, B, 1))
+        slots["decode_calls"] = dec["calls"]
+        slots["ids"].update(dec["ids"])
+        del cache
+        # the prefill under 2s beside 1s (on one card the push is a
+        # transpose: printed, not held)
+        dispatch_ms = {}
+        for mode in ("1s", "2s"):
+            c = dataclasses.replace(cfg, dispatch_mode=mode)
+            with torch.inference_mode():
+                tf.prefill(c, model, tokens, mesh=mesh, dp_entry=MESH_DP,
+                           use_kernel=True)
+                _sync(device)
+                t0 = time.perf_counter()
+                tf.prefill(c, model, tokens, mesh=mesh, dp_entry=MESH_DP,
+                           use_kernel=True)
+                _sync(device)
+            dispatch_ms[mode] = (time.perf_counter() - t0) * 1e3
+    # (b) at a capacity no shard drops at, against the unsharded run
+    with torch.inference_mode():
+        factor, tried = no_drop_factor(cfg, [
+            lambda c, m=m: tf.prefill(c, model, tokens, mesh=m,
+                                      dp_entry=MESH_DP if m else None,
+                                      use_kernel=True)
+            for m in (mesh, None)])
+    close = mesh_against_unsharded(dataclasses.replace(
+        cfg, capacity_factor=factor), model, tokens, mesh, max_len)
+    slots["times"] = time_served_slots(slots["ids"]) if cuda else {}
+    slots["shapes"] = sorted(slots.pop("ids"))
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, mesh=MESH_SHAPE,
+                dp_entry=MESH_DP, requests=B, prompt_len=prompt_len,
+                new_tokens=new_tokens, max_len=max_len,
+                launches=runs["mesh"]["launches"],
+                want_launches=runs["mesh"]["want_launches"], runs=runs,
+                own_factor=cfg.capacity_factor,
+                own_factor_drops=tried[0][1][0],
+                unsharded_own_factor_drops=tried[0][1][1],
+                no_drop_factor=factor, factors_tried=tried,
+                against_unsharded=close, dispatch_prefill_ms=dispatch_ms,
+                slots=slots, seconds=time.perf_counter() - t_phase)
+
+
+def phase_mesh_serves(device, archs) -> dict:
+    """Phase 4m: ``phase_mesh_serve`` for each arch of ``archs`` at its
+    ``MESH_ARCHS`` depth, printed as it ends."""
+    get_config, _, _ = _serve()
+    out = {}
+    for arch in archs:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=MESH_ARCHS[arch])
+        out[arch] = phase_mesh_serve(device, cfg)
+        print_mesh_serve(out[arch])
+    return out
+
+
+def print_mesh_serve(s: dict):
+    mesh, unsh = s["runs"]["mesh"], s["runs"]["unsharded"]
+    print(f"serve-mesh: {s['arch']} at full width ({s['n_layers']} layers) "
+          f"under mesh {s['mesh'][0]}x{s['mesh'][1]} (dp_entry "
+          f"{s['dp_entry']}), {s['requests']} x {s['prompt_len']} tokens, "
+          f"{s['new_tokens']} new, cache {s['max_len']}: launches "
+          f"{s['launches']} (expected {s['want_launches']}); unsharded "
+          f"{unsh['launches']}")
+    for what, key, unit in (("prefill", "prefill_ms", "ms"),
+                            ("decode", "decode_ms_per_token", "ms a token"),
+                            ("served", "served_tokens_per_s", "tokens/s")):
+        print(f"serve-mesh: {s['arch']} {what} {mesh[key]:.3f} {unit} "
+              f"(unsharded {unsh[key]:.3f})")
+    print(f"serve-mesh: {s['arch']} peak {mesh['peak_bytes'] / 2**30:.2f} "
+          f"GiB (unsharded {unsh['peak_bytes'] / 2**30:.2f} GiB); prefill "
+          f"under 2s {s['dispatch_prefill_ms']['2s']:.3f} ms, 1s "
+          f"{s['dispatch_prefill_ms']['1s']:.3f} ms")
+    c = s["against_unsharded"]
+    print(f"serve-mesh: {s['arch']} records dropped at its own capacity "
+          f"factor {s['own_factor']}: {s['own_factor_drops']} under the "
+          f"mesh, {s['unsharded_own_factor_drops']} unsharded; none at "
+          f"{s['no_drop_factor']}, where the last prefill logits and one "
+          f"decode step's sit {c['err_over_max']} x max|logits| from the "
+          f"unsharded run's (limit {MESH_LOGITS_TOL}; rows routed apart "
+          f"{c['reroutes']['rows']}, max gap {c['reroutes']['max_gap']})")
+    sl = s["slots"]
+    print(f"serve-mesh: {s['arch']} bucket_slots == plain on "
+          f"{sl['calls']} prefill calls and {sl['decode_calls']} of a decode "
+          f"step; that step's logits and caches == the plain path's")
+    for name, t in sl["times"].items():
+        print(f"serve-mesh: bucket_slots {name}: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.5f} ms), plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    print(f"serve-mesh: {s['arch']} {s['seconds']:.1f} s")
+
+
+def mesh_train_launches(cfg, run, steps: int, shape=MESH_SHAPE) -> dict:
+    """``train_launches`` under the mesh: ``mesh_slot_shapes``' calls an
+    MoE layer and microbatch, twice under full remat."""
+    moe = sum(f == "moe" for _, f in layer_kinds(cfg))
+    again = 2 if run.train.remat_policy in ("full", "dots") else 1
+    calls = len(mesh_slot_shapes(cfg, run.resolved_microbatch(),
+                                 run.shape.seq_len, shape))
+    return {"bucket_slots": moe * calls * again * run.grad_accum_steps
+            * steps}
+
+
+def phase_mesh_train(device, cfg, seq: int = TRAIN_SEQ,
+                     batch: int = TRAIN_BATCH,
+                     microbatch: int = TRAIN_MICROBATCH,
+                     steps: int = MESH_TRAIN_STEPS) -> dict:
+    """Phase 5m: ``steps`` steps of the launcher's path under the mesh
+    (``train_state(mesh=)``: ``make_run``, ``dp_entry_for``,
+    ``make_train_step(mesh=, dp_entry=)``, behind the
+    ``DoubleBufferedLoader``; the main path: counts zeroed just before,
+    read just after) and the same unsharded, each step timed with the
+    host clock after its loss is read; every loss finite and the mesh's
+    launches equal to ``mesh_train_launches``; then one step from a fresh
+    state under the mesh and one unsharded at the capacity factor no
+    shard drops at, their losses within 1e-2 relative."""
+    _, _, corpus, pipeline, _, tf, _ = _train()
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    mesh = _mesh(device)
+    stream = corpus.lm_token_stream(TRAIN_TOKENS, cfg.vocab_size, seed=0)
+    runs = {}
+    for name, m in (("mesh", mesh), ("unsharded", None)):
+        run, fn, state = train_state(cfg, device, seq, batch, microbatch,
+                                     steps, mesh=m)
+        loader = pipeline.DoubleBufferedLoader(
+            pipeline.lm_batches(stream, batch, seq), device)
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        losses, step_ms = [], []
+        for _, b in zip(range(steps), loader):
+            t0 = time.perf_counter()
+            state, metrics = fn(state, b)
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: f.launches for k, f in wrappers().items() if f.launches}
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        want = (mesh_train_launches(cfg, run, steps) if m
+                else train_launches(cfg, run, steps))
+        if cuda:
+            assert launches == want, (name, launches, want)
+        runs[name] = dict(losses=losses, step_ms=step_ms,
+                          median_step_ms=float(np.median(step_ms)),
+                          tokens_per_s=seq * batch / float(
+                              np.median(step_ms)) * 1e3,
+                          launches=launches, want_launches=want,
+                          peak_bytes=peak, grad_accum=run.grad_accum_steps)
+        del state, fn, loader
+        if cuda:
+            torch.cuda.empty_cache()
+    # step 0 at the raised capacity, under the mesh and unsharded
+    fixed = {k: torch.from_numpy(v).to(device) for k, v in
+             next(pipeline.lm_batches(stream, batch, seq)).items()}
+    model = tf.init_model(cfg, 0, device=device)
+    with torch.no_grad():
+        factor, tried = no_drop_factor(cfg, [
+            lambda c, m=m: tf.loss_fn(c, model, {
+                k: v[:microbatch] for k, v in fixed.items()}, mesh=m,
+                dp_entry=MESH_DP if m else None, slot_kernel=True)
+            for m in (mesh, None)])
+    del model
+    raised = dataclasses.replace(cfg, capacity_factor=factor)
+    step0 = {}
+    for name, m in (("mesh", mesh), ("unsharded", None)):
+        _, fn, state = train_state(raised, device, seq, batch, microbatch,
+                                   1, mesh=m)
+        step0[name] = float(fn(state, fixed)[1]["loss"])
+        del state, fn
+        if cuda:
+            torch.cuda.empty_cache()
+    rel = _rel(step0["mesh"], step0["unsharded"])
+    assert rel <= MESH_TRAIN_RTOL, step0
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, mesh=MESH_SHAPE,
+                seq=seq, batch=batch, microbatch=microbatch, steps=steps,
+                runs=runs, launches=runs["mesh"]["launches"],
+                want_launches=runs["mesh"]["want_launches"],
+                own_factor=cfg.capacity_factor, no_drop_factor=factor,
+                factors_tried=tried, step0_raised=step0, step0_rel=rel,
+                seconds=time.perf_counter() - t_phase)
+
+
+def phase_mesh_trains(device, archs=(MOE_ARCH,)) -> dict:
+    """Phase 5m for each arch of ``archs`` at its ``TRAIN_LAYERS``
+    depth, printed as it ends."""
+    get_config, _, _ = _serve()
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        if arch in TRAIN_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
+        out[arch] = phase_mesh_train(device, cfg)
+        print_mesh_train(out[arch])
+    return out
+
+
+def print_mesh_train(t: dict):
+    mesh, unsh = t["runs"]["mesh"], t["runs"]["unsharded"]
+    print(f"train-mesh: {t['arch']} at full width ({t['n_layers']} layers) "
+          f"under mesh {t['mesh'][0]}x{t['mesh'][1]}, {t['steps']} steps of "
+          f"{t['batch']} x {t['seq']} tokens, A = {mesh['grad_accum']}: "
+          f"losses {mesh['losses']} (unsharded {unsh['losses']}); "
+          f"launches {t['launches']} (expected {t['want_launches']})")
+    print(f"train-mesh: median step {mesh['median_step_ms']:.2f} ms, "
+          f"{mesh['tokens_per_s']:,.0f} tokens/s, peak "
+          f"{mesh['peak_bytes'] / 2**30:.2f} GiB (unsharded "
+          f"{unsh['median_step_ms']:.2f} ms, {unsh['tokens_per_s']:,.0f} "
+          f"tokens/s, {unsh['peak_bytes'] / 2**30:.2f} GiB)")
+    print(f"train-mesh: step 0 at capacity factor {t['no_drop_factor']} "
+          f"(no record dropped; tried {t['factors_tried']}): "
+          f"{t['step0_raised']}, rel {t['step0_rel']} (limit "
+          f"{MESH_TRAIN_RTOL}); {t['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # 6. report
 # ---------------------------------------------------------------------------
 
@@ -4873,20 +5412,31 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
             **{o: {k: times[o][k] for k in (*keys, *extra)} for o in others}}
 
 
-def served_slots_kernel(serves: dict, train: dict, entry: dict) -> dict:
+def served_slots_kernel(serves: dict, train: dict, entry: dict,
+                        mesh_serves: dict | None = None,
+                        mesh_train: dict | None = None) -> dict:
     """The ``kernels`` line's bucket_slots entry: its launches on the
-    served paths (phase 4's MoE archs) and the training path (phase 5's
-    MoE run), its numbers at deepseek-v2-lite's served shape of the
-    expert buffers (the larger), then its other served shapes, jamba's,
-    and the entry-point shapes of phase 2 (``entry``)."""
+    served paths (phase 4's MoE archs, and 4m's under the mesh) and the
+    training paths (phase 5's MoE run, 5m's), its numbers at
+    deepseek-v2-lite's served shape of the expert buffers (the larger),
+    then its other served shapes, jamba's, the mesh's (all shards'
+    records in a call) and the entry-point shapes of phase 2
+    (``entry``)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "device_activities_per_call")
     by_path = {f"serve {a}": r["launches"]["bucket_slots"]
                for a, r in serves.items() if "bucket_slots" in r["launches"]}
     by_path.update({f"train {a}": r["launches"]["bucket_slots"]
                     for a, r in train.items() if r["want_launches"]})
+    mesh_serves, mesh_train = mesh_serves or {}, mesh_train or {}
+    by_path.update({f"serve-mesh {a}": r["launches"]["bucket_slots"]
+                    for a, r in mesh_serves.items()})
+    by_path.update({f"train-mesh {a}": r["launches"]["bucket_slots"]
+                    for a, r in mesh_train.items()})
     times = {f"{a} {n}": t for a, r in serves.items() if r["slots"]
              for n, t in r["slots"]["times"].items()}
+    times.update({f"mesh {a} {n}": t for a, r in mesh_serves.items()
+                  for n, t in r["slots"]["times"].items()})
     sl = serves[MOE_ARCH]["slots"]
     main = max(sl["times"], key=lambda n: sl["times"][n]["bytes"])
     main = f"{MOE_ARCH} {main}"
@@ -4895,9 +5445,12 @@ def served_slots_kernel(serves: dict, train: dict, entry: dict) -> dict:
             "launches_by_path": {**by_path,
                                  "entry points": entry["launches"]},
             "served_calls_checked": {
-                a: {"prefill": r["slots"]["calls"],
-                    "decode_step": r["slots"]["decode_calls"]}
-                for a, r in serves.items() if r["slots"]},
+                **{a: {"prefill": r["slots"]["calls"],
+                       "decode_step": r["slots"]["decode_calls"]}
+                   for a, r in serves.items() if r["slots"]},
+                **{f"mesh {a}": {"prefill": r["slots"]["calls"],
+                                 "decode_step": r["slots"]["decode_calls"]}
+                   for a, r in mesh_serves.items()}},
             "train_calls_checked": {a: r["slots"]["calls_full"]
                                     for a, r in train.items() if r["slots"]},
             "prefill_share": {a: r["slots"]["prefill_share"]
@@ -5151,6 +5704,8 @@ def main(argv=()) -> int:
 
     serves = phase_serves(device, SERVE_ARCHS)
     train = phase_trains(device, TRAIN_ARCHS)
+    mesh_serves = phase_mesh_serves(device, MESH_ARCHS)
+    mesh_train = phase_mesh_trains(device)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
@@ -5169,11 +5724,15 @@ def main(argv=()) -> int:
                                "max_abs_err": lint["max_abs_err"],
                                "times": lint_t},
                       "memcheck": memcheck, "guard": guard,
-                      "serve": serves, "train": train}))
+                      "serve": serves, "train": train,
+                      "mesh_serve": mesh_serves, "mesh_train": mesh_train}))
 
     def by_arch(kernel: str) -> dict:
-        return {a: r["launches"][kernel] for a, r in serves.items()
-                if kernel in r["launches"]}
+        return {**{a: r["launches"][kernel] for a, r in serves.items()
+                   if kernel in r["launches"]},
+                **{f"mesh {a}": r["launches"][kernel]
+                   for a, r in mesh_serves.items()
+                   if kernel in r["launches"]}}
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_map/csrc/fused_map.cu",
@@ -5242,7 +5801,7 @@ def main(argv=()) -> int:
         served_slots_kernel(serves, train, entry_kernel(
             "bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
             "moe_dispatch/kernel.py:51", entry, entry_t, "slots_routing",
-            ("slots_owner_window",), built, 0)),
+            ("slots_owner_window",), built, 0), mesh_serves, mesh_train),
         entry_kernel("flash_decode", "flash_decode/csrc/flash_decode.cu",
                      "flash_decode/kernel.py:71", entry, entry_t,
                      "decode_olmo-1b", ("decode_h2o-danube-1.8b",), built,

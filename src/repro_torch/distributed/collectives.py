@@ -4,13 +4,21 @@ the P ranks as dim 0 of every tensor on one device.
 Lockstep semantics match ``shard_map``'s, so a tensor ``x`` here equals
 the stack of the P per-rank values the reference would hold.
 
-Every collective reports to :data:`OBSERVER` when one is set: fleetlint's
-program rules (``repro_torch.analysis.spmd``) set it for the length of one
-program call. Outside a lint run it is ``None`` and costs one test a call;
-a CUDA graph's replay runs no Python and never reaches it.
+Every rank-dim collective reports to :data:`OBSERVER` when one is set:
+fleetlint's program rules (``repro_torch.analysis.spmd``) set it for the
+length of one program call. Outside a lint run it is ``None`` and costs
+one test a call; a CUDA graph's replay runs no Python and never reaches
+it.
+
+The model stack's mesh has named axes (``distributed/mesh.py``): its
+``shard_map`` (the counterpart of the reference's) blocks each operand
+into ``(*mesh.shape, *local_shape)``, and ``mesh_psum``, ``mesh_pmax``,
+``mesh_pmean``, ``mesh_axis_index``, ``mesh_all_to_all`` and
+``mesh_all_gather`` act on the mesh dim of a named axis.
 """
 from __future__ import annotations
 
+import math
 import os
 import sys
 
@@ -160,3 +168,182 @@ def coded_exchange(bk: torch.Tensor, bv: torch.Tensor, code_rate: int
                      gk)
     rv = torch.where(ing, torch.where(mine, dv.unsqueeze(1), 0), gv)
     return rk, rv
+
+
+# ---------------------------------------------------------------------------
+# named mesh axes: the reference's ``shard_map`` over a virtual mesh
+# ---------------------------------------------------------------------------
+#
+# A ``distributed.mesh.Mesh`` names its axes; its ranks are virtual, all on
+# the one device. Inside ``shard_map`` every operand is blocked into
+# ``(*mesh.shape, *local_shape)``: rank (i, j, ...) of the reference holds
+# ``x[i, j, ...]``. The forms below act on the mesh dim of a named axis,
+# keep autograd's graph (the train step differentiates through them) and
+# are the model stack's: fleetlint's ``OBSERVER`` watches the rank-dim
+# collectives above, not these.
+
+def _axes(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _entries(spec, ndim: int) -> tuple:
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the operand's "
+                         f"{ndim} dims")
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _dims(mesh, axes) -> list[int]:
+    axes = _axes(axes)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not one of the mesh's "
+                             f"{mesh.axis_names}")
+    return [mesh.axis_names.index(a) for a in axes]
+
+
+def block(x: torch.Tensor, spec, mesh, *, view: bool = False
+          ) -> torch.Tensor:
+    """``x`` as the mesh's ranks hold it under ``spec``: ``(*mesh.shape,
+    *local_shape)``, each dim of ``x`` cut into equal blocks over the
+    axes its entry names (a tuple entry major to minor), and an axis no
+    entry names an ``expand`` (replicated: no copy). With ``view`` the
+    result must share ``x``'s memory (an in-place write through it lands
+    in ``x``), which holds for a contiguous ``x``."""
+    if x.device != mesh.device:
+        raise ValueError(f"an operand on {x.device} meets a mesh on "
+                         f"{mesh.device}")
+    entries = _entries(spec, x.dim())
+    split, where, local = [], {}, []
+    for n, entry in zip(x.shape, entries):
+        axes = _axes(entry)
+        k = math.prod(mesh.axis_size(a) for a in axes)
+        if n % k:
+            raise ValueError(f"dim of {n} does not divide over the mesh "
+                             f"axes {axes} ({k} ranks)")
+        for a in axes:
+            if a in where:
+                raise ValueError(f"spec {entries} names axis {a!r} twice")
+            _dims(mesh, a)
+            where[a] = len(split)
+            split.append(mesh.axis_size(a))
+        local.append(len(split))
+        split.append(n // k)
+    y = x.view(split) if view else x.reshape(split)
+    perm = []
+    for a in mesh.axis_names:
+        if a not in where:
+            where[a] = y.dim()
+            y = y.unsqueeze(-1)
+        perm.append(where[a])
+    return y.permute(perm + local).expand(*mesh.shape,
+                                          *(split[i] for i in local))
+
+
+def unblock(y: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global tensor of ranks' blocks ``y`` (``(*mesh.shape,
+    *local_shape)``) under out-spec ``spec``: the blocks of the axes an
+    entry names are joined along its dim; an axis no entry names is
+    replicated, and rank 0's block along it is taken."""
+    nm = len(mesh.shape)
+    entries = _entries(spec, y.dim() - nm)
+    named = [a for e in entries for a in _axes(e)]
+    _dims(mesh, tuple(named))
+    kept = [d for d in range(nm) if mesh.axis_names[d] in named]
+    for d in reversed(range(nm)):
+        if mesh.axis_names[d] not in named:
+            y = y.select(d, 0)
+    pos = {mesh.axis_names[d]: k for k, d in enumerate(kept)}
+    perm, shape = [], []
+    for i, entry in enumerate(entries):
+        axes = _axes(entry)
+        perm += [pos[a] for a in axes] + [len(kept) + i]
+        shape.append(math.prod(mesh.axis_size(a) for a in axes)
+                     * y.shape[len(kept) + i])
+    return y.permute(perm).reshape(shape)
+
+
+def shard_map(f, *, mesh, in_specs, out_specs):
+    """``f`` over the ranks of ``mesh``, as the reference's ``shard_map``:
+    each tensor operand is blocked by its in-spec (``block``), ``f`` runs
+    once on the blocks of every rank together (its collectives are the
+    named-axis forms here), and each tensor it returns is unblocked by
+    its out-spec (``unblock``). A non-tensor operand (a host int) is
+    passed as it is."""
+    def run(*args):
+        blocked = [block(a, s, mesh) if isinstance(a, torch.Tensor) else a
+                   for a, s in zip(args, in_specs, strict=True)]
+        out = f(*blocked)
+        if isinstance(out, tuple):
+            return tuple(unblock(o, s, mesh)
+                         for o, s in zip(out, out_specs, strict=True))
+        return unblock(out, out_specs, mesh)
+    return run
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    return mesh.axis_size(axis)
+
+
+def mesh_axis_index(mesh, axis: str, device=None) -> torch.Tensor:
+    """Each rank's index along ``axis``: int32 of ``mesh.shape``."""
+    d, = _dims(mesh, axis)
+    shape = [1] * len(mesh.shape)
+    shape[d] = mesh.shape[d]
+    return torch.arange(mesh.shape[d], dtype=torch.int32,
+                        device=mesh.device if device is None else device) \
+        .view(shape).expand(mesh.shape)
+
+
+def mesh_psum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """Sum over the ranks of ``axes`` (a name or a tuple), replicated back
+    to each of them (a broadcast view)."""
+    dims = _dims(mesh, axes)
+    if not dims:
+        return x
+    return x.sum(dims, keepdim=True, dtype=x.dtype).expand_as(x)
+
+
+def mesh_pmax(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    dims = _dims(mesh, axes)
+    if not dims:
+        return x
+    return x.amax(dims, keepdim=True).expand_as(x)
+
+
+def mesh_pmean(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    dims = _dims(mesh, axes)
+    if not dims:
+        return x
+    return x.mean(dims, keepdim=True, dtype=x.dtype).expand_as(x)
+
+
+def mesh_all_to_all(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0)``: each rank's local dim 0 holds
+    one block a peer along ``axis``; block j of rank i's result is the
+    block rank j addressed to rank i (the axis' mesh dim swapped with
+    local dim 0)."""
+    d, = _dims(mesh, axis)
+    nm = len(mesh.shape)
+    if x.shape[nm] != mesh.shape[d]:
+        raise ValueError(f"all_to_all over {axis!r} ({mesh.shape[d]} ranks) "
+                         f"of local dim 0 of size {x.shape[nm]}")
+    return x.transpose(d, nm)
+
+
+def mesh_all_gather(x: torch.Tensor, axis: str, mesh, dim: int = 0
+                    ) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: the blocks of
+    the ranks along ``axis`` joined along local dim ``dim``, on each of
+    them."""
+    d, = _dims(mesh, axis)
+    nm = len(mesh.shape)
+    at = nm + dim                          # the local dim in x
+    y = x.movedim(d, at - 1).flatten(at - 1, at)
+    shape = list(x.shape)
+    shape[at] *= x.shape[d]
+    return y.unsqueeze(d).expand(shape)

@@ -1,16 +1,19 @@
-"""Frontend geometry, per-arch training config and run assembly
-(counterpart of the start and end of ``repro/launch/specs.py``).
+"""Frontend geometry, sharding assembly, per-arch training config and
+run assembly (counterpart of ``repro/launch/specs.py``).
 
-``vlm_prefix_len``, ``frontend_geometry``, ``train_config_for`` and
-``make_run`` are ported. The reference's input specs and sharding
-functions map abstract trees onto a production mesh for XLA; the port
-runs on one device, and those functions are not ported (ROADMAP Queue 1
-item 12, the distributed entry).
+The sharding builders map each tree onto a mesh by the rules of
+``distributed/sharding.py``. On one card a sharding is a spec on a
+virtual mesh (``distributed.mesh.NamedSharding``), not a placement:
+``dp_entry_for`` is what the model stack's ``dp_entry`` takes, and the
+cache specs are the layouts ``collectives.shard_map`` blocks by.
 """
 from __future__ import annotations
 
 from repro_torch.config import (MeshConfig, ModelConfig, RunConfig,
                                 ShapeConfig, TrainConfig)
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.mesh import NamedSharding
+from repro_torch.distributed.sharding import P
 
 
 def vlm_prefix_len(seq_len: int) -> int:
@@ -30,6 +33,102 @@ def frontend_geometry(cfg: ModelConfig, shape: ShapeConfig
         return S, enc, enc
     return S, 0, 0
 
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+def dp_entry_for(shape: ShapeConfig, mesh_cfg: MeshConfig,
+                 variant: str = "default"):
+    B = shape.global_batch
+    if variant == "flat_dp" and B % mesh_cfg.n_devices == 0:
+        return tuple(mesh_cfg.axes)        # batch over the whole mesh
+    if B % mesh_cfg.dp_size == 0:
+        axes = mesh_cfg.dp_axes
+        return axes[0] if len(axes) == 1 else tuple(axes)
+    for ax, sz in zip(mesh_cfg.axes, mesh_cfg.shape):
+        if ax == "data" and B % sz == 0:
+            return "data"
+    return None
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                    mesh_cfg: MeshConfig, batch_struct: dict,
+                    variant: str = "default") -> dict:
+    """Each batch leaf (anything with a ``.shape``) split over the dp
+    entry on its leading dim."""
+    dp = dp_entry_for(shape, mesh_cfg, variant)
+    return {k: NamedSharding(mesh, P(dp, *([None] * (len(v.shape) - 1))))
+            for k, v in batch_struct.items()}
+
+
+def params_shardings(cfg: ModelConfig, mesh, mesh_cfg: MeshConfig, params,
+                     variant: str = "default"):
+    """``param_specs``' tree (a ``Model``'s names, or the reference's
+    tree) with each spec on ``mesh``."""
+    def on(tree):
+        if isinstance(tree, dict):
+            return {k: on(v) for k, v in tree.items()}
+        return NamedSharding(mesh, tree)
+    return on(shd.param_specs(params, cfg, mesh_cfg, variant))
+
+
+def state_shardings(cfg: ModelConfig, mesh, mesh_cfg: MeshConfig, state,
+                    variant: str = "default"):
+    """``TrainState(params, AdamWState(step, mu, nu), residual)`` of
+    shardings: the moments and residuals (lists in the parameters'
+    order) take their parameter's, the step counter is replicated."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.train_step import TrainState
+    p_sh = params_shardings(cfg, mesh, mesh_cfg, state.params, variant)
+    leaves = list(p_sh.values())
+    return TrainState(
+        params=p_sh,
+        opt=AdamWState(step=NamedSharding(mesh, P()), mu=leaves,
+                       nu=leaves),
+        residual=None if state.residual is None else leaves)
+
+
+def _cache_leaf_spec(name: str, shape: tuple[int, ...], cfg: ModelConfig,
+                     mesh_cfg: MeshConfig, dp) -> P:
+    tp = mesh_cfg.tp_size
+    if name in ("k", "v", "cross_k", "cross_v"):     # (B, S, KV, hd)
+        seq_ok = shape[1] % tp == 0
+        return P(dp, "model" if seq_ok else None, None, None)
+    if name == "ckv":                                 # (B, S, lora+rope)
+        seq_ok = shape[1] % tp == 0
+        return P(dp, "model" if seq_ok else None, None)
+    if name == "state":                               # (B, H, P, N)
+        return P(dp, "model" if shape[1] % tp == 0 else None, None, None)
+    if name.startswith("conv_"):                      # (B, K-1, C)
+        return P(dp, None, "model" if shape[2] % tp == 0 else None)
+    return P(dp, *([None] * (len(shape) - 1)))
+
+
+def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                    mesh_cfg: MeshConfig, cache_struct):
+    """The decode caches' shardings: the port's ``{"blocks": [layer's
+    dict, ...]}`` (one layer a dict) or the reference's tree (its
+    ``blocks`` leaves stacked, with a leading None)."""
+    dp = dp_entry_for(shape, mesh_cfg)
+
+    def visit(tree, keys):
+        if isinstance(tree, dict):
+            return {k: visit(v, keys + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [visit(v, keys + (i,)) for i, v in enumerate(tree)]
+        stacked = "blocks" in keys and not any(isinstance(k, int)
+                                               for k in keys)
+        shp = tuple(tree.shape)[1:] if stacked else tuple(tree.shape)
+        spec = _cache_leaf_spec(keys[-1], shp, cfg, mesh_cfg, dp)
+        return NamedSharding(mesh, P(None, *spec) if stacked else spec)
+
+    return visit(cache_struct, ())
+
+
+# ---------------------------------------------------------------------------
+# per-arch training config (memory-driven numerics)
+# ---------------------------------------------------------------------------
 
 def train_config_for(cfg: ModelConfig) -> TrainConfig:
     """Memory-driven numerics: bf16 moments and accumulation above 100 B

@@ -8,15 +8,21 @@ checkpoints -> throughput tracking -> resume.
         --steps 20 --batch 8 --seq 512 --microbatch 4         # on the card
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --smoke --device cpu --dispatch 2s
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --smoke --device cpu --devices 8 \\
+        --mesh 2x4                                  # a (data, model) mesh
 
 The flags are the reference's (``repro.launch.train``) plus ``--device``
 (cuda unless given; no fallback to the CPU). ``--arch`` takes any arch of
 the port's registry; an MoE stack trains with ``--dispatch`` 1s or 2s,
 its MoE layers slotting their records through the bucket_slots kernel
 on the card. At full depth deepseek-v2-lite-16b (fp32 moments, ~188 GB)
-and jamba-v0.1-52b do not fit one 80 GB card. One device only: ``--devices``
-above 1 or a ``--mesh`` other than 1x1 raises ``NotImplementedError``
-(ROADMAP Queue 1 item 12, the distributed entry). ``--ckpt-dir`` writes
+and jamba-v0.1-52b do not fit one 80 GB card. ``--devices N --mesh DxM``
+(D x M must be N; ``--devices N`` alone is N x 1) trains under a
+(data, model) mesh of virtual ranks on the one device, as the
+reference's launcher does on N host devices: the batch split over
+"data", the MoE layers' tokens and experts over "model"
+(``distributed/mesh.py``). ``--ckpt-dir`` writes
 a snapshot every ``--ckpt-every`` steps and at the end, under the
 reference's leaf keys; ``--resume`` continues from the latest one and
 replays the batch sequence from there (``lm_batches(skip=...)``).
@@ -37,7 +43,7 @@ def parse_args(argv=None):
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--mesh", default="",
-                    help="DxM data x model; only 1x1 is ported")
+                    help="DxM data x model, e.g. 2x4 (default: devices x 1)")
     ap.add_argument("--dispatch", choices=["1s", "2s"], default="1s")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default="")
@@ -55,12 +61,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.devices > 1 or args.mesh not in ("", "1x1"):
-        raise NotImplementedError(
-            f"--devices {args.devices} --mesh {args.mesh or '-'}: the "
-            f"sharded train step is not ported yet (ROADMAP Queue 1 item "
-            f"12, the distributed entry); the port trains on one device")
-
     import dataclasses
     import time
 
@@ -71,6 +71,7 @@ def main(argv=None):
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.data.corpus import lm_token_stream
     from repro_torch.data.pipeline import DoubleBufferedLoader, lm_batches
+    from repro_torch.distributed.mesh import local_mesh
     from repro_torch.ft.straggler import ThroughputTracker
     from repro_torch.launch import specs as sp
     from repro_torch.models.transformer import init_model
@@ -83,18 +84,28 @@ def main(argv=None):
     if args.vocab:
         cfg = dataclasses.replace(cfg, vocab_size=args.vocab)
 
+    if args.mesh:
+        d, m = map(int, args.mesh.split("x"))
+    else:
+        d, m = args.devices, 1
+    assert d * m == args.devices, (d, m, args.devices)
+    mesh_cfg = MeshConfig((d, m), ("data", "model"))
+
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
-    run = sp.make_run(cfg, shape, MeshConfig((1, 1), ("data", "model")),
-                      microbatch=args.microbatch)
+    run = sp.make_run(cfg, shape, mesh_cfg, microbatch=args.microbatch)
     run = dataclasses.replace(run, train=TrainConfig(
         lr=args.lr, warmup_steps=max(args.steps // 20, 1),
         total_steps=args.steps, seed=args.seed))
+    dp = sp.dp_entry_for(shape, mesh_cfg)
 
     params = init_model(cfg, args.seed, device=args.device)
     device = params.device
+    mesh = (local_mesh((d, m), ("data", "model"), device)
+            if args.devices > 1 else None)
     print(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params on "
-          f"{device}, batch {args.batch}x{args.seq}, accum "
-          f"{run.grad_accum_steps}, remat {run.train.remat_policy}")
+          f"{device}, mesh {d}x{m}, batch {args.batch}x{args.seq}, accum "
+          f"{run.grad_accum_steps}, remat {run.train.remat_policy}, "
+          f"dispatch {cfg.dispatch_mode}")
     state = init_train_state(cfg, run.train, params)
 
     mgr = None
@@ -111,7 +122,7 @@ def main(argv=None):
                     skip=start_step)
     loader = DoubleBufferedLoader(it, device)
 
-    step_fn = make_train_step(cfg, run)
+    step_fn = make_train_step(cfg, run, mesh=mesh, dp_entry=dp)
     tracker = ThroughputTracker(n_procs=1)
 
     t_start = time.perf_counter()

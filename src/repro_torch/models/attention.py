@@ -13,11 +13,15 @@ Prefill attention goes through the flash_attention kernel's wrapper
 CPU) or through the chunked ``flash_attention_ref``. MLA's prefill
 always takes ``flash_attention_ref``, as the reference's does (its qk
 head dim, 192 at deepseek-v2-lite, is not one the kernel takes). Decode
-is the single-shard flash-decode of the reference: online-softmax
-partials over the whole cache, combined locally; MLA decodes absorbed
-over its compressed cache. The seq-sharded cache (``mesh=``) and the
-cost-exact unrolled attention are not ported yet (ROADMAP Queue 1 item
-12).
+is the reference's flash-decode: online-softmax partials over a cache
+slice, combined with a max-stabilised sum. Unsharded the slice is the
+whole cache; under a mesh (``mesh=``) the GQA and MLA caches are
+sequence-sharded over "model", each shard's partials cover its slice
+of the positions and ``combine_partials`` joins them across the axis
+(``collectives.shard_map``, the mesh's ranks as leading dims); the SWA
+ring stays replicated. MLA decodes absorbed over its compressed cache.
+The cost-exact unrolled attention is not ported yet (ROADMAP Queue 1
+item 12c).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import math
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import (DTYPES, _init, apply_rope, matmul,
                                        rms_over)
 
@@ -34,7 +40,7 @@ NEG_INF = -1e30
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item 12)")
+                               f"item 12c)")
 
 
 # ---------------------------------------------------------------------------
@@ -196,30 +202,101 @@ def attention_dense_ref(q, k, v, *, causal=True, window=0, q_offset=0):
 def _decode_partials(q, k, v, kv_pos, t):
     """Online softmax over a cache slice.
 
-    q: (B, H, hd); k/v: (B, S_loc, KV, hd); kv_pos: (S_loc,) absolute
-    positions; t: current length (positions >= t are invalid).
-    Returns (o_partial, l, m) for max-stabilized combining.
+    q: (..., B, H, hd); k/v: (..., B, S_loc, KV, hd) (the leading dims a
+    mesh's ranks, or none); kv_pos: (S_loc,) absolute positions, or
+    (..., 1, S_loc) a rank's own; t: current length (positions >= t are
+    invalid). Returns (o_partial, l, m) for max-stabilized combining.
     """
-    B, H, hd = q.shape
-    KV = k.shape[2]
+    H, hd = q.shape[-2:]
+    KV = k.shape[-2]
     G = H // KV
-    qg = q.reshape(B, KV, G, hd) * hd ** -0.5
-    s = _einsum_f32("bkgh,bskh->bkgs", qg, k)
-    valid = ((kv_pos >= 0) & (kv_pos < t))[None, None, None, :]
+    qg = q.reshape(*q.shape[:-2], KV, G, hd) * hd ** -0.5
+    s = _einsum_f32("...kgh,...skh->...kgs", qg, k)
+    valid = ((kv_pos >= 0) & (kv_pos < t))[..., None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None]).masked_fill(~valid, 0.0)
     l = p.sum(-1)
-    o = _einsum_f32("bkgs,bskh->bkgh", p.to(v.dtype), v)
+    o = _einsum_f32("...kgs,...skh->...kgh", p.to(v.dtype), v)
     return o, l, m
 
 
-def combine_partials(o, l, m, axis: str | None):
-    """Combine (o, l, m) partials; only the single shard (``axis=None``)
-    is ported."""
-    if axis is not None:
-        raise _unported("combining partials across a mesh axis")
-    return o / l.clamp_min(1e-30)[..., None]
+def combine_partials(o, l, m, axis: str | None, mesh=None):
+    """Combine (o, l, m) partials across ``axis`` of ``mesh`` (None: a
+    single shard): the global max, then the sums of ``l`` and ``o``
+    rescaled to it."""
+    if axis is None:
+        return o / l.clamp_min(1e-30)[..., None]
+    m_glob = coll.mesh_pmax(m, axis, mesh)
+    corr = torch.exp(m - m_glob)
+    l_glob = coll.mesh_psum(l * corr, axis, mesh)
+    o_glob = coll.mesh_psum(o * corr[..., None], axis, mesh)
+    return o_glob / l_glob.clamp_min(1e-30)[..., None]
+
+
+def _shard_positions(mesh, seq_axis: str, S_loc: int, device):
+    """Each rank's absolute cache positions (*mesh.shape, 1, S_loc) of a
+    cache sequence-sharded over ``seq_axis``: ``idx * S_loc +
+    arange(S_loc)``."""
+    idx = coll.mesh_axis_index(mesh, seq_axis, device)
+    return (idx[..., None] * S_loc + torch.arange(S_loc, device=device)
+            ).unsqueeze(-2)
+
+
+def _seq_sharded(cache, mesh, dp_entry, seq_axis: str):
+    """A cache's blocks (*mesh.shape, B_loc, S_loc, ...), a view of it,
+    sequence-sharded over ``seq_axis``; its length must divide by the
+    axis' size."""
+    tp = mesh.axis_size(seq_axis)
+    if cache.shape[1] % tp:
+        raise ValueError(f"a cache of {cache.shape[1]} positions does not "
+                         f"divide over the {tp} shards of {seq_axis!r}: a "
+                         f"sequence-sharded cache's length must divide by "
+                         f"tp")
+    return coll.block(cache, P(dp_entry, seq_axis), mesh, view=True)
+
+
+def update_cache_sharded(cache, new, t: int, *, mesh, dp_entry,
+                         seq_axis: str = "model"):
+    """Write one token's entry ``new`` (B, ...) at absolute position t
+    into a seq-sharded cache (B, S_max, ...), in place, and return it:
+    only the owning shard writes (local position ``t - idx * S_loc`` in
+    range), so past the cache's end (t >= S_max) no shard does."""
+    c = _seq_sharded(cache, mesh, dp_entry, seq_axis)
+    n = coll.block(new, P(dp_entry), mesh)
+    d = mesh.axis_names.index(seq_axis)
+    nm = len(mesh.shape)
+    S_loc = c.shape[nm + 1]
+    for idx in range(mesh.axis_size(seq_axis)):
+        local = t - idx * S_loc
+        if 0 <= local < S_loc:
+            c.select(d, idx).select(nm, local).copy_(n.select(d, idx))
+    return cache
+
+
+def decode_attention_sharded(q, cache_k, cache_v, t: int, *, mesh,
+                             dp_entry, seq_axis: str = "model"):
+    """Flash-decode with the cache sequence-sharded over ``seq_axis``.
+
+    q: (B, H, hd) replicated over the axis; cache: (B, S_max, KV, hd)
+    sharded P(dp, seq_axis); t: the current length. The new k/v must
+    already be written (``update_cache_sharded``)."""
+    B, H, hd = q.shape
+
+    def inner(q_b, k_b, v_b):
+        S_loc = k_b.shape[len(mesh.shape) + 1]
+        kv_pos = _shard_positions(mesh, seq_axis, S_loc, q.device)
+        o, l, m = _decode_partials(q_b, k_b, v_b, kv_pos, t)
+        o = combine_partials(o, l, m, seq_axis, mesh)
+        return o.reshape(*o.shape[:-3], H, hd).to(q.dtype)
+
+    return coll.shard_map(
+        inner, mesh=mesh,
+        in_specs=(P(dp_entry, None, None),
+                  P(dp_entry, seq_axis, None, None),
+                  P(dp_entry, seq_axis, None, None)),
+        out_specs=P(dp_entry, None, None),
+    )(q, cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -283,10 +360,12 @@ def attention_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *,
     Unlike the reference, which returns new arrays, the new k/v are
     written into ``cache`` in place (it is returned as the new cache):
     copying a full-width cache on every token would cost more than the
-    step.
+    step. Under ``mesh`` a GQA cache is sequence-sharded over "model"
+    (``update_cache_sharded``, ``decode_attention_sharded``): past its
+    end no shard writes, where the unsharded cache overwrites its last
+    slot, as the reference's two paths do. The SWA ring stays
+    replicated.
     """
-    if mesh is not None:
-        raise _unported("the seq-sharded decode cache (mesh=...)")
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.d_head
     q, k, v = _qkv(cfg, p, x)
@@ -301,6 +380,12 @@ def attention_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *,
         ck[:, slot:slot + 1] = k
         cv[:, slot:slot + 1] = v
         kv_pos = t - ((slot - torch.arange(W, device=x.device)) % W)
+    elif mesh is not None:
+        update_cache_sharded(ck, k[:, 0], t, mesh=mesh, dp_entry=dp_entry)
+        update_cache_sharded(cv, v[:, 0], t, mesh=mesh, dp_entry=dp_entry)
+        o = decode_attention_sharded(q[:, 0], ck, cv, t + 1, mesh=mesh,
+                                     dp_entry=dp_entry)
+        return o.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"], cache
     else:
         # past the cache's end the reference's dynamic_update_slice clamps
         # the start and overwrites the last slot; so does the port
@@ -358,9 +443,10 @@ def mla_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *, mesh=None,
     S_max, lora + rope)}: ``w_kv_b``'s key half is folded into q and its
     value half into the output. The new entry is written into ``cache``
     in place, as ``attention_decode`` writes k/v; past the cache's end it
-    is not written, as the reference's masked update leaves it."""
-    if mesh is not None:
-        raise _unported("the seq-sharded MLA decode cache (mesh=...)")
+    is not written, as the reference's masked update leaves it. Under
+    ``mesh`` the cache is sequence-sharded over "model": the owning shard
+    writes the entry, each shard's partials cover its slice and
+    ``combine_partials`` joins them."""
     B = x.shape[0]
     H, lora = cfg.n_heads, cfg.kv_lora_rank
     nope, rope_d, v_d = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -370,24 +456,44 @@ def mla_decode(cfg: ModelConfig, p, x, cache: dict, t: int, *, mesh=None,
     a = (x @ p["w_kv_a"])[:, 0]                         # (B, lora+rope)
     ckv_new = rms_over(a[..., :lora], p["kv_norm"])
     kr_new = apply_rope(a[:, None, lora:], pos, cfg.rope_theta)[:, 0]
+    entry = torch.cat([ckv_new, kr_new], -1)            # (B, lora+rope)
 
     w_b = p["w_kv_b"].reshape(lora, H, nope + v_d)
     q_lora = torch.einsum("bhn,lhn->bhl", q[:, 0, :, :nope],
                           w_b[..., :nope])               # (B, H, lora)
     qq = torch.cat([q_lora, q_rope], -1)                # (B, H, lora+rope)
 
+    def partials(qq_b, c_b, kv_pos):
+        s = _einsum_f32("...hl,...sl->...hs", qq_b, c_b) \
+            * (nope + rope_d) ** -0.5
+        valid = (kv_pos < t + 1)[..., None, :]
+        s = s.masked_fill(~valid, NEG_INF)
+        m = s.amax(-1)
+        pr = torch.exp(s - m[..., None]).masked_fill(~valid, 0.0)
+        o_l = _einsum_f32("...hs,...sl->...hl", pr.to(c_b.dtype),
+                          c_b[..., :lora])
+        return o_l, pr.sum(-1), m
+
     c = cache["ckv"]
-    S_max = c.shape[1]
-    if t < S_max:
-        c[:, t] = torch.cat([ckv_new, kr_new], -1)
-    s = _einsum_f32("bhl,bsl->bhs", qq, c) * (nope + rope_d) ** -0.5
-    valid = (torch.arange(S_max, device=x.device) < t + 1)[None, None]
-    s = s.masked_fill(~valid, NEG_INF)
-    m = s.amax(-1)
-    pr = torch.exp(s - m[..., None]).masked_fill(~valid, 0.0)
-    l = pr.sum(-1)
-    o_l = _einsum_f32("bhs,bsl->bhl", pr.to(c.dtype), c[..., :lora])
-    o_l = (o_l / l.clamp_min(1e-30)[..., None]).to(x.dtype)
+    if mesh is not None:
+        update_cache_sharded(c, entry, t, mesh=mesh, dp_entry=dp_entry)
+
+        def inner(qq_b, c_b):
+            S_loc = c_b.shape[len(mesh.shape) + 1]
+            o_l, l, m = partials(qq_b, c_b, _shard_positions(
+                mesh, "model", S_loc, x.device))
+            return combine_partials(o_l, l, m, "model", mesh).to(x.dtype)
+
+        o_l = coll.shard_map(
+            inner, mesh=mesh,
+            in_specs=(P(dp_entry, None, None), P(dp_entry, "model", None)),
+            out_specs=P(dp_entry, None, None))(qq, c)
+    else:
+        if t < c.shape[1]:
+            c[:, t] = entry
+        o_l, l, m = partials(qq, c, torch.arange(c.shape[1],
+                                                 device=x.device))
+        o_l = combine_partials(o_l, l, m, None).to(x.dtype)
     # un-absorb the value half, in fp32 as the reference does
     o = torch.einsum("bhl,lhv->bhv", o_l.float(), w_b[..., nope:].float())
     return o.reshape(B, 1, H * v_d).to(x.dtype) @ p["wo"], cache

@@ -42,8 +42,16 @@ no backward, while the attention and SSD kernels have none). The
 encoder's attention takes the flash_attention kernel too (in fp32, the
 frames' dtype); the decoder's cross-attention takes the chunked
 ``flash_attention_ref`` at prefill, as the reference's does, and the
-flash-decode partials over every encoder position at decode. ``unroll``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 12).
+flash-decode partials over every encoder position at decode.
+
+``mesh`` and ``dp_entry`` run the stack as the reference's does on a
+(data, model) mesh (``distributed/mesh.py``, ranks virtual on the one
+device): the MoE layers' dispatch and the decode caches' flash-decode
+run in ``shard_map`` regions (tokens sequence-sharded and experts
+EP-sharded over "model"; GQA and MLA caches sequence-sharded over it),
+and everything else computes the unpartitioned function, as GSPMD
+does. Whisper's cross-attention stays unsharded, as in the reference.
+``unroll`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 12c).
 """
 from __future__ import annotations
 
@@ -202,8 +210,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
 # ---------------------------------------------------------------------------
 
 def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
-                   causal: bool, enc_out=None, use_kernel: bool = False,
-                   slot_kernel: bool = False, unroll: bool = False):
+                   causal: bool, enc_out=None, mesh=None, dp_entry=None,
+                   use_kernel: bool = False, slot_kernel: bool = False,
+                   unroll: bool = False):
     """Returns (x, cache_dict, aux_loss); aux is 0.0 without MoE.
     ``use_kernel`` is attention's and the SSD's, ``slot_kernel`` the MoE
     layer's slotting's. With ``enc_out`` a layer that holds ``cross``
@@ -235,7 +244,8 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
     if ff != "none":
         h = apply_norm(cfg, p["norm2"], x)
         if ff == "moe":
-            y, aux = moe_mod.moe_forward(cfg, p["moe"], h, unroll=unroll,
+            y, aux = moe_mod.moe_forward(cfg, p["moe"], h, mesh=mesh,
+                                         dp_entry=dp_entry, unroll=unroll,
                                          use_kernel=slot_kernel)
         else:
             y = apply_mlp(p["mlp"], h)
@@ -311,11 +321,10 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     as the reference does each super-block's; under "dots" and "full"
     the backward pass runs a layer's forward again, its MoE slotting
     included. ``slot_kernel`` (None: as ``use_kernel``) sends the MoE
-    layers' slotting through bucket_slots' wrapper.
+    layers' slotting through bucket_slots' wrapper. ``mesh`` and
+    ``dp_entry`` go to the MoE layers.
     """
     _check_supported(cfg)
-    if mesh is not None:
-        raise _unported("the sharded model (mesh=...)")
     x = embed_tokens(cfg, params, batch["tokens"])
     enc_out = None
     fe = batch.get("frontend_embeds")
@@ -333,7 +342,8 @@ def forward(cfg: ModelConfig, params: Model, batch: dict, *, mesh=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
         body = partial(_layer_forward, cfg, p, positions=positions, i=i,
-                       causal=True, enc_out=enc_out, use_kernel=use_kernel,
+                       causal=True, enc_out=enc_out, mesh=mesh,
+                       dp_entry=dp_entry, use_kernel=use_kernel,
                        slot_kernel=slot_kernel, unroll=unroll)
         x, c, aux = _remat(remat, body, x)
         if torch.is_tensor(aux):        # an MoE layer's
@@ -463,7 +473,10 @@ def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
     ``attention.attention_decode``), an ssm layer's state and carries
     are new tensors. With ``use_kernel=True`` an MoE layer slots its
     records through bucket_slots' wrapper (the kernel on the card, its
-    plain version on the CPU), else through the plain version."""
+    plain version on the CPU), else through the plain version. Under
+    ``mesh`` the GQA and MLA caches are sequence-sharded over "model"
+    (their length must divide by its size) and the MoE layers dispatch
+    replicated over it."""
     _check_supported(cfg)
     if unroll:
         raise _unported("unroll=True")

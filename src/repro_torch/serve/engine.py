@@ -14,6 +14,12 @@ pipeline step of every MoE layer, at prefill and at every decode step;
 a hybrid stack (jamba) runs all three. An encoder's layers (whisper's)
 run flash_attention at prefill too, in the frames' dtype. Both compute
 the same function (the kernels are held to it by the tests).
+
+Under a mesh (``ServeEngine(mesh=, dp_entry=)``, ``distributed/mesh.py``)
+the engine serves as the reference's does on a (data, model) mesh: the
+MoE layers dispatch over "model" (expert-parallel at prefill, replicated
+at decode) and the GQA and MLA caches are sequence-sharded over it, so
+``max_len`` must divide by the model axis' size.
 """
 from __future__ import annotations
 
@@ -105,7 +111,8 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None, dp_entry=None,
 @dataclasses.dataclass
 class ServeEngine:
     """Batched request serving over one model replica, on ``device``
-    (cuda unless given; ``params`` must live there)."""
+    (cuda unless given; ``params`` must live there, and so must a
+    ``mesh``)."""
     cfg: ModelConfig
     params: Model
     max_len: int
@@ -119,6 +126,20 @@ class ServeEngine:
         if self.params.device != self.device:
             raise ValueError(f"params are on {self.params.device}, the "
                              f"engine on {self.device}")
+        if self.mesh is not None:
+            if self.mesh.device != self.device:
+                raise ValueError(f"the mesh is on {self.mesh.device}, the "
+                                 f"engine on {self.device}")
+            tp = self.mesh.axis_size("model")
+            sharded = self.cfg.attn_type != "swa" and any(
+                layer_kind(self.cfg, i)[0] != "ssm"
+                for i in range(self.cfg.n_layers))
+            if sharded and self.max_len % tp:
+                raise ValueError(
+                    f"max_len {self.max_len} does not divide by the mesh's "
+                    f"model axis ({tp}): a mesh's cache length must divide "
+                    f"by tp, since the decode caches are sequence-sharded "
+                    f"over it")
         self._step = make_serve_step(self.cfg, mesh=self.mesh,
                                      dp_entry=self.dp_entry)
         self._prefill = partial(

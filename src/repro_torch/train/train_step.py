@@ -22,10 +22,14 @@ state in place (parameters, moments, step counter, residuals) and
 returns the same state, as the reference's jitted step donates its
 input state.
 
-Only the single-device step is ported, for every stack the port
-builds (dense, SWA, ssm, MoE with MLA, hybrid): ``mesh=``,
-``dp_entry=`` and ``unroll=True`` raise ``NotImplementedError``
-(ROADMAP Queue 1 item 12).
+The step runs for every stack the port builds (dense, SWA, ssm, MoE
+with MLA, hybrid), unsharded or under a mesh (``mesh=``, ``dp_entry=``;
+``distributed/mesh.py``): the MoE layers then dispatch inside the
+``shard_map`` region of ``collectives``, whose blocking and named-axis
+collectives autograd differentiates through, so the loss and gradients
+are the reference's sharded ones (each shard's buckets drop their own
+records). ``unroll=True`` raises ``NotImplementedError`` (ROADMAP Queue
+1 item 12c).
 """
 from __future__ import annotations
 
@@ -63,7 +67,8 @@ def _microbatches(batch: dict, A: int, mb: int):
 
 
 def _accumulate_grads(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig,
-                      params: Model, batch: dict):
+                      params: Model, batch: dict, *, mesh=None,
+                      dp_entry=None):
     """(grads, loss, metrics). With A = ``run.grad_accum_steps`` > 1 the
     batch is cut into A microbatches; their gradients are summed in
     ``accum_dtype`` and divided by A (fp32), the loss is their mean and
@@ -72,7 +77,8 @@ def _accumulate_grads(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig,
     leaves = list(params.parameters())
 
     def grads_of(b):
-        loss, metrics = loss_fn(cfg, params, b, slot_kernel=True,
+        loss, metrics = loss_fn(cfg, params, b, mesh=mesh,
+                                dp_entry=dp_entry, slot_kernel=True,
                                 remat=tcfg.remat_policy)
         return loss, metrics, torch.autograd.grad(loss, leaves)
 
@@ -107,16 +113,15 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, mesh=None,
     ``train_step.grads(state, batch) -> (grads, loss, metrics)`` and
     ``train_step.update(state, grads, loss, metrics) -> (state,
     metrics)``; ``train_step(state, batch)`` is the one after the
-    other."""
-    if mesh is not None or dp_entry is not None:
-        raise _unported("the sharded train step (mesh=..., dp_entry=...; "
-                        "the distributed entry)")
+    other. Under ``mesh`` each microbatch's batch dim must divide over
+    ``dp_entry``'s axes."""
     if unroll:
         raise _unported("unroll=True")
     tcfg = run.train
 
     def grads(state: TrainState, batch: dict):
-        return _accumulate_grads(cfg, tcfg, run, state.params, batch)
+        return _accumulate_grads(cfg, tcfg, run, state.params, batch,
+                                 mesh=mesh, dp_entry=dp_entry)
 
     def update(state: TrainState, grads, loss, metrics):
         if tcfg.compress_cross_pod and state.residual is not None:

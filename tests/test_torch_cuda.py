@@ -1647,3 +1647,49 @@ def test_frontend_serve_phase_on_the_card_at_a_narrow_width(cuda_device,
     assert s["launches"] == s["want_launches"]
     assert s["layer_err_over_limit"] <= 1.0
     assert s["kernel_vs_ref_err_over_limit"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,buckets,launches", [(8, 32, 1), (8, 16, 1),
+                                                    (8, 64, 2), (8, 128, 4),
+                                                    (4, 256, 4)])
+def test_cross_shard_slotting_launches(cuda_device, ranks, buckets,
+                                       launches, monkeypatch):
+    """A mesh's slotting step: one bucket_slots launch for all ranks'
+    records while ranks x buckets fit the kernel's 256 (rank r's ids
+    offset by r x buckets), one a group of ranks that fits past it; each
+    rank's slots equal its own plain call's, invalid ids -1, and a CUDA
+    tensor never reaches the plain version."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(ranks * buckets)
+    ids = rng.integers(-1, buckets + 1, (ranks, 3001)).astype(np.int32)
+    want = [sl_ops.bucket_slots_ref(torch.from_numpy(r), buckets)[0]
+            for r in ids]
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(sl_ops, "bucket_slots_ref", plain)
+    before = sl_ops.bucket_slots.launches
+    got = moe._shard_slots(to_torch(ids).to(cuda_device), buckets,
+                           use_kernel=True)
+    torch.cuda.synchronize(cuda_device)
+    assert sl_ops.bucket_slots.launches - before == launches == \
+        moe.shard_slot_calls(ranks, buckets)
+    for r in range(ranks):
+        assert_equal(got[r].cpu().numpy(), want[r].numpy(), f"rank {r}")
+
+
+@pytest.mark.cuda
+def test_mesh_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
+    """Phase 4m on deepseek-v2-lite's SMOKE stack in bf16 (MLA: no
+    flash_attention, whose head dims the SMOKE GQA stacks' 32 is not
+    one of) under the (2, 4) mesh: its gates hold and the launches are
+    the code's count."""
+    from repro_torch.configs import get_smoke_config
+    s = chip_smoke.phase_mesh_serve(
+        cuda_device, get_smoke_config(chip_smoke.MOE_ARCH), requests=4,
+        prompt_len=64, new_tokens=3)
+    assert s["launches"] == s["want_launches"]
+    assert s["runs"]["unsharded"]["launches"] == \
+        s["runs"]["unsharded"]["want_launches"]

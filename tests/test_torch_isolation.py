@@ -881,3 +881,97 @@ def test_smoke_frontend_phases_rehearse_on_cpu():
                 full, n_layers=chip_smoke.SERVE_LAYERS[arch])
         assert chip_smoke.serve_launches(full, 8, 8, 2048, 32) == \
             {"flash_attention": want}
+
+
+def test_the_scans_cover_the_mesh_modules():
+    """The import checks reach the virtual mesh, the sharding rules and
+    the collectives its shard_map lives in."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"distributed/mesh.py", "distributed/sharding.py",
+            "distributed/collectives.py", "launch/specs.py"} <= names
+
+
+def test_the_mesh_and_its_engines_need_a_card_unless_asked(monkeypatch):
+    """``local_mesh`` and ``make_mesh`` are on cuda unless the caller
+    names the CPU; without a card they raise. A mesh's operands must live
+    on its device: a CPU tensor under a cuda mesh raises (no fallback to
+    the CPU), and so does an engine whose mesh is elsewhere."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import mesh as tmesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine as eng
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tmesh.local_mesh((2, 4)),
+                 lambda: tmesh.make_mesh(MeshConfig((2, 4)))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cpu = tmesh.local_mesh((2, 4), device="cpu")
+    assert cpu.device == torch.device("cpu") and cpu.devices.shape == (2, 4)
+    cfg = get_smoke_config(chip_smoke.MOE_ARCH)
+    model = tf.init_model(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.ServeEngine(cfg, model, max_len=16, mesh=cpu)
+    card = tmesh.Mesh((2, 4), ("data", "model"), torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="on cuda:0"):
+        eng.ServeEngine(cfg, model, max_len=16, mesh=card, device="cpu")
+    x = torch.zeros((2, 8, cfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="meets a mesh on cuda:0"):
+        moe.moe_forward(cfg, model["blocks"][1]["moe"], x, mesh=card,
+                        dp_entry="data")
+    with pytest.raises(ValueError, match="meets a mesh on cuda:0"):
+        collectives.block(torch.zeros(8), ("data",), card)
+
+
+def test_smoke_mesh_phases_rehearse_on_cpu():
+    """Phases 4m and 5m at deepseek-v2-lite's SMOKE width on the CPU
+    (the kernels' plain versions: no launch), and their counts at the
+    full widths the card runs."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config(chip_smoke.MOE_ARCH)
+    s = chip_smoke.phase_mesh_serve(cpu, cfg, requests=2, prompt_len=16,
+                                    new_tokens=2)
+    chip_smoke.print_mesh_serve(s)
+    assert s["launches"] == {"bucket_slots": 0}
+    # 2 MoE layers: 2 pipeline steps of 3 (peer and expert slotting for
+    # all 8 shards in one call each), then one replicated decode step
+    assert s["want_launches"] == {"bucket_slots": 2 * (3 * 2 + 1)}
+    assert s["slots"]["calls"] == 12 and s["slots"]["decode_calls"] == 2
+    assert s["slots"]["shapes"] == [(16, 16), (32, 32), (64, 16)]
+    assert s["no_drop_factor"] >= cfg.capacity_factor
+    assert max(s["against_unsharded"]["err_over_max"].values()) \
+        <= chip_smoke.MESH_LOGITS_TOL
+    t = chip_smoke.phase_mesh_train(cpu, cfg, seq=16, batch=4, microbatch=2,
+                                    steps=2)
+    chip_smoke.print_mesh_train(t)
+    assert t["launches"] == {}
+    assert t["want_launches"] == {"bucket_slots": 2 * 6 * 2 * 2 * 2}
+    assert t["step0_rel"] <= chip_smoke.MESH_TRAIN_RTOL
+
+    full = {a: dataclasses.replace(get_config(a), n_layers=n)
+            for a, n in chip_smoke.MESH_ARCHS.items()}
+    ds, l4 = full[chip_smoke.MOE_ARCH], full[chip_smoke.LLAMA4_ARCH]
+    assert chip_smoke.mesh_slot_shapes(ds, 8, 2048) == \
+        [(24_576, 32), (30_752, 128)] * 5
+    assert chip_smoke.mesh_slot_shapes(ds, 8, 1) == [(192, 128)]
+    assert chip_smoke.mesh_slot_shapes(l4, 8, 2048) == \
+        [(4_096, 32), (5_152, 256)] * 5
+    assert chip_smoke.mesh_serve_launches(ds, 8, 2048, 16) == {
+        "bucket_slots": 3 * (10 + 15)}
+    assert chip_smoke.mesh_serve_launches(l4, 8, 2048, 16) == {
+        "flash_attention": 2, "bucket_slots": 10 + 15}
+    # past 256 buckets: one call a group of shards that fits
+    wide = dataclasses.replace(l4, n_experts=512)
+    assert chip_smoke.mesh_slot_shapes(wide, 8, 1) == [(8, 256)] * 4
+    run, _, _ = chip_smoke.train_state(cfg, cpu, 512, 8, 4, 1,
+                                       mesh=chip_smoke._mesh(cpu))
+    deep = dataclasses.replace(get_config(chip_smoke.MOE_ARCH),
+                               n_layers=chip_smoke.TRAIN_LAYERS[
+                                   chip_smoke.MOE_ARCH])
+    assert chip_smoke.mesh_train_launches(
+        deep, dataclasses.replace(run, model=deep), 3) == {
+        "bucket_slots": 3 * 10 * 2 * 2 * 3}

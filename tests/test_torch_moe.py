@@ -227,17 +227,42 @@ def test_the_plain_path_never_reaches_the_wrapper(monkeypatch):
 @pytest.mark.parametrize("what", ["mesh", "dp_entry", "unroll",
                                   "replicated", "a2a"])
 def test_sharded_parts_raise(what):
-    jcfg, tcfg = _cfgs()
-    _, tp = _params(jcfg)
-    _, x = _x(tcfg, "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        if what == "mesh":
-            tmoe.moe_forward(tcfg, tp, x, mesh=object())
-        elif what == "dp_entry":
-            tmoe.moe_forward(tcfg, tp, x, dp_entry="data")
-        elif what == "unroll":
+    """``unroll`` raises, naming its ROADMAP item. The sharded parts run
+    (their parity with the reference's ``shard_map`` on 8 devices is
+    ``test_torch_mesh_moe.py``'s), and each case holds one here: the
+    layer under a (2, 4) mesh at a capacity no shard overflows equals the
+    reference's unsharded layer; ``dp_entry`` without a mesh is ignored,
+    as the reference ignores it; the replicated dispatch on one shard
+    equals the reference's; ``_a2a`` over "model" delivers block j of
+    rank i to rank j as ``lax.all_to_all(x, axis, 0, 0)`` does."""
+    from repro_torch.distributed.mesh import local_mesh
+    jcfg, tcfg = _cfgs(capacity_factor=8.0)
+    jp, tp = _params(jcfg)
+    jx, x = _x(tcfg, "float32", shape=(4, 8))
+    if what == "unroll":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             tmoe.moe_forward(tcfg, tp, x, unroll=True)
-        elif what == "replicated":
-            tmoe._dispatch_replicated(tcfg, tp, x[0], None, None, 8, "model")
-        else:
-            tmoe._a2a(x, "model")
+    elif what in ("mesh", "dp_entry"):
+        want_y, want_aux = jmoe.moe_forward(jcfg, jp, jx, dp_entry="data")
+        mesh = local_mesh((2, 4), device=CPU) if what == "mesh" else None
+        got_y, got_aux = tmoe.moe_forward(tcfg, tp, x, mesh=mesh,
+                                          dp_entry="data")
+        _close(got_y, want_y, "float32", what)
+        np.testing.assert_allclose(float(got_aux), float(want_aux),
+                                   rtol=1e-5)
+    elif what == "replicated":
+        E = tcfg.n_experts
+        ids, gates, _ = jmoe._route(jcfg, jp["router"], jx[0])
+        want = jmoe._dispatch_replicated(jcfg, jp, jx[0], ids, gates, E,
+                                         None)
+        got = tmoe._dispatch_replicated(
+            tcfg, tp, x[:1], torch.from_numpy(np.asarray(ids))[None],
+            torch.from_numpy(np.asarray(gates))[None], E, None)
+        _close(got[0], want, "float32", what)
+    else:
+        mesh = local_mesh((2, 4), device=CPU)
+        blocks = torch.arange(2 * 4 * 4 * 3).reshape(8, 4, 3)
+        got = tmoe._a2a(blocks, "model", mesh).view(2, 4, 4, 3)
+        want = blocks.view(2, 4, 4, 3).transpose(1, 2)
+        assert torch.equal(got, want)
+        assert torch.equal(tmoe._a2a(blocks, None), blocks)

@@ -346,45 +346,77 @@ def test_cells_are_the_reference_cells():
 @pytest.mark.parametrize("what", ["hybrid", "moe", "mla", "first_k_dense",
                                   "encoder", "frontend", "unroll"])
 def test_unported_parts_raise(what):
-    """What the port does not run raises, naming its ROADMAP item. MoE,
-    MLA and first_k_dense stacks build and serve (test_torch_mla_serve),
-    and so do hybrid ones (test_torch_hybrid_serve), whisper's encoder
-    (test_torch_whisper_serve) and internvl2's vision prefix
-    (test_torch_internvl2_serve), so their cases hold what of them stays
-    unported: the MoE layer under a mesh, MLA decode over a seq-sharded
-    cache, the replicated decode-time dispatch of deepseek-v2-lite's
-    expert layers, the hybrid stack and the vision prefix under a mesh,
-    and the encoder's cost-exact unrolled attention."""
+    """What the port does not run raises, naming its ROADMAP item: the
+    cost-exact unrolled attention (``unroll``, the encoder's too). The
+    other cases hold what the mesh now runs (held to the reference's
+    ``shard_map`` in ``test_torch_mesh_*.py``): under a (2, 4) mesh at
+    a capacity no shard overflows, the MoE layer, the hybrid stack and
+    the vision prefix compute the unpartitioned function, MLA decode
+    over a seq-sharded cache gives the unsharded output and cache, and
+    deepseek-v2-lite's decode step (a leading dense layer, then expert
+    layers dispatched replicated) the unsharded logits."""
+    from repro_torch.distributed.mesh import local_mesh
     from repro_torch.models import attention as tattn
     from repro_torch.models import moe as tmoe
-    cfg = tregistry.get_smoke_config("olmo-1b")
-    ds = tregistry.get_smoke_config("deepseek-v2-lite-16b")
-    toks = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    x = torch.zeros((1, 8, ds.d_model))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        if what in ("hybrid", "encoder", "frontend"):
-            arch = {"hybrid": "jamba-v0.1-52b", "encoder": "whisper-tiny",
-                    "frontend": "internvl2-26b"}[what]
-            c = tregistry.get_smoke_config(arch)
-            batch = dict(toks, frontend_embeds=torch.zeros((1, 4,
-                                                            c.d_model)))
+    mesh = local_mesh((2, 4), device=CPU)
+
+    def smoke(arch):
+        return dataclasses.replace(tregistry.get_smoke_config(arch),
+                                   dtype="float32", param_dtype="float32",
+                                   capacity_factor=8.0)
+    cfg, ds = smoke("olmo-1b"), smoke("deepseek-v2-lite-16b")
+    toks = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 8)).astype(np.int32))}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 8, ds.d_model)).astype(np.float32))
+
+    def same(a, b):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    if what in ("encoder", "unroll"):
+        c = smoke("whisper-tiny") if what == "encoder" else cfg
+        batch = dict(toks, frontend_embeds=torch.zeros((2, 4, c.d_model)))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             ttf.forward(c, ttf.init_model(c, 0, device=CPU), batch,
-                        **({"unroll": True} if what == "encoder"
-                           else {"mesh": object()}))
-        elif what in ("moe", "mla", "first_k_dense"):
-            layer = ttf.init_model(ds, 0, device=CPU)["blocks"][1]
-            if what == "moe":
-                tmoe.moe_forward(ds, layer["moe"], x, mesh=object())
-            elif what == "mla":
-                cache = ttf.init_cache(ds, 1, 16, device=CPU)["blocks"][1]
-                tattn.mla_decode(ds, layer["attn"], x[:, :1], cache, 8,
-                                 mesh=object())
-            else:
-                tmoe._dispatch_replicated(ds, layer["moe"], x[0], None,
-                                          None, ds.n_experts, "model")
+                        unroll=True)
+    elif what in ("hybrid", "frontend"):
+        c = smoke("jamba-v0.1-52b" if what == "hybrid" else "internvl2-26b")
+        batch = dict(toks, frontend_embeds=torch.from_numpy(
+            np.random.default_rng(2).standard_normal(
+                (2, 4, c.d_model)).astype(np.float32)))
+        model = ttf.init_model(c, 0, device=CPU)
+        want = ttf.forward(c, model, batch)
+        got = ttf.forward(c, model, batch, mesh=mesh, dp_entry="data")
+        same(got[0], want[0])
+        same(got[1], want[1])
+    else:
+        model = ttf.init_model(ds, 0, device=CPU)
+        layer = model["blocks"][1]
+        if what == "moe":
+            for a, b in zip(tmoe.moe_forward(ds, layer["moe"], x, mesh=mesh,
+                                             dp_entry="data"),
+                            tmoe.moe_forward(ds, layer["moe"], x)):
+                same(a, b)
+        elif what == "mla":
+            caches = [ttf.init_cache(ds, 2, 16, device=CPU)["blocks"][1]
+                      for _ in range(2)]
+            for c in caches:
+                c["ckv"].copy_(torch.from_numpy(np.random.default_rng(
+                    3).standard_normal(c["ckv"].shape).astype(np.float32)))
+            got = tattn.mla_decode(ds, layer["attn"], x[:, :1], caches[0],
+                                   8, mesh=mesh, dp_entry="data")
+            want = tattn.mla_decode(ds, layer["attn"], x[:, :1], caches[1],
+                                    8)
+            same(got[0], want[0])
+            assert torch.equal(caches[0]["ckv"], caches[1]["ckv"])
         else:
-            model = ttf.init_model(cfg, 0, device=CPU)
-            ttf.forward(cfg, model, toks, unroll=True)
+            cache = ttf.init_cache(ds, 2, 16, device=CPU)
+            tok = toks["tokens"][:, :1]
+            got = ttf.decode_step(ds, model, cache, tok, 3, mesh=mesh,
+                                  dp_entry="data")[0]
+            want = ttf.decode_step(ds, model, ttf.init_cache(
+                ds, 2, 16, device=CPU), tok, 3)[0]
+            same(got, want)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -312,9 +312,21 @@ def test_launch_train_checkpoints_and_resumes_to_the_same_losses(tmp_path):
 @pytest.mark.parametrize("flags", [["--devices", "2"],
                                    ["--devices", "2", "--mesh", "1x2"],
                                    ["--mesh", "2x1"]])
-def test_launch_train_refuses_more_than_one_device(flags):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlaunch.main(["--smoke", "--device", "cpu", *flags])
+def test_launch_train_refuses_more_than_one_device(flags, capsys):
+    """More than one device trains under a mesh of virtual ranks on the
+    CPU: ``--devices 2`` is 2 x 1, ``--mesh 1x2`` one data rank and two
+    model ranks. A mesh whose D x M is not ``--devices`` is refused, as
+    the reference's launcher asserts."""
+    args = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+            "--seq", "16", *flags]
+    if flags == ["--mesh", "2x1"]:
+        with pytest.raises(AssertionError, match="2, 1, 1"):
+            tlaunch.main(args)
+        return
+    losses = tlaunch.main(args)
+    mesh = flags[-1] if "--mesh" in flags else "2x1"
+    assert f"mesh {mesh}" in capsys.readouterr().out
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_launch_train_without_a_card_raises(monkeypatch):
@@ -324,9 +336,22 @@ def test_launch_train_without_a_card_raises(monkeypatch):
 
 
 def test_make_train_step_refuses_a_mesh():
-    _, tcfg = _cfgs("olmo-1b")
+    """``unroll`` raises, naming its ROADMAP item; a mesh and a dp entry
+    are taken, and olmo-1b's step (no MoE layer, so nothing to shard on
+    one card) under a (2, 4) mesh equals the unsharded step's loss."""
+    from repro_torch.distributed.mesh import local_mesh
+    jcfg, tcfg = _cfgs("olmo-1b")
     _, run = _runs(tcfg, tcfg, 0)
-    for kw in (dict(mesh=object()), dict(dp_entry="data"),
-               dict(unroll=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tts.make_train_step(tcfg, run, **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tts.make_train_step(tcfg, run, unroll=True)
+    np_params = jax.tree.map(np.asarray,
+                             jtf.init_model(jcfg, jax.random.key(0)))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
+    losses = []
+    for kw in ({}, dict(mesh=local_mesh((2, 4), device=CPU),
+                        dp_entry="data")):
+        state = tts.init_train_state(tcfg, run.train, params_from_numpy(
+            tcfg, np_params, CPU))
+        losses.append(float(tts.make_train_step(tcfg, run, **kw)(
+            state, batch)[1]["loss"]))
+    assert losses[0] == losses[1]

@@ -69,3 +69,41 @@ def same_routing(calls: list, dtype: str, flips: list, tie=None):
     with mock.patch.object(tmoe, "_route", route):
         yield
     assert next(it, None) is None, "the port routed fewer calls"
+
+
+@contextlib.contextmanager
+def mesh_recording(calls: list, axes=("data", "model")):
+    """``recording`` for the reference's MoE calls inside a ``shard_map``
+    over ``axes``: each device's call appends (its index along each
+    axis, its expert ids) through an unordered debug callback (an
+    ordered one is refused there); ``jax.effects_barrier()`` before
+    reading, then ``assemble``."""
+    from jax import lax
+    real = jmoe._route
+
+    def route(cfg, router_w, x_flat):
+        out = real(cfg, router_w, x_flat)
+        jax.debug.callback(
+            lambda ids, *at: calls.append(
+                (tuple(int(a) for a in at), np.asarray(ids))),
+            out[0], *(lax.axis_index(a) for a in axes))
+        return out
+
+    with mock.patch.object(jmoe, "_route", route):
+        yield
+
+
+def assemble(calls: list, mesh_shape) -> list:
+    """The per-device calls of ``mesh_recording`` as the port makes them:
+    its MoE region routes every rank's tokens in one ``_route`` call, rank
+    after rank in mesh order. A device's calls arrive in its program
+    order; the k-th call of each device makes the k-th routing."""
+    by_rank: dict = {}
+    for at, ids in calls:
+        by_rank.setdefault(at, []).append(ids)
+    ranks = sorted(by_rank)
+    assert len(ranks) == int(np.prod(mesh_shape)), (len(ranks), mesh_shape)
+    n = {len(v) for v in by_rank.values()}
+    assert len(n) == 1, n
+    return [np.concatenate([by_rank[r][k] for r in ranks])
+            for k in range(n.pop())]

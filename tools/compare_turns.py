@@ -5,8 +5,9 @@ training.
 
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
-                  elastic,serve,train]
-        [--archs ARCH,...] [--train-archs ARCH,...] [--out FILE]
+                  elastic,serve,train,mesh,mesh_train]
+        [--archs ARCH,...] [--train-archs ARCH,...]
+        [--mesh-archs ARCH,...] [--out FILE]
 
 Phases 3b-3i of ``chip_smoke.py`` on their own, on one CUDA card (its
 ``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
@@ -28,7 +29,11 @@ the MoE stack alone, ``--archs jamba-v0.1-52b`` one period of the hybrid
 stack). ``train`` is phase 5 (``phase_trains``: ``phase_train`` with its
 checks) for each arch of ``--train-archs`` (default: every arch of
 ``TRAIN_ARCHS``: olmo-1b, which reaches no kernel, and deepseek-v2-lite
-cut to 4 layers, whose MoE layers slot through bucket_slots).
+cut to 4 layers, whose MoE layers slot through bucket_slots). ``mesh``
+is phase 4m (``phase_mesh_serves``: each arch of ``--mesh-archs``,
+default every arch of ``MESH_ARCHS``, served under the virtual 2 x 4
+mesh and unsharded), ``mesh_train`` phase 5m (``phase_mesh_trains``:
+deepseek-v2-lite at 4 layers under the mesh and unsharded).
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -54,6 +59,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="compare,snapshots")
     ap.add_argument("--archs", default=",".join(cs.SERVE_ARCHS))
     ap.add_argument("--train-archs", default=",".join(cs.TRAIN_ARCHS))
+    ap.add_argument("--mesh-archs", default=",".join(cs.MESH_ARCHS))
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,7 +70,7 @@ def main(argv=None) -> int:
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
               if set(phases) - {"keyskew", "coded", "crossjob", "serve",
-                                "train"}
+                                "train", "mesh", "mesh_train"}
               else None)
     out = {}
     for phase in phases:
@@ -89,7 +95,12 @@ def main(argv=None) -> int:
                       lambda out: None),    # printed arch by arch
             "train": (lambda: cs.phase_trains(
                 device, args.train_archs.split(",")),
-                      lambda out: None)}[phase]    # printed arch by arch
+                      lambda out: None),    # printed arch by arch
+            "mesh": (lambda: cs.phase_mesh_serves(
+                device, args.mesh_archs.split(",")),
+                     lambda out: None),     # printed arch by arch
+            "mesh_train": (lambda: cs.phase_mesh_trains(device),
+                           lambda out: None)}[phase]
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
