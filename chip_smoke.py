@@ -80,7 +80,7 @@ Phases, each of which asserts (nothing is caught):
                numpy oracle and the kernel launched once a step on the
                main path, each step a CUDA graph replay; the feed's
                prefetch hits and its host seconds a segment; on a
-               2**24-token corpus of the same width the fused job, its
+               2**22-token corpus of the same width the fused job, its
                eager step loop (the graph's baseline) and the unfused
                job (~9x slower), all equal; then, over a segment whose
                input is read, the graph's and the eager loop's host
@@ -111,7 +111,7 @@ Phases, each of which asserts (nothing is caught):
                ``replan_handle``; every job's records equal to the
                uninterrupted job's;
   3d. keyskew — the reference's fig10_keyskew: ``ZipfSource`` keys at
-               a 1.3 and 1.8 (2**25 tokens, read once into host memory) at
+               a 1.3 and 1.8 (2**24 tokens, read once into host memory) at
                phase 3's width on the unbalanced grid, each partitioner
                (hash, sampled, sampled+split with split_threshold 0.05)
                through the fused 1S without and with stealing, and a 2S
@@ -319,6 +319,36 @@ Phases, each of which asserts (nothing is caught):
                at, step 0's loss under the mesh within 1e-2 relative of
                the unsharded step 0's. The median ms a step and peak
                memory of each;
+  5p. train-pp — olmo-1b at full width trained by GPipe over the pod
+               axis of a virtual (pod 2, data 2) mesh
+               (``distributed/pipeline.py``): on one batch from a fresh
+               state, step 0's loss within 1e-2 (relative) of
+               ``loss_fn``'s and its gradients within 1e-2 of each
+               leaf's max of ``make_train_step``'s (A = 1, unsharded),
+               the forward's collective-permutes M + S - 1 = 5, each one
+               (2, 512, 2048) bf16 block of one pod rank; then 4 steps
+               of ``make_pp_train_step`` (8 x 512 tokens, M = 4, full
+               remat) behind the ``DoubleBufferedLoader`` and 4
+               unsharded steps on the same batches: losses finite,
+               the pipelined ones falling and each within 1e-2
+               (relative) of the unsharded step's, every step's
+               permutes as step 0's, no kernel launched (the
+               reference's pipeline reaches no Pallas kernel); ms a
+               step by CUDA events, tokens/s and peak memory of each,
+               the bubble fraction;
+  2f. dryrun — the dry run (``launch/dryrun.py``): (a) in a child
+               process, alone on the host (it needs no card;
+               ``--dryrun-child``), ``DRYRUN_CELLS`` at full width on
+               meta tensors over the production meshes (olmo-1b
+               train_4k calibrated, prefill_32k, decode_32k and
+               ``pp_pod``; deepseek-v2-lite-16b train_4k), every cell
+               ``ok``, each cell's per-device argument bytes, FLOPs,
+               collective bytes and seconds; (b) olmo-1b's prefill
+               (``unroll=True``, plain path) at 8 x 2048 on meta and
+               on the card under the same counters: FLOPs equal, the
+               collective records equal, meta's peak live bytes within
+               15 % of the rise of ``max_memory_allocated`` over the
+               card's call;
   6. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
@@ -326,8 +356,8 @@ The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
 3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
 each rank count's part of 3i, each arch of 4, each training run of 5,
-each engine's run of 4m and each training run of 5m) and read just
-after it.
+each engine's run of 4m and each training run of 5m and 5p) and read
+just after it.
 
 Exits non-zero, printing no result, when no CUDA card is present.
 """
@@ -364,9 +394,9 @@ FLOPS_PER_S = {"bfloat16": BF16_FLOPS_PER_S, "float32": SCALAR_OPS_PER_S}
 VOCAB, N_PROCS, TASK, CAP, SEGMENT = 262_144, 8, 256, 64, 512
 N_TOKENS = 2**27
 # the fused-vs-unfused comparison's corpus: the unfused job takes ~4 us a
-# token on an H100 (113.6-139.4 s at 2**25), so it runs at 2**24 to keep
-# the smoke within 800 s
-N_UNFUSED = 2**24
+# token on an H100 (60.2-63.5 s at 2**24 on one host), so it runs at 2**22
+# to keep the smoke, with 2f's dry run in line, under 950 s
+N_UNFUSED = 2**22
 
 
 # the served configurations at full width (width as published, depth as
@@ -2718,8 +2748,10 @@ def print_compare(c: dict, w: Width = FULL):
 
 # 3d: the reference's fig10_keyskew, its real-run half: Zipf keys at two
 # skews, each partitioner through the fused 1S without and with stealing,
-# and one 2S job with hot keys split
-KEYSKEW_N = 2**25
+# and one 2S job with hot keys split; at 2**24 tokens (the phase took
+# 16.0 s on an H100) to keep the smoke, with 2f's dry run in line, under
+# 950 s
+KEYSKEW_N = 2**24
 KEYSKEW_A = (1.3, 1.8)
 PARTITIONERS = ("hash", "sampled", "sampled+split")
 # the sampled histogram counts a key once a task, so a key weighs at most
@@ -5387,6 +5419,348 @@ def print_mesh_train(t: dict):
 
 
 # ---------------------------------------------------------------------------
+# 5p. train pipelined over the pod axis; 2f. the dry run on meta tensors
+# ---------------------------------------------------------------------------
+
+# 5p: olmo-1b at full width over a virtual (pod 2, data 2) mesh, GPipe
+# over "pod" (``distributed/pipeline.py``): 8 x 512 tokens, M = 4
+# microbatches, full remat, 4 steps, against ``make_train_step`` at A = 1
+# unsharded on the same batches
+PP_MESH, PP_AXES = (2, 2), ("pod", "data")
+PP_MICROBATCHES, PP_STEPS = 4, 4
+# step 0: the loss (relative) and each gradient leaf (over its max)
+# against the unsharded step's; every step's loss against the unsharded
+# step's on the same batch
+PP_RTOL = 1e-2
+# 2f: the dry run's cells on meta (part (a), in a child process that
+# needs no card): (arch, shape, multipod, variant, calibrate)
+DRYRUN_CELLS = (("olmo-1b", "train_4k", False, "base", True),
+                ("olmo-1b", "prefill_32k", False, "base", False),
+                ("olmo-1b", "decode_32k", False, "base", False),
+                ("olmo-1b", "train_4k", True, "pp_pod", False),
+                (MOE_ARCH, "train_4k", False, "base", False))
+DRYRUN_TIMEOUT = 900
+# part (b): meta's peak live bytes against the card's rise of
+# ``max_memory_allocated`` over the same program
+DRYRUN_PEAK_RTOL = 0.15
+
+
+def _pp():
+    _port()
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.distributed.mesh import local_mesh
+    from repro_torch.launch import hlo_stats
+    return pp, local_mesh, hlo_stats
+
+
+def _leaf_rels(names, got, want) -> dict:
+    """Each leaf's max |got - want| over max |want|, by name."""
+    return {n: ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+            for n, a, b in zip(names, got, want)}
+
+
+def phase_pp_train(device, cfg, seq: int = TRAIN_SEQ,
+                   batch: int = TRAIN_BATCH, steps: int = PP_STEPS,
+                   M: int = PP_MICROBATCHES) -> dict:
+    """Phase 5p: step 0's gates on one batch from a fresh state (seed 0):
+    ``gpipe_loss_fn``'s loss within ``PP_RTOL`` (relative) of
+    ``loss_fn``'s and its gradients (summed over the microbatches in the
+    run's ``accum_dtype``, as ``make_pp_train_step`` sums them) within
+    ``PP_RTOL`` of each leaf's max of ``make_train_step``'s (A = 1,
+    unsharded), and the forward's
+    collective-permutes M + S - 1, each one (B / M, seq, d) block of one
+    pod rank; then ``steps`` steps of ``make_pp_train_step`` behind the
+    ``DoubleBufferedLoader`` (the main path: counts zeroed just before,
+    read just after; no kernel is launched, the reference's pipeline
+    reaching no Pallas kernel) and as many unsharded steps on the same
+    batches, each step timed by CUDA events and its permutes recorded:
+    losses finite, the pipelined ones falling and each within
+    ``PP_RTOL`` (relative) of the unsharded step's on the same batch,
+    every step's permutes as step 0's."""
+    config, _, corpus, pipeline, _, tf, _ = _train()
+    pp, local_mesh, hlo_stats = _pp()
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    mesh = local_mesh(PP_MESH, PP_AXES, device)
+    S = mesh.axis_size("pod")
+    n_perm = M + S - 1
+    block = (batch // M) * seq * cfg.d_model * torch.empty(
+        (), dtype=getattr(torch, cfg.dtype)).element_size()
+    stream = corpus.lm_token_stream(TRAIN_TOKENS, cfg.vocab_size, seed=0)
+    fixed = {k: torch.from_numpy(v).to(device) for k, v in
+             next(pipeline.lm_batches(stream, batch, seq, seed=1)).items()}
+
+    run, fn, state = train_state(cfg, device, seq, batch, batch, steps)
+    names = [n for n, _ in state.params.named_parameters()]
+    leaves = list(state.params.parameters())
+    g_ref, loss_ref, _ = fn.grads(state, fixed)
+    with hlo_stats.CollectiveCounter() as cc:
+        loss_pp, _ = pp.gpipe_loss_fn(
+            cfg, state.params, fixed, mesh=mesh, n_microbatches=M,
+            remat=run.train.remat_policy,
+            accum_dtype=getattr(torch, run.train.accum_dtype))
+    g_pp = torch.autograd.grad(loss_pp, leaves)
+    rels = _leaf_rels(names, g_pp, g_ref)
+    loss_pp = float(loss_pp.detach())
+    step0 = dict(loss=loss_pp, loss_unsharded=float(loss_ref),
+                 loss_rel=_rel(loss_pp, float(loss_ref)),
+                 grad_rel=max(rels.values()),
+                 worst_leaves=sorted(rels.items(), key=lambda kv: -kv[1])[:3],
+                 collectives=hlo_stats.collective_bytes(cc.records))
+    del g_ref, g_pp, loss_pp, state, fn, leaves
+    assert step0["loss_rel"] <= PP_RTOL, step0
+    assert step0["grad_rel"] <= PP_RTOL, step0
+    col = step0["collectives"]
+    assert (col["n_collective-permute"],
+            col["collective-permute_result_bytes"]) == \
+        (n_perm, n_perm * block), (col, n_perm, block)
+
+    runs = {}
+    for name in ("pipelined", "unsharded"):
+        run, fn, state = train_state(cfg, device, seq, batch, batch, steps)
+        if name == "pipelined":
+            fn = pp.make_pp_train_step(cfg, run.train, mesh=mesh,
+                                       n_microbatches=M)
+        loader = pipeline.DoubleBufferedLoader(
+            pipeline.lm_batches(stream, batch, seq), device)
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        losses, marks, perms = [], [], []
+        for _, b in zip(range(steps), loader):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if cuda else []
+            with hlo_stats.CollectiveCounter() as cc:
+                if cuda:
+                    ev[0].record()
+                state, m = fn(state, b)
+                if cuda:
+                    ev[1].record()
+            losses.append(m["loss"])
+            marks.append(ev)
+            perms.append(hlo_stats.collective_bytes(cc.records))
+        _sync(device)
+        launches = {k: f.launches for k, f in wrappers().items()
+                    if f.launches}
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        losses = [float(x) for x in losses]
+        step_ms = [a.elapsed_time(b) for a, b in marks] if cuda else []
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        assert not launches, (name, launches)
+        med = float(np.median(step_ms)) if cuda else None
+        runs[name] = dict(losses=losses, step_ms=step_ms,
+                          median_step_ms=med,
+                          tokens_per_s=seq * batch / med * 1e3 if cuda
+                          else None, peak_bytes=peak, launches=launches,
+                          collectives=perms[0])
+        if name == "pipelined":
+            assert losses[-1] < losses[0], losses
+            assert all(p == col for p in perms), (perms, col)
+        del state, fn, loader
+        if cuda:
+            torch.cuda.empty_cache()
+    pp_losses, un_losses = (runs[n]["losses"]
+                            for n in ("pipelined", "unsharded"))
+    assert all(_rel(a, b) <= PP_RTOL for a, b in zip(pp_losses, un_losses)), \
+        (pp_losses, un_losses)
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                mesh=PP_MESH, axes=PP_AXES, seq=seq, batch=batch,
+                microbatches=M, stages=S, steps=steps, remat="full",
+                bubble=(S - 1) / (M + S - 1), step0=step0, runs=runs,
+                permutes_per_step=n_perm, permute_block_bytes=block,
+                seconds=time.perf_counter() - t_phase)
+
+
+def phase_pp_trains(device) -> dict:
+    """Phase 5p for ``TRAIN_ARCH`` at full width, printed as it ends."""
+    get_config, _, _ = _serve()
+    out = {TRAIN_ARCH: phase_pp_train(device, get_config(TRAIN_ARCH))}
+    print_pp_train(out[TRAIN_ARCH])
+    return out
+
+
+def print_pp_train(t: dict):
+    pp, un = t["runs"]["pipelined"], t["runs"]["unsharded"]
+    s0, col = t["step0"], t["step0"]["collectives"]
+    print(f"train-pp: {t['arch']} at full width ({t['n_layers']} layers, d "
+          f"{t['d_model']}), GPipe over pod of a virtual "
+          f"{t['mesh'][0]}x{t['mesh'][1]} {t['axes']} mesh, {t['steps']} "
+          f"steps of {t['batch']} x {t['seq']} tokens, M = "
+          f"{t['microbatches']}, remat {t['remat']}: losses {pp['losses']} "
+          f"(unsharded A = 1 {un['losses']}); no kernel launched")
+    print(f"train-pp: step 0 loss {s0['loss']:.6f} against loss_fn's "
+          f"{s0['loss_unsharded']:.6f} (rel {s0['loss_rel']:.3e}), gradients "
+          f"within {s0['grad_rel']:.3e} of each leaf's max (limit "
+          f"{PP_RTOL}); forward permutes {col['n_collective-permute']} of "
+          f"{col['collective-permute_result_bytes']:,} B (M + S - 1 = "
+          f"{t['permutes_per_step']} x {t['permute_block_bytes']:,} B), "
+          f"all-reduces {col.get('n_all-reduce', 0)}")
+    if pp["median_step_ms"] is not None:
+        print(f"train-pp: median step {pp['median_step_ms']:.2f} ms, "
+              f"{pp['tokens_per_s']:,.0f} tokens/s, peak "
+              f"{pp['peak_bytes'] / 2**30:.2f} GiB (unsharded "
+              f"{un['median_step_ms']:.2f} ms, {un['tokens_per_s']:,.0f} "
+              f"tokens/s, {un['peak_bytes'] / 2**30:.2f} GiB; CUDA events, "
+              f"steps {pp['step_ms']} / {un['step_ms']}); bubble "
+              f"{t['bubble']:.3f}; {t['seconds']:.1f} s")
+
+
+def dryrun_cells(out_dir: str) -> list:
+    """Phase 2f (a): each of ``DRYRUN_CELLS`` through
+    ``launch.dryrun.run_cell`` on meta tensors over the production mesh,
+    its JSON under ``out_dir``."""
+    _port()
+    from repro_torch.launch import dryrun as dr
+    return [dr.run_cell(arch, shape, multi_pod=mp, do_calibrate=cal,
+                        out_dir=out_dir, variant=variant)
+            for arch, shape, mp, variant, cal in DRYRUN_CELLS]
+
+
+def dryrun_child(out: str) -> int:
+    """The smoke's child for 2f (a): the cells on meta, one thread, no
+    card; their records as JSON into ``out``."""
+    import tempfile
+    torch.set_num_threads(1)
+    os.nice(10)             # a low priority: it needs no card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as d:
+        recs = dryrun_cells(d)
+    Path(out).write_text(json.dumps({"cells": recs,
+                                     "wall_s": time.perf_counter() - t0}))
+    return 0
+
+
+def start_dryrun() -> dict:
+    """Start 2f (a) in a child process (it needs no card); the child is
+    stopped at exit if it still runs."""
+    import atexit
+    import tempfile
+    d = tempfile.mkdtemp(prefix="smoke-dryrun-")
+    out, log = os.path.join(d, "cells.json"), os.path.join(d, "child.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+             out], stdout=f, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return dict(proc=proc, out=out, log=log)
+
+
+def meta_against_card(device, cfg, B: int = BATCH,
+                      S: int = PROMPT_LEN) -> dict:
+    """Phase 2f (b): ``prefill(unroll=True)`` of ``cfg`` at (B, S),
+    unsharded, plain path, measured by ``dryrun.measure`` once on meta
+    and once on the card (after a warm-up call): FLOPs equal, the
+    collective records equal, meta's peak live bytes within
+    ``DRYRUN_PEAK_RTOL`` of the rise of ``max_memory_allocated`` over
+    the card's call."""
+    _, _, _, _, _, tf, _ = _train()
+    from repro_torch.launch import dryrun as dr
+    fn = functools.partial(tf.prefill, cfg, unroll=True)
+    recs = {}
+    for where in ("meta", "card"):
+        dev = torch.device("meta") if where == "meta" else device
+        params = tf.init_model(cfg, 0, device=dev)
+        tokens = (torch.empty((B, S), dtype=torch.int32, device=dev)
+                  if where == "meta" else torch.randint(
+                      0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                      device=dev, generator=torch.Generator(
+                          device=dev).manual_seed(0)))
+        args = (params, {"tokens": tokens})
+        cuda = where == "card" and device.type == "cuda"
+        if cuda:
+            fn(*args)                           # warm-up
+            _sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        rec = dr.measure(fn, args, None, n_devices=1)
+        if cuda:
+            _sync(device)
+            rec["card_rise_bytes"] = \
+                torch.cuda.max_memory_allocated(device) - base
+        recs[where] = rec
+        del params, tokens, args
+    meta, card = recs["meta"], recs["card"]
+    assert meta["cost_analysis"]["flops_total"] == \
+        card["cost_analysis"]["flops_total"], recs
+    assert meta["collectives"] == card["collectives"], recs
+    ratio = None
+    if "card_rise_bytes" in card:       # the CPU has no allocator's peak
+        ratio = (meta["memory_analysis"]["peak_live_bytes"]
+                 / card["card_rise_bytes"])
+        assert abs(ratio - 1) <= DRYRUN_PEAK_RTOL, (ratio, recs)
+    return dict(arch=cfg.name, batch=B, seq=S, meta=meta, card=card,
+                peak_ratio=ratio,
+                card_peak_live_bytes=card["memory_analysis"][
+                    "peak_live_bytes"])
+
+
+def phase_dryrun(device) -> dict:
+    """Phase 2f: (a) the cells in a child, alone on the host (beside the
+    card's phases it slowed their host-bound timings:
+    ``tools/dryrun_beside.py``), every one ``ok``; (b) meta against the
+    card on olmo-1b's prefill at the served shape."""
+    get_config, _, _ = _serve()
+    t0 = time.perf_counter()
+    child = start_dryrun()
+    proc = child["proc"]
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    log = Path(child["log"]).read_text()
+    assert rc == 0, f"the dry run's child ended {rc}:\n{log[-4000:]}"
+    got = json.loads(Path(child["out"]).read_text())
+    cells = got["cells"]
+    bad = [(c["arch"], c["shape"], c.get("error", "")[-600:]) for c in cells
+           if c["status"] != "ok"]
+    assert not bad, bad
+    waited = time.perf_counter() - t0
+    versus = meta_against_card(device, get_config(TRAIN_ARCH))
+    return dict(cells=cells, child_wall_s=got["wall_s"], waited_s=waited,
+                meta_vs_card=versus, seconds=time.perf_counter() - t0)
+
+
+def print_dryrun(d: dict):
+    for c in d["cells"]:
+        f = c["full"]
+        ca, col = f["cost_analysis"], f["collectives"]
+        cal = c.get("calibration")
+        cal_s = (f"; calibrated: extrapolated flops/dev "
+                 f"{cal['extrapolated']['flops']:.4e}, minus the direct "
+                 f"count {cal['check']['flops']}" if cal else "")
+        print(f"dryrun: {c['arch']} x {c['shape']} x {c['mesh']}"
+              f"{'' if c['variant'] == 'base' else ' ' + c['variant']}: "
+              f"args/dev {f['memory_analysis']['argument_size_in_bytes']:,.0f}"
+              f" B, flops/dev {ca['flops']:.4e} (total "
+              f"{ca['flops_total']:.4e}), collectives/dev "
+              f"{col['total']:,.0f} B "
+              f"{ {k: v for k, v in col.items() if k.startswith('n_')} }, "
+              f"peak live {f['memory_analysis']['peak_live_bytes'] / 2**30:.2f}"
+              f" GiB, {f['measure_s']:.2f} s{cal_s}")
+    v = d["meta_vs_card"]
+    print(f"dryrun: {v['arch']} prefill at B {v['batch']} S {v['seq']} "
+          f"(unroll, plain path) on meta and on the card: flops "
+          f"{v['meta']['cost_analysis']['flops_total']:.6e} both, "
+          f"collectives equal; peak live bytes meta "
+          f"{v['meta']['memory_analysis']['peak_live_bytes']:,.0f} / card "
+          f"rise {v['card']['card_rise_bytes']:,.0f} = "
+          f"{v['peak_ratio']:.4f} (limit 1 +- {DRYRUN_PEAK_RTOL}); meta "
+          f"{v['meta']['measure_s']:.2f} s, card {v['card']['measure_s']:.2f} s")
+    print(f"dryrun: the child's cells took {d['child_wall_s']:.1f} s, "
+          f"{d['waited_s']:.1f} s from its start to its end; phase "
+          f"{d['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # 6. report
 # ---------------------------------------------------------------------------
 
@@ -5497,6 +5871,8 @@ def main(argv=()) -> int:
         return 1
     if argv[:1] == ["--memcheck-child"]:
         return memcheck_child(argv[1])
+    if argv[:1] == ["--dryrun-child"]:
+        return dryrun_child(argv[1])
     if argv:
         raise SystemExit(f"chip_smoke.py takes no arguments, got {argv}")
     device = torch.device("cuda", 0)
@@ -5706,6 +6082,9 @@ def main(argv=()) -> int:
     train = phase_trains(device, TRAIN_ARCHS)
     mesh_serves = phase_mesh_serves(device, MESH_ARCHS)
     mesh_train = phase_mesh_trains(device)
+    pp_train = phase_pp_trains(device)
+    dryrun = phase_dryrun(device)
+    print_dryrun(dryrun)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
@@ -5725,7 +6104,8 @@ def main(argv=()) -> int:
                                "times": lint_t},
                       "memcheck": memcheck, "guard": guard,
                       "serve": serves, "train": train,
-                      "mesh_serve": mesh_serves, "mesh_train": mesh_train}))
+                      "mesh_serve": mesh_serves, "mesh_train": mesh_train,
+                      "pp_train": pp_train, "dryrun": dryrun}))
 
     def by_arch(kernel: str) -> dict:
         return {**{a: r["launches"][kernel] for a, r in serves.items()

@@ -139,10 +139,13 @@ class Watch(TorchFunctionMode):
 
     # -- the collectives' observer -----------------------------------------
 
-    def collective(self, name: str, shapes: tuple, site: str):
+    def collective(self, name: str, shapes: tuple, site: str, **report):
+        """The collectives' observer. A named-axis collective of the model
+        stack (``mesh_*``, its operands led by the mesh's dims) is
+        recorded and checked under SPMD002 alone."""
         self.collectives.append((name, shapes, site))
-        lead = RANK_DIMS[name]
-        for shape in shapes:
+        lead = RANK_DIMS.get(name, 0)
+        for shape in shapes if lead else ():
             if tuple(shape[:lead]) != (self.P,) * lead:
                 self._emit(
                     "SPMD001", site,

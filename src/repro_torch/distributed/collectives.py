@@ -4,17 +4,20 @@ the P ranks as dim 0 of every tensor on one device.
 Lockstep semantics match ``shard_map``'s, so a tensor ``x`` here equals
 the stack of the P per-rank values the reference would hold.
 
-Every rank-dim collective reports to :data:`OBSERVER` when one is set:
-fleetlint's program rules (``repro_torch.analysis.spmd``) set it for the
-length of one program call. Outside a lint run it is ``None`` and costs
-one test a call; a CUDA graph's replay runs no Python and never reaches
-it.
+Every collective, of the rank dim or of a named mesh axis, reports to
+:data:`OBSERVER` when one is set: fleetlint's program rules
+(``repro_torch.analysis.spmd``) set it for the length of one program
+call, the dry run's collective counter (``launch/hlo_stats.py``) for
+the length of one measured program. Outside those it is ``None`` and
+costs one test a call; a CUDA graph's replay runs no Python and never
+reaches it.
 
 The model stack's mesh has named axes (``distributed/mesh.py``): its
 ``shard_map`` (the counterpart of the reference's) blocks each operand
 into ``(*mesh.shape, *local_shape)``, and ``mesh_psum``, ``mesh_pmax``,
-``mesh_pmean``, ``mesh_axis_index``, ``mesh_all_to_all`` and
-``mesh_all_gather`` act on the mesh dim of a named axis.
+``mesh_pmean``, ``mesh_axis_index``, ``mesh_all_to_all``,
+``mesh_all_gather`` and ``mesh_ppermute`` act on the mesh dim of a
+named axis.
 """
 from __future__ import annotations
 
@@ -24,17 +27,25 @@ import sys
 
 import torch
 
-# called as OBSERVER(name, operand shapes, "file:line (fn)" of the caller)
+# called as OBSERVER(name, operand shapes, "file:line (fn)" of the caller,
+# axis_size=g, dtype=..., ranks=R): g ranks take part in each instance of
+# the collective, and R ranks hold the operands (their leading dims), so
+# one rank's operand is numel / R elements of ``dtype``
 OBSERVER = None
 
 
-def _report(name: str, *operands: torch.Tensor):
+def _report(name: str, *operands: torch.Tensor, axis_size: int = 0,
+            ranks: int = 0):
     """Tell :data:`OBSERVER` of one collective, at its caller's site (the
-    first frame outside this module)."""
+    first frame outside this module). ``axis_size`` and ``ranks`` default
+    to the rank dim's size (dim 0 of the first operand)."""
     frame = sys._getframe(1)
     while frame.f_code.co_filename == __file__:
         frame = frame.f_back
-    OBSERVER(name, tuple(tuple(x.shape) for x in operands), site_of(frame))
+    P = operands[0].shape[0]
+    OBSERVER(name, tuple(tuple(x.shape) for x in operands), site_of(frame),
+             axis_size=axis_size or P, dtype=operands[0].dtype,
+             ranks=ranks or P)
 
 
 def site_of(frame) -> str:
@@ -179,8 +190,8 @@ def coded_exchange(bk: torch.Tensor, bv: torch.Tensor, code_rate: int
 # ``(*mesh.shape, *local_shape)``: rank (i, j, ...) of the reference holds
 # ``x[i, j, ...]``. The forms below act on the mesh dim of a named axis,
 # keep autograd's graph (the train step differentiates through them) and
-# are the model stack's: fleetlint's ``OBSERVER`` watches the rank-dim
-# collectives above, not these.
+# are the model stack's. Each reports to ``OBSERVER`` with the size of its
+# axes and the mesh's rank count.
 
 def _axes(entry) -> tuple:
     """The mesh axes of one spec entry (None, a name or a tuple)."""
@@ -299,12 +310,19 @@ def mesh_axis_index(mesh, axis: str, device=None) -> torch.Tensor:
         .view(shape).expand(mesh.shape)
 
 
+def _report_mesh(name: str, x: torch.Tensor, mesh, dims):
+    _report(name, x, axis_size=math.prod(mesh.shape[d] for d in dims),
+            ranks=mesh.size)
+
+
 def mesh_psum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     """Sum over the ranks of ``axes`` (a name or a tuple), replicated back
     to each of them (a broadcast view)."""
     dims = _dims(mesh, axes)
     if not dims:
         return x
+    if OBSERVER is not None:
+        _report_mesh("mesh_psum", x, mesh, dims)
     return x.sum(dims, keepdim=True, dtype=x.dtype).expand_as(x)
 
 
@@ -312,6 +330,8 @@ def mesh_pmax(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     dims = _dims(mesh, axes)
     if not dims:
         return x
+    if OBSERVER is not None:
+        _report_mesh("mesh_pmax", x, mesh, dims)
     return x.amax(dims, keepdim=True).expand_as(x)
 
 
@@ -319,6 +339,8 @@ def mesh_pmean(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     dims = _dims(mesh, axes)
     if not dims:
         return x
+    if OBSERVER is not None:
+        _report_mesh("mesh_pmean", x, mesh, dims)
     return x.mean(dims, keepdim=True, dtype=x.dtype).expand_as(x)
 
 
@@ -332,6 +354,8 @@ def mesh_all_to_all(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
     if x.shape[nm] != mesh.shape[d]:
         raise ValueError(f"all_to_all over {axis!r} ({mesh.shape[d]} ranks) "
                          f"of local dim 0 of size {x.shape[nm]}")
+    if OBSERVER is not None:
+        _report_mesh("mesh_all_to_all", x, mesh, (d,))
     return x.transpose(d, nm)
 
 
@@ -341,9 +365,33 @@ def mesh_all_gather(x: torch.Tensor, axis: str, mesh, dim: int = 0
     the ranks along ``axis`` joined along local dim ``dim``, on each of
     them."""
     d, = _dims(mesh, axis)
+    if OBSERVER is not None:
+        _report_mesh("mesh_all_gather", x, mesh, (d,))
     nm = len(mesh.shape)
     at = nm + dim                          # the local dim in x
     y = x.movedim(d, at - 1).flatten(at - 1, at)
     shape = list(x.shape)
     shape[at] *= x.shape[d]
     return y.unsqueeze(d).expand(shape)
+
+
+def mesh_ppermute(x: torch.Tensor, axis: str, perm, mesh) -> torch.Tensor:
+    """``lax.ppermute(x, axis, perm)``: for each ``(src, dst)`` in
+    ``perm`` the ranks at index dst along ``axis`` receive the blocks of
+    those at src; a rank that receives nothing gets zeros. Each
+    destination appears at most once. Differentiable: its backward pass
+    is the reverse permute."""
+    d, = _dims(mesh, axis)
+    n = mesh.shape[d]
+    pairs = [(int(s), int(t)) for s, t in perm]
+    dst = [t for _, t in pairs]
+    if len(set(dst)) != len(dst) or not all(
+            0 <= r < n for pair in pairs for r in pair):
+        raise ValueError(f"ppermute over {axis!r} ({n} ranks) takes "
+                         f"distinct destinations in range, got {pairs}")
+    if OBSERVER is not None:
+        _report_mesh("mesh_ppermute", x, mesh, (d,))
+    src_of = dict((t, s) for s, t in pairs)
+    zero = torch.zeros_like(x.select(d, 0)) if len(pairs) < n else None
+    return torch.stack([x.select(d, src_of[r]) if r in src_of else zero
+                        for r in range(n)], d)

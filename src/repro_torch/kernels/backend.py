@@ -5,6 +5,8 @@ by the tensor's device:
 
   * a CPU tensor takes the kernel's plain PyTorch version; demanding the
     kernel there (a wrapper's ``use_kernel=True``) raises;
+  * a ``meta`` tensor (the dry run's: shapes without data) takes the
+    plain version too, and demanding the kernel there raises;
   * a CUDA tensor on an sm_90 card takes the compiled kernel, and a card
     of any other capability raises instead of running something else.
 
@@ -38,8 +40,9 @@ _CAPABILITY: dict = {}    # CUDA device -> its capability, read once
 def use_kernel(t: torch.Tensor, require: bool = False) -> bool:
     """True when a wrapper given ``t`` launches its compiled kernel, False
     when it takes the plain version. ``require=True`` (a wrapper's
-    ``use_kernel=True``) demands the kernel and raises on a CPU tensor."""
-    if t.device.type == "cpu":
+    ``use_kernel=True``) demands the kernel and raises on a CPU or a
+    ``meta`` tensor."""
+    if t.device.type in ("cpu", "meta"):
         if require:
             raise ValueError("use_kernel=True needs a CUDA tensor: the "
                              "compiled kernels run only on the card")

@@ -1,5 +1,9 @@
-"""Frontend geometry, sharding assembly, per-arch training config and
-run assembly (counterpart of ``repro/launch/specs.py``).
+"""Frontend geometry, input specs, sharding assembly, per-arch training
+config and run assembly (counterpart of ``repro/launch/specs.py``).
+
+``input_specs`` and ``decode_input_specs`` return ``meta`` tensors of the
+reference's shapes and dtypes, the port's ``ShapeDtypeStruct``: the dry
+run (``launch/dryrun.py``) runs its programs on them, without data.
 
 The sharding builders map each tree onto a mesh by the rules of
 ``distributed/sharding.py``. On one card a sharding is a spec on a
@@ -9,11 +13,16 @@ cache specs are the layouts ``collectives.shard_map`` blocks by.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.config import (MeshConfig, ModelConfig, RunConfig,
                                 ShapeConfig, TrainConfig)
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.mesh import NamedSharding
 from repro_torch.distributed.sharding import P
+from repro_torch.models.layers import dtype_of
+
+META = torch.device("meta")
 
 
 def vlm_prefix_len(seq_len: int) -> int:
@@ -32,6 +41,43 @@ def frontend_geometry(cfg: ModelConfig, shape: ShapeConfig
         enc = S // max(cfg.enc_seq_factor, 1)
         return S, enc, enc
     return S, 0, 0
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Batch stand-ins for train and prefill (decode takes
+    ``decode_input_specs``): int32 ``tokens`` (and ``labels`` to train)
+    of (B, S_text), and a frontend's ``frontend_embeds`` (B, S_f, D) in
+    the model dtype."""
+    B = shape.global_batch
+    S_text, S_f, _ = frontend_geometry(cfg, shape)
+    batch = {"tokens": torch.empty((B, S_text), dtype=torch.int32,
+                                   device=META)}
+    if shape.is_train:
+        batch["labels"] = torch.empty((B, S_text), dtype=torch.int32,
+                                      device=META)
+    if S_f:
+        batch["frontend_embeds"] = torch.empty((B, S_f, cfg.d_model),
+                                               dtype=dtype_of(cfg),
+                                               device=META)
+    return batch
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(cache, tokens_t, t) stand-ins for one serve step at context
+    ``seq_len``: the zero caches of ``transformer.init_cache``, (B, 1)
+    int32 tokens and a 0-d int32 position."""
+    from repro_torch.models import transformer as tf
+    B = shape.global_batch
+    _, _, enc_len = frontend_geometry(cfg, shape)
+    cache = tf.init_cache(cfg, B, shape.seq_len, enc_len=enc_len,
+                          device=META)
+    tokens_t = torch.empty((B, 1), dtype=torch.int32, device=META)
+    t = torch.empty((), dtype=torch.int32, device=META)
+    return cache, tokens_t, t
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,12 @@ sequence-sharded over "model", each shard's partials cover its slice
 of the positions and ``combine_partials`` joins them across the axis
 (``collectives.shard_map``, the mesh's ranks as leading dims); the SWA
 ring stays replicated. MLA decodes absorbed over its compressed cache.
-The cost-exact unrolled attention is not ported yet (ROADMAP Queue 1
-item 12c).
+
+``unroll=True`` routes prefill attention, where the kernel does not take
+it, through ``flash_attention_costexact``: the dry run's cost instrument,
+a loop over q chunks that touches only the kv slab each chunk can see,
+so an eager run's counted FLOPs are the ones the tile-skipping kernel
+does, at chunk granularity.
 """
 from __future__ import annotations
 
@@ -36,11 +40,6 @@ from repro_torch.models.layers import (DTYPES, _init, apply_rope, matmul,
                                        rms_over)
 
 NEG_INF = -1e30
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item 12c)")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +171,48 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd)
                     .to(q.dtype))
     return torch.cat(outs, 1)[:, :Sq]
+
+
+def flash_attention_costexact(q, k, v, *, causal: bool = True,
+                              window: int = 0, n_q_chunks: int = 8,
+                              q_offset: int = 0):
+    """Unrolled, tile-skipping attention: the dry run's cost instrument.
+
+    A Python loop over q chunks of ``c = max(128, ceil(Sq / n_q_chunks))``
+    rows; each attends to the kv slab it can see (the causal triangle up
+    to its last row, the SWA band from its first row's window), with a
+    plain softmax in fp32. Same shapes and casts as
+    ``flash_attention_ref``; returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    c = max(128, -(-Sq // n_q_chunks))
+    nq = -(-Sq // c)
+    scale = hd ** -0.5
+    qg = q.reshape(B, Sq, KV, G, hd)
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        lo_q = i * c
+        hi_q = min(Sq, lo_q + c)
+        cq = hi_q - lo_q
+        q_i = (qg[:, lo_q:hi_q] * scale).to(q.dtype)
+        hi_kv = min(Skv, q_offset + hi_q) if causal else Skv
+        lo_kv = max(0, q_offset + lo_q - window + 1) if window > 0 else 0
+        s = _einsum_f32("bqkgh,bckh->bkgqc", q_i, k[:, lo_kv:hi_kv])
+        q_pos = q_offset + lo_q + torch.arange(cq, device=dev)
+        kv_pos = lo_kv + torch.arange(hi_kv - lo_kv, device=dev)
+        mask = torch.ones((cq, hi_kv - lo_kv), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), -1)
+        o = _einsum_f32("bkgqc,bckh->bkgqh", p.to(v.dtype),
+                        v[:, lo_kv:hi_kv])
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, cq, H, hd)
+                    .to(q.dtype))
+    return torch.cat(outs, 1)
 
 
 def attention_dense_ref(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -329,9 +370,9 @@ def attention_forward(cfg: ModelConfig, p, x, positions, *, causal=True,
                       use_kernel=False, unroll=False):
     """Train / prefill pass. Returns (out, (k, v)); k/v feed the cache.
     ``use_kernel=True`` routes through the flash_attention kernel's
-    wrapper, ``False`` through ``flash_attention_ref``."""
-    if unroll:
-        raise _unported("the cost-exact unrolled attention (unroll=True)")
+    wrapper; otherwise ``unroll=True`` through
+    ``flash_attention_costexact`` and ``False`` through
+    ``flash_attention_ref``, as the reference routes them."""
     q, k, v = _qkv(cfg, p, x)
     q = _rope_bshd(q, positions, cfg.rope_theta)
     k = _rope_bshd(k, positions, cfg.rope_theta)
@@ -339,6 +380,8 @@ def attention_forward(cfg: ModelConfig, p, x, positions, *, causal=True,
     if use_kernel:
         from repro_torch.kernels.flash_attention import ops as fa_ops
         o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif unroll:
+        o = flash_attention_costexact(q, k, v, causal=causal, window=window)
     else:
         o = flash_attention_ref(q, k, v, causal=causal, window=window)
     B, S, H, hd = q.shape
@@ -416,9 +459,8 @@ def mla_forward(cfg: ModelConfig, p, x, positions, *, unroll=False):
     """Train / prefill pass. Returns (out, {"ckv": (B, S, lora + rope)}):
     the normed latent and the rotated shared key, which the decode cache
     holds. Attention runs through ``flash_attention_ref`` with v padded to
-    the qk head dim, as the reference's does."""
-    if unroll:
-        raise _unported("the cost-exact unrolled attention (unroll=True)")
+    the qk head dim, as the reference's does (``flash_attention_costexact``
+    under ``unroll``)."""
     B, S, _ = x.shape
     H, lora = cfg.n_heads, cfg.kv_lora_rank
     nope, rope_d, v_d = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -432,7 +474,8 @@ def mla_forward(cfg: ModelConfig, p, x, positions, *, unroll=False):
     q_full = torch.cat([q[..., :nope], q_rope], -1)
     k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d)], -1)
     v_pad = torch.nn.functional.pad(v, (0, nope + rope_d - v_d))
-    o = flash_attention_ref(q_full, k_full, v_pad, causal=True)[..., :v_d]
+    fa = flash_attention_costexact if unroll else flash_attention_ref
+    o = fa(q_full, k_full, v_pad, causal=True)[..., :v_d]
     cache = {"ckv": torch.cat([ckv, k_rope[:, :, 0]], -1)}
     return o.reshape(B, S, H * v_d) @ p["wo"], cache
 

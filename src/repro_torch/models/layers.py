@@ -33,6 +33,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: the ``init_*``
+    functions make their tensors on ``gen.device``, and on ``meta``
+    (shapes and dtypes, no data; the dry run's) ``torch.randn`` takes a
+    CPU generator and draws nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The ``init_*`` functions' generator on ``device``, seeded."""
+    if device.type == "meta":
+        return _MetaGenerator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _init(gen: torch.Generator, shape, scale, dtype):
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)

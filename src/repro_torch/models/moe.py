@@ -60,7 +60,6 @@ from repro_torch.distributed.sharding import P
 from repro_torch.kernels.moe_dispatch import ops as slot_ops
 from repro_torch.kernels.moe_dispatch.ops import MAX_EXPERTS as MAX_BUCKETS
 from repro_torch.kernels.moe_dispatch.ref import bucket_slots_ref
-from repro_torch.models.attention import _unported
 from repro_torch.models.layers import DTYPES, _init
 
 EP_AXIS = "model"
@@ -448,10 +447,8 @@ def moe_forward(cfg: ModelConfig, p, x, *, mesh=None, dp_entry=None,
     (and d_ff over ``cfg.expert_tp_axis``). When S does not divide by
     tp (decode: S = 1) the tokens replicate over "model" and the
     replicated dispatch runs instead. The shared experts run outside the
-    region, as in the reference. ``unroll`` raises (ROADMAP Queue 1
-    item 12c)."""
-    if unroll:
-        raise _unported("unroll=True")
+    region, as in the reference. The pipeline's steps are a Python loop
+    already, so ``unroll`` changes nothing."""
     B, S, D = x.shape
     tp = mesh.axis_size(EP_AXIS) if mesh is not None else 1
     seq_shardable = S % tp == 0

@@ -51,7 +51,10 @@ run in ``shard_map`` regions (tokens sequence-sharded and experts
 EP-sharded over "model"; GQA and MLA caches sequence-sharded over it),
 and everything else computes the unpartitioned function, as GSPMD
 does. Whisper's cross-attention stays unsharded, as in the reference.
-``unroll`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 12c).
+``unroll=True`` sends prefill attention (the decoder's, MLA's, the
+encoder's and the cross-attention) through the cost-exact
+``attention.flash_attention_costexact`` where the reference does; the
+layer loops are Python loops already, so it changes nothing else.
 """
 from __future__ import annotations
 
@@ -70,10 +73,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        cross_entropy, dtype_of, embed_tokens,
-                                       init_embed, init_mlp, init_norm,
-                                       matmul, unembed)
-
-_unported = attn._unported
+                                       generator, init_embed, init_mlp,
+                                       init_norm, matmul, unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -186,12 +187,13 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int,
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, made
-    on ``device`` (cuda unless given). The numbers differ from the
+    on ``device`` (cuda unless given; on ``meta`` shapes alone, the dry
+    run's ``jax.eval_shape``). The numbers differ from the
     reference's ``jax.random`` ones; carry those across with
     ``convert.params_from_numpy``."""
     _check_supported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     tree = init_embed(cfg, gen)
     cross = cfg.n_enc_layers > 0
     tree["blocks"] = [_init_layer(cfg, gen, i, cross)
@@ -218,7 +220,8 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
     layer's slotting's. With ``enc_out`` a layer that holds ``cross``
     attends to it after its mixer, through the chunked
     ``flash_attention_ref`` (as the reference's does under
-    ``use_pallas``), and its cache gains ``cross_k``/``cross_v``."""
+    ``use_pallas``; ``flash_attention_costexact`` under ``unroll``), and
+    its cache gains ``cross_k``/``cross_v``."""
     mixer, ff = layer_kind(cfg, i)
     aux = 0.0
     h = apply_norm(cfg, p["norm1"], x)
@@ -237,7 +240,9 @@ def _layer_forward(cfg: ModelConfig, p, x, positions, i: int, *,
     if enc_out is not None and "cross" in p:
         h = apply_norm(cfg, p["norm_x"], x)
         q, k, v = attn._qkv(cfg, p["cross"], h, enc_out)
-        o = attn.flash_attention_ref(q, k, v, causal=False)
+        fa = (attn.flash_attention_costexact if unroll
+              else attn.flash_attention_ref)
+        o = fa(q, k, v, causal=False)
         B, S, H, hd = q.shape
         x = x + matmul(o.reshape(B, S, H * hd), p["cross"]["wo"])
         cache["cross_k"], cache["cross_v"] = k, v
@@ -478,8 +483,6 @@ def decode_step(cfg: ModelConfig, params: Model, cache, tokens_t, t: int, *,
     (their length must divide by its size) and the MoE layers dispatch
     replicated over it."""
     _check_supported(cfg)
-    if unroll:
-        raise _unported("unroll=True")
     x = embed_tokens(cfg, params, tokens_t)
     new_blocks = []
     for i, (p, c) in enumerate(zip(params["blocks"], cache["blocks"])):

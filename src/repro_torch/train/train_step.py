@@ -28,8 +28,9 @@ with MLA, hybrid), unsharded or under a mesh (``mesh=``, ``dp_entry=``;
 ``shard_map`` region of ``collectives``, whose blocking and named-axis
 collectives autograd differentiates through, so the loss and gradients
 are the reference's sharded ones (each shard's buckets drop their own
-records). ``unroll=True`` raises ``NotImplementedError`` (ROADMAP Queue
-1 item 12c).
+records). ``unroll=True`` sends prefill attention through the
+cost-exact ``attention.flash_attention_costexact``, as the reference's
+unrolled step does; the accumulation loop is a Python loop already.
 """
 from __future__ import annotations
 
@@ -39,7 +40,6 @@ import torch
 
 from repro_torch.config import ModelConfig, RunConfig, TrainConfig
 from repro_torch.models import convert
-from repro_torch.models.attention import _unported
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.optim import compress as compress_mod
@@ -68,7 +68,7 @@ def _microbatches(batch: dict, A: int, mb: int):
 
 def _accumulate_grads(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig,
                       params: Model, batch: dict, *, mesh=None,
-                      dp_entry=None):
+                      dp_entry=None, unroll: bool = False):
     """(grads, loss, metrics). With A = ``run.grad_accum_steps`` > 1 the
     batch is cut into A microbatches; their gradients are summed in
     ``accum_dtype`` and divided by A (fp32), the loss is their mean and
@@ -79,7 +79,7 @@ def _accumulate_grads(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig,
     def grads_of(b):
         loss, metrics = loss_fn(cfg, params, b, mesh=mesh,
                                 dp_entry=dp_entry, slot_kernel=True,
-                                remat=tcfg.remat_policy)
+                                remat=tcfg.remat_policy, unroll=unroll)
         return loss, metrics, torch.autograd.grad(loss, leaves)
 
     if A == 1:
@@ -115,13 +115,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, mesh=None,
     metrics)``; ``train_step(state, batch)`` is the one after the
     other. Under ``mesh`` each microbatch's batch dim must divide over
     ``dp_entry``'s axes."""
-    if unroll:
-        raise _unported("unroll=True")
     tcfg = run.train
 
     def grads(state: TrainState, batch: dict):
         return _accumulate_grads(cfg, tcfg, run, state.params, batch,
-                                 mesh=mesh, dp_entry=dp_entry)
+                                 mesh=mesh, dp_entry=dp_entry, unroll=unroll)
 
     def update(state: TrainState, grads, loss, metrics):
         if tcfg.compress_cross_pod and state.residual is not None:

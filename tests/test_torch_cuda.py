@@ -1693,3 +1693,23 @@ def test_mesh_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
     assert s["launches"] == s["want_launches"]
     assert s["runs"]["unsharded"]["launches"] == \
         s["runs"]["unsharded"]["want_launches"]
+
+
+@pytest.mark.cuda
+def test_meta_tensors_take_the_plain_version_beside_the_card(cuda_device):
+    """The kernel policy's meta rule: a ``meta`` tensor takes the plain
+    version (no launch) and demanding the kernel on it raises, while a
+    CUDA tensor still takes the kernel."""
+    from repro_torch.kernels import backend
+    meta = torch.empty(64, dtype=torch.int32, device="meta")
+    assert backend.use_kernel(meta) is False
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        backend.use_kernel(meta, require=True)
+    before = sl_ops.bucket_slots.launches
+    slots, _ = sl_ops.bucket_slots(meta, 8)
+    assert slots.is_meta and sl_ops.bucket_slots.launches == before
+    ids = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    assert backend.use_kernel(ids) is True
+    sl_ops.bucket_slots(ids, 8)
+    torch.cuda.synchronize(cuda_device)
+    assert sl_ops.bucket_slots.launches == before + 1

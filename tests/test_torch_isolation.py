@@ -22,7 +22,9 @@ import chip_smoke  # noqa: E402
 from torch_parity import REPO  # noqa: E402
 
 PORT = Path(REPO) / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py",
+                                      Path(REPO) / "examples" /
+                                      "quickstart_torch.py"]
 
 
 def _imports(path: Path):

@@ -360,8 +360,8 @@ def test_training_the_stack_raises(pair):
     so does its sharded train step (``test_torch_mesh_train*.py`` hold
     it to the reference's): under a (2, 4) mesh at a capacity no shard
     overflows, one step's loss equals the unsharded step's (rtol 1e-5
-    in fp32, 2e-2 in bf16); ``unroll`` still raises, naming its ROADMAP
-    item."""
+    in fp32, 2e-2 in bf16); and so does the cost-exact ``unroll=True``
+    step's (``test_torch_costexact.py`` holds it to the reference's)."""
     from repro_torch import config as tconfig
     from repro_torch.distributed.mesh import local_mesh
     from repro_torch.train import train_step as tts
@@ -370,14 +370,15 @@ def test_training_the_stack_raises(pair):
     batch = {k: torch.from_numpy(_tokens(cfg, seed)) for k, seed in
              (("tokens", 7), ("labels", 8))}
     losses = []
-    for mesh in (None, local_mesh((2, 4), device=CPU)):
+    for mesh, unroll in ((None, False), (local_mesh((2, 4), device=CPU),
+                                         False), (None, True)):
         model = convert.params_from_numpy(cfg, pair.np_params, CPU)
         state = tts.init_train_state(cfg, run.train, model)
         step = tts.make_train_step(cfg, run, mesh=mesh,
-                                   dp_entry=None if mesh is None else "data")
+                                   dp_entry=None if mesh is None else "data",
+                                   unroll=unroll)
         losses.append(float(step(state, batch)[1]["loss"]))
-    np.testing.assert_allclose(losses[1], losses[0],
-                               rtol=1e-5 if pair.dtype == "float32"
-                               else 2e-2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tts.make_train_step(cfg, run, unroll=True)
+    for got in losses[1:]:
+        np.testing.assert_allclose(got, losses[0],
+                                   rtol=1e-5 if pair.dtype == "float32"
+                                   else 2e-2)

@@ -227,9 +227,12 @@ def test_the_plain_path_never_reaches_the_wrapper(monkeypatch):
 @pytest.mark.parametrize("what", ["mesh", "dp_entry", "unroll",
                                   "replicated", "a2a"])
 def test_sharded_parts_raise(what):
-    """``unroll`` raises, naming its ROADMAP item. The sharded parts run
-    (their parity with the reference's ``shard_map`` on 8 devices is
-    ``test_torch_mesh_moe.py``'s), and each case holds one here: the
+    """``unroll`` runs and changes nothing (the dispatch's steps are a
+    Python loop already): the layer bit for bit its ``unroll=False``
+    (``test_torch_costexact.py`` holds it to the reference's). The
+    sharded parts run (their parity with the reference's ``shard_map`` on
+    8 devices is ``test_torch_mesh_moe.py``'s), and each case holds one
+    here: the
     layer under a (2, 4) mesh at a capacity no shard overflows equals the
     reference's unsharded layer; ``dp_entry`` without a mesh is ignored,
     as the reference ignores it; the replicated dispatch on one shard
@@ -240,8 +243,9 @@ def test_sharded_parts_raise(what):
     jp, tp = _params(jcfg)
     jx, x = _x(tcfg, "float32", shape=(4, 8))
     if what == "unroll":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            tmoe.moe_forward(tcfg, tp, x, unroll=True)
+        for a, b in zip(tmoe.moe_forward(tcfg, tp, x, unroll=True),
+                        tmoe.moe_forward(tcfg, tp, x)):
+            assert torch.equal(a, b)
     elif what in ("mesh", "dp_entry"):
         want_y, want_aux = jmoe.moe_forward(jcfg, jp, jx, dp_entry="data")
         mesh = local_mesh((2, 4), device=CPU) if what == "mesh" else None

@@ -346,8 +346,10 @@ def test_cells_are_the_reference_cells():
 @pytest.mark.parametrize("what", ["hybrid", "moe", "mla", "first_k_dense",
                                   "encoder", "frontend", "unroll"])
 def test_unported_parts_raise(what):
-    """What the port does not run raises, naming its ROADMAP item: the
-    cost-exact unrolled attention (``unroll``, the encoder's too). The
+    """What the port once left out now runs. The cost-exact unrolled
+    attention (``unroll``, the encoder's and the cross-attention's too)
+    gives the chunked path's forward within fp32 rounding
+    (``test_torch_costexact.py`` holds it to the reference's). The
     other cases hold what the mesh now runs (held to the reference's
     ``shard_map`` in ``test_torch_mesh_*.py``): under a (2, 4) mesh at
     a capacity no shard overflows, the MoE layer, the hybrid stack and
@@ -375,10 +377,14 @@ def test_unported_parts_raise(what):
                                    rtol=1e-5, atol=1e-5)
     if what in ("encoder", "unroll"):
         c = smoke("whisper-tiny") if what == "encoder" else cfg
-        batch = dict(toks, frontend_embeds=torch.zeros((2, 4, c.d_model)))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            ttf.forward(c, ttf.init_model(c, 0, device=CPU), batch,
-                        unroll=True)
+        batch = dict(toks, frontend_embeds=torch.from_numpy(
+            np.random.default_rng(2).standard_normal(
+                (2, 4, c.d_model)).astype(np.float32)))
+        model = ttf.init_model(c, 0, device=CPU)
+        got = ttf.forward(c, model, batch, unroll=True)
+        want = ttf.forward(c, model, batch)
+        same(got[0], want[0])
+        same(got[1], want[1])
     elif what in ("hybrid", "frontend"):
         c = smoke("jamba-v0.1-52b" if what == "hybrid" else "internvl2-26b")
         batch = dict(toks, frontend_embeds=torch.from_numpy(

@@ -336,14 +336,14 @@ def test_launch_train_without_a_card_raises(monkeypatch):
 
 
 def test_make_train_step_refuses_a_mesh():
-    """``unroll`` raises, naming its ROADMAP item; a mesh and a dp entry
-    are taken, and olmo-1b's step (no MoE layer, so nothing to shard on
-    one card) under a (2, 4) mesh equals the unsharded step's loss."""
+    """A mesh and a dp entry are taken, and olmo-1b's step (no MoE layer,
+    so nothing to shard on one card) under a (2, 4) mesh equals the
+    unsharded step's loss; the cost-exact ``unroll=True`` step's loss
+    equals it within fp32 rounding (``test_torch_costexact.py`` holds
+    it to the reference's)."""
     from repro_torch.distributed.mesh import local_mesh
     jcfg, tcfg = _cfgs("olmo-1b")
     _, run = _runs(tcfg, tcfg, 0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tts.make_train_step(tcfg, run, unroll=True)
     np_params = jax.tree.map(np.asarray,
                              jtf.init_model(jcfg, jax.random.key(0)))
     batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
@@ -355,3 +355,8 @@ def test_make_train_step_refuses_a_mesh():
         losses.append(float(tts.make_train_step(tcfg, run, **kw)(
             state, batch)[1]["loss"]))
     assert losses[0] == losses[1]
+    state = tts.init_train_state(tcfg, run.train, params_from_numpy(
+        tcfg, np_params, CPU))
+    unrolled = float(tts.make_train_step(tcfg, run, unroll=True)(
+        state, batch)[1]["loss"])
+    np.testing.assert_allclose(unrolled, losses[0], rtol=1e-5)

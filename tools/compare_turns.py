@@ -5,7 +5,7 @@ training.
 
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
-                  elastic,serve,train,mesh,mesh_train]
+                  elastic,serve,train,mesh,mesh_train,pp,dryrun]
         [--archs ARCH,...] [--train-archs ARCH,...]
         [--mesh-archs ARCH,...] [--out FILE]
 
@@ -33,7 +33,11 @@ cut to 4 layers, whose MoE layers slot through bucket_slots). ``mesh``
 is phase 4m (``phase_mesh_serves``: each arch of ``--mesh-archs``,
 default every arch of ``MESH_ARCHS``, served under the virtual 2 x 4
 mesh and unsharded), ``mesh_train`` phase 5m (``phase_mesh_trains``:
-deepseek-v2-lite at 4 layers under the mesh and unsharded).
+deepseek-v2-lite at 4 layers under the mesh and unsharded), ``pp``
+phase 5p (``phase_pp_trains``: olmo-1b pipelined over the pod axis of a
+virtual (pod 2, data 2) mesh and unsharded), ``dryrun`` phase 2f
+(``phase_dryrun``: the dry run's cells on meta in a child process, then
+olmo-1b's prefill on meta against the card).
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -70,7 +74,8 @@ def main(argv=None) -> int:
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
               if set(phases) - {"keyskew", "coded", "crossjob", "serve",
-                                "train", "mesh", "mesh_train"}
+                                "train", "mesh", "mesh_train", "pp",
+                                "dryrun"}
               else None)
     out = {}
     for phase in phases:
@@ -100,7 +105,11 @@ def main(argv=None) -> int:
                 device, args.mesh_archs.split(",")),
                      lambda out: None),     # printed arch by arch
             "mesh_train": (lambda: cs.phase_mesh_trains(device),
-                           lambda out: None)}[phase]
+                           lambda out: None),
+            "pp": (lambda: cs.phase_pp_trains(device),
+                   lambda out: None),     # printed arch by arch
+            "dryrun": (lambda: cs.phase_dryrun(device),
+                       cs.print_dryrun)}[phase]
         t0 = time.perf_counter()
         out[phase] = run()
         out[phase]["seconds"] = time.perf_counter() - t0
