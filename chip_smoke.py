@@ -12,15 +12,19 @@ Phases, each of which asserts (nothing is caught):
                mutant kernels share ``mutants.cu``);
   2. kernels — hold each kernel against its plain PyTorch version on the
                card over the reference test matrix and at the full-width
-               shapes (flash_attention over head dims 64, 80, 128 and 160
-               at the served shapes of olmo-1b, h2o-danube-1.8b,
+               shapes (flash_attention over head dims 16-160: the SMOKE
+               configs' 16, 20 (with KV 1, a row TMA cannot stride), 24,
+               32, and 36, 48 and 100, causal, windowed and not, in both
+               dtypes, and 64, 80, 128 and 160 at the served shapes of
+               olmo-1b, h2o-danube-1.8b,
                jamba-v0.1, stablelm-12b (hd 160), codeqwen1.5-7b,
                llama4-maverick, internvl2-26b and whisper-tiny (its
                encoder's in fp32 without the causal mask, as the
                reference's promotion of fp32 frames runs it; its
                decoder's in bf16), and at h2o's heads over S 8192, where
-               its window skips tiles; ssd_scan at mamba2-780m's
-               and jamba-v0.1's; fused_map, hist and bucket_slots bit
+               its window skips tiles; ssd_scan at P 16 (the SMOKE
+               configs', N 16, 32 and 128), at chunks 16, 32, 48 and 80
+               beside 64-256, and at mamba2-780m's and jamba-v0.1's; fused_map, hist and bucket_slots bit
                for bit, flash_attention, ssd_scan and flash_decode at the
                reference's per-dtype tolerance), and time both with CUDA
                events, beside the library call where there is one;
@@ -210,11 +214,11 @@ Phases, each of which asserts (nothing is caught):
                at slot 4, MoE of 16 experts top-2 on the odd slots),
                codeqwen1.5-7b (its width, 8 of its 32 layers: MHA 32
                with the qkv bias),
-               stablelm-12b (40 layers, LayerNorm, qk-norm, GQA 32/8 at
-               head dim 160), llama4-maverick (its width, 2 of its 48
+               stablelm-12b (its width, 20 of its 40 layers, LayerNorm,
+               qk-norm, GQA 32/8 at head dim 160), llama4-maverick (its width, 2 of its 48
                layers: one dense, one MoE of 128 experts top-1 and a
-               shared expert, GQA 40/8), internvl2-26b (48 layers, GQA
-               48/8, a vision prefix) and whisper-tiny (a 4-layer encoder
+               shared expert, GQA 40/8), internvl2-26b (its width, 24 of
+               its 48 layers, GQA 48/8, a vision prefix) and whisper-tiny (a 4-layer encoder
                over fp32 frames, cross-attention in its 4 decoder layers)
                at full width through ``ServeEngine.generate``: one batch
                of 8 requests each at a context of 2048 positions (split
@@ -349,13 +353,35 @@ Phases, each of which asserts (nothing is caught):
                collective records equal, meta's peak live bytes within
                15 % of the rise of ``max_memory_allocated`` over the
                card's call;
-  6. report  — the ``kernels`` JSON line, the card's name and power
+  4s. smoke-serve — every arch of the registry at its SMOKE config,
+               unmodified (head dims 16-32, whose flash_attention runs on
+               the 16- and 32-column instantiations, 20 and 24 with the
+               columns past hd zero; mamba2's and jamba's scans at P 16,
+               N 16, chunk 16), through ``ServeEngine.generate`` in bf16:
+               a batch of 4 prompts of 64 tokens (whisper 64 fp32 frames,
+               internvl2 a 16-row fp32 prefix), 8 new tokens: the
+               launches equal to the code's count (``serve_launches``:
+               flash_attention once an attention layer and prefill,
+               ssd_scan once an SSD layer and prefill, bucket_slots as in
+               phase 4), the last prefill logits within 3e-2 *
+               max|logits| of the plain path's on the card (jamba and
+               internvl2, whose bf16 paths drift apart, with the weights
+               upcast to fp32; the bf16 gap printed), prefill ms and
+               decode ms a token;
+  6. examples — the five ``examples/*_torch.py`` ports on the card, in a
+               child each at a reduced size (the WordCount ones at 2**19
+               tokens, ``train_lm_torch.py --steps 4``,
+               ``serve_lm_torch.py --requests 8 --new-tokens 8``), side
+               by side (wordcount_puma's walls beside the others' work):
+               each exits 0; its seconds and last lines;
+  7. report  — the ``kernels`` JSON line, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
 3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
-each rank count's part of 3i, each arch of 4, each training run of 5,
+each rank count's part of 3i, each arch of 4 and of 4s, each training
+run of 5,
 each engine's run of 4m and each training run of 5m and 5p) and read
 just after it.
 
@@ -423,9 +449,14 @@ SERVE_ARCHS = {"olmo-1b": BATCH, "mamba2-780m": BATCH,
 # experts, hold 18.55 B (37.1 GB; 4 layers would take 70.1 GB).
 # codeqwen1.5-7b's 32 layers: with internvl2-26b and whisper-tiny served
 # the smoke took 827.8 s on an H100, past its 820 s aim; 8 of them (every
-# layer is the same MHA layer with the qkv bias) keep the layer on the path
+# layer is the same MHA layer with the qkv bias) keep the layer on the path.
+# internvl2-26b's 48 layers and stablelm-12b's 40 (the phase's two longest
+# serves, 43.6 and 29.5 s): with phases 4s and 6 the smoke took 988.4 s,
+# past its 950 s aim; half of each stack (every layer of each is the same
+# layer) keeps its layer on the path. mamba2-780m, the one SSM-only
+# stack, stays whole
 SERVE_LAYERS = {HYBRID_ARCH: 8, MOE_ARCH: 9, LLAMA4_ARCH: 2,
-                "codeqwen1.5-7b": 8}
+                "codeqwen1.5-7b": 8, VISION_ARCH: 24, "stablelm-12b": 20}
 
 
 def _port():
@@ -766,6 +797,56 @@ FLASH_MATRIX = {
     "bidir_sq100_skv260_hd160_f32": (1, 100, 4, 2, 160, False, 0, "float32",
                                      260),
     "sq256_skv96_hd160_f32": (1, 256, 2, 1, 160, True, 0, "float32", 96),
+    # the SMOKE configs' head dims (16: olmo, codeqwen, jamba, whisper; 20:
+    # h2o-danube, window 32; 24: stablelm, internvl2; 32: llama4) and 48,
+    # in both dtypes, causal, windowed and not; 16, 32 and 48 run on their
+    # own widths (in bf16 through TMA), 20 and 24 on 32 with the columns
+    # past hd zero (in bf16 through the producer's own loads: at hd 20
+    # with KV 1 a row of k is 40 bytes, which TMA cannot stride), and 36
+    # and 100 on 48 and 128
+    "gqa2_hd16_ragged200_bf16": (1, 200, 4, 2, 16, True, 0, "bfloat16"),
+    "hd16_ragged130_f32": (2, 130, 4, 4, 16, True, 0, "float32"),
+    "mqa_hd20_bf16": (1, 200, 4, 1, 20, True, 0, "bfloat16"),
+    "mqa_hd20_f32": (1, 200, 4, 1, 20, True, 0, "float32"),
+    "swa32_hd20_gqa_ragged160_bf16": (1, 160, 4, 2, 20, True, 32,
+                                      "bfloat16"),
+    "swa32_hd20_gqa_f32": (1, 192, 4, 2, 20, True, 32, "float32"),
+    "gqa2_hd24_ragged130_bf16": (2, 130, 4, 2, 24, True, 0, "bfloat16"),
+    "bidir_hd24_bf16": (1, 192, 4, 4, 24, False, 0, "bfloat16"),
+    "bidir_gqa_hd24_ragged100_f32": (1, 100, 4, 2, 24, False, 0, "float32"),
+    "gqa2_hd32_bf16": (1, 256, 4, 2, 32, True, 0, "bfloat16"),
+    "swa48_hd32_ragged300_bf16": (1, 300, 4, 4, 32, True, 48, "bfloat16"),
+    "hd32_f32": (1, 192, 4, 4, 32, True, 0, "float32"),
+    "gqa2_hd48_bf16": (1, 200, 4, 2, 48, True, 0, "bfloat16"),
+    "bidir_sq100_skv260_hd48_bf16": (1, 100, 4, 2, 48, False, 0,
+                                     "bfloat16", 260),
+    "swa64_hd48_f32": (1, 256, 4, 2, 48, True, 64, "float32"),
+    "gqa2_hd36_ragged150_bf16": (1, 150, 4, 2, 36, True, 0, "bfloat16"),
+    "gqa2_hd100_bf16": (1, 200, 4, 2, 100, True, 0, "bfloat16"),
+    "bidir_hd100_f32": (1, 130, 2, 2, 100, False, 0, "float32"),
+    # the padded path of every width, causal and not, in both dtypes: 36
+    # and 44 on 48, 100 on 128, 60 on 64, 76 on 80 (bf16: panel 1 of 16
+    # columns in 32-byte swizzle) and 156 on 160 (bf16: the third panel
+    # and the 2-stage ring)
+    "bidir_hd36_ragged130_bf16": (1, 130, 4, 4, 36, False, 0, "bfloat16"),
+    "swa32_hd36_gqa_f32": (1, 160, 4, 2, 36, True, 32, "float32"),
+    "bidir_mqa_hd44_f32": (1, 100, 4, 1, 44, False, 0, "float32"),
+    "gqa2_hd100_ragged150_f32": (1, 150, 4, 2, 100, True, 0, "float32"),
+    "bidir_hd100_ragged130_bf16": (1, 130, 2, 2, 100, False, 0, "bfloat16"),
+    "gqa2_hd60_ragged150_bf16": (1, 150, 4, 2, 60, True, 0, "bfloat16"),
+    "bidir_hd60_bf16": (1, 192, 4, 4, 60, False, 0, "bfloat16"),
+    "gqa2_hd60_ragged130_f32": (1, 130, 4, 2, 60, True, 0, "float32"),
+    "bidir_mqa_hd60_f32": (1, 100, 4, 1, 60, False, 0, "float32"),
+    "mqa_hd76_ragged200_bf16": (1, 200, 4, 1, 76, True, 0, "bfloat16"),
+    "bidir_gqa_hd76_bf16": (1, 128, 4, 2, 76, False, 0, "bfloat16"),
+    "swa48_hd76_f32": (1, 192, 4, 4, 76, True, 48, "float32"),
+    "bidir_hd76_ragged100_f32": (1, 100, 2, 2, 76, False, 0, "float32"),
+    "gqa2_hd156_ragged200_bf16": (1, 200, 4, 2, 156, True, 0, "bfloat16"),
+    "bidir_sq130_skv260_hd156_bf16": (1, 130, 2, 2, 156, False, 0,
+                                      "bfloat16", 260),
+    "mqa_hd156_f32": (1, 192, 4, 1, 156, True, 0, "float32"),
+    "bidir_gqa_hd156_ragged100_f32": (1, 100, 4, 2, 156, False, 0,
+                                      "float32"),
 }
 # the served shapes: olmo-1b's prefill, and h2o-danube-1.8b's (its window
 # of 4096 is wider than the prompt); h2o's heads at S 8192, where the
@@ -935,6 +1016,28 @@ SSD_MATRIX = {
                       -50.0),
     "p32n128_bf16": (2, 192, 4, 32, 128, 2, 64, "bfloat16", "float32", None),
     "p32n32_bf16": (1, 320, 4, 32, 32, 1, 128, "bfloat16", "bfloat16", None),
+    # the SMOKE configs' scan (mamba2, jamba: P 16, N 16, chunk 16) and
+    # chunks that are not a multiple of 64 rows: 32 over a ragged S, 48,
+    # 80 (a chunk of a whole and a short 64-row tile), an overflowing
+    # decay at chunk 16, P 16 at N 32 and 128
+    "p16_chunk16_bf16": (2, 64, 8, 16, 16, 1, 16, "bfloat16", "bfloat16",
+                         None),
+    "p16_chunk16_f32": (2, 64, 8, 16, 16, 1, 16, "float32", "float32",
+                        None),
+    "p16_chunk32_ragged100_bf16": (1, 100, 8, 16, 16, 1, 32, "bfloat16",
+                                   "float32", None),
+    "p16_chunk32_ragged100_f32": (1, 100, 4, 16, 16, 1, 32, "float32",
+                                  "float32", None),
+    "overflow_p16_chunk16_bf16": (1, 80, 2, 16, 16, 1, 16, "bfloat16",
+                                  "bfloat16", -50.0),
+    "p16n128_chunk16_bf16": (1, 64, 4, 16, 128, 1, 16, "bfloat16",
+                             "bfloat16", None),
+    "p16n32_g2_chunk32_f32": (1, 96, 4, 16, 32, 2, 32, "float32", "float32",
+                              None),
+    "p32_g2_chunk48_ragged150_f32": (1, 150, 4, 32, 16, 2, 48, "float32",
+                                     "float32", None),
+    "p64n32_chunk80_ragged200_bf16": (1, 200, 4, 64, 32, 1, 80, "bfloat16",
+                                      "bfloat16", None),
 }
 SSD_SERVED = (BATCH, PROMPT_LEN, 48, 64, 128, 1, 256, "bfloat16", "bfloat16",
               None)
@@ -4921,6 +5024,149 @@ def print_train(t: dict):
 
 
 # ---------------------------------------------------------------------------
+# 4s. every SMOKE config served on the card
+# ---------------------------------------------------------------------------
+
+# a batch of 4 prompts of 64 tokens (whisper: 64 fp32 frames; internvl2 a
+# prefix of 16 fp32 rows, as the launcher's), 8 new tokens, greedy
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 4, 64, 8
+SMOKE_PREFIX = 16
+# the stacks whose logits gate holds in fp32 (the weights upcast), as
+# phase 4 holds them: their bf16 kernel and plain paths drift apart
+SMOKE_FP32 = (HYBRID_ARCH, VISION_ARCH)
+SMOKE_LOGITS_TOL = 3e-2          # x max|logits|, against the plain path
+
+
+def smoke_inputs(cfg, batch: int, prompt_len: int) -> tuple:
+    """Seeded prompts of ``cfg``'s SMOKE run and its frontend rows (None
+    without a frontend): a VLM's ``SMOKE_PREFIX`` rows, an audio stack's
+    ``prompt_len`` frames, fp32."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (batch, prompt_len)).astype(np.int32)
+    rows = (SMOKE_PREFIX if cfg.frontend == "vision_stub"
+            else prompt_len if cfg.n_enc_layers else 0)
+    fe = (rng.standard_normal((batch, rows, cfg.d_model), np.float32)
+          if rows else None)
+    return prompts, fe
+
+
+def smoke_logits_err(cfg, model, tokens) -> float:
+    """The kernel path's last-position logits against the plain path's
+    (``use_kernel=False``) on the same card, max abs error over
+    ``SMOKE_LOGITS_TOL`` * max|plain|; an MoE stack's plain path takes
+    the kernel path's routing (``same_routing``)."""
+    _, tf, _ = _serve()
+    runs = [functools.partial(tf.prefill, cfg, model, tokens, use_kernel=k)
+            for k in (True, False)]
+    with torch.inference_mode():
+        if cfg.n_experts:
+            (lk, lr), _ = same_routing(*runs)
+        else:
+            lk, lr = (run() for run in runs)
+    lk, lr = lk[:, 0].float(), lr[:, 0].float()
+    assert bool(torch.isfinite(lk).all()), f"{cfg.name}: non-finite logits"
+    return (lk - lr).abs().max().item() / (
+        SMOKE_LOGITS_TOL * lr.abs().max().item())
+
+
+def phase_smoke_serve(device, cfg, fp32_gate: bool = False) -> dict:
+    """Serve ``cfg`` (a SMOKE config, unmodified) through
+    ``ServeEngine.generate`` on ``device``: its kernels' launches (counts
+    zeroed just before, read just after) equal to the code's count
+    (``serve_launches``: flash_attention once an attention layer and
+    prefill, ssd_scan once an SSD layer and prefill, bucket_slots as
+    phase 4 counts it); the last logits within ``SMOKE_LOGITS_TOL`` *
+    max|logits| of the plain path's (with ``fp32_gate`` on the weights
+    upcast to fp32, the bf16 gap reported); the prefill's ms and the
+    decode's ms a token."""
+    _, tf, eng = _serve()
+    batch, prompt_len, new_tokens = SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW
+    kernels = serve_kernels(cfg)
+    model = tf.init_model(cfg, 0, device=device)
+    prompts, fe = smoke_inputs(cfg, batch, prompt_len)
+    ctx = prompt_len + (fe.shape[1] if cfg.frontend == "vision_stub" else 0)
+    engine = eng.ServeEngine(cfg, model, max_len=ctx + new_tokens + 8,
+                             device=device)
+    engine.generate(prompts, 2, frontend_embeds=fe)                  # warm
+    zero_counts()
+    out = engine.generate(prompts, new_tokens, frontend_embeds=fe)
+    _sync(device)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = serve_launches(cfg, batch, batch, prompt_len, new_tokens)
+    if device.type == "cuda":     # the CPU takes the plain versions
+        assert launches == want, (cfg.name, launches, want)
+    assert out.shape == (batch, new_tokens), out.shape
+    assert out.min() >= 0 and out.max() < cfg.vocab_size
+
+    tokens = serve_batch(prompts, fe, 0, batch, device)
+    err, err_fp32 = smoke_logits_err(cfg, model, tokens), None
+    if fp32_gate:
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        err_fp32 = smoke_logits_err(cfg32, copy.deepcopy(model).float(),
+                                    tokens)
+    assert (err if err_fp32 is None else err_fp32) <= 1.0, \
+        (cfg.name, err, err_fp32)
+
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, _, raw = engine._prefill(model, tokens)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        cache = eng.prefill_to_decode_cache(cfg, raw, ctx, engine.max_len)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _sync(device)
+        t0 = time.perf_counter()
+        for step in range(new_tokens - 1):
+            logits, cache = engine._step(model, cache, tok, ctx + step)
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _sync(device)
+        decode_s = (time.perf_counter() - t0) / (new_tokens - 1)
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch,
+                prompt_len=prompt_len, new_tokens=new_tokens,
+                frontend_rows=0 if fe is None else fe.shape[1],
+                launches=launches, want_launches=want,
+                logits_err_over_limit=err,
+                fp32_logits_err_over_limit=err_fp32,
+                prefill_ms=prefill_s * 1e3,
+                decode_ms_per_token=decode_s * 1e3)
+
+
+def phase_smoke_serves(device, archs=None) -> dict:
+    """Phase 4s: ``phase_smoke_serve`` for each arch of ``archs`` (every
+    arch of the registry by default) at its SMOKE config, unmodified,
+    printed as it ends."""
+    _port()
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    t0 = time.perf_counter()
+    out = {}
+    for arch in archs or ARCH_IDS:
+        out[arch] = phase_smoke_serve(device, get_smoke_config(arch),
+                                      fp32_gate=arch in SMOKE_FP32)
+        print_smoke_serve(arch, out[arch])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_smoke_serve(arch: str, r: dict):
+    fp32 = ("" if r["fp32_logits_err_over_limit"] is None else
+            f" (bf16 {r['logits_err_over_limit']:.3f}, gated in fp32 at "
+            f"{r['fp32_logits_err_over_limit']:.3f})")
+    err = (r["logits_err_over_limit"] if not fp32
+           else r["fp32_logits_err_over_limit"])
+    frontend = (f", {r['frontend_rows']} fp32 frontend rows"
+                if r["frontend_rows"] else "")
+    print(f"smoke-serve: {arch} ({r['arch']}, {r['n_layers']} layers) batch "
+          f"{r['batch']} x {r['prompt_len']} tokens{frontend}, "
+          f"{r['new_tokens']} new: launches {r['launches']} (expected "
+          f"{r['want_launches']}); prefill {r['prefill_ms']:.2f} ms, decode "
+          f"{r['decode_ms_per_token']:.2f} ms a token; logits at {err:.3f} "
+          f"of {SMOKE_LOGITS_TOL} * max|logits| of the plain path{fp32}")
+
+
+# ---------------------------------------------------------------------------
 # 4m / 5m. serve and train under a (data, model) mesh
 # ---------------------------------------------------------------------------
 
@@ -5761,7 +6007,74 @@ def print_dryrun(d: dict):
 
 
 # ---------------------------------------------------------------------------
-# 6. report
+# 6. the examples
+# ---------------------------------------------------------------------------
+
+# each ``examples/*_torch.py`` and its reduced size: the WordCount ones on
+# 2**19 tokens, training 4 steps, serving 8 requests of 8 new tokens
+EXAMPLE_RUNS = {
+    "serve_lm_torch.py": ("--requests", "8", "--new-tokens", "8"),
+    "train_lm_torch.py": ("--steps", "4"),
+    "skewed_wordcount_torch.py": ("--tokens", str(2**19)),
+    "streaming_wordcount_torch.py": ("--tokens", str(2**19)),
+    "wordcount_puma_torch.py": ("--tokens", str(2**19)),
+}
+EXAMPLE_TIMEOUT = 300
+
+
+def run_example(name: str, tmp: str, extra: tuple = ()) -> dict:
+    """``examples/<name>`` on the card in a child of its own at its
+    ``EXAMPLE_RUNS`` size and with ``extra`` flags (training's snapshots
+    under ``tmp``); raises with the child's output on a non-zero exit.
+    Its seconds and the last lines it printed."""
+    argv = [sys.executable, str(ROOT / "examples" / name),
+            *EXAMPLE_RUNS[name], *extra]
+    if name.startswith("train_lm"):
+        argv += ["--ckpt-dir", os.path.join(tmp, "train_ckpt")]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                          timeout=EXAMPLE_TIMEOUT, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return dict(seconds=seconds, lines=proc.stdout.strip().splitlines()[-9:])
+
+
+def phase_examples(names=None, extra: tuple = ()) -> dict:
+    """Phase 6: each example of ``names`` (all of ``EXAMPLE_RUNS`` by
+    default) through ``run_example`` (``extra`` flags, e.g. ``--device
+    cpu``, for each), side by side (so wordcount_puma's walls are taken
+    beside the others' work); the phase's seconds."""
+    import tempfile
+    names = list(names or EXAMPLE_RUNS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-examples-") as tmp:
+        with ThreadPoolExecutor(len(names)) as pool:
+            runs = {n: pool.submit(run_example, n, tmp, extra)
+                    for n in names}
+            out = {n: f.result() for n, f in runs.items()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_examples(ex: dict):
+    for name, r in ex.items():
+        if name == "seconds":
+            continue
+        print(f"examples: {name} {' '.join(EXAMPLE_RUNS[name])}: exit 0 in "
+              f"{r['seconds']:.1f} s")
+        for line in r["lines"]:
+            if line.strip():
+                print(f"examples:   {line}")
+    print(f"examples: {ex['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 7. report
 # ---------------------------------------------------------------------------
 
 def entry_kernel(name: str, source: str, replaces: str, entry: dict,
@@ -5788,10 +6101,12 @@ def entry_kernel(name: str, source: str, replaces: str, entry: dict,
 
 def served_slots_kernel(serves: dict, train: dict, entry: dict,
                         mesh_serves: dict | None = None,
-                        mesh_train: dict | None = None) -> dict:
+                        mesh_train: dict | None = None,
+                        smoke: dict | None = None) -> dict:
     """The ``kernels`` line's bucket_slots entry: its launches on the
-    served paths (phase 4's MoE archs, and 4m's under the mesh) and the
-    training paths (phase 5's MoE run, 5m's), its numbers at
+    served paths (phase 4's MoE archs, 4m's under the mesh and 4s's SMOKE
+    configs) and the training paths (phase 5's MoE run, 5m's), its
+    numbers at
     deepseek-v2-lite's served shape of the expert buffers (the larger),
     then its other served shapes, jamba's, the mesh's (all shards'
     records in a call) and the entry-point shapes of phase 2
@@ -5807,6 +6122,9 @@ def served_slots_kernel(serves: dict, train: dict, entry: dict,
                     for a, r in mesh_serves.items()})
     by_path.update({f"train-mesh {a}": r["launches"]["bucket_slots"]
                     for a, r in mesh_train.items()})
+    by_path.update({f"smoke-serve {a}": r["launches"]["bucket_slots"]
+                    for a, r in (smoke or {}).items()
+                    if a != "seconds" and "bucket_slots" in r["launches"]})
     times = {f"{a} {n}": t for a, r in serves.items() if r["slots"]
              for n, t in r["slots"]["times"].items()}
     times.update({f"mesh {a} {n}": t for a, r in mesh_serves.items()
@@ -6079,12 +6397,16 @@ def main(argv=()) -> int:
     del corpus
 
     serves = phase_serves(device, SERVE_ARCHS)
+    smoke = phase_smoke_serves(device)
+    print(f"smoke-serve: {smoke['seconds']:.1f} s")
     train = phase_trains(device, TRAIN_ARCHS)
     mesh_serves = phase_mesh_serves(device, MESH_ARCHS)
     mesh_train = phase_mesh_trains(device)
     pp_train = phase_pp_trains(device)
     dryrun = phase_dryrun(device)
     print_dryrun(dryrun)
+    examples = phase_examples()
+    print_examples(examples)
     print(json.dumps({"job": job, "profile": prof, "compare": compare,
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
@@ -6103,7 +6425,8 @@ def main(argv=()) -> int:
                                "max_abs_err": lint["max_abs_err"],
                                "times": lint_t},
                       "memcheck": memcheck, "guard": guard,
-                      "serve": serves, "train": train,
+                      "serve": serves, "smoke_serve": smoke,
+                      "train": train, "examples": examples,
                       "mesh_serve": mesh_serves, "mesh_train": mesh_train,
                       "pp_train": pp_train, "dryrun": dryrun}))
 
@@ -6112,7 +6435,10 @@ def main(argv=()) -> int:
                    if kernel in r["launches"]},
                 **{f"mesh {a}": r["launches"][kernel]
                    for a, r in mesh_serves.items()
-                   if kernel in r["launches"]}}
+                   if kernel in r["launches"]},
+                **{f"smoke {a}": r["launches"][kernel]
+                   for a, r in smoke.items()
+                   if a != "seconds" and kernel in r["launches"]}}
     print(json.dumps({"kernels": [{
         "name": "fused_map", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_map/csrc/fused_map.cu",
@@ -6181,7 +6507,8 @@ def main(argv=()) -> int:
         served_slots_kernel(serves, train, entry_kernel(
             "bucket_slots", "moe_dispatch/csrc/bucket_slots.cu",
             "moe_dispatch/kernel.py:51", entry, entry_t, "slots_routing",
-            ("slots_owner_window",), built, 0), mesh_serves, mesh_train),
+            ("slots_owner_window",), built, 0), mesh_serves, mesh_train,
+            smoke),
         entry_kernel("flash_decode", "flash_decode/csrc/flash_decode.cu",
                      "flash_decode/kernel.py:71", entry, entry_t,
                      "decode_olmo-1b", ("decode_h2o-danube-1.8b",), built,

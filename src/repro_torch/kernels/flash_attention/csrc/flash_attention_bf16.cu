@@ -6,7 +6,8 @@
 // flash_attention_pallas (body _fa_kernel) for bf16 inputs; fp32 inputs go
 // to flash_attention.cu. It computes the function of
 // ref.py::flash_attention_plain on the (B, S, H, hd) layout as it lies in
-// memory (no transposes, no padded copies), for hd 64, 80, 128 and 160:
+// memory (no transposes, no padded copies), for any hd that is a multiple
+// of 4 from 16 to 160 (the widths are below):
 //   * scores are bf16 q . bf16 k summed in fp32; hd**-0.5 (with log2(e)
 //     folded in, for exp2f) is applied to the fp32 scores, in the exp's
 //     FFMA;
@@ -62,6 +63,24 @@
 // 232,448 a CTA may have, so the ring has 2 stages at hd 160 (205,896
 // bytes); the smaller head dims keep 3.
 //
+// hd 16, 32 and 48 (the SMOKE configs' widths): panel 0 is 16 columns in
+// 32-byte swizzle or 32 columns in 64-byte swizzle, and 48 is a 32-column
+// panel 0 and a 16-column panel 1; QK^T takes one k16 step per 16 columns
+// and PV one n16 or n32 wgmma per panel, as the panels above do.
+//
+// Any other hd that is a multiple of 4 from 16 to 160 runs on the
+// instantiation of the smallest width W in {16, 32, 48, 64, 80, 128, 160}
+// that holds it (20 and 24 on 32, 100 on 128), with the columns past hd
+// zero in shared memory, so those columns add nothing to QK^T and make O
+// columns that are not stored. TMA cannot load such a head: its zero fill
+// needs a box past the tensor's hd, and at hd 20 a head's row (40 bytes)
+// breaks TMA's 16-byte stride rule. So when hd < W the producer warpgroup
+// loads the tiles itself: 8-byte cp.async pieces (zero-filled past hd and
+// past S) written in the panels' swizzle, then a proxy fence and an
+// arrival on the same full barriers. That producer is an instantiation of
+// its own (kPlain), so a head at exactly W runs the TMA kernel as it was,
+// its 24-register producer untouched by the loader's addressing.
+//
 // Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the build needs no -lcuda)
 // and passed as __grid_constant__ parameters.
@@ -79,30 +98,44 @@ constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32 + 128;  // + 1 producer warpgroup
 constexpr float kNegInf = -1e30f;
 
-// The head dim's panels: panel 0 holds columns [0, 64) with 128-byte rows
-// in 128-byte swizzle; panel 1 holds [64, min(HD, 128)): none for HD 64,
-// 16 columns in 32-byte swizzle for HD 80, 64 columns in 128-byte swizzle
-// for HD 128 and 160; panel 2 holds [128, HD): 32 columns in 64-byte
-// swizzle for HD 160, none otherwise. kStages is the K/V ring's depth.
+// wgmma's layout code of a panel of w columns (w * 2-byte rows in the
+// swizzle of that span): 1 for 128-byte swizzle, 2 for 64, 3 for 32
+__host__ __device__ constexpr int swizzle_layout(int w) {
+  return w == 64 ? 1 : w == 32 ? 2 : 3;
+}
+
+// The panels of a head of HD columns (HD the instantiation's width):
+// panel 0 holds columns [0, kW0) with kW0 = 64 from HD 64 up (128-byte
+// rows in 128-byte swizzle), 32 at HD 32 and 48 (64-byte swizzle) and 16
+// at HD 16 (32-byte swizzle); panel 1 holds the next kW1 columns: none
+// for HD 16, 32 and 64, 16 in 32-byte swizzle for HD 48 and 80, 64 in
+// 128-byte swizzle for HD 128 and 160; panel 2 holds [kW0 + kW1, HD): 32
+// columns in 64-byte swizzle for HD 160, none otherwise. A panel is a
+// TMA box of its own. kStages is the K/V ring's depth.
 template <int HD>
 struct Panels {
-  static constexpr int kW1 = HD - 64 < 64 ? HD - 64 : 64;
-  static constexpr int kW2 = HD - 64 - kW1;
-  static_assert((kW1 == 0 || kW1 == 16 || kW1 == 64) &&
-                    (kW2 == 0 || kW2 == 32),
-                "hd is 64, 80, 128 or 160");
+  static constexpr int kW0 = HD >= 64 ? 64 : HD >= 32 ? 32 : 16;
+  static constexpr int kW1 = HD - kW0 < 64 ? HD - kW0 : 64;
+  static constexpr int kW2 = HD - kW0 - kW1;
+  static_assert(HD == 16 || HD == 32 || HD == 48 || HD == 64 || HD == 80 ||
+                    HD == 128 || HD == 160,
+                "the width is 16, 32, 48, 64, 80, 128 or 160");
+  static constexpr int kRow0 = kW0 * 2;          // bytes of a panel-0 row
+  static constexpr int kSbo0 = 8 * kRow0;        // one 8-row swizzle atom
+  static constexpr int kLayout0 = swizzle_layout(kW0);
   static constexpr int kRow1 = kW1 * 2;          // bytes of a panel-1 row
-  static constexpr int kSbo1 = 8 * kRow1;        // one 8-row swizzle atom
-  static constexpr int kLayout1 = kW1 == 64 ? 1 : 3;   // B128 : B32
+  static constexpr int kSbo1 = 8 * kRow1;
+  static constexpr int kLayout1 = swizzle_layout(kW1);
   static constexpr int kRow2 = kW2 * 2;          // bytes of a panel-2 row
   static constexpr int kSbo2 = 8 * kRow2;
-  static constexpr int kLayout2 = 2;             // B64
+  static constexpr int kLayout2 = swizzle_layout(kW2);
   static constexpr int kStages = HD > 128 ? 2 : 3;
 };
 
 // wgmma descriptor of a swizzled tile at shared address `addr`: `sbo` is
-// the byte stride between 8-row atoms, `layout` 1 (128-byte swizzle) or 3
-// (32-byte). The leading offset is unused for these layouts.
+// the byte stride between 8-row atoms, `layout` 1 (128-byte swizzle), 2
+// (64-byte) or 3 (32-byte). The leading offset is unused for these
+// layouts.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t sbo,
                                          uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
@@ -155,6 +188,59 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
       "r"(b), "r"(bar)
       : "memory");
+}
+
+// 8 bytes from global to shared memory, or 8 zero bytes when `bytes` is 0
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Rows [row0, row0 + kRows) of head `head` of x (B, S, heads, hd) into the
+// tile at `dst`, laid out as the TMA boxes of Panels<HD> lay it out (each
+// panel at rows x the row bytes of the panels before it, in its swizzle:
+// the 16-byte chunk bits [4, 4 + k) of a byte offset XORed with its bits
+// [7, 7 + k), k 3, 2 and 1 for 128-, 64- and 32-byte swizzle), with
+// columns at or past hd and rows at or past S zero. Each of the 128
+// producer threads (`t`) moves 4 columns at a time (hd is a multiple of 4,
+// so a piece is all in or all past hd), waits for its copies, and fences
+// them for the async proxy (wgmma reads the tile through it); the caller
+// then arrives on the tile's full barrier.
+template <int HD, int kRows>
+__device__ __forceinline__ void load_plain(uint32_t dst,
+                                           const __nv_bfloat16* x, int S,
+                                           int heads, int hd, int head,
+                                           int row0, int b, int t) {
+  using P = Panels<HD>;
+  constexpr int kPieces = HD / 4;
+  for (int i = t; i < kRows * kPieces; i += 128) {
+    const int r = i / kPieces, c = (i % kPieces) * 4;
+    uint32_t base = 0, off;
+    int w = P::kW0;
+    if (c < P::kW0) {
+      off = r * P::kRow0 + c * 2;
+    } else if (c < P::kW0 + P::kW1) {
+      base = kRows * P::kRow0;
+      off = r * P::kRow1 + (c - P::kW0) * 2;
+      w = P::kW1;
+    } else {
+      base = kRows * (P::kRow0 + P::kRow1);
+      off = r * P::kRow2 + (c - P::kW0 - P::kW1) * 2;
+      w = P::kW2;
+    }
+    const uint32_t mask = w == 64 ? 7 : w == 32 ? 3 : 1;
+    const int s = row0 + r;
+    const bool in = s < S && c < hd;
+    const __nv_bfloat16* src =
+        in ? x + ((static_cast<long long>(b) * S + s) * heads + head) * hd + c
+           : x;
+    cp_async8(dst + base + (off ^ (((off >> 7) & mask) << 4)), src,
+              in ? 8 : 0);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -283,7 +369,7 @@ static_assert(smem_bytes<160>() <= 232448, "a CTA has 227 KB on sm_90");
 // Accumulator layout of wgmma m64nN (fp32), per thread of a warpgroup:
 // warp w, lane l own rows 16w + l/4 (entries 4j, 4j+1) and 16w + l/4 + 8
 // (entries 4j+2, 4j+3) at columns 8j + 2(l%4) + {0, 1}.
-template <int HD>
+template <int HD, bool kPlain>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
                const __grid_constant__ CUtensorMap tq1,
@@ -294,13 +380,20 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
                const __grid_constant__ CUtensorMap tv0,
                const __grid_constant__ CUtensorMap tv1,
                const __grid_constant__ CUtensorMap tv2,
+               const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
-               int causal, int window, float scale_log2) {
+               int hd, int causal, int window, float scale_log2) {
   using P = Panels<HD>;
   constexpr int kStages = P::kStages;
   constexpr int kTile = kBlockKV * HD * 2;   // bytes of a K or V tile
-  constexpr int kOff2 = 128 + P::kRow1;      // panel 2 at kOff2 * rows
+  constexpr int kOff1 = P::kRow0;            // panel 1 at kOff1 * rows
+  constexpr int kOff2 = P::kRow0 + P::kRow1; // panel 2 at kOff2 * rows
   constexpr int kQBytes = kBlockQ * HD * 2;
+  // TMA loads a head at the width (hd == HD); a narrower one the producer
+  // loads (kPlain)
+  const int ld_hd = kPlain ? hd : HD;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sk = sq + kQBytes;                 // + stage * kTile
@@ -330,10 +423,13 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
   const int n_tiles = kt_hi > kt_lo ? kt_hi - kt_lo : 0;
 
   if (threadIdx.x == 0) {
-    bar_init(q_full, 1);
+    // a full barrier takes TMA's one arrival (and its bytes), or one from
+    // each producer thread
+    const int loaders = kPlain ? 128 : 1;
+    bar_init(q_full, loaders);
     for (int s = 0; s < kStages; ++s) {
-      bar_init(k_full(s), 1);
-      bar_init(v_full(s), 1);
+      bar_init(k_full(s), loaders);
+      bar_init(v_full(s), loaders);
       bar_init(k_empty(s), kConsumerWarps);
       bar_init(v_empty(s), kConsumerWarps);
     }
@@ -344,15 +440,32 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= kConsumerWarps) {
     // producer warpgroup: gives its registers to the consumers; one lane
-    // issues every load
+    // issues every TMA load, or all 128 threads load a narrower head
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (warp == kConsumerWarps && lane == 0) {
+    constexpr int c1 = P::kW0, c2 = P::kW0 + P::kW1;   // panels' columns
+    if constexpr (kPlain) {
+      const int t = threadIdx.x - kConsumerWarps * 32;
+      load_plain<HD, kBlockQ>(sq, q, Sq, H, hd, h, q0, b, t);
+      bar_arrive(q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, ph = (i / kStages) & 1;
+        const int k0 = (kt_lo + i) * kBlockKV;
+        bar_wait(k_empty(st), ph ^ 1);
+        load_plain<HD, kBlockKV>(sk + st * kTile, k, Skv, KV, hd, kvh, k0,
+                                 b, t);
+        bar_arrive(k_full(st));
+        bar_wait(v_empty(st), ph ^ 1);
+        load_plain<HD, kBlockKV>(sv + st * kTile, v, Skv, KV, hd, kvh, k0,
+                                 b, t);
+        bar_arrive(v_full(st));
+      }
+    } else if (warp == kConsumerWarps && lane == 0) {   // TMA
       bar_expect_tx(q_full, kQBytes);
       tma_load(sq, &tq0, q_full, 0, h, q0, b);
       if constexpr (P::kW1 > 0)
-        tma_load(sq + kBlockQ * 128, &tq1, q_full, 64, h, q0, b);
+        tma_load(sq + kBlockQ * kOff1, &tq1, q_full, c1, h, q0, b);
       if constexpr (P::kW2 > 0)
-        tma_load(sq + kBlockQ * kOff2, &tq2, q_full, 128, h, q0, b);
+        tma_load(sq + kBlockQ * kOff2, &tq2, q_full, c2, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages, ph = (i / kStages) & 1;
         const int k0 = (kt_lo + i) * kBlockKV;
@@ -361,18 +474,16 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
         bar_expect_tx(k_full(st), kTile);
         tma_load(dk, &tk0, k_full(st), 0, kvh, k0, b);
         if constexpr (P::kW1 > 0)
-          tma_load(dk + kBlockKV * 128, &tk1, k_full(st), 64, kvh, k0, b);
+          tma_load(dk + kBlockKV * kOff1, &tk1, k_full(st), c1, kvh, k0, b);
         if constexpr (P::kW2 > 0)
-          tma_load(dk + kBlockKV * kOff2, &tk2, k_full(st), 128, kvh, k0,
-                   b);
+          tma_load(dk + kBlockKV * kOff2, &tk2, k_full(st), c2, kvh, k0, b);
         bar_wait(v_empty(st), ph ^ 1);
         bar_expect_tx(v_full(st), kTile);
         tma_load(dv, &tv0, v_full(st), 0, kvh, k0, b);
         if constexpr (P::kW1 > 0)
-          tma_load(dv + kBlockKV * 128, &tv1, v_full(st), 64, kvh, k0, b);
+          tma_load(dv + kBlockKV * kOff1, &tv1, v_full(st), c1, kvh, k0, b);
         if constexpr (P::kW2 > 0)
-          tma_load(dv + kBlockKV * kOff2, &tv2, v_full(st), 128, kvh, k0,
-                   b);
+          tma_load(dv + kBlockKV * kOff2, &tv2, v_full(st), c2, kvh, k0, b);
       }
     }
     return;
@@ -384,18 +495,18 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
   const int qw0 = q0 + wg * 64;
   const int row0 = qw0 + wq * 16 + lane / 4;        // and row0 + 8
   const int col_l = 2 * (lane % 4);
-  const uint32_t qa0 = sq + wg * 64 * 128;
-  const uint32_t qa1 = sq + kBlockQ * 128 + wg * 64 * P::kRow1;
+  const uint32_t qa0 = sq + wg * 64 * P::kRow0;
+  const uint32_t qa1 = sq + kBlockQ * kOff1 + wg * 64 * P::kRow1;
   const uint32_t qa2 = sq + kBlockQ * kOff2 + wg * 64 * P::kRow2;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
   float s[64];
   uint32_t pa[8][4];
-  float o0[32];
+  float o0[P::kW0 / 2];
   float o1[P::kW1 > 0 ? P::kW1 / 2 : 1];
   float o2[P::kW2 > 0 ? P::kW2 / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o0[i] = 0.f;
+  for (int i = 0; i < P::kW0 / 2; ++i) o0[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (P::kW1 > 0 ? P::kW1 / 2 : 1); ++i) o1[i] = 0.f;
 #pragma unroll
@@ -410,13 +521,13 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
   auto issue_qk = [&](int st) {
     const uint32_t kb = sk + st * kTile;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n128(s, desc(qa0 + 32 * kk, 1024, 1),
-                    desc(kb + 32 * kk, 1024, 1), kk);
+    for (int kk = 0; kk < P::kW0 / 16; ++kk)
+      wgmma_ss_n128(s, desc(qa0 + 32 * kk, P::kSbo0, P::kLayout0),
+                    desc(kb + 32 * kk, P::kSbo0, P::kLayout0), kk);
 #pragma unroll
     for (int kk = 0; kk < P::kW1 / 16; ++kk)
       wgmma_ss_n128(s, desc(qa1 + 32 * kk, P::kSbo1, P::kLayout1),
-                    desc(kb + kBlockKV * 128 + 32 * kk, P::kSbo1,
+                    desc(kb + kBlockKV * kOff1 + 32 * kk, P::kSbo1,
                          P::kLayout1),
                     1);
 #pragma unroll
@@ -433,9 +544,15 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
     const uint32_t vb = sv + st * kTile;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
-      wgmma_rs_n64(o0, pa[t], desc(vb + t * 16 * 128, 1024, 1));
+      const uint64_t d0 = desc(vb + t * 16 * P::kRow0, P::kSbo0, P::kLayout0);
+      if constexpr (P::kW0 == 64)
+        wgmma_rs_n64(o0, pa[t], d0);
+      else if constexpr (P::kW0 == 32)
+        wgmma_rs_n32(o0, pa[t], d0);
+      else
+        wgmma_rs_n16(o0, pa[t], d0);
       if constexpr (P::kW1 > 0) {
-        const uint64_t d1 = desc(vb + kBlockKV * 128 + t * 16 * P::kRow1,
+        const uint64_t d1 = desc(vb + kBlockKV * kOff1 + t * 16 * P::kRow1,
                                  P::kSbo1, P::kLayout1);
         if constexpr (P::kW1 == 64)
           wgmma_rs_n64(o1, pa[t], d1);
@@ -500,7 +617,7 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
   // entries 8t .. 8t+7
   auto rescale_and_pack = [&]() {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o0[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < P::kW0 / 2; ++i) o0[i] *= corr[(i >> 1) & 1];
     if constexpr (P::kW1 > 0) {
 #pragma unroll
       for (int i = 0; i < P::kW1 / 2; ++i) o1[i] *= corr[(i >> 1) & 1];
@@ -564,30 +681,37 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq0,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  const long long ld = static_cast<long long>(H) * HD;
+  // only the hd columns are stored: a pair of columns (col_l even, hd a
+  // multiple of 4) lies wholly below hd or wholly past it
+  const long long ld = static_cast<long long>(H) * ld_hd;
+  constexpr int c1 = P::kW0, c2 = P::kW0 + P::kW1;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = row0 + 8 * r;
     if (qp >= Sq) continue;
     __nv_bfloat16* row = o + (static_cast<long long>(b) * Sq + qp) * ld +
-                         static_cast<long long>(h) * HD + col_l;
+                         static_cast<long long>(h) * ld_hd + col_l;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
-          o0[4 * j + 2 * r] * inv[r], o0[4 * j + 2 * r + 1] * inv[r]);
+    for (int j = 0; j < P::kW0 / 8; ++j)
+      if (!kPlain || 8 * j + col_l < hd)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(o0[4 * j + 2 * r] * inv[r],
+                                  o0[4 * j + 2 * r + 1] * inv[r]);
     if constexpr (P::kW1 > 0) {
 #pragma unroll
       for (int j = 0; j < P::kW1 / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + 64 + 8 * j) =
-            __floats2bfloat162_rn(o1[4 * j + 2 * r] * inv[r],
-                                  o1[4 * j + 2 * r + 1] * inv[r]);
+        if (!kPlain || c1 + 8 * j + col_l < hd)
+          *reinterpret_cast<__nv_bfloat162*>(row + c1 + 8 * j) =
+              __floats2bfloat162_rn(o1[4 * j + 2 * r] * inv[r],
+                                    o1[4 * j + 2 * r + 1] * inv[r]);
     }
     if constexpr (P::kW2 > 0) {
 #pragma unroll
       for (int j = 0; j < P::kW2 / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + 128 + 8 * j) =
-            __floats2bfloat162_rn(o2[4 * j + 2 * r] * inv[r],
-                                  o2[4 * j + 2 * r + 1] * inv[r]);
+        if (!kPlain || c2 + 8 * j + col_l < hd)
+          *reinterpret_cast<__nv_bfloat162*>(row + c2 + 8 * j) =
+              __floats2bfloat162_rn(o2[4 * j + 2 * r] * inv[r],
+                                    o2[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
@@ -643,57 +767,92 @@ bool make_map(EncodeFn enc, CUtensorMap* map, const void* x, int B, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD, bool kPlain>
+int launch_kernel(const CUtensorMap (&m)[9], const void* q, const void* k,
+                  const void* v, void* o, int B, int Sq, int Skv, int H,
+                  int KV, int hd, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  constexpr int smem = smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_bf16_kernel<HD, kPlain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
+  fa_bf16_kernel<HD, kPlain><<<grid, kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8],
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Sq, Skv, H, KV, hd, causal, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int causal, int window,
+           int Sq, int Skv, int H, int KV, int hd, int causal, int window,
            float scale, cudaStream_t stream) {
   using P = Panels<HD>;
+  CUtensorMap m[9] = {};   // q, k, v: panels 0, 1 and 2 each
+  // a head narrower than the width: the producer's own loads, no maps (no
+  // head dim is narrower than 16)
+  if constexpr (HD > 16)
+    if (hd < HD)
+      return launch_kernel<HD, true>(m, q, k, v, o, B, Sq, Skv, H, KV, hd,
+                                     causal, window, scale, stream);
   const EncodeFn enc = encode_fn();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap m[9];   // q, k, v: panels 0, 1 and 2 each
-  // a panel the head dim lacks gets an unused map of 64 columns
-  const int w[3] = {64, P::kW1 > 0 ? P::kW1 : 64, P::kW2 > 0 ? P::kW2 : 64};
+  // a panel the width lacks gets an unused map as wide as panel 0
+  const int w[3] = {P::kW0, P::kW1 > 0 ? P::kW1 : P::kW0,
+                    P::kW2 > 0 ? P::kW2 : P::kW0};
   for (int p = 0; p < 3; ++p)
     if (!make_map(enc, &m[p], q, B, Sq, H, HD, w[p], kBlockQ) ||
         !make_map(enc, &m[3 + p], k, B, Skv, KV, HD, w[p], kBlockKV) ||
         !make_map(enc, &m[6 + p], v, B, Skv, KV, HD, w[p], kBlockKV))
       return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = smem_bytes<HD>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      fa_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  fa_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8],
-      static_cast<__nv_bfloat16*>(o),
-      Sq, Skv, H, KV, causal, window, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel<HD, false>(m, q, k, v, o, B, Sq, Skv, H, KV, hd,
+                                  causal, window, scale, stream);
 }
 
 }  // namespace
 
 // Launch on ``stream`` (PyTorch's current stream). q, k, v are contiguous
-// bf16 with 16-byte aligned bases; hd is 64, 80, 128 or 160. Returns
-// cudaGetLastError(), or an error code for a head dim the kernel is not
-// built for or a tensor map cuTensorMapEncodeTiled refuses, so the caller
-// can raise.
+// bf16 with 16-byte aligned bases; hd is a multiple of 4 no wider than
+// ``width``, the instantiation that runs it (16, 32, 48, 64, 80, 128 or
+// 160; the wrapper picks it, ``ops.supported``). Returns
+// cudaGetLastError(), or an error code for a width the kernel is not built
+// for, an hd it does not hold or a tensor map cuTensorMapEncodeTiled
+// refuses, so the caller can raise.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int Sq, int Skv, int H, int KV,
-                                           int hd, int causal, int window,
-                                           float scale, void* stream) {
+                                           int hd, int width, int causal,
+                                           int window, float scale,
+                                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
-                      s);
-  if (hd == 80)
-    return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
-                      s);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
-                       s);
-  if (hd == 160)
-    return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, scale,
-                       s);
+  if (hd < 16 || hd % 4 || hd > width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (width) {
+    case 16:
+      return launch<16>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                        scale, s);
+    case 32:
+      return launch<32>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                        scale, s);
+    case 48:
+      return launch<48>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                        scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                        scale, s);
+    case 80:
+      return launch<80>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                        scale, s);
+    case 128:
+      return launch<128>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                         scale, s);
+    case 160:
+      return launch<160>(q, k, v, o, B, Sq, Skv, H, KV, hd, causal, window,
+                         scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,9 @@ SOURCES = {torch.bfloat16: CSRC / "flash_attention_bf16.cu",
            torch.float32: CSRC / "flash_attention.cu"}
 _ENTRY = {torch.bfloat16: "flash_attention_bf16_launch",
           torch.float32: "flash_attention_f32_launch"}
-HEAD_DIMS = (64, 80, 128, 160)  # the head dims both kernels are built for
+# the widths both kernels are instantiated at; a head dim runs on the
+# smallest that holds it, with the columns past it zero (``supported``)
+WIDTHS = (16, 32, 48, 64, 80, 128, 160)
 
 _FN = {}      # dtype -> the typed C entry point, resolved at first launch
 
@@ -32,11 +34,20 @@ def _launcher(dtype):
     fn = _FN.get(dtype)
     if fn is None:
         fn = getattr(backend.load(SOURCES[dtype]), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN[dtype] = fn
     return fn
+
+
+def supported(hd: int) -> int | None:
+    """The width of the instantiation that runs head dim ``hd``: the
+    smallest of ``WIDTHS`` that holds it, for an hd that is a multiple of
+    4 from 16 to 160; None for any other hd, which the kernels refuse."""
+    if hd % 4 or not WIDTHS[0] <= hd <= WIDTHS[-1]:
+        return None
+    return next(w for w in WIDTHS if w >= hd)
 
 
 def _check(q, k, v):
@@ -65,18 +76,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     The tensors' device picks kernel or plain version; ``use_kernel=True``
     demands the kernel and raises on CPU tensors. On the card bf16 runs
-    the tensor-core kernel and fp32 the CUDA-core one; each takes hd in
-    ``HEAD_DIMS`` and contiguous tensors with 16-byte aligned data, and
-    raises on anything else.
+    the tensor-core kernel and fp32 the CUDA-core one; each takes an hd
+    that ``supported`` gives a width and contiguous tensors with 16-byte
+    aligned data, and raises on anything else.
     """
     _check(q, k, v)
     if not backend.use_kernel(q, require=use_kernel):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {hd}")
+    width = supported(hd)
+    if width is None:
+        raise ValueError(f"the flash_attention kernel takes head dims that "
+                         f"are multiples of 4 from {WIDTHS[0]} to "
+                         f"{WIDTHS[-1]}, got {hd}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the kernel's grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -86,8 +99,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
-                            int(window), hd ** -0.5, stream)
+                            o.data_ptr(), B, Sq, Skv, H, KV, hd, width,
+                            int(causal), int(window), hd ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

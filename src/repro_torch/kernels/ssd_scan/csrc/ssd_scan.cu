@@ -14,7 +14,12 @@
 // the diagonal exp(cum_i - cum_j) can overflow to inf, and inf * 0 is NaN.
 // Rows at or past S (the ragged tail of the last chunk) are read as
 // dt = 0, x = 0, B = C = 0, which is identity decay and no update, and
-// are never written: the TPU kernel's zero padding without the copy.
+// are never written: the TPU kernel's zero padding without the copy. A
+// chunk is any multiple of 16 rows up to 256 (16 for the SMOKE configs);
+// dt and cum are kept over the chunk rounded up to whole 64-row tiles, dt
+// 0 and cum flat past the chunk, so a short chunk's last tile reads them
+// as it reads a ragged tail's. P is 16 (fp32 only), 32 or 64 and N 16, 32
+// or 128.
 //
 // Design. One CTA of 256 threads per (b, h); the TPU grid's sequential
 // chunk axis is the CTA's loop over chunks. The (P, N) state lives in
@@ -46,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kTile = 64;           // rows of a staged tile
@@ -75,10 +82,15 @@ __device__ __forceinline__ float load_dt(const void* dt, long long i,
                  : static_cast<const float*>(dt)[i];
 }
 
+// rows of dt and cum kept for a chunk: whole 64-row tiles
+__host__ __device__ inline int padded_chunk(int chunk) {
+  return (chunk + kTile - 1) / kTile * kTile;
+}
+
 template <int P, int N>
 size_t smem_bytes(int chunk) {
   return static_cast<size_t>((P + 2 * kTile) * (N + 4) + kTile * (P + 4) +
-                             kTile * kLdS + 2 * chunk) *
+                             kTile * kLdS + 2 * padded_chunk(chunk)) *
          sizeof(float);
 }
 
@@ -132,8 +144,9 @@ ssd_scan_kernel(const T* __restrict__ x, const void* __restrict__ dt,
   float* bs = cs + kTile * kLdN;                   // [64][kLdN] B tile j
   float* xs = bs + kTile * kLdN;                   // [64][kLdP] x*dt tile j
   float* sc = xs + kTile * kLdP;                   // [64 j][kLdS] scores^T
-  float* dts = sc + kTile * kLdS;                  // [chunk] dt
-  float* cum = dts + chunk;                        // [chunk] cumsum(dt * A)
+  const int rows = padded_chunk(chunk);            // rows of dts and cum
+  float* dts = sc + kTile * kLdS;                  // [rows] dt
+  float* cum = dts + rows;                         // [rows] cumsum(dt * A)
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int g = h / (H / G);
@@ -158,13 +171,13 @@ ssd_scan_kernel(const T* __restrict__ x, const void* __restrict__ dt,
     const T* cc = Cm + bc_base + static_cast<long long>(c0) * bc_ld;
 
     __syncthreads();  // the last chunk's update pass is done with cum
-    for (int r = tid; r < chunk; r += kThreads)
+    for (int r = tid; r < rows; r += kThreads)
       dts[r] = r < len ? load_dt(dt, dt_base + static_cast<long long>(c0 + r)
                                               * H, dt_bf16)
                        : 0.f;
     __syncthreads();
-    if (tid < 32) {  // inclusive scan of dt * A: 32 lanes of chunk/32 rows
-      const int per = chunk / 32, r0 = tid * per;
+    if (tid < 32) {  // inclusive scan of dt * A: 32 lanes of rows/32 rows
+      const int per = rows / 32, r0 = tid * per;
       float run = 0.f;
       for (int k = 0; k < per; ++k) {
         run += dts[r0 + k] * a_h;
@@ -362,6 +375,12 @@ template <typename T>
 int launch_p(const void* x, const void* dt, int dt_bf16, const void* A,
              const void* Bm, const void* Cm, void* y, void* st, int B, int S,
              int H, int G, int P, int N, int chunk, cudaStream_t s) {
+  // P 16 only in fp32: bf16 goes to ssd_scan_bf16.cu, and each
+  // instantiation adds to the build
+  if constexpr (std::is_same_v<T, float>)
+    if (P == 16)
+      return launch_n<T, 16>(x, dt, dt_bf16, A, Bm, Cm, y, st, B, S, H, G, N,
+                             chunk, s);
   if (P == 32)
     return launch_n<T, 32>(x, dt, dt_bf16, A, Bm, Cm, y, st, B, S, H, G, N,
                            chunk, s);
@@ -374,8 +393,9 @@ int launch_p(const void* x, const void* dt, int dt_bf16, const void* A,
 }  // namespace
 
 // Launch on ``stream`` (PyTorch's current stream). dtype and dt_dtype are
-// 0 for fp32 and 1 for bf16 (x, B, C and y share dtype); P is 32 or 64, N
-// 16, 32 or 128, chunk a multiple of 64 up to 256. Returns
+// 0 for fp32 and 1 for bf16 (x, B, C and y share dtype); P is 32 or 64
+// (16 too in fp32), N 16, 32 or 128, chunk a multiple of 16 up to 256.
+// Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape or type the
 // kernel is not built for, so the caller can raise.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
@@ -384,8 +404,8 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                int N, int chunk, int dtype, int dt_dtype,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S < 1 || G < 1 || H % G || chunk < kTile || chunk > kMaxChunk ||
-      chunk % kTile || (dt_dtype != 0 && dt_dtype != 1))
+  if (S < 1 || G < 1 || H % G || chunk < 16 || chunk > kMaxChunk ||
+      chunk % 16 || (dt_dtype != 0 && dt_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_p<float>(x, dt, dt_dtype, A, Bm, Cm, y, state, B, S, H, G,

@@ -16,7 +16,8 @@
 //   (b) state_pass_kernel, a thread per 4 state entries of one (b, h):
 //         S_in[0] = 0, S_in[c] = S_in[c-1] exp(last_{c-1}) + U_{c-1},
 //       written over U in place, and the final state S_in[n_chunks];
-//   (c) chunk_out_kernel, a CTA per (b, h, chunk, 64-row tile), the tile
+//   (c) chunk_out_kernel, a CTA per (b, h, chunk, 64-row tile; a chunk
+//       that is not a multiple of 64 rows ends in a short tile), the tile
 //       with the most causal work first within each chunk:
 //         y_i = exp(cum_i) (C_i . S_in[c]^T)
 //               + sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j.
@@ -28,6 +29,12 @@
 // cum_j}, r the key tile's last row: both factors are at most 1. Rows at
 // or past S (the ragged tail of the last chunk) are read as dt = 0, x = B
 // = C = 0, which is identity decay and no update, and are never written.
+// A chunk is any multiple of 16 rows up to 256 (16 for the SMOKE configs):
+// (a) scans 256 rows with dt = 0 past the chunk's, so cum stays flat there
+// and last_c = cum[len - 1], and keeps cum and dt for the chunk rounded up
+// to whole 64-row tiles (cpad rows), which (b) and (c) read: (c)'s last
+// tile then reads cum flat and dt 0 past the chunk, as past a ragged S.
+// P is 16, 32 or 64 and N 16, 32 or 128.
 //
 // The tensor cores (mma.sync m16n8k16 bf16, operands by ldmatrix) take the
 // four products: C_i . B_j^T, M . x_j with M_ij = (C_i . B_j) exp(cum_i -
@@ -240,7 +247,7 @@ chunk_state_kernel(const bf16* __restrict__ x, const void* __restrict__ dt,
                    int dt_bf16, const float* __restrict__ A,
                    const bf16* __restrict__ Bm, float* __restrict__ work,
                    float* __restrict__ cumdt, int S, int H, int G, int chunk,
-                   int n_chunks) {
+                   int cpad, int n_chunks) {
   constexpr int T = state_threads<P, N>();
   constexpr int kLdN = N + 8, kLdP = P + 8;
   constexpr int MT = P / 16;           // 16-row m-tiles of U (rows p)
@@ -285,10 +292,10 @@ chunk_state_kernel(const bf16* __restrict__ x, const void* __restrict__ dt,
   load_x(0);
   chunk_cumsum<T>(dt, dt_bf16, row0 * H + h, H, len, A[h], dts, cum, wsum);
   const float last = cum[kMaxChunk - 1];
-  float* cd = cumdt + (static_cast<long long>(bh) * n_chunks + c) * 2 * chunk;
-  for (int r = tid; r < chunk; r += T) {     // for passes (b) and (c)
+  float* cd = cumdt + (static_cast<long long>(bh) * n_chunks + c) * 2 * cpad;
+  for (int r = tid; r < cpad; r += T) {      // for passes (b) and (c)
     cd[r] = cum[r];
-    cd[chunk + r] = dts[r];
+    cd[cpad + r] = dts[r];
   }
 
   const int m0 = (warp % MT) * 16, n0 = (warp / MT) * NW;
@@ -400,7 +407,7 @@ __device__ __forceinline__ float4 decay_add(float4 s, float d, float4 u) {
 // both parts by ldmatrix.
 __global__ void __launch_bounds__(kStateThreads)
 state_pass_kernel(float* __restrict__ work, const float* __restrict__ cumdt,
-                  float* __restrict__ state, int pn, int chunk, int n_chunks,
+                  float* __restrict__ state, int pn, int cpad, int n_chunks,
                   int blocks_per_bh) {
   const int bh = blockIdx.x / blocks_per_bh;
   const int q = (blockIdx.x % blocks_per_bh) * kStateThreads + threadIdx.x;
@@ -409,7 +416,7 @@ state_pass_kernel(float* __restrict__ work, const float* __restrict__ cumdt,
   const bool odd = q & 1;
   float4* w4 = reinterpret_cast<float4*>(
                    work + static_cast<long long>(bh) * n_chunks * pn) + q;
-  const float* cd = cumdt + static_cast<long long>(bh) * n_chunks * 2 * chunk;
+  const float* cd = cumdt + static_cast<long long>(bh) * n_chunks * 2 * cpad;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int cb = 0; cb < n_chunks; cb += kStateBatch) {
     float4 u[kStateBatch];
@@ -418,7 +425,7 @@ state_pass_kernel(float* __restrict__ work, const float* __restrict__ cumdt,
     for (int k = 0; k < kStateBatch; ++k)
       if (cb + k < n_chunks) {
         u[k] = w4[static_cast<long long>(cb + k) * n4];
-        d[k] = cd[static_cast<long long>(cb + k) * 2 * chunk + chunk - 1];
+        d[k] = cd[static_cast<long long>(cb + k) * 2 * cpad + cpad - 1];
       }
 #pragma unroll
     for (int k = 0; k < kStateBatch; ++k) {
@@ -458,7 +465,7 @@ __global__ void __launch_bounds__(kOutThreads)
 chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ Bm,
                  const bf16* __restrict__ Cm, const float* __restrict__ work,
                  const float* __restrict__ cumdt, bf16* __restrict__ y, int S,
-                 int H, int G, int chunk, int n_chunks) {
+                 int H, int G, int chunk, int cpad, int n_chunks) {
   constexpr int T = kOutThreads;
   constexpr int kLdN = N + 8, kLdP = P + 8;
   constexpr int kLdS = N * 4 + 16;     // bytes of a row of S_in's parts
@@ -476,7 +483,7 @@ chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ Bm,
   bf16* bs = region;                                         // [2][64][kLdN]
   bf16* xs = bs + 2 * kTile * kLdN;                          // [2][64][kLdP]
 
-  const int n_it = chunk / kTile;
+  const int n_it = cpad / kTile;
   const int it = n_it - 1 - static_cast<int>(blockIdx.x % n_it);
   const int bhc = blockIdx.x / n_it;
   const int c = bhc % n_chunks, bh = bhc / n_chunks;
@@ -492,10 +499,10 @@ chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ Bm,
   const bf16* cc = Cm + row0 * bc_ld + static_cast<long long>(g) * N;
 
   // one round trip: cum and dt of the chunk (pass (a)'s), C_i, S_in[c]
-  const float* cd = cumdt + static_cast<long long>(bhc) * 2 * chunk;
-  for (int i = tid; i < chunk / 4; i += T) {
+  const float* cd = cumdt + static_cast<long long>(bhc) * 2 * cpad;
+  for (int i = tid; i < cpad / 4; i += T) {
     cp_async16(smem_u32(cum + 4 * i), cd + 4 * i);
-    cp_async16(smem_u32(dts + 4 * i), cd + chunk + 4 * i);
+    cp_async16(smem_u32(dts + 4 * i), cd + cpad + 4 * i);
   }
   stage_rows<N, T>(cs, cc, bc_ld, i0, len);
   if (c > 0) {
@@ -688,10 +695,11 @@ int launch(const void* x, const void* dt, int dt_bf16, const void* A,
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_chunks = (S + chunk - 1) / chunk;
+  const int cpad = (chunk + kTile - 1) / kTile * kTile;   // whole tiles
   const long long bh = static_cast<long long>(B) * H;
   const long long state_ctas = bh * n_chunks;
   const int blocks_per_bh = (P * N / 4 + kStateThreads - 1) / kStateThreads;
-  const long long out_ctas = state_ctas * (chunk / kTile);
+  const long long out_ctas = state_ctas * (cpad / kTile);
   if (out_ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* bb = static_cast<const bf16*>(Bm);
@@ -700,18 +708,18 @@ int launch(const void* x, const void* dt, int dt_bf16, const void* A,
   chunk_state_kernel<P, N><<<static_cast<unsigned>(state_ctas),
                              state_threads<P, N>(), kStateSmem, stream>>>(
       xb, dt, dt_bf16, static_cast<const float*>(A), bb, w, cd, S, H, G,
-      chunk, n_chunks);
+      chunk, cpad, n_chunks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   state_pass_kernel<<<static_cast<unsigned>(bh * blocks_per_bh),
                       kStateThreads, 0, stream>>>(
-      w, cd, static_cast<float*>(st), P * N, chunk, n_chunks, blocks_per_bh);
+      w, cd, static_cast<float*>(st), P * N, cpad, n_chunks, blocks_per_bh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   chunk_out_kernel<P, N><<<static_cast<unsigned>(out_ctas), kOutThreads,
                            kOutSmem, stream>>>(
       xb, bb, static_cast<const bf16*>(Cm), w, cd, static_cast<bf16*>(y), S,
-      H, G, chunk, n_chunks);
+      H, G, chunk, cpad, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -740,8 +748,10 @@ int launch_n(const void* x, const void* dt, int dt_bf16, const void* A,
 // x, B, C, y are bf16 with 16-byte aligned data; dt_dtype is 0 for fp32 dt
 // and 1 for bf16. Scratch the wrapper allocates: ``work`` holds
 // B*H*ceil(S/chunk)*P*N floats (U, then S_in), ``cumdt``
-// B*H*ceil(S/chunk)*2*chunk (each chunk's cum, then its dt). P is 32 or
-// 64, N 16, 32 or 128, chunk 64, 128 or 256. Returns cudaGetLastError() of
+// B*H*ceil(S/chunk)*2*cpad, cpad the chunk rounded up to a multiple of 64
+// (each chunk's cum, then its dt). P is 16, 32
+// or 64, N 16, 32 or 128, chunk a multiple of 16 up to 256 (the wrapper's
+// ``ops.supported``). Returns cudaGetLastError() of
 // the first launch that failed, or cudaErrorInvalidValue for a shape the
 // kernel is not built for, so the caller can raise.
 extern "C" int ssd_scan_bf16_launch(const void* x, const void* dt,
@@ -751,9 +761,12 @@ extern "C" int ssd_scan_bf16_launch(const void* x, const void* dt,
                                     int H, int G, int P, int N, int chunk,
                                     int dt_dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || G < 1 || H % G || chunk < kTile ||
-      chunk > kMaxChunk || chunk % kTile || (dt_dtype != 0 && dt_dtype != 1))
+  if (B < 1 || S < 1 || G < 1 || H % G || chunk < 16 || chunk > kMaxChunk ||
+      chunk % 16 || (dt_dtype != 0 && dt_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (P == 16)
+    return launch_n<16>(x, dt, dt_dtype, A, Bm, Cm, y, state, work, cumdt, B,
+                        S, H, G, N, chunk, s);
   if (P == 32)
     return launch_n<32>(x, dt, dt_dtype, A, Bm, Cm, y, state, work, cumdt, B,
                         S, H, G, N, chunk, s);

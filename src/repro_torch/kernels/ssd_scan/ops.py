@@ -32,9 +32,9 @@ SOURCES = {torch.bfloat16: CSRC / "ssd_scan_bf16.cu",
 _ENTRY = {torch.bfloat16: ("ssd_scan_bf16_launch", 9, 8),
           torch.float32: ("ssd_scan_launch", 7, 9)}
 DEVICE_KERNELS = {torch.bfloat16: 3, torch.float32: 1}
-HEAD_DIMS = (32, 64)              # P the kernels are built for
+HEAD_DIMS = (16, 32, 64)          # P the kernels are built for
 STATE_DIMS = (16, 32, 128)        # N the kernels are built for
-CHUNKS = (64, 128, 256)           # chunk lengths the kernels take
+CHUNK_STEP, MAX_CHUNK = 16, 256   # chunks: multiples of 16 up to 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _FN = {}      # dtype -> the typed C entry point, resolved at first launch
@@ -50,6 +50,15 @@ def _launcher(dtype):
         fn.restype = ctypes.c_int
         _FN[dtype] = fn
     return fn
+
+
+def supported(P: int, N: int, chunk: int) -> bool:
+    """Whether the kernels take head dim ``P``, state dim ``N`` and
+    ``chunk``: P in ``HEAD_DIMS``, N in ``STATE_DIMS`` and a chunk that is
+    a multiple of ``CHUNK_STEP`` from it up to ``MAX_CHUNK``, honoured as
+    given (the scan's chunks are that long)."""
+    return (P in HEAD_DIMS and N in STATE_DIMS and chunk % CHUNK_STEP == 0
+            and CHUNK_STEP <= chunk <= MAX_CHUNK)
 
 
 def _check(x, dt, A, B, C):
@@ -79,9 +88,10 @@ def _check(x, dt, A, B, C):
 def _launch(x, dt, A, B, C, chunk: int):
     Bb, S, H, Pd = x.shape
     G, N = B.shape[2], B.shape[3]
-    if Pd not in HEAD_DIMS or N not in STATE_DIMS or chunk not in CHUNKS:
+    if not supported(Pd, N, chunk):
         raise ValueError(f"the ssd_scan kernel takes P in {HEAD_DIMS}, N in "
-                         f"{STATE_DIMS} and chunk in {CHUNKS}; got P={Pd}, "
+                         f"{STATE_DIMS} and a chunk that is a multiple of "
+                         f"{CHUNK_STEP} up to {MAX_CHUNK}; got P={Pd}, "
                          f"N={N}, chunk={chunk}")
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if not t.is_contiguous():
@@ -97,11 +107,13 @@ def _launch(x, dt, A, B, C, chunk: int):
                 raise ValueError(f"{name} must have 16-byte aligned data")
         n_chunks = -(-S // chunk)
         # pass (a) writes each chunk's state from zero into ``work`` and its
-        # cum and dt (fp32) into ``cumdt``; pass (b) writes the entering
-        # states over ``work``, which pass (c) reads
+        # cum and dt (fp32, over the chunk rounded up to whole 64-row tiles)
+        # into ``cumdt``; pass (b) writes the entering states over
+        # ``work``, which pass (c) reads
         work = torch.empty(Bb * H * n_chunks * Pd * N, dtype=torch.float32,
                            device=x.device)
-        cumdt = torch.empty(Bb * H * n_chunks * 2 * chunk,
+        cpad = -(-chunk // 64) * 64
+        cumdt = torch.empty(Bb * H * n_chunks * 2 * cpad,
                             dtype=torch.float32, device=x.device)
         rc = _launcher(x.dtype)(*ptrs, work.data_ptr(), cumdt.data_ptr(), Bb,
                                 S, H, G, Pd, N, chunk, _DTYPE_CODE[dt.dtype],
@@ -123,10 +135,9 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256, init_state=None,
 
     The tensors' device picks kernel or plain version; ``use_kernel=True``
     demands the kernel and raises on CPU tensors. On the card bf16 runs
-    the tensor-core kernel and fp32 the CUDA-core one; each takes P in
-    ``HEAD_DIMS``, N in ``STATE_DIMS``, chunk in ``CHUNKS`` and contiguous
-    tensors (bf16 also 16-byte aligned data), and raises on anything
-    else.
+    the tensor-core kernel and fp32 the CUDA-core one; each takes the
+    (P, N, chunk) that ``supported`` accepts and contiguous tensors (bf16
+    also 16-byte aligned data), and raises on anything else.
     """
     _check(x, dt, A, B, C)
     if backend.use_kernel(x, require=use_kernel):

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --requests 16 --prompt-len 2048 --new-tokens 32      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke                              # the SMOKE config on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --device cpu                                 # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --smoke --device cpu                   # the ssm stack, on the CPU
@@ -39,8 +41,10 @@ reference's do. ``--layers N`` serves the first N layers at the
 arch's full width: jamba's 32 layers hold ~103 GB of bf16 weights and
 llama4's 48 ~795 GB, more than one 80 GB card.
 
-The weights are random, from ``--seed``. Runs on ``cuda`` unless
-``--device`` names another device.
+``--smoke`` serves the arch's SMOKE config, on the card as on the CPU:
+its head dims (16-32) and SSD scans (P 16, chunk 16) run on the
+kernels' narrow instantiations. The weights are random, from
+``--seed``. Runs on ``cuda`` unless ``--device`` names another device.
 """
 from __future__ import annotations
 

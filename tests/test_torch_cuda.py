@@ -552,10 +552,10 @@ def test_finished_and_queued_feeds_hold_no_pinned_pair(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_the_card(cuda_device):
-    """Every case of the reference's flash_attention matrix (hd 64, 80,
-    128 and 160; bf16 through the tensor-core kernel, fp32 through the
-    CUDA-core one), at its per-dtype tolerance (the helper raises on a
-    miss)."""
+    """Every case of the smoke's flash_attention matrix (every width's
+    own head dim and a narrower one it pads; bf16 through the
+    tensor-core kernel, fp32 through the CUDA-core one), at its per-dtype
+    tolerance (the helper raises on a miss)."""
     errs = chip_smoke.phase_flash_vs_plain(cuda_device,
                                            chip_smoke.FLASH_MATRIX)
     assert set(errs) == set(chip_smoke.FLASH_MATRIX)
@@ -589,8 +589,11 @@ def test_flash_wrapper_launches_and_never_takes_plain(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [96, 32])
+@pytest.mark.parametrize("hd", [18, 192])
 def test_flash_kernel_rejects_other_head_dims(cuda_device, hd):
+    """hd 18 is no multiple of 4 and 192 (MLA's) is past 160: no width
+    of ``fa_ops.supported`` holds them."""
+    assert fa_ops.supported(hd) is None
     q = torch.zeros(1, 64, 2, hd, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fa_ops.flash_attention(q, q, q)
@@ -675,10 +678,11 @@ def test_ssd_wrapper_launches_and_never_takes_plain(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["P16", "N8", "chunk32"])
+@pytest.mark.parametrize("bad", ["P128", "N64", "chunk24"])
 def test_ssd_kernel_rejects_other_shapes(cuda_device, bad):
-    P, N, chunk = {"P16": (16, 16, 64), "N8": (32, 8, 64),
-                   "chunk32": (32, 16, 32)}[bad]
+    P, N, chunk = {"P128": (128, 16, 64), "N64": (32, 64, 64),
+                   "chunk24": (32, 16, 24)}[bad]
+    assert not ssd_ops.supported(P, N, chunk)
     x = torch.zeros(1, 64, 2, P, device=cuda_device)
     dt = torch.zeros(1, 64, 2, device=cuda_device)
     A = torch.zeros(2, device=cuda_device)
@@ -1682,13 +1686,13 @@ def test_cross_shard_slotting_launches(cuda_device, ranks, buckets,
 
 @pytest.mark.cuda
 def test_mesh_serve_phase_on_the_card_at_a_narrow_width(cuda_device):
-    """Phase 4m on deepseek-v2-lite's SMOKE stack in bf16 (MLA: no
-    flash_attention, whose head dims the SMOKE GQA stacks' 32 is not
-    one of) under the (2, 4) mesh: its gates hold and the launches are
+    """Phase 4m on llama4-maverick's SMOKE stack in bf16 (GQA at head dim
+    32 through flash_attention's 32-column instantiation, MoE layers of 8
+    experts) under the (2, 4) mesh: its gates hold and the launches are
     the code's count."""
     from repro_torch.configs import get_smoke_config
     s = chip_smoke.phase_mesh_serve(
-        cuda_device, get_smoke_config(chip_smoke.MOE_ARCH), requests=4,
+        cuda_device, get_smoke_config(chip_smoke.LLAMA4_ARCH), requests=4,
         prompt_len=64, new_tokens=3)
     assert s["launches"] == s["want_launches"]
     assert s["runs"]["unsharded"]["launches"] == \
@@ -1713,3 +1717,19 @@ def test_meta_tensors_take_the_plain_version_beside_the_card(cuda_device):
     sl_ops.bucket_slots(ids, 8)
     torch.cuda.synchronize(cuda_device)
     assert sl_ops.bucket_slots.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_every_smoke_config_serves_on_the_card(cuda_device):
+    """Phase 4s: every arch of the registry at its SMOKE config,
+    unmodified, through ``ServeEngine`` on the card: flash_attention at
+    head dims 16, 20, 24 and 32, ssd_scan at P 16, N 16, chunk 16;
+    launches equal to the code's count, the logits within 3e-2 *
+    max|logits| of the plain path (jamba and internvl2 in fp32)."""
+    from repro_torch.configs import ARCH_IDS
+    s = chip_smoke.phase_smoke_serves(cuda_device)
+    for arch in ARCH_IDS:
+        assert s[arch]["launches"] == s[arch]["want_launches"], arch
+        assert s[arch]["prefill_ms"] > 0 and s[arch]["decode_ms_per_token"] > 0
+    assert s["mamba2-780m"]["launches"] == {"ssd_scan": 2}
+    assert s["whisper-tiny"]["launches"] == {"flash_attention": 4}

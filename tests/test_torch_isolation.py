@@ -22,9 +22,10 @@ import chip_smoke  # noqa: E402
 from torch_parity import REPO  # noqa: E402
 
 PORT = Path(REPO) / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py",
-                                      Path(REPO) / "examples" /
-                                      "quickstart_torch.py"]
+FILES = sorted(PORT.rglob("*.py")) + [Path(REPO) / "chip_smoke.py"] + [
+    Path(REPO) / "examples" / f"{name}_torch.py"
+    for name in ("quickstart", "serve_lm", "train_lm", "skewed_wordcount",
+                 "streaming_wordcount", "wordcount_puma")]
 
 
 def _imports(path: Path):
@@ -703,7 +704,7 @@ def test_smoke_new_arch_phases_rehearse_on_cpu():
     serve["seconds"] = 0.0
     chip_smoke.print_serve(serve)
     for arch, want in (("codeqwen1.5-7b", {"flash_attention": 8}),
-                       ("stablelm-12b", {"flash_attention": 40}),
+                       ("stablelm-12b", {"flash_attention": 20}),
                        (chip_smoke.LLAMA4_ARCH, {"flash_attention": 2,
                                                  "bucket_slots": 320})):
         full = get_config(arch)
@@ -876,7 +877,7 @@ def test_smoke_frontend_phases_rehearse_on_cpu():
     prompts, fe, ahead = chip_smoke.serve_inputs(get_config(aud), 8, 2048)
     assert prompts.shape == (8, 2048) and fe.shape == (8, 1024, 384)
     assert ahead == 2048
-    for arch, want in ((vis, 48), (aud, 8)):
+    for arch, want in ((vis, 24), (aud, 8)):
         full = get_config(arch)
         if arch in chip_smoke.SERVE_LAYERS:
             full = dataclasses.replace(
@@ -977,3 +978,38 @@ def test_smoke_mesh_phases_rehearse_on_cpu():
     assert chip_smoke.mesh_train_launches(
         deep, dataclasses.replace(run, model=deep), 3) == {
         "bucket_slots": 3 * 10 * 2 * 2 * 3}
+
+
+def test_smoke_serve_and_examples_phases_rehearse_on_cpu():
+    """Phase 4s over every SMOKE config on the CPU (the kernels' plain
+    versions: no launch), with the launches the card must show; phase 6
+    with one example run on the CPU in its child (each example is held
+    to the reference in ``tests/test_torch_examples.py``)."""
+    from repro_torch.configs import ARCH_IDS
+    cpu = torch.device("cpu")
+    s = chip_smoke.phase_smoke_serves(cpu)
+    assert set(s) == {*ARCH_IDS, "seconds"}
+    for arch in ARCH_IDS:
+        assert not any(s[arch]["launches"].values())
+        assert s[arch]["logits_err_over_limit"] < float("inf")
+    assert [s[a]["fp32_logits_err_over_limit"] is not None
+            for a in ARCH_IDS] == [a in chip_smoke.SMOKE_FP32
+                                   for a in ARCH_IDS]
+    want = {a: s[a]["want_launches"] for a in ARCH_IDS}
+    assert want["olmo-1b"] == want["codeqwen1.5-7b"] == \
+        want["h2o-danube-1.8b"] == {"flash_attention": 2}
+    assert want["stablelm-12b"] == {"flash_attention": 3}
+    assert want["whisper-tiny"] == {"flash_attention": 4}   # 2 encoder
+    assert want["mamba2-780m"] == {"ssd_scan": 2}
+    assert want["jamba-v0.1-52b"]["ssd_scan"] == 7
+    assert want["jamba-v0.1-52b"]["flash_attention"] == 1
+    assert "flash_attention" not in want["deepseek-v2-lite-16b"]   # MLA
+    name = "streaming_wordcount_torch.py"
+    ex = chip_smoke.phase_examples([name], extra=("--device", "cpu"))
+    chip_smoke.print_examples(ex)
+    assert set(ex) == {name, "seconds"}
+    assert set(chip_smoke.EXAMPLE_RUNS) == {
+        f"{n}_torch.py" for n in ("serve_lm", "train_lm", "skewed_wordcount",
+                                  "streaming_wordcount", "wordcount_puma")}
+    assert any("MR-1S == MR-2S" in line
+               for line in ex["streaming_wordcount_torch.py"]["lines"])

@@ -5,7 +5,8 @@ training.
 
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
-                  elastic,serve,train,mesh,mesh_train,pp,dryrun]
+                  elastic,serve,smoke,train,mesh,mesh_train,pp,dryrun,
+                  examples]
         [--archs ARCH,...] [--train-archs ARCH,...]
         [--mesh-archs ARCH,...] [--out FILE]
 
@@ -37,7 +38,10 @@ deepseek-v2-lite at 4 layers under the mesh and unsharded), ``pp``
 phase 5p (``phase_pp_trains``: olmo-1b pipelined over the pod axis of a
 virtual (pod 2, data 2) mesh and unsharded), ``dryrun`` phase 2f
 (``phase_dryrun``: the dry run's cells on meta in a child process, then
-olmo-1b's prefill on meta against the card).
+olmo-1b's prefill on meta against the card), ``smoke`` phase 4s
+(``phase_smoke_serves``: each arch of ``--archs``, default every arch of
+the registry, served at its SMOKE config), ``examples`` phase 6
+(``phase_examples``: the five ``examples/*_torch.py`` ports in children).
 
 Prints the smoke's lines for each phase, one JSON line of the numbers
 (also written to ``--out``), and the card's name and power limit.
@@ -61,7 +65,8 @@ import chip_smoke as cs  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="compare,snapshots")
-    ap.add_argument("--archs", default=",".join(cs.SERVE_ARCHS))
+    ap.add_argument("--archs", default="",
+                    help="serve's and smoke's archs (default: all)")
     ap.add_argument("--train-archs", default=",".join(cs.TRAIN_ARCHS))
     ap.add_argument("--mesh-archs", default=",".join(cs.MESH_ARCHS))
     ap.add_argument("--out", default="")
@@ -71,11 +76,12 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     phases = args.phases.split(",")
+    archs = [a for a in args.archs.split(",") if a]
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
               if set(phases) - {"keyskew", "coded", "crossjob", "serve",
-                                "train", "mesh", "mesh_train", "pp",
-                                "dryrun"}
+                                "smoke", "train", "mesh", "mesh_train",
+                                "pp", "dryrun", "examples"}
               else None)
     out = {}
     for phase in phases:
@@ -95,9 +101,12 @@ def main(argv=None) -> int:
                          cs.print_crossjob),
             "elastic": (lambda: cs.phase_elastic(device, corpus),
                         cs.print_elastic),
-            "serve": (lambda: cs.phase_serves(device,
-                                              args.archs.split(",")),
+            "serve": (lambda: cs.phase_serves(
+                device, archs or list(cs.SERVE_ARCHS)),
                       lambda out: None),    # printed arch by arch
+            "smoke": (lambda: cs.phase_smoke_serves(device, archs),
+                      lambda out: None),    # printed arch by arch
+            "examples": (cs.phase_examples, cs.print_examples),
             "train": (lambda: cs.phase_trains(
                 device, args.train_archs.split(",")),
                       lambda out: None),    # printed arch by arch
