@@ -29,8 +29,12 @@ Phases, each of which asserts (nothing is caught):
                reference's per-dtype tolerance), and time both with CUDA
                events, beside the library call where there is one;
                fused_map also by device time, and at rep 1 and 16 on its
-               hot rank (the cost of one pass); ssd_scan also by device
-               time, its device kernels a call (three passes in bf16),
+               hot rank (the cost of one pass), over a second matrix of
+               task sizes 1,025-16,384 (``fused_wide_matrix``: each side
+               of every change of its block, the global scratch past S
+               4,096), and at S 4,096 and 16,384 at fig9's width, rep 1
+               and 8 on its hot rank, by device time; ssd_scan also by
+               device time, its device kernels a call (three passes in bf16),
                the fp32 kernel at the same shape, and the share of its
                bf16 outputs off the plain version's bits against a
                control's (``check_ssd_bits``). The
@@ -157,9 +161,8 @@ Phases, each of which asserts (nothing is caught):
                repeats ``zipf_skew_repeats(6, 32, s, mean_rep=4, seed=1)``
                for s 0.0, 0.6, 1.1 and 1.6; arms r1, r2, r3 and r2+steal
                (unfused, as the reference's coded jobs must be) and
-               r1-fused, the main path's kernel job in tasks of 1,024 (the
-               kernel's largest), each task with the repeat of the
-               4,096-token task that holds it; a warm-up of each arm, then
+               r1-fused, the main path's kernel job at the same S 4096 on
+               r1's own grid; a warm-up of each arm, then
                two timed runs in turns: every run's records equal to the
                oracle, fused_map launches 0 on every coded arm and one a
                step on r1-fused, r2+steal's steals, passes and work row
@@ -205,6 +208,21 @@ Phases, each of which asserts (nothing is caught):
                host twin's, the device fold's and ``rebucketize_tasks``'
                seconds, each part's wall and steps, and the P 6 part's
                wall over the P 8 job's second half;
+  3j. imbalance — the reference's fig9_imbalance real run at its own
+               width: WordCount on ``synth_corpus(2,000,000, 65,536,
+               seed=0)`` in host memory, P 8, S 4096, cap 1024, oneshot (62
+               steps), repeats ``zipf_skew_repeats(8, 62, s, mean_rep=4,
+               seed=1)`` for s 0.0, 0.6, 1.1 and 1.6; fig9's arms
+               2s, 1s and 1s+steal (unfused) and the main path's 1s-fused
+               and 1s-fused+steal, each warmed up (the fused ones traced
+               for the kernel's device time a step) and run once: every
+               job's records equal to the oracle and the unfused 1S job's,
+               fused_map launched once a step (a graph replay) on the fused
+               arms and never on the others, the stealing arms' steals,
+               passes and work row equal to the host replay's; then the
+               fused job at S 16,384 (fig8's largest task, its sort in the
+               kernel's global scratch) on the balanced grid, held the
+               same way; each arm's wall, tokens/s, 2s/1s and 2s/1s-fused;
   4. serve   — olmo-1b, mamba2-780m, h2o-danube-1.8b (head dim 80),
                deepseek-v2-lite-16b (its width, 9 of its 27 layers: MLA,
                one leading dense layer, 8 MoE layers of 64 experts top-6
@@ -379,8 +397,8 @@ Phases, each of which asserts (nothing is caught):
 
 The launch counts are set to 0 just before each path (the entry points
 of 2, the lint of 2c, the guard band of 2e, then 3, each job of 3b, 3c,
-3d and 3g, each fleet of 3e and 3h, each run of 3f, each campaign and
-each rank count's part of 3i, each arch of 4 and of 4s, each training
+3d, 3g and 3j, each fleet of 3e and 3h, each run of 3f, each campaign
+and each rank count's part of 3i, each arch of 4 and of 4s, each training
 run of 5,
 each engine's run of 4m and each training run of 5m and 5p) and read
 just after it.
@@ -639,6 +657,42 @@ def fused_matrix():
     yield "full_width", full_width_case()
 
 
+def fused_wide_matrix():
+    """Task sizes past 1,024, each side of every change of the kernel's
+    block: 2,048 pairs (S 1,024) -> 4,096 (1,025-2,048), 8,192
+    (2,049-4,096, the last in shared memory), 16,384 (4,097-8,192) and
+    32,768 (8,193-16,384, both through the global scratch); at cap 1 and
+    1,024, split keys, all-duplicate keys, near-SAT sums at rep 8,
+    negative keys, an all-sentinel task and a hot rank at rep 16."""
+    sat = 2**31 - 1
+    yield "S1025_cap1", fused_case(30, 4, 1025, 4096, 1, [1, 2, 1, 3],
+                                   split=True)
+    yield "S2048_cap1024", fused_case(31, 4, 2048, 8192, 1024,
+                                      [2, 1, 1, 1], split=True)
+    args, P, cap = fused_case(32, 4, 2049, 4096, 64, [1, 3, 2, 1])
+    rng = np.random.default_rng(32)
+    neg = rng.random(args["keys"].shape) < 0.3
+    args["keys"][neg] = rng.choice([-2**31, -4097, -4096, -5, -1],
+                                   int(neg.sum()))
+    yield "S2049_negative_keys", (args, P, cap)
+    yield "S4096_near_sat_rep8", fused_case(33, 2, 4096, 512, 64, 8,
+                                            near_sat=True)
+    yield "S4096_hot_rep16", fused_case(34, 8, 4096, 65536, 1024,
+                                        [16] + [1] * 7, split=True)
+    yield "S4097_all_dup", fused_case(35, 3, 4097, 1000, 4, [2, 1, 3],
+                                      dupes=True)
+    yield "S8192_cap1024", fused_case(36, 4, 8192, 65536, 1024,
+                                      [1, 2, 1, 3], split=True)
+    yield "S8193_near_sat_rep8", fused_case(37, 2, 8193, 2048, 16, 8,
+                                            near_sat=True)
+    yield "S16384_cap1", fused_case(38, 2, 16384, 65536, 1, [1, 2])
+    args, P, cap = fused_case(39, 2, 16384, 4096, 8, [1, 3])
+    args["keys"][:] = sat
+    yield "S16384_all_sentinel", (args, P, cap)
+    yield "S16384_hot_rep16", fused_case(40, 8, 16384, 65536, 1024,
+                                         [16] + [1] * 7, split=True)
+
+
 def full_width_case():
     reps = [8] + [1] * (N_PROCS - 1)           # the hot rank of the job
     return fused_case(16, N_PROCS, TASK, VOCAB, CAP, reps)
@@ -750,7 +804,48 @@ def time_fused(device) -> dict:
     return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 rep1_device_ms=chain[1], rep16_device_ms=chain[16],
-                pass_ms=(chain[16] - chain[1]) / 15, **work)
+                pass_ms=(chain[16] - chain[1]) / 15, **work,
+                wide={S: time_fused_wide(device, S) for S in WIDE_TIMED})
+
+
+# the task sizes timed past 1,024: the JobConfig default (fig9's) and
+# fig8's largest, at fig9's width (P 8, cap 1024, V 65,536)
+WIDE_TIMED = (4096, 16384)
+
+
+def time_fused_wide(device, S: int) -> dict:
+    """The kernel at task size ``S`` and fig9's width, its hot rank at rep
+    1 and 8, by device time, beside its plain version and the bound at
+    rep 8."""
+    _, _, _, ops, ref = _port()
+    w = IMBALANCE_W
+    P, cap = w.n_procs, w.cap
+    out = {}
+    for rep0 in (1, 8):
+        args = fused_case(16, P, S, w.vocab, cap, [rep0] + [1] * (P - 1))[0]
+        a = _on(args, device)
+        out[f"rep{rep0}_device_ms"] = _device_ms(
+            lambda: ops.fused_map(**a, n_procs=P, cap=cap), 50)[0]
+    out["ms"] = _event_ms(lambda: ops.fused_map(**a, n_procs=P, cap=cap),
+                          50)
+    out["plain_ms"] = _event_ms(
+        lambda: ref.fused_step_ref(**a, n_procs=P, cap=cap), 5)
+    bound_ms, bound_by, work = fused_bound(args, P, cap)
+    out.update(bound_ms=bound_ms, bound_by=bound_by, **work,
+               pass_ms=(out["rep8_device_ms"] - out["rep1_device_ms"]) / 7)
+    return out
+
+
+def print_fused_wide(wide: dict):
+    w = IMBALANCE_W
+    for S, t in wide.items():
+        print(f"fused_map at P={w.n_procs} S={S} cap={w.cap} V={w.vocab}: "
+              f"{t['rep1_device_ms']:.5f} / {t['rep8_device_ms']:.5f} ms a "
+              f"launch on the device at rep 1 / 8 on rank 0 "
+              f"({t['pass_ms']:.5f} ms a pass over L = {2 * S}; "
+              f"{t['ms']:.5f} ms back to back at rep 8, events), plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}, {t['bytes']} B at 3.35 TB/s)")
 
 
 # the reference's flash_attention test matrix (tests/test_kernels.py::
@@ -2619,18 +2714,19 @@ def run_engine(cfg, corpus, reps, device, every: int = 0, mgr=None,
 def steal_replay(n: int, reps: np.ndarray, w: Width = FULL) -> dict:
     """The port's host replay of a stealing job's schedule over the grid
     of ``n`` tokens and ``reps``, segment by segment as the feed pads
-    them, ``work0`` carried: the lockstep passes, steals and final work
-    row that the job must realize."""
+    them (oneshot: one segment), ``work0`` carried: the lockstep passes,
+    steals and final work row that the job must realize."""
     _port()
     from repro_torch.core import planner, steal
     ids = planner.shard_task_ids(planner.plan_input(n, w.task, w.n_procs))
     T = ids.shape[1]
+    seg = w.segment or T                 # oneshot: one segment of T
     work, passes, steals = None, 0, 0
-    for lo in range(0, T, w.segment):
-        g = np.full((w.n_procs, w.segment), -1, np.int32)
-        r = np.ones((w.n_procs, w.segment), np.int32)
-        g[:, :min(w.segment, T - lo)] = ids[:, lo:lo + w.segment]
-        r[:, :min(w.segment, T - lo)] = reps[:, lo:lo + w.segment]
+    for lo in range(0, T, seg):
+        g = np.full((w.n_procs, seg), -1, np.int32)
+        r = np.ones((w.n_procs, seg), np.int32)
+        g[:, :min(seg, T - lo)] = ids[:, lo:lo + seg]
+        r[:, :min(seg, T - lo)] = reps[:, lo:lo + seg]
         s = steal.steal_schedule(g, r, work0=work)
         work, passes, steals = s.work, passes + s.passes, steals + s.n_stolen
     return {"passes": passes, "steals": steals, "work": work.tolist()}
@@ -3326,10 +3422,6 @@ CODED_MEAN_REP = 4
 CODED_ARMS = ("r1", "r2", "r3", "r2+steal", "r1-fused")
 CODED_RUNS = 2
 CODED_PROFILE_STEPS = 8         # the busy share's segment, in steps
-# the fused_map kernel takes tasks of up to 1,024 tokens: the r1-fused arm
-# reads the same corpus in tasks of 1,024, each with the repeat of the
-# 4,096-token task that holds it (``coded_fused_repeats``)
-CODED_FUSED_TASK = 1024
 # 3h: the reference's fig14_crossjob real run at its full width
 CROSS_W = Width(vocab=4096, n_procs=8, task=1024, cap=512, segment=1)
 CROSS_TOTAL = 786_432
@@ -3341,29 +3433,13 @@ CROSS_TAIL_SKEW, CROSS_MEAN_REP = 1.6, 3
 def coded_arm(arm: str, w: Width = CODED_W):
     """A 3g arm's JobConfig: ``r<k>`` the unfused job at code rate k,
     ``+steal`` with work stealing, ``r1-fused`` the fused job (the main
-    path) in tasks of ``CODED_FUSED_TASK``."""
+    path) at the same task size."""
     core, _, _, _, _ = _port()
-    fused = arm == "r1-fused"
     return core.JobConfig(
-        core.WordCount(vocab=w.vocab), backend="1s",
-        task_size=min(w.task, CODED_FUSED_TASK) if fused else w.task,
+        core.WordCount(vocab=w.vocab), backend="1s", task_size=w.task,
         push_cap=w.cap, n_procs=w.n_procs, segment=w.segment,
-        fused_map=fused, stealing=arm.endswith("+steal"),
+        fused_map=arm == "r1-fused", stealing=arm.endswith("+steal"),
         code_rate=int(arm[1]))
-
-
-def coded_fused_repeats(reps: np.ndarray, n: int, w: Width,
-                        task: int) -> np.ndarray:
-    """The (P, T') repeat grid of ``n`` tokens in tasks of ``task``: each
-    task takes the repeat of the ``w.task``-token task holding its
-    tokens (task t sits at rank t % P, column t // P)."""
-    P, k = w.n_procs, w.task // task
-    assert w.task % task == 0
-    n_small = -(-n // task)
-    u = np.arange(P * -(-n_small // P)).reshape(-1, P).T   # global ids
-    big = u // k
-    out = reps[big % P, np.minimum(big // P, reps.shape[1] - 1)]
-    return np.where(u < n_small, out, 1).astype(np.int32)
 
 
 def run_coded(cfg, corpus, reps, device) -> dict:
@@ -3402,9 +3478,10 @@ def phase_coded(device, corpus: np.ndarray | None = None,
     """The reference's fig15_coded real run: WordCount over
     ``synth_corpus(N, V, seed=0)`` (host memory) at ``w``, under
     ``zipf_skew_repeats(P, T, s, mean_rep=4, seed=1)`` for each skew, the
-    arms r1, r2, r3 and r2+steal unfused and r1-fused; a warm-up of each
-    arm, then ``runs`` timed runs of each in turns (arms forward, then
-    backward). Every run's records equal the oracle's (and so r1's);
+    arms r1, r2, r3 and r2+steal unfused and r1-fused, all on one grid;
+    a warm-up of each arm, then ``runs`` timed runs of each in turns
+    (arms forward, then backward). Every run's records equal the
+    oracle's (and so r1's);
     fused_map launches 0 on every coded arm and one a step on r1-fused
     (on the card); r2+steal's steals, passes and work row equal the group
     replay's, a group's members equal. Also the modelled shuffle bytes,
@@ -3418,20 +3495,12 @@ def phase_coded(device, corpus: np.ndarray | None = None,
     n = len(corpus)
     oracle = core.wordcount_oracle(corpus, w.vocab)
     T = tasks_per_rank(n, w)
-    ftask = min(w.task, CODED_FUSED_TASK)
-    fT = tasks_per_rank(n, dataclasses.replace(w, task=ftask))
-
-    def grid(arm, reps):
-        return (coded_fused_repeats(reps, n, w, ftask)
-                if arm == "r1-fused" else reps)
-
     t0 = time.perf_counter()
     warm = data.zipf_skew_repeats(w.n_procs, T, skews[0],
                                   mean_rep=CODED_MEAN_REP, seed=1)
     for arm in CODED_ARMS:
-        run_coded(coded_arm(arm, w), corpus, grid(arm, warm), device)
-    out = {"n": n, "tasks_per_rank": T, "fused_tasks_per_rank": fT,
-           "fused_task": ftask, "skews": {},
+        run_coded(coded_arm(arm, w), corpus, warm, device)
+    out = {"n": n, "tasks_per_rank": T, "skews": {},
            "warm_s": time.perf_counter() - t0}
     t0 = time.perf_counter()
     for s in skews:
@@ -3441,10 +3510,10 @@ def phase_coded(device, corpus: np.ndarray | None = None,
         for turn in range(runs):
             for arm in (CODED_ARMS if turn % 2 == 0 else CODED_ARMS[::-1]):
                 cfg = coded_arm(arm, w)
-                run = run_coded(cfg, corpus, grid(arm, reps), device)
+                run = run_coded(cfg, corpus, reps, device)
                 res = run["result"]
                 assert res.records == oracle, (s, arm)
-                steps = fT if arm == "r1-fused" else T
+                steps = T
                 if arm != "r1-fused" or not cuda:
                     assert run["launches"] == 0, (s, arm, run["launches"])
                 else:
@@ -3484,7 +3553,7 @@ def phase_coded(device, corpus: np.ndarray | None = None,
         out["profiles"] = {arm: segment_profile(
             dataclasses.replace(coded_arm(arm, w),
                                 segment=CODED_PROFILE_STEPS),
-            corpus, grid(arm, reps), device) for arm in CODED_ARMS}
+            corpus, reps, device) for arm in CODED_ARMS}
         out["profile_s"] = time.perf_counter() - t0
     return out
 
@@ -3492,10 +3561,9 @@ def phase_coded(device, corpus: np.ndarray | None = None,
 def print_coded(c: dict, w: Width = CODED_W):
     print(f"coded: fig15 real run, WordCount N={c['n']} at P={w.n_procs} "
           f"S={w.task} cap={w.cap} V={w.vocab}, oneshot, "
-          f"{c['tasks_per_rank']} steps; r1-fused in tasks of "
-          f"{c['fused_task']} ({c['fused_tasks_per_rank']} steps; the "
-          f"kernel takes S <= {CODED_FUSED_TASK}); every run's records == "
-          f"oracle; fused_map launches 0 on every coded arm")
+          f"{c['tasks_per_rank']} steps, r1-fused on r1's grid; every "
+          f"run's records == oracle; fused_map launches 0 on every coded "
+          f"arm")
     print("coded: on one card the exchange is a transpose in device memory "
           "and no byte crosses a wire: the shuffle bytes are the model's "
           "(core/coded.shuffle_bytes); what is measured is the r x map work")
@@ -3996,6 +4064,154 @@ def print_elastic(c: dict, wa: Width = ELASTIC_W, wb: Width = FULL):
           f"captured {p68.get('graphs_captured', 0)}")
     print(f"elastic: {c['seconds']:.1f} s ((a) {a['seconds']:.1f} s, (b) "
           f"{b['seconds']:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# 3j. the reference's fig9_imbalance real run at its own width
+# ---------------------------------------------------------------------------
+
+# fig9's job (benchmarks/fig9_imbalance.py): oneshot WordCount at the
+# JobConfig defaults, S 4096 and cap 1024
+IMBALANCE_W = Width(vocab=65536, n_procs=8, task=4096, cap=1024, segment=0)
+IMBALANCE_N = 2_000_000
+IMBALANCE_SKEWS = (0.0, 0.6, 1.1, 1.6)     # fig9's four
+IMBALANCE_MEAN_REP = 4
+# fig9's arms (all unfused there) and the main path's fused ones
+IMBALANCE_ARMS = ("2s", "1s", "1s+steal", "1s-fused", "1s-fused+steal")
+IMBALANCE_WIDE_TASK = 16384     # fig8's largest task
+
+
+def imbalance_arm(arm: str, w: Width = IMBALANCE_W):
+    """A 3j arm's JobConfig: ``2s``, ``1s`` unfused, ``-fused`` the fused
+    step (its CUDA graphs on the card), ``+steal`` with work stealing."""
+    core, _, _, _, _ = _port()
+    return core.JobConfig(core.WordCount(vocab=w.vocab), backend=arm[:2],
+                          task_size=w.task, push_cap=w.cap,
+                          n_procs=w.n_procs, segment=w.segment,
+                          fused_map="-fused" in arm,
+                          stealing=arm.endswith("+steal"))
+
+
+def fused_kernel_ms(prof: dict) -> dict:
+    """The fused_map kernel's device ms a launch and launches in a
+    ``device_profile`` kept on ``fused_map``."""
+    ms = sum(t for _, t, _ in prof["kept"])
+    n = sum(c for _, _, c in prof["kept"])
+    return {"kernel_device_ms": ms / n if n else None,
+            "kernel_launches_traced": n}
+
+
+def imbalance_job(cfg, corpus, reps, device, oracle, steps: int) -> dict:
+    """One 3j arm: a warm-up (on the card the fused arms' traced, for the
+    kernel's device time a step), then one timed run through
+    ``run_engine``: records equal to the oracle, fused_map launched once a
+    step on the fused arms on the card and never elsewhere."""
+    cuda = device.type == "cuda"
+    traced = {}
+    if cuda and cfg.fused_map:
+        traced = fused_kernel_ms(device_profile(
+            lambda: run_engine(cfg, corpus, reps, device),
+            keep=("fused_map",)))
+    else:
+        run_engine(cfg, corpus, reps, device)
+    r = run_engine(cfg, corpus, reps, device)
+    res = r.pop("result")
+    assert res.records == oracle, (cfg.task_size, cfg.backend)
+    want = steps if cuda and cfg.fused_map else 0
+    assert r["launches"] == want, (cfg, r["launches"], want)
+    r.update(traced, steps=steps, records=res.records,
+             work_per_rank=res.work_per_rank.tolist(),
+             imbalance=res.imbalance)
+    return r
+
+
+def phase_imbalance(device, corpus: np.ndarray | None = None,
+                    w: Width = IMBALANCE_W, skews=IMBALANCE_SKEWS,
+                    wide_task: int = IMBALANCE_WIDE_TASK) -> dict:
+    """The reference's fig9_imbalance real run at its width: WordCount over
+    ``synth_corpus(N, V, seed=0)`` (host memory) at ``w``, under
+    ``zipf_skew_repeats(P, T, s, mean_rep=4, seed=1)`` for each skew, each
+    of ``IMBALANCE_ARMS`` warmed up and run once (``imbalance_job``).
+    Every job's records equal the oracle and the unfused 1S job's; the
+    stealing arms' steals, passes and work row equal the host replay's
+    (``steal_replay``). Then the fused job at ``wide_task`` (fig8's
+    largest task) on the balanced grid, held the same way."""
+    core, data, _, _, _ = _port()
+    if corpus is None:
+        corpus = data.synth_corpus(IMBALANCE_N, w.vocab, seed=0)
+    n = len(corpus)
+    oracle = core.wordcount_oracle(corpus, w.vocab)
+    T = tasks_per_rank(n, w)
+    out = {"n": n, "tasks_per_rank": T, "skews": {}}
+    t0 = time.perf_counter()
+    for s in skews:
+        reps = data.zipf_skew_repeats(w.n_procs, T, s,
+                                      mean_rep=IMBALANCE_MEAN_REP, seed=1)
+        work = reps.sum(axis=1)
+        replay = steal_replay(n, reps, w)
+        row = out["skews"][str(s)] = {
+            "hot_rank_repeats": int(work.max()),
+            "mean_rank_repeats": float(work.mean()),
+            "lockstep_passes": int(reps.max(axis=0).sum()),
+            "replay": replay}
+        for arm in IMBALANCE_ARMS:
+            cfg = imbalance_arm(arm, w)
+            r = imbalance_job(cfg, corpus, reps, device, oracle, T)
+            if cfg.stealing:
+                assert r["steal"]["passes"] == replay["passes"], (s, arm)
+                assert r["n_steals"] == replay["steals"], (s, arm)
+                assert r["work_per_rank"] == replay["work"], (s, arm)
+            row[arm] = r
+        base = row["1s"]["records"]           # the unfused 1S job's
+        for arm in IMBALANCE_ARMS:
+            assert row[arm].pop("records") == base, (s, arm)
+        row["wall_2s_over_1s"] = row["2s"]["wall_s"] / row["1s"]["wall_s"]
+        row["wall_2s_over_1s_fused"] = (row["2s"]["wall_s"]
+                                        / row["1s-fused"]["wall_s"])
+    out["skews_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = dataclasses.replace(w, task=wide_task)
+    Tw = tasks_per_rank(n, wide)
+    r = imbalance_job(imbalance_arm("1s-fused", wide), corpus,
+                      np.ones((w.n_procs, Tw), np.int32), device, oracle, Tw)
+    r.pop("records")
+    out["wide"] = {"task": wide_task, **r}
+    out["wide_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_imbalance(c: dict, w: Width = IMBALANCE_W):
+    print(f"imbalance: fig9 real run, WordCount N={c['n']} at P={w.n_procs} "
+          f"S={w.task} cap={w.cap} V={w.vocab}, oneshot, "
+          f"{c['tasks_per_rank']} steps; every job's records == oracle == "
+          f"the unfused 1S job's; fused_map launches one a step on the "
+          f"fused arms")
+    for s, row in c["skews"].items():
+        print(f"imbalance: s={s}: hot rank {row['hot_rank_repeats']} "
+              f"repeats, mean {row['mean_rank_repeats']:.1f}, lockstep "
+              f"passes {row['lockstep_passes']}; 2s/1s "
+              f"{row['wall_2s_over_1s']:.3f}, 2s/1s-fused "
+              f"{row['wall_2s_over_1s_fused']:.3f}")
+        for arm in IMBALANCE_ARMS:
+            e = row[arm]
+            steal = (f", steals {e['n_steals']} and passes "
+                     f"{e['steal']['passes']} == replay"
+                     if "steal" in e else "")
+            kern = (f", kernel {e['kernel_device_ms']:.5f} ms a step on the "
+                    f"device ({e['kernel_launches_traced']} traced)"
+                    if e.get("kernel_device_ms") is not None else "")
+            print(f"imbalance: s={s} {arm}: {e['wall_s']:.3f} s, "
+                  f"{e['tokens_per_s']:.0f} tokens/s, fused_map launches "
+                  f"{e['launches']}{steal}{kern}; work {e['work_per_rank']}")
+    e = c["wide"]
+    kern = (f", kernel {e['kernel_device_ms']:.5f} ms a step on the device "
+            f"({e['kernel_launches_traced']} traced)"
+            if e.get("kernel_device_ms") is not None else "")
+    print(f"imbalance: fused 1S at S={e['task']} (fig8's largest), balanced "
+          f"grid: {e['wall_s']:.3f} s, {e['steps']} steps, fused_map "
+          f"launches {e['launches']}{kern}; records == oracle")
+    print(f"imbalance: {c['seconds']:.1f} s (skews {c['skews_s']:.1f} s, "
+          f"S={e['task']} {c['wide_s']:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -6200,6 +6416,9 @@ def main(argv=()) -> int:
     err = phase_kernel_vs_plain(device, fused_matrix())
     print(f"kernels: fused_map == plain on every matrix case "
           f"(max abs err {err})")
+    wide_err = phase_kernel_vs_plain(device, fused_wide_matrix())
+    print(f"kernels: fused_map == plain on every wide case, S 1,025-16,384 "
+          f"(max abs err {wide_err})")
     timing = time_fused(device)
     print(f"fused_map at P={N_PROCS} S={TASK} cap={CAP} V={VOCAB}, rep 8 on "
           f"rank 0: {timing['device_ms'] * 1e3:.2f} us/launch on the device "
@@ -6212,6 +6431,7 @@ def main(argv=()) -> int:
           f"{timing['rep1_device_ms'] * 1e3:.2f} / "
           f"{timing['rep16_device_ms'] * 1e3:.2f} us/launch on the device, "
           f"{timing['pass_ms'] * 1e3:.3f} us a pass over L = {2 * TASK}")
+    print_fused_wide(timing["wide"])
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -6395,6 +6615,10 @@ def main(argv=()) -> int:
     elastic["seconds"] = time.perf_counter() - t0
     print_elastic(elastic)
     del corpus
+    t0 = time.perf_counter()
+    imbalance = phase_imbalance(device)
+    imbalance["seconds"] = time.perf_counter() - t0
+    print_imbalance(imbalance)
 
     serves = phase_serves(device, SERVE_ARCHS)
     smoke = phase_smoke_serves(device)
@@ -6411,7 +6635,8 @@ def main(argv=()) -> int:
                       "snapshots": snaps, "keyskew": keyskew,
                       "fleet": fleet, "overlap": overlap,
                       "coded": coded, "crossjob": crossjob,
-                      "elastic": elastic, "fused_map": timing,
+                      "elastic": elastic, "imbalance": imbalance,
+                      "fused_map": timing,
                       "flash_attention": {**fa, "max_abs_err": fa_errs},
                       "ssd_scan": {**ssd, "max_abs_err": ssd_errs,
                                    "bits_off": ssd_bits},
@@ -6457,11 +6682,19 @@ def main(argv=()) -> int:
                                for s, row in coded["skews"].items()},
             "elastic": {arm: elastic["b"][arm]["launches"]
                         for arm in ("p8", "p6", "p6p8")},
+            "imbalance": {f"{s} {arm}": row[arm]["launches"]
+                          for s, row in imbalance["skews"].items()
+                          for arm in IMBALANCE_ARMS if "-fused" in arm},
+            f"imbalance S{imbalance['wide']['task']}":
+                imbalance["wide"]["launches"],
             "lint": lint["launches"]["fused_map"]},
-        "max_abs_err": err,
+        "max_abs_err": max(err, wide_err),
         "matches_plain": True,
         "ms": timing["ms"], "device_ms": timing["device_ms"],
         "pass_ms": timing["pass_ms"],
+        "wide": {str(S): {k: t[k] for k in (
+            "ms", "rep1_device_ms", "rep8_device_ms", "plain_ms", "bound_ms",
+            "bound_by")} for S, t in timing["wide"].items()},
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,

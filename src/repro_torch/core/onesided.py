@@ -208,15 +208,16 @@ class StepGraphs:
         self.replays = 0
 
     def _capture(self, max_rep: int) -> torch.cuda.CUDAGraph:
-        fused_ops.prepare()             # nvcc, load, smem limit: not in it
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):   # the torch ops once, off the carry
-            self.map_fn(*self.inputs, max_rep)
+            keys, _ = self.map_fn(*self.inputs, max_rep)
             pending = self.carry.pending_k.clone()
             all_to_all_blocks(pending.clone(), out=pending)
             self.carry.cursor.clone().add_(1)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        # nvcc, load, smem limit and the scratch of this task size: not in it
+        fused_ops.prepare(keys.shape[-1], self.spec.n_procs, self.device)
         graph = torch.cuda.CUDAGraph()
         before = fused_map.captured
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):

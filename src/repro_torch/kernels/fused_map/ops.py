@@ -8,6 +8,15 @@ in place and returned, so the two paths have one contract.
 A launch recorded into a CUDA graph under capture is not a launch: it
 counts in ``fused_map.captured``, and whoever replays the graph adds one
 to ``fused_map.launches`` for each replay (``core/onesided.py``).
+
+The kernel takes task sizes 1 to ``MAX_TASK_SIZE``. Past S 4,096 its
+sort and records do not fit a block's shared memory and go to an int32
+scratch in device memory (``_scratch``): one buffer for each device and
+size (P ranks of 6 pow2(2 S) ints), made at the first launch of that
+size and kept, since a CUDA graph that captured a launch replays into
+it. Launches of one size share it, so they run in one stream's order, as
+every caller of the port launches them; a capture needs its scratch made
+before it begins (``prepare(S, P, device)``).
 """
 from __future__ import annotations
 
@@ -20,32 +29,56 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.fused_map.ref import fused_step_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_map.cu"
-MAX_TASK_SIZE = 1024    # 2 S pairs sorted two a thread: 1,024 threads
+MAX_TASK_SIZE = 16384   # NP = pow2(2 S) pairs, 32 a thread on 1,024 threads
 
 
-_FN = None    # the typed C entry point, resolved at the first launch
+_LIB = None   # the library, its entry points typed, at the first launch
+_SCRATCH: dict = {}     # (device, ints) -> the launches' int32 scratch
 
 
-def _launcher():
-    """The kernel's C entry point: built, loaded and its shared-memory
-    limit raised on the first call, which must not be under capture."""
-    global _FN
-    if _FN is None:
+def _lib():
+    """The kernel's library: built, loaded and its shared-memory limit
+    raised on the first call, which must not be under capture."""
+    global _LIB
+    if _LIB is None:
         lib = backend.load(SOURCE)
         rc = lib.fused_map_prepare()
         if rc != 0:
             raise RuntimeError(f"fused_map_prepare failed: CUDA error {rc}")
-        fn = lib.fused_map_launch
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        lib.fused_map_launch.argtypes = [ctypes.c_void_p] * 13 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fused_map_launch.restype = ctypes.c_int
+        lib.fused_map_scratch_ints.argtypes = [ctypes.c_int] * 2
+        lib.fused_map_scratch_ints.restype = ctypes.c_longlong
+        _LIB = lib
+    return _LIB
 
 
-def prepare():
-    """Build and load the kernel now (before a graph capture records it)."""
-    _launcher()
+def _scratch(device, P: int, S: int):
+    """The scratch of launches at (P, S) on ``device``, or None where the
+    kernel keeps a pass in shared memory: as long as the source's
+    ``fused_map_scratch_ints`` says, made outside any capture and never
+    freed (a captured graph keeps its pointer)."""
+    n = _lib().fused_map_scratch_ints(P, S)
+    if n == 0:
+        return None
+    key = (torch.device(device), n)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"fused_map at S={S}, P={P} needs its scratch made before a "
+                f"graph capture: call prepare({S}, {P}, device) first")
+        buf = _SCRATCH[key] = torch.empty(n, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+def prepare(S: int, P: int, device):
+    """Build and load the kernel now and make the scratch of launches at
+    task size ``S`` and ``P`` ranks on ``device``: both before a graph
+    capture records a launch."""
+    _scratch(device, P, S)
 
 
 def _check(args: dict, n_procs: int, cap: int):
@@ -95,13 +128,15 @@ def fused_map(keys, vals, rep, task_id, owner_map, owner_split, pending_k,
     if S > MAX_TASK_SIZE:
         raise ValueError(f"the fused_map kernel takes task sizes up to "
                          f"{MAX_TASK_SIZE}, got {S}")
+    scratch = _scratch(keys.device, P, S)
     bk = torch.empty((P, P, cap), dtype=torch.int32, device=keys.device)
     bv = torch.empty_like(bk)
     counts = torch.empty((P, P), dtype=torch.int32, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    rc = _launcher()(
+    rc = _lib().fused_map_launch(
         *(t.data_ptr() for t in args.values()),
         bk.data_ptr(), bv.data_ptr(), counts.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         P, S, table.shape[-1], cap, stream)
     if rc != 0:
         raise RuntimeError(f"fused_map kernel launch failed: CUDA error "

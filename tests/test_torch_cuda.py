@@ -50,6 +50,60 @@ def test_kernel_equals_plain_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_equals_plain_on_the_wide_matrix(cuda_device):
+    """Bit for bit at task sizes 1,025-16,384: each side of every change
+    of the kernel's block, the global scratch past S 4,096 included."""
+    assert chip_smoke.phase_kernel_vs_plain(
+        cuda_device, chip_smoke.fused_wide_matrix()) == 0.0
+
+
+def _wide_graph_job(cuda_device, S: int, n: int, reps_seed: int):
+    """A fused job at task size ``S`` (P 8, cap 1024, V 65,536: fig9's
+    width), segment 2, mixed repeats, on the card and on the CPU: its
+    graphs, its fused_map launches, and both runs' records."""
+    from repro_torch.data.corpus import synth_corpus
+    data = synth_corpus(n, 65536, seed=7)
+    cfg = JobConfig(WordCount(vocab=65536), task_size=S, push_cap=1024,
+                    n_procs=8, segment=2, fused_map=True)
+    T = -(-(-(-n // S)) // 8)
+    reps = np.random.default_rng(reps_seed).integers(
+        1, 4, (8, T)).astype(np.int32)
+    before = ops.fused_map.launches
+    gpu = submit(cfg, data, device=cuda_device, repeats=reps)
+    gpu.step()
+    graphs = gpu.engine.graphs
+    while gpu.step():
+        pass
+    torch.cuda.synchronize()
+    launches = ops.fused_map.launches - before
+    cpu = submit(cfg, data, device="cpu", repeats=reps).result()
+    return graphs, launches, gpu.result(), cpu, wordcount_oracle(data, 65536)
+
+
+@pytest.mark.cuda
+def test_fused_graph_job_at_the_default_task_size(cuda_device):
+    """JobConfig's default S 4,096 on the card: one graph replay and one
+    fused_map launch a step, records equal to its CPU run's."""
+    graphs, launches, gpu, cpu, oracle = _wide_graph_job(
+        cuda_device, 4096, 8 * 4096 * 6 - 100, 8)
+    assert graphs.replays == launches == 6
+    assert gpu.records == cpu.records == oracle
+
+
+@pytest.mark.cuda
+def test_fused_graph_job_at_s16384_sorts_in_the_global_scratch(
+        cuda_device):
+    """S 16,384 (fig8's largest task): its passes sort in the scratch
+    that ``prepare`` made before the capture, and the job equals its CPU
+    run."""
+    graphs, launches, gpu, cpu, oracle = _wide_graph_job(
+        cuda_device, 16384, 8 * 16384 * 4, 9)
+    assert graphs.replays == launches == 4
+    assert (cuda_device, 8 * 6 * 32768) in ops._SCRATCH   # 6 NP a rank
+    assert gpu.records == cpu.records == oracle
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_launches_and_never_takes_plain(cuda_device,
                                                      monkeypatch):
     def plain(*a, **k):
@@ -755,8 +809,8 @@ def test_ssd_bf16_serving_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_fused_kernel_refuses_task_sizes_past_its_limit(cuda_device):
-    """Above MAX_TASK_SIZE only the plain version computes the step (on
-    the CPU); a CUDA tensor raises instead of taking it."""
+    """Above MAX_TASK_SIZE (16,384) only the plain version computes the
+    step (on the CPU); a CUDA tensor raises instead of taking it."""
     args, P, cap = chip_smoke.fused_case(17, 2, ops.MAX_TASK_SIZE + 1, 512,
                                          8, 1)
     a = {k: to_torch(v).to(cuda_device) for k, v in args.items()}

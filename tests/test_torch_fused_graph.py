@@ -136,3 +136,21 @@ def test_step_graphs_replay_the_job(data, jax_records, P, monkeypatch):
     assert captured == [3, 1]                 # the last segment's padding
     assert graphs.replays == steps == fused_map.launches
     assert res.records == eager_job.result().records == jax_records
+
+
+def test_fused_job_at_the_jobconfig_defaults_equals_jax():
+    """A P 2 fused job at JobConfig's own defaults (S 4,096, cap 1,024,
+    oneshot), past the 1,024 the kernel once stopped at, on a small Zipf
+    corpus with mixed repeats: its records equal the JAX package's
+    unfused job's and the oracle's."""
+    vocab, n = 2000, 2 * 4096 * 5 - 123          # 5 steps, a short task
+    data = (np.random.default_rng(11).zipf(1.3, n) % vocab).astype(np.int32)
+    cfg = core.JobConfig(core.WordCount(vocab), n_procs=2, fused_map=True)
+    assert (cfg.task_size, cfg.push_cap, cfg.segment) == (4096, 1024, 0)
+    reps = np.random.default_rng(12).integers(1, 4, (2, 5)).astype(np.int32)
+    got = core.submit(cfg, data, device="cpu", repeats=reps).result()
+    want = jcore.submit(jcore.JobConfig(jcore.WordCount(vocab), n_procs=1),
+                        data).result().records
+    assert got.records == want == core.wordcount_oracle(data, vocab)
+    assert got.n_tasks == 10
+    assert got.work_per_rank.tolist() == reps.sum(axis=1).tolist()

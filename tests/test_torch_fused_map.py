@@ -4,7 +4,9 @@
 the CUDA kernel is held to) must equal the reference's Pallas kernel,
 run in interpret mode, on every output of every case of the kernel test
 matrix — the same matrix ``chip_smoke.py`` holds the CUDA kernel to on
-the card. Tolerance 0 (int32 path).
+the card. Over the wide matrix (task sizes 1,025-16,384) it must equal
+the reference's ``fused_step_ref``: the Pallas kernel's interpret mode
+builds L x L compare matrices there. Tolerance 0 (int32 path).
 """
 import types
 
@@ -17,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from repro.kernels.fused_map import ops as jops  # noqa: E402
+from repro.kernels.fused_map import ref as jref  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels.fused_map import ops, ref  # noqa: E402
 from torch_parity import assert_equal, to_torch  # noqa: E402
@@ -24,6 +27,7 @@ from torch_parity import assert_equal, to_torch  # noqa: E402
 _ARGS = ("keys", "vals", "rep", "task_id", "owner_map", "owner_split",
          "pending_k", "pending_v", "table")
 _CASES = [c for c in chip_smoke.fused_matrix() if c[0] != "full_width"]
+_WIDE = list(chip_smoke.fused_wide_matrix())
 
 
 @pytest.mark.parametrize("name,case", _CASES, ids=[c[0] for c in _CASES])
@@ -38,12 +42,37 @@ def test_fused_step_ref_matches_pallas_kernel(name, case):
             assert_equal(g[r], w, f"{name} rank {r} {out}")
 
 
+@pytest.mark.parametrize("name,case", _WIDE, ids=[c[0] for c in _WIDE])
+def test_fused_step_ref_matches_reference_ref_past_1024(name, case):
+    args, P, cap = case
+    got = ref.fused_step_ref(**{k: to_torch(v) for k, v in args.items()},
+                             n_procs=P, cap=cap)
+    for r in range(P):
+        want = _jax_step(*(jnp.asarray(args[k][r]) for k in _ARGS),
+                         n_procs=P, cap=cap)
+        for out, g, w in zip(("table", "bk", "bv", "counts"), got, want):
+            assert_equal(g[r], w, f"{name} rank {r} {out}")
+
+
+_jax_step = jax.jit(jref.fused_step_ref, static_argnames=("n_procs", "cap"))
+
+
+def test_wide_matrix_spans_every_block_of_the_kernel():
+    """The wide matrix holds each side of every change of the kernel's
+    block (pow2(2 S) pairs 4,096-32,768, the last two through the global
+    scratch), cap 1 and 1,024, and the task sizes up to MAX_TASK_SIZE."""
+    sizes = {args["keys"].shape[1] for args, _, _ in dict(_WIDE).values()}
+    assert {1025, 2048, 2049, 4096, 4097, 8192, 16384} <= sizes
+    assert max(sizes) == ops.MAX_TASK_SIZE
+    assert {1 << (2 * S - 1).bit_length() for S in sizes} == \
+        {4096, 8192, 16384, 32768}
+    assert {cap for _, _, cap in dict(_WIDE).values()} >= {1, 1024}
+
+
 def test_plain_version_takes_task_sizes_past_the_kernel_limit():
-    """The 1024 limit is the CUDA kernel's (2 S pairs sorted two a thread
-    in one block), not the function's: on CPU tensors the wrapper computes
-    S = 2048 as the reference's Pallas kernel does, on every output of
-    every rank."""
-    assert ops.MAX_TASK_SIZE < 2048
+    """The plain version takes any task size: on CPU tensors the wrapper
+    computes S = 2048 as the reference's Pallas kernel does, on every
+    output of every rank."""
     args, P, cap = chip_smoke.fused_case(17, 2, 2048, 4096, 64, [1, 2],
                                          split=True)
     a = {k: to_torch(v).clone() for k, v in args.items()}   # folds in place

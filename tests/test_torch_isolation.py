@@ -342,7 +342,7 @@ def test_smoke_coded_phase_rehearses_on_cpu():
     corpus = data.synth_corpus(3072, 300, seed=0)
     c = chip_smoke.phase_coded(torch.device("cpu"), corpus, w,
                                skews=(0.0, 1.6))
-    assert c["tasks_per_rank"] == c["fused_tasks_per_rank"] == 8
+    assert c["tasks_per_rank"] == 8
     for row in c["skews"].values():
         assert set(row) == set(chip_smoke.CODED_ARMS)
         for arm, e in row.items():
@@ -357,20 +357,59 @@ def test_smoke_coded_phase_rehearses_on_cpu():
     chip_smoke.print_coded({**c, "seconds": 0.0}, w)
 
 
-def test_smoke_coded_fused_grid_carries_each_tokens_repeat():
-    """The r1-fused arm's grid at full width: each 1,024-token task has
-    the repeat of the 4,096-token task holding it, so both grids weigh
-    every token alike."""
+def test_smoke_coded_fused_arm_runs_on_r1s_grid():
+    """The r1-fused arm is r1's job with the fused step: same task size,
+    same repeat grid, so the same records, steps and work rows (on the
+    CPU through the kernel's plain version)."""
     _, data, _, _, _ = chip_smoke._port()
-    w, n = chip_smoke.CODED_W, chip_smoke.CODED_N
-    T = chip_smoke.tasks_per_rank(n, w)
-    assert T == 32
+    cpu = torch.device("cpu")
+    w = chip_smoke.Width(vocab=300, n_procs=6, task=64, cap=64, segment=0)
+    corpus = data.synth_corpus(3072, 300, seed=0)
+    T = chip_smoke.tasks_per_rank(len(corpus), w)
     reps = data.zipf_skew_repeats(6, T, 1.6, mean_rep=4, seed=1)
-    small = chip_smoke.coded_fused_repeats(reps, n, w, 1024)
-    assert small.shape == (6, 128)
-    for u in range(n // 1024):
-        assert small[u % 6, u // 6] == reps[(u // 4) % 6, (u // 4) // 6]
-    assert int(small.sum()) * 1024 == int(reps.sum()) * 4096
+    cfgs = {arm: chip_smoke.coded_arm(arm, w) for arm in ("r1", "r1-fused")}
+    assert cfgs["r1-fused"].fused_map and not cfgs["r1"].fused_map
+    assert cfgs["r1-fused"].task_size == cfgs["r1"].task_size == 64
+    got = {arm: chip_smoke.run_coded(cfg, corpus, reps, cpu)["result"]
+           for arm, cfg in cfgs.items()}
+    a, b = got["r1"], got["r1-fused"]
+    assert a.records == b.records and len(a.records) > 0
+    assert a.n_tasks == b.n_tasks == 48
+    assert a.tasks_per_rank.tolist() == b.tasks_per_rank.tolist()
+    assert a.work_per_rank.tolist() == b.work_per_rank.tolist() == \
+        reps.sum(axis=1).tolist()
+    full = chip_smoke.coded_arm("r1-fused")
+    assert full.task_size == chip_smoke.CODED_W.task == 4096
+
+
+def test_smoke_imbalance_phase_rehearses_on_cpu():
+    """Phase 3j at a tiny width on the CPU: every arm under both skews and
+    the wide-task job against the oracle and the unfused 1S job, the
+    stealing arms against the host replay (checked inside); no launch and
+    no kernel time off the card. Its full width is fig9's."""
+    _, data, _, _, _ = chip_smoke._port()
+    w = chip_smoke.Width(vocab=300, n_procs=4, task=64, cap=64, segment=0)
+    corpus = data.synth_corpus(8192, 300, seed=0)
+    c = chip_smoke.phase_imbalance(torch.device("cpu"), corpus, w,
+                                   skews=(0.0, 1.6), wide_task=256)
+    assert c["n"] == 8192 and c["tasks_per_rank"] == 32
+    for s, row in c["skews"].items():
+        assert row["replay"]["steals"] > 0
+        for arm in chip_smoke.IMBALANCE_ARMS:
+            e = row[arm]
+            assert e["launches"] == 0 and e["steps"] == 32
+            assert ("steal" in e) == arm.endswith("+steal")
+            assert "kernel_device_ms" not in e
+        assert row["wall_2s_over_1s"] > 0 and row["wall_2s_over_1s_fused"] > 0
+    hot = c["skews"]["1.6"]
+    assert hot["hot_rank_repeats"] > 2 * hot["mean_rank_repeats"]
+    assert c["wide"]["task"] == 256 and c["wide"]["steps"] == 8
+    w9 = chip_smoke.IMBALANCE_W
+    assert (w9.n_procs, w9.task, w9.cap, w9.vocab, w9.segment) == \
+        (8, 4096, 1024, 65536, 0)
+    assert chip_smoke.tasks_per_rank(chip_smoke.IMBALANCE_N, w9) == 62
+    assert chip_smoke.IMBALANCE_WIDE_TASK == 16384
+    chip_smoke.print_imbalance({**c, "seconds": 0.0}, w)
 
 
 def test_smoke_crossjob_phase_rehearses_on_cpu():

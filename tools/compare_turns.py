@@ -1,28 +1,30 @@
 #!/usr/bin/env python3
 """MR-1S against MR-2S, snapshots, key skew, fleets, I/O overlap, the
-coded shuffle, cross-job co-scheduling, the elastic fleet, serving and
-training.
+coded shuffle, cross-job co-scheduling, the elastic fleet, fig9's
+imbalance, serving and training.
 
     python tools/compare_turns.py
         [--phases compare,snapshots,keyskew,fleet,overlap,coded,crossjob,
-                  elastic,serve,smoke,train,mesh,mesh_train,pp,dryrun,
-                  examples]
+                  elastic,imbalance,serve,smoke,train,mesh,mesh_train,pp,
+                  dryrun,examples]
         [--archs ARCH,...] [--train-archs ARCH,...]
         [--mesh-archs ARCH,...] [--out FILE]
 
-Phases 3b-3i of ``chip_smoke.py`` on their own, on one CUDA card (its
+Phases 3b-3j of ``chip_smoke.py`` on their own, on one CUDA card (its
 ``phase_compare``, ``phase_snapshots``, ``phase_keyskew``,
-``phase_fleet``, ``phase_overlap``, ``phase_coded``, ``phase_crossjob``
-and ``phase_elastic``, at its full width; 3b, 3c, 3e, 3f and 3i on its
-2**27-token corpus read once into host memory), without the smoke's
-other phases: 2S, 1S and 1S with stealing under the three repeat grids
+``phase_fleet``, ``phase_overlap``, ``phase_coded``, ``phase_crossjob``,
+``phase_elastic`` and ``phase_imbalance``, at its full width; 3b, 3c,
+3e, 3f and 3i on its 2**27-token corpus read once into host memory),
+without the smoke's other phases: 2S, 1S and 1S with stealing under the
+three repeat grids
 and oneshot; a checkpoint every 8th segment in turns, a restore and a
 re-plan; each partitioner with and without stealing at two key skews;
 the multi-tenant fleets under each policy; resident against streamed
 input in turns; fig15's coded arms in turns; fig14's fleets with and
 without co-scheduling; fig13's supervised campaigns and the fused job
-re-meshed 8 -> 6 -> 8. Every job's records are held to the oracle or to
-the uninterrupted or solo job's. ``fused_map`` is built from this
+re-meshed 8 -> 6 -> 8; fig9's arms at S 4096 and the fused job at S
+16,384. Every job's records are held to the oracle or to the
+uninterrupted or solo job's. ``fused_map`` is built from this
 checkout at its first use. ``serve`` is phase 4 (``phase_serves``:
 ``phase_serve`` with its gates) for each arch of ``--archs`` (default:
 every arch of ``SERVE_ARCHS``; ``--archs deepseek-v2-lite-16b`` serves
@@ -79,7 +81,8 @@ def main(argv=None) -> int:
     archs = [a for a in args.archs.split(",") if a]
     _, data, _, _, _ = cs._port()
     corpus = (data.read_all(cs.job_input(cs.N_TOKENS)[0])
-              if set(phases) - {"keyskew", "coded", "crossjob", "serve",
+              if set(phases) - {"keyskew", "coded", "crossjob",
+                                "imbalance", "serve",
                                 "smoke", "train", "mesh", "mesh_train",
                                 "pp", "dryrun", "examples"}
               else None)
@@ -101,6 +104,8 @@ def main(argv=None) -> int:
                          cs.print_crossjob),
             "elastic": (lambda: cs.phase_elastic(device, corpus),
                         cs.print_elastic),
+            "imbalance": (lambda: cs.phase_imbalance(device),
+                          cs.print_imbalance),
             "serve": (lambda: cs.phase_serves(
                 device, archs or list(cs.SERVE_ARCHS)),
                       lambda out: None),    # printed arch by arch
